@@ -1,0 +1,1 @@
+"""infer of the PyTorch/CUDA port (counterpart of tempo_tpu.infer)."""

@@ -1,0 +1,1 @@
+"""interop of the PyTorch/CUDA port (counterpart of tempo_tpu.interop)."""

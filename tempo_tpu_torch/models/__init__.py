@@ -1,0 +1,1 @@
+"""models of the PyTorch/CUDA port (counterpart of tempo_tpu.models)."""

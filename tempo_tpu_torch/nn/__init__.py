@@ -1,0 +1,1 @@
+"""nn of the PyTorch/CUDA port (counterpart of tempo_tpu.nn)."""

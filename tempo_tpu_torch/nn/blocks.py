@@ -1,0 +1,219 @@
+"""Core network blocks (NHWC activations, PyTorch parameter layouts).
+
+Counterpart of tempo_tpu/nn/blocks.py with the same math:
+
+- ResNetBlock: GN -> act -> conv3x3; GN -> act -> (dropout) -> zero-init
+  conv3x3; 1x1 skip conv on a channel change. Without active dropout each
+  GN -> act -> conv3x3 half is one K2 call (ops/cuda_gn_conv.py).
+- AttnBlock: GN (K1), 1x1 q/k/v, channel-major multi-head attention (the
+  head index varies fastest on the channel axis), softmax over keys in
+  fp32, 1x1 proj, residual.
+- Downsample2x / Upsample2x: kernel-2 stride-2 (transposed) convs.
+
+Modules and parameters carry the reference PyTorch model's names
+(``resnet_blocks.{j}.net1.0`` ...), so its state_dicts load as they are.
+Parameters stay fp32; activations are cast to ``compute_dtype`` where the
+JAX modules cast to their ``dtype``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from tempo_tpu_torch.ops import cuda_gn_conv
+from tempo_tpu_torch.ops.convs import conv2d_nhwc, conv_transpose2x_nhwc, dense
+from tempo_tpu_torch.ops.norms import group_norm_act
+
+_ACT_MODULES = {"gelu": nn.GELU, "relu": nn.ReLU, "silu": nn.SiLU}
+
+
+class Conv2d(nn.Conv2d):
+    """kxk SAME conv over NHWC; weight OIHW. ``zero_init`` marks the
+    zero-initialized output convs. Caches its weight in K2's layout."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
+                 zero_init: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, kernel_size, padding=kernel_size // 2)
+        self.zero_init = zero_init
+        self.compute_dtype = compute_dtype
+        self._packed: Optional[tuple] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_nhwc(x.to(self.compute_dtype), self.weight, self.bias,
+                           padding=self.padding[0])
+
+    def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
+        """The weight as K2's [9, C, F] in ``dtype``, cached until the
+        weight changes (in place, or moved) or another type is asked for.
+        A weight made under torch.inference_mode() keeps no version count,
+        so an in-place change could not be seen: it is packed anew on every
+        call and never cached."""
+        w = self.weight
+        if w.is_inference():
+            self._packed = None
+            return cuda_gn_conv.pack_conv3x3_weight(w, dtype)
+        key = (w.device, w.data_ptr(), w._version, dtype)
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, cuda_gn_conv.pack_conv3x3_weight(w, dtype))
+        return self._packed[1]
+
+
+class Dense(nn.Conv2d):
+    """1x1 conv over NHWC (a channel-last matmul); weight [out, in, 1, 1]."""
+
+    def __init__(self, cin: int, cout: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, 1)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x.to(self.compute_dtype), self.weight, self.bias)
+
+
+class Downsample2x(nn.Conv2d):
+    """Kernel-2 stride-2 conv over NHWC."""
+
+    def __init__(self, channels: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(channels, channels, 2, stride=2)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_nhwc(x.to(self.compute_dtype), self.weight, self.bias,
+                           stride=2)
+
+
+class Upsample2x(nn.ConvTranspose2d):
+    """Kernel-2 stride-2 transposed conv over NHWC; weight [in, out, 2, 2]."""
+
+    def __init__(self, cin: int, cout: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, 2, stride=2)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_transpose2x_nhwc(x.to(self.compute_dtype), self.weight,
+                                     self.bias)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over NHWC through K1. Where an activation follows, the
+    caller passes this module's parameters to ``norm_act_conv``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm_act(x, self.num_groups, self.weight, self.bias,
+                              self.eps)
+
+
+def norm_act_conv(norm: GroupNorm, act: str, conv: Conv2d,
+                  x: torch.Tensor) -> torch.Tensor:
+    """conv(act(norm(x))): one K2 call for a 3x3 conv, else K1 then conv."""
+    x = x.to(conv.compute_dtype)
+    if conv.kernel_size != (3, 3):
+        return conv(group_norm_act(x, norm.num_groups, norm.weight,
+                                   norm.bias, norm.eps, act_name=act))
+    packed = conv.packed_weight(x.dtype) if x.is_cuda else None
+    return cuda_gn_conv.gn_act_conv3x3(
+        x, norm.weight, norm.bias, conv.weight, conv.bias, norm.num_groups,
+        norm.eps, act, packed=packed)
+
+
+class ResNetBlock(nn.Module):
+    def __init__(self, cin: int, features: int, num_groups: int = 8,
+                 norm_eps: float = 1e-6, norm_affine: bool = True,
+                 act: str = "gelu", kernel_size: int = 3,
+                 dropout_prob: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.act = act
+        self.dropout_prob = dropout_prob
+        self.net1 = nn.Sequential(
+            GroupNorm(num_groups, cin, norm_eps, norm_affine),
+            _ACT_MODULES[act](),
+            Conv2d(cin, features, kernel_size, compute_dtype=compute_dtype))
+        net2 = [GroupNorm(num_groups, features, norm_eps, norm_affine),
+                _ACT_MODULES[act]()]
+        if dropout_prob > 0.0:
+            net2.append(nn.Dropout(dropout_prob))
+        net2.append(Conv2d(features, features, kernel_size, zero_init=True,
+                           compute_dtype=compute_dtype))
+        self.net2 = nn.Sequential(*net2)
+        self.skip_conv = (Dense(cin, features, compute_dtype)
+                          if cin != features else None)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True
+                ) -> torch.Tensor:
+        h = norm_act_conv(self.net1[0], self.act, self.net1[-1], x)
+        norm2, conv2 = self.net2[0], self.net2[-1]
+        if deterministic or self.dropout_prob == 0.0:
+            h = norm_act_conv(norm2, self.act, conv2, h)
+        else:
+            h = group_norm_act(h, norm2.num_groups, norm2.weight, norm2.bias,
+                               norm2.eps, act_name=self.act)
+            h = conv2(nn.functional.dropout(h, self.dropout_prob,
+                                            training=True))
+        if self.skip_conv is not None:
+            x = self.skip_conv(x)
+        return x + h
+
+
+class AttnBlock(nn.Module):
+    """Channel-major multi-head self-attention over the spatial grid: the
+    channel index is c_idx * n_heads + head (tempo_tpu/nn/blocks.py
+    AttnBlock), computed in fp32 with matmuls and softmax."""
+
+    def __init__(self, channels: int, n_heads: int = 4, num_groups: int = 8,
+                 norm_eps: float = 1e-6, norm_affine: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if channels % n_heads:
+            raise ValueError("channels must be divisible by n_heads")
+        self.n_heads = n_heads
+        self.compute_dtype = compute_dtype
+        self.norm = GroupNorm(num_groups, channels, norm_eps, norm_affine)
+        self.q = Dense(channels, channels, compute_dtype)
+        self.k = Dense(channels, channels, compute_dtype)
+        self.v = Dense(channels, channels, compute_dtype)
+        self.proj_out = Dense(channels, channels, compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, hh, ww, c = x.shape
+        n = self.n_heads
+        ch = c // n
+        h = self.norm(x)
+
+        def heads(t: torch.Tensor) -> torch.Tensor:
+            # [B, HW, c_per_head, n_heads] -> [B, n_heads, HW, c_per_head]
+            return t.reshape(b, hh * ww, ch, n).float().permute(0, 3, 1, 2)
+
+        q, k, v = heads(self.q(h)), heads(self.k(h)), heads(self.v(h))
+        scores = torch.matmul(q, k.transpose(-1, -2)) * (float(ch) ** -0.5)
+        out = torch.matmul(torch.softmax(scores, dim=-1), v)
+        out = out.permute(0, 2, 3, 1).reshape(b, hh, ww, c)
+        return x + self.proj_out(out.to(self.compute_dtype))
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """PyTorch's default init (uniform in +-1/sqrt(fan_in) for conv weights
+    and biases, fan_in from weight dim 1, as torch computes it for
+    ConvTranspose2d too), from ``generator``; zeros for ``zero_init`` convs;
+    ones/zeros for GroupNorm."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            if getattr(m, "zero_init", False):
+                nn.init.zeros_(m.weight)
+                nn.init.zeros_(m.bias)
+                continue
+            fan_in = m.weight.shape[1] * math.prod(m.weight.shape[2:])
+            bound = 1.0 / math.sqrt(fan_in)
+            with torch.no_grad():
+                m.weight.uniform_(-bound, bound, generator=generator)
+                m.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, nn.GroupNorm) and m.affine:
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)

@@ -1,0 +1,163 @@
+"""K1: GroupNorm statistics (K1a) and GroupNorm + activation apply (K1b).
+
+Counterpart of tempo_tpu/ops/pallas_gn.py (``_stats_kernel`` and
+``_apply_kernel``); the CUDA source is csrc/gn.cu, whose header says what
+bounds the kernels on the H100 and how they are laid out.
+
+Each wrapper takes the plain PyTorch version beside it for a tensor on the
+CPU, and for a CUDA tensor launches its kernel or raises. Each counts its
+launches in ``LAUNCHES``. There is no backward yet: with grad mode on and an
+input that requires grad, the CUDA path raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from tempo_tpu_torch.ops import _build
+from tempo_tpu_torch.ops.norms import ACTIVATIONS
+
+ACT_CODES = {None: 0, "gelu": 1, "relu": 2, "silu": 3}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_STATS_BLOCKS = 1024  # target number of blocks for the partial-sum kernel
+_STATS_CHANNELS = 32  # channels per stats block (csrc/gn.cu kStatsChannels)
+# Launches of each kernel, counted by its wrapper where it launches it.
+LAUNCHES = {"gn_stats": 0, "gn_apply": 0}
+
+
+# ----------------------------------------------------------- plain versions
+
+def gn_stats_plain(x: torch.Tensor, num_groups: int,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """x [B, ..., C] -> [B, 2, C] fp32: each channel's group mean and rstd."""
+    b, c = x.shape[0], x.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    cg = c // num_groups
+    x32 = x.float().reshape(b, -1, c)
+    n = x32.shape[1] * cg
+    sum_g = x32.sum(1).view(b, num_groups, cg).sum(-1)
+    sumsq_g = x32.square().sum(1).view(b, num_groups, cg).sum(-1)
+    mean = sum_g / n
+    var = torch.clamp(sumsq_g / n - mean.square(), min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    return torch.stack([mean.repeat_interleave(cg, 1),
+                        rstd.repeat_interleave(cg, 1)], dim=1)
+
+
+def gn_apply_plain(x: torch.Tensor, stats: torch.Tensor,
+                   scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+                   act: Optional[str] = None) -> torch.Tensor:
+    """act((x - mean) * rstd * scale + bias) in fp32, out in x's type."""
+    shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    y = (x.float() - stats[:, 0].view(shape)) * stats[:, 1].view(shape)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    if act is not None:
+        y = ACTIVATIONS[act](y)
+    return y.to(x.dtype)
+
+
+# ------------------------------------------------------------ CUDA wrappers
+
+def check_cuda_input(t: torch.Tensor, name: str) -> None:
+    """Device, type and layout checks shared by the kernel wrappers."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA or CPU tensor, got {t.device}")
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def refuse_grad(*tensors: Optional[torch.Tensor]) -> None:
+    """The kernels have no backward yet; refuse to build a graph."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "the CUDA kernels have no backward yet: run under "
+            "torch.no_grad() or torch.inference_mode()")
+
+
+def f32_param(t: Optional[torch.Tensor], n: int, fill: float,
+              like: torch.Tensor) -> torch.Tensor:
+    """A [n] fp32 contiguous vector on x's device (fill when None)."""
+    if t is None:
+        return torch.full((n,), fill, dtype=torch.float32, device=like.device)
+    if t.shape != (n,) or t.device != like.device:
+        raise ValueError(f"expected a [{n}] vector on {like.device}, got "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t.float().contiguous()
+
+
+def gn_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """K1a: x [B, ..., C] -> [B, 2, C] fp32 per-channel (mean, rstd)."""
+    if x.device.type == "cpu":
+        return gn_stats_plain(x, num_groups, eps)
+    check_cuda_input(x, "x")
+    refuse_grad(x)
+    b, c = x.shape[0], x.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    hw = x.numel() // (b * c)
+    cblocks = -(-c // _STATS_CHANNELS)
+    n_chunks = max(1, min(hw, -(-_STATS_BLOCKS // (b * cblocks))))
+    rows = -(-hw // n_chunks)
+    n_chunks = -(-hw // rows)
+    partial = torch.empty(b * n_chunks * 2 * c, dtype=torch.float32,
+                          device=x.device)
+    stats = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    err = lib.tempo_gn_stats(
+        x.data_ptr(), partial.data_ptr(), stats.data_ptr(),
+        DTYPE_CODES[x.dtype], b, hw, c, num_groups, rows, n_chunks,
+        float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "tempo_gn_stats")
+    LAUNCHES["gn_stats"] += 1
+    return stats
+
+
+def gn_apply(x: torch.Tensor, stats: torch.Tensor,
+             scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+             act: Optional[str] = None) -> torch.Tensor:
+    """K1b: act((x - mean) * rstd * scale + bias), out in x's type."""
+    if x.device.type == "cpu":
+        return gn_apply_plain(x, stats, scale, bias, act)
+    check_cuda_input(x, "x")
+    refuse_grad(x, scale, bias)
+    b, c = x.shape[0], x.shape[-1]
+    hw = x.numel() // (b * c)
+    if (stats.shape != (b, 2, c) or stats.dtype != torch.float32
+            or stats.device != x.device or not stats.is_contiguous()):
+        raise ValueError("stats must be a contiguous fp32 [B, 2, C] tensor "
+                         "on x's device")
+    if act not in ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    scale32 = f32_param(scale, c, 1.0, x)
+    bias32 = f32_param(bias, c, 0.0, x)
+    out = torch.empty_like(x)
+    vec = 16 // x.element_size()
+    vectorized = (c % vec == 0 and x.data_ptr() % 16 == 0
+                  and out.data_ptr() % 16 == 0)
+    lib = _build.library()
+    err = lib.tempo_gn_apply(
+        x.data_ptr(), stats.data_ptr(), scale32.data_ptr(),
+        bias32.data_ptr(), out.data_ptr(), DTYPE_CODES[x.dtype], b, hw, c,
+        ACT_CODES[act], int(vectorized),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "tempo_gn_apply")
+    LAUNCHES["gn_apply"] += 1
+    return out
+
+
+def fused_group_norm_act(x: torch.Tensor, scale: Optional[torch.Tensor],
+                         bias: Optional[torch.Tensor], num_groups: int,
+                         eps: float = 1e-6,
+                         act: Optional[str] = "gelu") -> torch.Tensor:
+    """GroupNorm + activation: K1a then K1b (plain pieces on the CPU)."""
+    return gn_apply(x, gn_stats(x, num_groups, eps), scale, bias, act)

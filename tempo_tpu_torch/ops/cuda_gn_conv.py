@@ -1,0 +1,122 @@
+"""K2: GroupNorm + activation + 3x3 SAME conv in one kernel.
+
+Counterpart of tempo_tpu/ops/pallas_gn_conv.py (``_gn_conv_kernel``); the
+CUDA source is csrc/gn_conv.cu, whose header says what bounds the kernel on
+the H100 and how it is laid out. The GroupNorm statistics come from K1a
+(ops/cuda_gn.py ``gn_stats``): ``gn_act_conv3x3`` launches K1a, then K2
+through ``conv3x3_from_stats``, which launches K2 alone.
+
+Each wrapper takes its plain version beside it for a tensor on the CPU, and
+for a CUDA tensor launches the kernel or raises. It counts its launches in
+``LAUNCHES``. There is no backward yet: with grad mode on
+and an input that requires grad, the CUDA path raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from tempo_tpu_torch.ops import _build, cuda_gn
+from tempo_tpu_torch.ops.convs import conv2d_nhwc
+from tempo_tpu_torch.ops.norms import group_norm
+
+# Launches of the kernel, counted by its wrapper where it launches it.
+LAUNCHES = {"gn_act_conv3x3": 0}
+
+
+def pack_conv3x3_weight(weight: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """Conv2d weight [F, C, 3, 3] -> the kernel's [9, C, F] in ``dtype``."""
+    f, c = weight.shape[0], weight.shape[1]
+    return weight.detach().permute(2, 3, 1, 0).reshape(9, c, f).to(
+        dtype).contiguous()
+
+
+def gn_act_conv3x3_plain(x: torch.Tensor, scale: Optional[torch.Tensor],
+                         bias: Optional[torch.Tensor], weight: torch.Tensor,
+                         conv_bias: Optional[torch.Tensor], num_groups: int,
+                         eps: float = 1e-6,
+                         act: Optional[str] = "gelu") -> torch.Tensor:
+    """Plain chain: GroupNorm + act, cast to x's type, zero-padded 3x3 conv
+    (as tempo_tpu/ops/pallas_gn_conv.py ``_reference_chain``)."""
+    h = group_norm(x, num_groups, scale, bias, eps, act)
+    return conv2d_nhwc(h.to(x.dtype), weight, conv_bias, padding=1)
+
+
+def conv3x3_from_stats_plain(x: torch.Tensor, stats: torch.Tensor,
+                            scale: Optional[torch.Tensor],
+                            bias: Optional[torch.Tensor], weight: torch.Tensor,
+                            conv_bias: Optional[torch.Tensor],
+                            act: Optional[str] = "gelu") -> torch.Tensor:
+    """Plain kernel step: GroupNorm apply + act from K1a's ``stats``, in x's
+    type, then the zero-padded 3x3 conv."""
+    h = cuda_gn.gn_apply_plain(x, stats, scale, bias, act)
+    return conv2d_nhwc(h, weight, conv_bias, padding=1)
+
+
+def gn_act_conv3x3(x: torch.Tensor, scale: Optional[torch.Tensor],
+                   bias: Optional[torch.Tensor], weight: torch.Tensor,
+                   conv_bias: Optional[torch.Tensor], num_groups: int,
+                   eps: float = 1e-6, act: Optional[str] = "gelu",
+                   packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [B, H, W, C], weight [F, C, 3, 3] -> [B, H, W, F] in x's type:
+    K1a's statistics, then the K2 kernel.
+
+    ``packed`` is the weight in the kernel's layout
+    (``pack_conv3x3_weight(weight, x.dtype)``), which a module caches; when
+    it is None the wrapper lays the weight out for this call."""
+    if x.device.type == "cpu":
+        return gn_act_conv3x3_plain(x, scale, bias, weight, conv_bias,
+                                    num_groups, eps, act)
+    cuda_gn.check_cuda_input(x, "x")
+    return conv3x3_from_stats(x, cuda_gn.gn_stats(x, num_groups, eps), scale,
+                              bias, weight, conv_bias, act, packed)
+
+
+def conv3x3_from_stats(x: torch.Tensor, stats: torch.Tensor,
+                       scale: Optional[torch.Tensor],
+                       bias: Optional[torch.Tensor], weight: torch.Tensor,
+                       conv_bias: Optional[torch.Tensor],
+                       act: Optional[str] = "gelu",
+                       packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2 alone: GroupNorm apply + act from K1a's [B, 2, C] ``stats``, then
+    the 3x3 conv, in one kernel launch."""
+    if x.device.type == "cpu":
+        return conv3x3_from_stats_plain(x, stats, scale, bias, weight,
+                                        conv_bias, act)
+    cuda_gn.check_cuda_input(x, "x")
+    cuda_gn.refuse_grad(x, scale, bias, weight, conv_bias)
+    if x.ndim != 4:
+        raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    f = weight.shape[0]
+    if weight.shape != (f, c, 3, 3):
+        raise ValueError(f"weight must be [F, {c}, 3, 3], got "
+                         f"{tuple(weight.shape)}")
+    if act not in cuda_gn.ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    if (stats.shape != (b, 2, c) or stats.dtype != torch.float32
+            or stats.device != x.device or not stats.is_contiguous()):
+        raise ValueError("stats must be a contiguous fp32 [B, 2, C] tensor "
+                         "on x's device")
+    if packed is None:
+        packed = pack_conv3x3_weight(weight, x.dtype)
+    if (packed.shape != (9, c, f) or packed.dtype != x.dtype
+            or packed.device != x.device or not packed.is_contiguous()):
+        raise ValueError("packed weight must be a contiguous [9, C, F] "
+                         "tensor of x's type on x's device")
+    scale32 = cuda_gn.f32_param(scale, c, 1.0, x)
+    bias32 = cuda_gn.f32_param(bias, c, 0.0, x)
+    cbias32 = cuda_gn.f32_param(conv_bias, f, 0.0, x)
+    out = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    err = lib.tempo_gn_conv3x3(
+        x.data_ptr(), stats.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
+        packed.data_ptr(), cbias32.data_ptr(), out.data_ptr(),
+        cuda_gn.DTYPE_CODES[x.dtype], b, h, w, c, f, cuda_gn.ACT_CODES[act],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "tempo_gn_conv3x3")
+    LAUNCHES["gn_act_conv3x3"] += 1
+    return out

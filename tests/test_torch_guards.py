@@ -1,0 +1,72 @@
+"""Guards of the PyTorch/CUDA port: it imports nothing of JAX or of the JAX
+package, its entry points default to CUDA and raise without it, and its
+CUDA wrappers refuse what the kernels do not take."""
+
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import tempo_tpu_torch
+from tempo_tpu_torch.infer.granule_codec import GranuleCodec
+from tempo_tpu_torch.models.vae import AutoencoderKL, VAEConfig, build_vae
+from tempo_tpu_torch.ops import cuda_gn
+
+torch.set_num_threads(1)
+
+TINY = dict(shape=(12, 16, 16), chs=(16, 12, 8), z_channels=4, embed_dim=4,
+            n_attention_heads=2, norm_groups=4, compute_dtype="float32")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        tempo_tpu_torch.__path__, "tempo_tpu_torch."))
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port loads neither jax, flax, optax
+    nor any tempo_tpu module."""
+    mods = _port_modules()
+    assert "tempo_tpu_torch.ops.cuda_gn_conv" in mods
+    code = (
+        "import sys, importlib\n"
+        "before = set(sys.modules)\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'tempo_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_vae(TINY)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AutoencoderKL(VAEConfig(**TINY), device="cuda")
+    model = AutoencoderKL(VAEConfig(**TINY), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GranuleCodec(model)
+    assert tempo_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.zeros(1, 4, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        cuda_gn.check_cuda_input(x, "x")
+
+
+def test_refuse_grad_only_when_building_a_graph():
+    w = torch.ones(3, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        cuda_gn.refuse_grad(torch.ones(3), w)
+    with torch.no_grad():
+        cuda_gn.refuse_grad(w)
+    with torch.inference_mode():
+        cuda_gn.refuse_grad(w)
