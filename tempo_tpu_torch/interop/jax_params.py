@@ -1,4 +1,4 @@
-"""tempo_tpu AutoencoderKL parameter tree -> the port's state_dict.
+"""tempo_tpu parameter trees -> the port's state_dicts.
 
 The port names its parameters after the reference PyTorch model
 (``encoder.downs.{i}.resnet_blocks.{j}.net1.0.weight`` ...), so reference
@@ -13,7 +13,8 @@ its own copy of the layout conversions, inverted:
   [in, out, 2, 2]
 - GroupNorm scale/bias -> weight/bias
 
-The tree comes as nested dicts of numpy arrays (``{"params": ...}`` or the
+``gpt_state_dict_from_jax`` does the same for the GPT (the inverse of
+tempo_tpu/interop/gpt_ckpt.py). The tree comes as nested dicts of numpy arrays (``{"params": ...}`` or the
 bare tree).
 """
 
@@ -108,5 +109,49 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
         out[f"{name}.weight"] = _dense(tree[name]["kernel"])
         out[f"{name}.bias"] = tree[name]["bias"]
     out["logvar"] = tree["logvar"]
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in out.items()}
+
+
+def gpt_state_dict_from_jax(params: Mapping[str, Any],
+                            config: Any) -> Dict[str, torch.Tensor]:
+    """JAX Transformer params (numpy leaves) -> the port's state_dict.
+
+    The inverse of tempo_tpu/interop/gpt_ckpt.py
+    ``params_from_torch_transformer`` (reference layout): dense kernels
+    [in, out] become nn.Linear weights [out, in]; LayerNorm scale/bias
+    become weight/bias; ``wte``/``wpe`` tables keep their layout.
+    ``config`` is either package's TransformerConfig (only ``n_layer``,
+    ``pos_embed``, ``ln``, ``mlp`` and ``tie_emb`` are read)."""
+    tree = params.get("params", params)
+    out: Dict[str, np.ndarray] = {"transformer.wte.weight": tree["wte"]}
+    if config.pos_embed:
+        out["transformer.wpe.weight"] = tree["wpe"]
+
+    def linear(prefix: str, sub: Mapping) -> None:
+        out[f"{prefix}.weight"] = np.transpose(sub["kernel"], (1, 0))
+        if "bias" in sub:
+            out[f"{prefix}.bias"] = sub["bias"]
+
+    def norm(prefix: str, sub: Mapping) -> None:
+        out[f"{prefix}.weight"] = sub["scale"]
+        if "bias" in sub:
+            out[f"{prefix}.bias"] = sub["bias"]
+
+    for i in range(config.n_layer):
+        blk, ref = tree[f"h_{i}"], f"transformer.h.{i}"
+        if config.ln:
+            norm(f"{ref}.ln_1", blk["ln_1"])
+        linear(f"{ref}.attn.c_attn", blk["attn"]["c_attn"])
+        linear(f"{ref}.attn.c_proj", blk["attn"]["c_proj"])
+        if config.mlp:
+            if config.ln:
+                norm(f"{ref}.ln_2", blk["ln_2"])
+            linear(f"{ref}.mlp.c_fc", blk["mlp"]["c_fc"])
+            linear(f"{ref}.mlp.c_proj", blk["mlp"]["c_proj"])
+    if config.ln:
+        norm("transformer.ln_f", tree["ln_f"])
+    if not config.tie_emb:
+        out["lm_head.weight"] = np.transpose(tree["lm_head"]["kernel"], (1, 0))
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in out.items()}

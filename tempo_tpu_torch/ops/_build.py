@@ -33,6 +33,8 @@ SIGNATURES = {
     "tempo_gn_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tempo_gn_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _P],
+    "tempo_decode_attention": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

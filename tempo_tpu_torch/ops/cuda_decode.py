@@ -1,0 +1,185 @@
+"""K3: dense active-length decode attention; K4: paged decode attention.
+
+Counterpart of tempo_tpu/ops/pallas_decode.py (``decode_attention`` /
+``_decode_kernel`` and ``paged_decode_attention`` / ``_paged_kernel``); the
+CUDA source is csrc/decode.cu, whose header says what bounds the kernels
+on the H100 and how they are laid out.
+
+Both compute softmax(q.K^T / sqrt(hd)).V over the cache positions
+kv_idx <= pos of each row, for one decode token: q [b, 1, n, hd], the
+cache with kv <= n heads (q heads kv-major: q head h*g + i reads kv head
+h), fp32 math, output in q's type. ``pos`` is an int or an int tensor,
+one position or one per row.
+
+Each wrapper takes the plain PyTorch version beside it for a tensor on the
+CPU, and for a CUDA tensor launches its kernel or raises. Each counts its
+launches in ``LAUNCHES``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+
+from tempo_tpu_torch.ops import _build
+from tempo_tpu_torch.ops.cuda_gn import DTYPE_CODES, check_cuda_input, refuse_grad
+
+HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernels are built for
+MAX_GROUP = 8                   # most q heads per kv head the kernels take
+# Launches of each kernel, counted by its wrapper where it launches it.
+LAUNCHES = {"decode_attention": 0, "paged_decode_attention": 0}
+
+Pos = Union[int, torch.Tensor]
+
+
+# ----------------------------------------------------------- plain versions
+
+def pos_rows(pos: Pos, b: int, device: torch.device) -> torch.Tensor:
+    """pos (int, scalar or [b] tensor) -> [b] int64 on ``device``."""
+    p = torch.as_tensor(pos, device=device).to(torch.int64).reshape(-1)
+    return p.expand(b)
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """The cache-branch math of nn/transformer.py (transformer.py:424-453):
+    GQA grouped einsum in fp32 over q [b, t, n, hd] and k/v [b, s, kv, hd],
+    keys kv_idx <= q_idx [b|1, t] (no mask when None), softmax in fp32.
+    Returns [b, t, n, hd] in fp32."""
+    b, t, n, hd = q.shape
+    kv = k.shape[2]
+    g = n // kv
+    qg = q.reshape(b, t, kv, g, hd).float()
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    if q_idx is not None:
+        kv_idx = torch.arange(k.shape[1], device=q.device)
+        mask = kv_idx[None, None, :] <= q_idx[:, :, None]       # [b|1, t, s]
+        scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    weights = torch.softmax(scores, dim=-1)
+    y = torch.einsum("bkgqs,bskh->bqkgh", weights, v.float())
+    return y.reshape(b, t, n, hd)
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  name: str) -> None:
+    t, n, hd = q.shape[1], q.shape[2], q.shape[3]
+    if t != 1:
+        raise ValueError(f"{name} is the single-token path, got t={t}")
+    if k.shape != v.shape or k.shape[3] != hd:
+        raise ValueError(f"{name}: cache shapes {tuple(k.shape)} / "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if n % k.shape[2]:
+        raise ValueError(f"{name}: {n} q heads not a multiple of "
+                         f"{k.shape[2]} kv heads")
+
+
+def decode_attention_plain(q: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor, pos: Pos,
+                           block_k: int = 256) -> torch.Tensor:
+    """softmax(q.K^T/sqrt(hd)).V over kv_idx <= pos; q [b, 1, n, hd], ck/cv
+    [b, S, kv, hd] -> [b, 1, n, hd] in q's type."""
+    _check_dense(q, ck, cv, block_k)
+    q_idx = pos_rows(pos, q.shape[0], q.device)[:, None]
+    return masked_attention(q, ck, cv, q_idx).to(q.dtype)
+
+
+def paged_decode_attention_plain(q: torch.Tensor, pk: torch.Tensor,
+                                 pv: torch.Tensor, table: torch.Tensor,
+                                 pos: Pos) -> torch.Tensor:
+    """The same over pools pk/pv [P, page, kv, hd]: logical position p of
+    row r lives at pool slot (table[r, p // page], p % page). The plain
+    version gathers each row's whole logical window."""
+    _check_paged(q, pk, pv, table)
+    b = q.shape[0]
+    kv, hd = pk.shape[2], pk.shape[3]
+    ck = pk[table.long()].reshape(b, -1, kv, hd)
+    cv = pv[table.long()].reshape(b, -1, kv, hd)
+    q_idx = pos_rows(pos, b, q.device)[:, None]
+    return masked_attention(q, ck, cv, q_idx).to(q.dtype)
+
+
+def _check_dense(q, ck, cv, block_k):
+    _check_shapes(q, ck, cv, "decode_attention")
+    if ck.shape[0] != q.shape[0]:
+        raise ValueError(f"decode_attention: cache batch {ck.shape[0]} != "
+                         f"q batch {q.shape[0]}")
+    s_len = ck.shape[1]
+    blk = min(block_k, s_len)
+    if s_len % blk:
+        raise ValueError(f"cache length {s_len} must divide by block_k {blk}")
+
+
+def _check_paged(q, pk, pv, table):
+    _check_shapes(q, pk, pv, "paged_decode_attention")
+    if table.ndim != 2 or table.shape[0] != q.shape[0]:
+        raise ValueError(f"table must be [b={q.shape[0]}, max_pages], got "
+                         f"{tuple(table.shape)}")
+
+
+# ------------------------------------------------------------ CUDA wrappers
+
+def _launch(q, k, v, pos, table, cap, page, max_pages, name):
+    for t, nm in ((q, "q"), (k, "k"), (v, "v")):
+        check_cuda_input(t, nm)
+        if t.device != q.device:
+            raise ValueError(f"{name}: {nm} on {t.device}, q on {q.device}")
+    refuse_grad(q, k, v)
+    b, _, n, hd = q.shape
+    kv = k.shape[2]
+    if k.dtype != v.dtype:
+        raise TypeError(f"{name}: k is {k.dtype}, v is {v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
+    if n // kv > MAX_GROUP:
+        raise ValueError(f"{name}: {n // kv} q heads per kv head > "
+                         f"{MAX_GROUP}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: k and v must be 16-byte aligned")
+    p = torch.as_tensor(pos, device=q.device).to(torch.int32).reshape(-1)
+    if p.numel() not in (1, b):
+        raise ValueError(f"{name}: pos must be one position or [b={b}], got "
+                         f"{p.numel()}")
+    p = p.contiguous()
+    table_ptr = None
+    if table is not None:
+        if table.device != q.device:
+            raise ValueError(f"{name}: table on {table.device}")
+        table = table.to(torch.int32).contiguous()
+        table_ptr = table.data_ptr()
+    out = torch.empty_like(q)
+    err = _build.library().tempo_decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+        0 if p.numel() == 1 else 1, table_ptr, out.data_ptr(),
+        DTYPE_CODES[k.dtype], DTYPE_CODES[q.dtype], b, n, kv, hd, cap, page,
+        max_pages, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "tempo_decode_attention")
+    LAUNCHES[name] += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                     pos: Pos, block_k: int = 256) -> torch.Tensor:
+    """K3: softmax(q.K^T/sqrt(hd)).V over the dense cache prefix
+    kv_idx <= pos. q [b, 1, n, hd]; ck/cv [b, S, kv, hd]; pos int or
+    tensor, scalar or [b]. Returns [b, 1, n, hd] in q's type. ``block_k``
+    is the TPU kernel's tile; it only keeps the same shape guard here."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, ck, cv, pos, block_k)
+    _check_dense(q, ck, cv, block_k)
+    return _launch(q, ck, cv, pos, None, ck.shape[1], 0, 0,
+                   "decode_attention")
+
+
+def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
+                           pv: torch.Tensor, table: torch.Tensor,
+                           pos: Pos) -> torch.Tensor:
+    """K4: the same over pools pk/pv [P, page, kv, hd] through the block
+    table [b, max_pages] (int32); only the row's live pages are read."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, pk, pv, table, pos)
+    _check_paged(q, pk, pv, table)
+    mp, pg = table.shape[1], pk.shape[1]
+    return _launch(q, pk, pv, pos, table, mp * pg, pg, mp,
+                   "paged_decode_attention")

@@ -30,6 +30,7 @@ def test_port_imports_no_jax():
     nor any tempo_tpu module."""
     mods = _port_modules()
     assert "tempo_tpu_torch.ops.cuda_gn_conv" in mods
+    assert "tempo_tpu_torch.infer.paged" in mods
     code = (
         "import sys, importlib\n"
         "before = set(sys.modules)\n"
@@ -70,3 +71,22 @@ def test_refuse_grad_only_when_building_a_graph():
         cuda_gn.refuse_grad(w)
     with torch.inference_mode():
         cuda_gn.refuse_grad(w)
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from tempo_tpu_torch.infer.export_lm import live_paged_surface
+    from tempo_tpu_torch.infer.paged import PagedLMServer
+    from tempo_tpu_torch.nn.transformer import Transformer, TransformerConfig
+
+    cfg = TransformerConfig(in_size=31, block_size=32, n_layer=1, n_head=2,
+                            n_embd=32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Transformer(cfg)
+    model = Transformer(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        live_paged_surface(model, page_size=8)
+    surface = live_paged_surface(model, page_size=8, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedLMServer(surface=surface)
+    PagedLMServer(surface=surface, device="cpu")
