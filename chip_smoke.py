@@ -27,6 +27,21 @@ Phases, each fatal on failure:
       edge cases, each call timed with its bound and library call;
   3c. one decode step's logits (dense and paged, bf16 and fp32) against
       the plain path.
+  then the GPT-2-small training path (bf16, attn_impl "auto", weights from a
+  seed), K5f, K5dkv and K5dq:
+  4a. train steps on the bench_gpt batch ([8, 1025] tokens, AdamW lr 3e-4,
+      wd 0.1, betas (0.9, 0.95), the decay mask): 3 warm, then 10 timed,
+      the K5 counters set to 0 before and read after (12 x 10 each); step
+      ms, tokens/s, MFU, peak memory, a profiled step; the loss falls;
+  4b. Trainer.train for 30 steps on a TokenLoader (batch 8, block 1024)
+      into a temporary directory: checkpoint and metrics.json written; one
+      more step from the reloaded checkpoint equals one from the live
+      state, bit for bit;
+  2''. K5 against its plain versions at the path's shape and at edge
+      cases (t 1, 63, 640, 1000; hd 32, 128; GQA 12/4; fp32), each kernel
+      timed alone beside its bound, plain version and SDPA;
+  4c. one train step's loss and gradients through K5 against the plain
+      attention path (bf16 full size; fp32 with 2 layers at batch 2).
 Prints the card's name and power limit first, one {"kernels": [...]} line,
 and as the last line {"ok": true, "device": {...}}. Exits non-zero, with no
 result, when there is no CUDA device or the package is not beside it.
@@ -77,6 +92,28 @@ DECODE_BF16_TOL = {"atol": 2e-2, "rtol": 2e-2}
 LM_BF16_REL_L2 = 5e-2
 # - GPT-2-small logits, fp32 model and caches: fp32 sum order only.
 LM_F32_REL_L2 = 1e-4
+
+# K5, kernel vs plain from the same inputs on the card:
+# - O: both sides accumulate in fp32 and round once; the kernel rounds p to
+#   bf16 for p.V (as flash kernels do), so an element may land one bf16 ulp
+#   apart (2^-6 at |y| < 4); fp32: sum order only.
+FLASH_O_TOL = {"bfloat16": {"atol": 2e-2, "rtol": 0.0},
+               "float32": {"atol": 2e-5, "rtol": 2e-5}}
+# - lse: fp32 in both, another order of the online softmax.
+FLASH_LSE_ATOL = 1e-3
+# - dq/dk/dv: relative L2; the kernel rounds p and ds to bf16 for the
+#   second products. The denominator is floored at an RMS of 1e-3: at t = 1
+#   the exact dq and dk are 0 (one key, ds = dO.v - dO.o = 0) and both sides
+#   hold only rounding noise.
+FLASH_GRAD_REL = {"bfloat16": 2e-2, "float32": 1e-4}
+# - the whole train step, K5 against the plain attention: bf16 rounds
+#   activations at every layer (loss rel 1e-2, each gradient rel L2 5e-2);
+#   fp32 differs in sum order only (1e-4 each).
+STEP_BF16_TOL = {"loss": 1e-2, "grad": 5e-2}
+STEP_F32_TOL = {"loss": 1e-4, "grad": 1e-4}
+# The training path, as tools/bench_toolkit.py bench_gpt measures the JAX
+# package: GPT-2-small, batch 8 x 1024 tokens, AdamW lr 3e-4, wd 0.1.
+TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS, TRAINER_STEPS = 8, 3, 10, 30
 
 # The LM serving path, as tools/bench_toolkit.py measures the JAX package:
 # bench_decode(cache_len=1024) for generate, bench_workload for the server.
@@ -662,6 +699,385 @@ def lm_add(r: dict, n: dict, err: float, ok: bool, ms: float,
               flush=True)
 
 
+def flash_row(name: str, replaces: str, library: str) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": "tempo_tpu_torch/csrc/flash_attn.cu",
+            "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+            "tol": {"o": FLASH_O_TOL, "lse_atol": FLASH_LSE_ATOL,
+                    "grad_rel_l2": FLASH_GRAD_REL},
+            "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "bound_by": "operations", "library_ms": None, "library": library,
+            "per": "the 10 timed train steps of 4a (12 calls a step at "
+                   "[8,1024,12,64] bf16): calls x the time of one call alone "
+                   "with a cold L2"}
+
+
+def flash_inputs(gen, dev, b, t, n, hd, dtype, kv=None):
+    """q, k, v as the model hands them to K5 (strided slices of one c_attn
+    output, GQA's K/V repeated per group, kv-major) and a seeded dO."""
+    import torch
+
+    kv = kv or n
+    qkv = torch.randn((b, t, (n + 2 * kv) * hd), generator=gen,
+                      device=dev).to(dtype)
+    q = qkv[..., :n * hd].reshape(b, t, n, hd)
+    k = qkv[..., n * hd:(n + kv) * hd].reshape(b, t, kv, hd)
+    v = qkv[..., (n + kv) * hd:].reshape(b, t, kv, hd)
+    if kv < n:
+        k = k.repeat_interleave(n // kv, dim=2)
+        v = v.repeat_interleave(n // kv, dim=2)
+    do = torch.randn((b, t, n, hd), generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+def floored_rel(got, want) -> float:
+    g, w = got.float(), want.float()
+    floor = 1e-3 * math.sqrt(w.numel())
+    return float((g - w).norm() / max(float(w.norm()), floor))
+
+
+def flash_check(q, k, v, do, causal=True) -> dict:
+    """Each K5 kernel against its plain version on the same inputs (the
+    backward passes fed the plain forward's lse and di)."""
+    import torch
+
+    from tempo_tpu_torch.ops import flash_attention as fa
+
+    dt = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+    di = fa.attention_di(o_p, do)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, di, causal)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_p, di, causal)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, di, causal)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, di, causal)
+    o_err, o_ok = max_err(o, o_p, FLASH_O_TOL[dt])
+    lse_err = float((lse - lse_p).abs().max())
+    rel = {"dq": floored_rel(dq, dq_p), "dk": floored_rel(dk, dk_p),
+           "dv": floored_rel(dv, dv_p)}
+    ok = (o_ok and lse_err <= FLASH_LSE_ATOL
+          and all(torch_all_finite(x) for x in (dq, dk, dv))
+          and max(rel.values()) <= FLASH_GRAD_REL[dt])
+    return {"o_max_abs_err": o_err, "lse_max_abs_err": lse_err,
+            "grad_rel_l2": rel, "ok": ok,
+            "max_abs_err": {"K5f": o_err,
+                            "K5dkv": max(float((dk - dk_p).abs().max()),
+                                         float((dv - dv_p).abs().max())),
+                            "K5dq": float((dq - dq_p).abs().max())}}
+
+
+def flash_work(b, t, n, hd, elem, causal=True) -> dict:
+    """FLOPs and bytes each K5 pass must do and move at this shape: 2 FLOPs
+    per multiply-add over the visible (query, key) pairs (t(t+1)/2 when
+    causal); each input read once, each output written once."""
+    pairs = b * n * (t * (t + 1) // 2 if causal else t * t)
+    mat = 2 * pairs * hd                       # one [pairs x hd] product
+    x = b * t * n * hd * elem                  # one [b, t, n, hd] tensor
+    stats = b * n * t * 4                      # one fp32 [b, n, t] vector
+    return {"K5f": (2 * mat, 4 * x + stats),          # s, p.v; q k v -> o lse
+            "K5dkv": (4 * mat, 6 * x + 2 * stats),    # s, dp, dv, dk
+            "K5dq": (3 * mat, 5 * x + 2 * stats)}     # s, dp, dq
+
+
+def step_breakdown(fn) -> dict:
+    """Device kernel time of one ``fn()`` (a train step) by torch.profiler,
+    summed by kind of kernel from the kernels' full names (user annotation
+    ranges such as the optimizer's step are left out: their kernels are
+    counted themselves); None where the profiler gives no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    kinds = {"k5": ("tempo::flash",),
+             "gemm": ("gemm", "xmma", "cutlass", "nvjet", "cublas",
+                      "splitk"),
+             "optimizer": ("multi_tensor_apply", "adam"),
+             "reduce": ("reduce_kernel", "softmax", "logsumexp"),
+             "layernorm": ("layer_norm",),
+             "embedding": ("embedding", "index", "scatter", "gather"),
+             "elementwise": ("elementwise",)}
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CPU
+                    or getattr(e, "is_user_annotation", False)
+                    or "#" in e.key):
+                continue
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if us > 0:
+                per[e.key] = per.get(e.key, 0.0) + us / 1e3
+    except Exception as exc:  # measurement only: the run's checks stand
+        print(f"[train] torch.profiler failed: {exc!r}", flush=True)
+        return None
+    if not per:
+        print("[train] torch.profiler recorded no device time", flush=True)
+        return None
+    out = {k: 0.0 for k in kinds}
+    out["other"] = 0.0
+    for name, ms in per.items():
+        low = name.lower()
+        kind = next((k for k, keys in kinds.items()
+                     if any(key in low for key in keys)), "other")
+        out[kind] += ms
+    ranked = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+    return {"device_ms": sum(per.values()),
+            "by_kind_ms": {k: round(v, 3) for k, v in out.items()},
+            "top": [[k[:80], round(v, 3)] for k, v in ranked]}
+
+
+def train_path(dev, gen, rows: dict) -> dict:
+    """The GPT-2-small training path: (a) train steps through K5, counted
+    and timed; (b) the Trainer with a checkpoint reloaded bit for bit;
+    K5 against its plain versions, timed; (c) one step against the plain
+    attention path. Adds the K5 rows; returns the training metrics."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tempo_tpu_torch.data.tokens import TokenLoader, make_token_stream
+    from tempo_tpu_torch.nn.transformer import (Transformer,
+                                                TransformerConfig,
+                                                estimate_mfu,
+                                                make_gpt_optimizer,
+                                                num_params)
+    from tempo_tpu_torch.ops import flash_attention as fa
+    from tempo_tpu_torch.ops.losses import lm_cross_entropy
+    from tempo_tpu_torch.train.checkpoint import checkpoint_path
+    from tempo_tpu_torch.train.state import create_train_state
+    from tempo_tpu_torch.train.step import lm_loss_fn, make_train_step
+    from tempo_tpu_torch.train.trainer import Trainer, to_device
+
+    cfg = TransformerConfig(compute_dtype="bfloat16", attn_impl="auto")
+    card = smi_line()
+
+    def fresh(seed=SEED, config=cfg):
+        model = Transformer(config, device=dev, seed=seed)
+        tx = make_gpt_optimizer(model, weight_decay=0.1, learning_rate=3e-4,
+                                betas=(0.9, 0.95))
+        return model, tx, create_train_state(model, tx, SEED)
+
+    # --------------------------------------------- (a) train steps, counted
+    model, tx, state = fresh()
+    n_params = num_params(model)
+    step = make_train_step(lm_loss_fn(model), tx)
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.in_size, (TRAIN_BATCH, cfg.block_size + 1))).to(dev)
+    losses = []
+    for _ in range(TRAIN_WARM):
+        state, m = step(state, tokens)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    for key in fa.LAUNCHES:
+        fa.LAUNCHES[key] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, tokens)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    launches = dict(fa.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack(losses).tolist()
+    want = cfg.n_layer * TRAIN_STEPS
+    print(f"[train] K5 launches in the {TRAIN_STEPS} timed steps: "
+          f"{launches} (want {want} each)", flush=True)
+    for name, key in (("K5f", "flash_fwd"), ("K5dkv", "flash_bwd_dkv"),
+                      ("K5dq", "flash_bwd_dq")):
+        rows[name]["launches"] = launches[key]
+        if launches[key] != want:
+            fail(f"{name} launched {launches[key]} times in the timed "
+                 f"steps, want {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"train loss not finite or not falling: {losses}")
+    tok_s = TRAIN_BATCH * cfg.block_size / dt
+    mfu = estimate_mfu(cfg, n_params, TRAIN_BATCH, dt,
+                       PEAK_FLOPS["bfloat16"])
+    profile = step_breakdown(lambda: step(state, tokens))
+    print(f"[train] GPT-2-small bf16 batch {TRAIN_BATCH} x {cfg.block_size}:"
+          f" train.step_ms {1e3 * dt:.2f}, train.tokens_per_s {tok_s:.1f}, "
+          f"train.mfu {mfu:.4f} (against 989e12 bf16 dense, on {card}), "
+          f"train.peak_device_gb {peak_gb:.2f}; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over {len(losses)} steps", flush=True)
+    print(f"[train] one step under torch.profiler: {json.dumps(profile)}",
+          flush=True)
+    del model, tx, state, step
+
+    # ------------------------------------ (b) the Trainer and its checkpoint
+    stream = make_token_stream(cfg.in_size, 200_000, seed=SEED)
+    loader = iter(TokenLoader(stream, TRAIN_BATCH, cfg.block_size,
+                              seed=SEED + 1))
+    val = TokenLoader(stream, TRAIN_BATCH, cfg.block_size, seed=SEED + 2)
+    model, tx, state = fresh()
+    with tempfile.TemporaryDirectory() as out:
+        trainer = Trainer(lm_loss_fn(model), tx, state, out, save_every=30,
+                          val_every=30, log_every=10,
+                          plot_every=TRAINER_STEPS + 1, device=dev,
+                          verbose=False)
+        stats = trainer.train(loader, lambda: iter(val), TRAINER_STEPS)
+        ckpt = checkpoint_path(Path(out) / "checkpoints", TRAINER_STEPS)
+        if not ckpt.exists() or not (Path(out) / "metrics.json").exists():
+            fail(f"the trainer did not write {ckpt.name} and metrics.json")
+        history = json.loads((Path(out) / "metrics.json").read_text())
+        _, tx2, state2 = fresh(seed=SEED + 99)
+        trainer2 = Trainer(lm_loss_fn(state2.model), tx2, state2, out,
+                           device=dev, verbose=False)
+        trainer2.load_checkpoint(ckpt)
+    batch = to_device(next(loader), dev)
+    live, _ = trainer.train_step(trainer.state, batch)
+    again, _ = trainer2.train_step(trainer2.state, batch)
+    same = all(torch.equal(a, b) for a, b in zip(
+        live.model.parameters(), again.model.parameters()))
+    same &= all(torch.equal(live.ema[k], again.ema[k]) for k in live.ema)
+    print(f"[train] Trainer {TRAINER_STEPS} steps: "
+          f"{stats['samples_per_sec']:.2f} samples/s (host wall, "
+          f"incl. a validation of 10 batches and a checkpoint); train "
+          f"history {history['train']}, val {history['val']}; one more step "
+          f"from the reloaded checkpoint equals the live state's bit for "
+          f"bit: {same}", flush=True)
+    if not same:
+        fail("a step from the reloaded checkpoint differs from the live "
+             "state's")
+    trainer_stats = {"samples_per_sec": stats["samples_per_sec"],
+                     "train": history["train"], "val": history["val"]}
+    del trainer, trainer2, live, again, model, state, state2
+
+    # ---------------------------------- K5 against its plain versions, timed
+    b, t, n, hd = TRAIN_BATCH, cfg.block_size, cfg.n_head, cfg.head_dim
+    q, k, v, do = flash_inputs(gen, dev, b, t, n, hd, torch.bfloat16)
+    path = flash_check(q, k, v, do)
+    print(f"[kernels] K5 at the path's shape [{b},{t},{n},{hd}] bf16 "
+          f"(strided c_attn slices): {json.dumps(path)}", flush=True)
+    checks_ok = path["ok"]
+    edges = []
+    for name, (eb, et, en, ehd, edt, ekv, causal) in {
+            "t1": (2, 1, 4, 64, torch.bfloat16, None, True),
+            "t63": (2, 63, 4, 64, torch.bfloat16, None, True),
+            "t640": (2, 640, 4, 64, torch.bfloat16, None, True),
+            "t1000": (2, 1000, 4, 64, torch.bfloat16, None, True),
+            "hd32": (2, 1000, 4, 32, torch.bfloat16, None, True),
+            "hd128": (2, 640, 4, 128, torch.bfloat16, None, True),
+            "gqa12/4": (2, 1024, 12, 64, torch.bfloat16, 4, True),
+            "noncausal_t200": (2, 200, 4, 64, torch.bfloat16, None, False),
+            "f32_t1000": (2, 1000, 4, 64, torch.float32, None, True),
+            "f32_hd128": (2, 300, 2, 128, torch.float32, None, True),
+            "f32_hd32_t63": (2, 63, 2, 32, torch.float32, None, True)}.items():
+        res = flash_check(*flash_inputs(gen, dev, eb, et, en, ehd, edt, ekv),
+                          causal=causal)
+        edges.append((name, res))
+        checks_ok &= res["ok"]
+        print(f"[kernels] K5 edge {name}: o {res['o_max_abs_err']:.3e}, lse "
+              f"{res['lse_max_abs_err']:.3e}, rel L2 "
+              f"{json.dumps(res['grad_rel_l2'])} ok={res['ok']}", flush=True)
+    if not checks_ok:
+        fail("K5 disagrees with its plain versions beyond tolerance")
+
+    o, lse = fa.flash_fwd(q, k, v)
+    di = fa.attention_di(o, do)
+    per_call = {
+        "K5f": (lambda: fa.flash_fwd(q, k, v),
+                lambda: fa.flash_fwd_plain(q, k, v)),
+        "K5dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di),
+                  lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, di)),
+        "K5dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, di),
+                 lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, di))}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do_t = do.transpose(1, 2)
+    lib = {"fwd": time_ms(lambda: F.scaled_dot_product_attention(
+               qt.detach(), kt.detach(), vt.detach(), is_causal=True)),
+           "bwd": time_ms(lambda: torch.autograd.grad(
+               out_sdpa, (qt, kt, vt), do_t, retain_graph=True))}
+
+    def sdpa_fwd_bwd():
+        out_ = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        torch.autograd.grad(out_, (qt, kt, vt), do_t)
+
+    def k5_fwd_bwd():
+        q_, k_, v_ = (x.detach().requires_grad_() for x in (q, k, v))
+        out_ = fa.flash_attention(q_, k_, v_)
+        torch.autograd.grad(out_, (q_, k_, v_), do)
+
+    lib["fwd_bwd"] = time_ms(sdpa_fwd_bwd)
+    k5_whole = time_ms(k5_fwd_bwd)
+    work = flash_work(b, t, n, hd, 2)
+    for name, (kernel, plain) in per_call.items():
+        r = rows[name]
+        flops, nbytes = work[name]
+        bound = 1e3 * max(flops / PEAK_FLOPS["bfloat16"],
+                          nbytes / HBM_BYTES_PER_S)
+        r["bound_by"] = ("operations" if flops / PEAK_FLOPS["bfloat16"]
+                         >= nbytes / HBM_BYTES_PER_S else "bytes")
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        calls = r["launches"]
+        r.update(ms=calls * ms, plain_ms=calls * plain_ms,
+                 bound_ms=calls * bound, per_call_ms=ms,
+                 per_call_plain_ms=plain_ms, per_call_bound_ms=bound,
+                 gflop_per_call=flops / 1e9, tflops=flops / ms / 1e9,
+                 max_abs_err=max([path["max_abs_err"][name]]
+                                 + [e[1]["max_abs_err"][name]
+                                    for e in edges]),
+                 edge_checks=len(edges))
+    rows["K5f"]["library_ms"] = rows["K5f"]["launches"] * lib["fwd"]
+    rows["K5dkv"]["library_ms"] = rows["K5dkv"]["launches"] * lib["bwd"]
+    for name in ("K5f", "K5dkv", "K5dq"):
+        rows[name]["sdpa_per_call_ms"] = lib
+        rows[name]["k5_fwd_bwd_per_call_ms"] = k5_whole
+        rr = rows[name]
+        print(f"[kernels] {name}: {rr['per_call_ms']:.4f} ms a call "
+              f"({rr['tflops']:.1f} TFLOP/s), bound "
+              f"{rr['per_call_bound_ms']:.4f} ({rr['bound_by']}), plain "
+              f"{rr['per_call_plain_ms']:.4f}; x {rr['launches']} calls: "
+              f"{rr['ms']:.3f} ms; SDPA {json.dumps(lib)}, K5 fwd+bwd "
+              f"{k5_whole:.4f} (on {card})", flush=True)
+    del q, k, v, do, o, lse, di, qt, kt, vt, out_sdpa, do_t
+
+    # --------------------------- (c) one step against the plain attention
+    def loss_and_grads(config, batch_tokens, seed=SEED):
+        model = Transformer(config, device=dev, seed=seed)
+        loss = lm_cross_entropy(model(batch_tokens[:, :-1]),
+                                batch_tokens[:, 1:])
+        loss.backward()
+        grads = {k_: p.grad for k_, p in model.named_parameters()}
+        return float(loss.detach()), grads
+
+    step_errs = {}
+    for label, config, batch_tokens, tol in (
+            ("bf16", cfg, tokens, STEP_BF16_TOL),
+            ("f32_2layer_b2", dataclasses.replace(
+                cfg, compute_dtype="float32", n_layer=2), tokens[:2],
+             STEP_F32_TOL)):
+        loss_k, grads_k = loss_and_grads(config, batch_tokens)
+        loss_p, grads_p = loss_and_grads(
+            dataclasses.replace(config, attn_impl="xla"), batch_tokens)
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        grad_rel = max(rel_l2(grads_k[k_], grads_p[k_]) for k_ in grads_p)
+        step_errs[label] = {"loss_kernel": loss_k, "loss_plain": loss_p,
+                            "loss_rel": loss_rel, "max_grad_rel_l2": grad_rel}
+        if not (loss_rel <= tol["loss"] and grad_rel <= tol["grad"]):
+            fail(f"the {label} train step through K5 disagrees with the "
+                 f"plain path: {step_errs[label]} (tol {tol})")
+        del grads_k, grads_p
+    print(f"[train] one step, K5 vs the plain attention path: "
+          f"{json.dumps(step_errs)} (tol bf16 {STEP_BF16_TOL}, f32 "
+          f"{STEP_F32_TOL})", flush=True)
+    return {"card": card, "step_ms": 1e3 * dt, "tokens_per_s": tok_s,
+            "mfu": mfu, "mfu_peak_flops": PEAK_FLOPS["bfloat16"],
+            "peak_device_gb": peak_gb, "n_params": n_params,
+            "losses": losses, "profile": profile, "trainer": trainer_stats,
+            "step_vs_plain": step_errs,
+            "k5_edges": {e[0]: e[1]["ok"] for e in edges}}
+
+
 def nudge_zero_init(model, generator) -> None:
     """Random weights in place of the zero-initialized output convs, so the
     reconstruction depends on every layer."""
@@ -1017,15 +1433,30 @@ def main() -> int:
         "none: no single PyTorch call reads K/V through a block table")
     lm = lm_path(dev, gen, rows)
 
+    # ---------------------------------------------- the GPT training path
+    lib = "F.scaled_dot_product_attention(is_causal=True) over [b,n,t,hd]"
+    rows["K5f"] = flash_row(
+        "K5f", "tempo_tpu/nn/transformer.py:151 -> "
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:758",
+        f"{lib}, forward")
+    rows["K5dkv"] = flash_row(
+        "K5dkv", "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+        f"{lib}, its backward (torch.autograd.grad on the saved graph): dQ, "
+        f"dK and dV in one call; compare with K5dkv + K5dq")
+    rows["K5dq"] = flash_row(
+        "K5dq", "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+        "none alone: SDPA's backward computes dQ with dK and dV (see K5dkv)")
+    train = train_path(dev, gen, rows)
+
     for r in rows.values():
-        r.pop("shapes")
+        r.pop("shapes", None)
     print(json.dumps({"kernels": list(rows.values()), "main": {
         "encode_ms_b8": t_enc, "encode_patches_per_s": 8e3 / t_enc,
         "encode_decode_ms_b8": t_encdec,
         "granule_reconstruct_raw_s": t_granule,
         "granule_reconstruct_ms": t_granule_fwd, "peak_device_gb": peak_gb,
         "recon_rel_l2_bf16": err_bf16, "recon_rel_l2_granule": err_granule,
-        "recon_rel_l2_f32": err_f32, "lm": lm}}))
+        "recon_rel_l2_f32": err_f32, "lm": lm, "train": train}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

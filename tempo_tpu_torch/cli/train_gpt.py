@@ -1,0 +1,197 @@
+#!/usr/bin/env python3
+"""Train a dense GPT on a token stream, on one GPU; counterpart of
+tempo_tpu/cli/train_gpt.py's single-device dense path.
+
+    python -m tempo_tpu_torch.cli.train_gpt config.yaml [--overwrite] [--debug]
+
+The same config schema, directory contract and artifacts: config.yaml
+copied into output_dir, checkpoints/ckpt_step=NNNNNN.pt, metrics.json,
+summary plots, training_info.yaml, and generation_final.npy (a greedy
+continuation of the stream's first 8 tokens). The step is forward (the
+attention through K5, ops/flash_attention.py), backward and AdamW with the
+GPT two-group weight decay and no clipping (nn/transformer.py
+make_gpt_optimizer). Weights come from the config's seed through the
+port's own initializer, so a run does not reproduce the JAX package's
+weights; tests bridge weights where they compare the two.
+
+Not ported (NotImplementedError from validate_config): ``parallel.*``
+(pipeline, tensor, expert, context, fsdp), ``model.n_experts`` (MoE),
+``finetune.lora_rank`` (LoRA) and the sharded/async
+``training.checkpoint_format``; dropout and ``optimizer.moments_dtype``
+raise where they are used.
+"""
+
+from __future__ import annotations
+
+from datetime import datetime
+from pathlib import Path
+from typing import Union
+
+import numpy as np
+import torch
+
+from tempo_tpu_torch.cli import run_cli
+from tempo_tpu_torch.data.tokens import TokenLoader, make_token_stream
+from tempo_tpu_torch.nn.transformer import (Transformer, TransformerConfig,
+                                           generate, make_gpt_optimizer,
+                                           num_params)
+from tempo_tpu_torch.train.checkpoint import (resolve_resume_from,
+                                              wants_auto_resume)
+from tempo_tpu_torch.train.schedules import lr_schedule
+from tempo_tpu_torch.train.state import create_train_state
+from tempo_tpu_torch.train.step import lm_loss_fn
+from tempo_tpu_torch.train.trainer import Trainer
+from tempo_tpu_torch.utils.config import (copy_config, load_config,
+                                          require_keys, save_yaml)
+from tempo_tpu_torch.utils.dirs import init_directory
+
+# parallel.* keys and the values that mean "not parallel"
+_SERIAL = {"pipeline": 1, "tensor": 1, "expert": 1, "context": 1,
+           "context_zigzag": False, "fsdp": False, "n_micro": None}
+
+
+def build_transformer_config(model_cfg: dict) -> TransformerConfig:
+    """`model:` config section -> TransformerConfig (lists become
+    tuples)."""
+    return TransformerConfig(**{
+        k: (tuple(v) if isinstance(v, list) else v)
+        for k, v in model_cfg.items()})
+
+
+def validate_config(config) -> None:
+    require_keys(config, ["output_dir", "data", "model", "training"])
+    data = config["data"]
+    if "tokens" not in data and "synthetic" not in data:
+        raise ValueError("FATAL: data needs 'tokens' (npy path) or "
+                         "'synthetic' ({vocab_size, length})")
+    if "tokens" in data and not Path(data["tokens"]).exists():
+        raise ValueError(f"FATAL: token stream doesn't exist: {data['tokens']}")
+    for key, value in dict(config.get("parallel", {})).items():
+        if key not in _SERIAL:
+            raise ValueError(f"FATAL: unknown parallel.{key}")
+        if _SERIAL[key] is not None and value != _SERIAL[key]:
+            raise NotImplementedError(
+                f"parallel.{key}={value!r} is not ported: the port trains on "
+                f"one device")
+    if int(config["model"].get("n_experts", 0)) > 0:
+        raise NotImplementedError("model.n_experts > 0 (MoE) is not ported")
+    if int(dict(config.get("finetune", {})).get("lora_rank", 0)) > 0:
+        raise NotImplementedError("finetune.lora_rank (LoRA) is not ported")
+    fmt = config["training"].get("checkpoint_format", "msgpack")
+    if fmt in ("sharded", "async"):
+        raise NotImplementedError(f"training.checkpoint_format {fmt!r} is "
+                                  f"not ported")
+    if fmt != "msgpack":  # the single-file format; the port writes .pt
+        raise ValueError(f"FATAL: unknown training.checkpoint_format "
+                         f"{fmt!r}")
+
+
+def main(config_path: str, overwrite: bool = False, debug: bool = False,
+         device: Union[str, torch.device, None] = None) -> None:
+    """Train as the config says, on ``device`` (None: CUDA, raising
+    without it)."""
+    config = load_config(config_path)
+    validate_config(config)
+    resume_auto = wants_auto_resume(config["training"])
+    output_dir = init_directory(Path(config["output_dir"]),
+                                overwrite=overwrite,
+                                allow_existing=resume_auto)
+    (output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+    copy_config(config_path, output_dir)
+
+    seed = config.get("seed", 42)
+    if debug:
+        print("DEBUG MODE: Reduced training steps")
+        config["training"]["n_steps"] = min(
+            200, config["training"].get("n_steps", 10000))
+        config["training"]["save_every"] = 100
+        config["training"]["val_every"] = 50
+        config["training"]["plot_every"] = 25
+
+    data_cfg = config["data"]
+    if "tokens" in data_cfg:
+        stream = np.load(data_cfg["tokens"], mmap_mode="r")
+    else:
+        syn = dict(data_cfg["synthetic"])
+        print(f"Generating synthetic token stream: {syn}")
+        stream = make_token_stream(int(syn["vocab_size"]), int(syn["length"]),
+                                   seed=seed,
+                                   noise=float(syn.get("noise", 0.1)))
+
+    model_cfg = dict(config["model"])
+    if "in_size" not in model_cfg:
+        model_cfg["in_size"] = int(stream.max()) + 1
+    vocab = int(model_cfg["in_size"])
+    tconfig = build_transformer_config(model_cfg)
+    print("\nInitializing GPT...")
+    model = Transformer(tconfig, device=device, seed=seed)
+    n_params = num_params(model)
+    print(f"Parameters: {n_params:,} (non-embedding)")
+
+    batch_size = int(data_cfg.get("batch_size", 16))
+    train_loader = TokenLoader(stream, batch_size, tconfig.block_size,
+                               seed=seed + 1)
+    val_loader = TokenLoader(stream, batch_size, tconfig.block_size,
+                             seed=seed + 2)
+
+    opt_cfg = dict(config.get("optimizer", {}))
+    train_cfg = config["training"]
+    tx = make_gpt_optimizer(
+        model, weight_decay=float(opt_cfg.get("weight_decay", 0.1)),
+        learning_rate=lr_schedule(opt_cfg, int(train_cfg.get("n_steps",
+                                                             10_000))),
+        betas=tuple(opt_cfg.get("betas", (0.9, 0.95))),
+        moments_dtype=opt_cfg.get("moments_dtype"))
+    state = create_train_state(model, tx, seed + 3)
+    trainer = Trainer(
+        loss_fn=lm_loss_fn(model), tx=tx, state=state, output_dir=output_dir,
+        save_every=train_cfg.get("save_every", 1000),
+        val_every=train_cfg.get("val_every", 100),
+        log_every=train_cfg.get("log_every", 10),
+        plot_every=train_cfg.get("plot_every", 50),
+        grad_accum=int(train_cfg.get("grad_accum", 1)),
+        device=device)
+    resume_from = resolve_resume_from(train_cfg, output_dir)
+    if resume_from:
+        print(f"\nResuming from checkpoint: {resume_from}")
+        trainer.load_checkpoint(resume_from)
+
+    n_steps = train_cfg["n_steps"]
+    print(f"\nTraining GPT for {n_steps} steps...")
+    start_time = datetime.now()
+    stats = trainer.train(train_iter=iter(train_loader),
+                          val_iter_factory=lambda: iter(val_loader),
+                          n_steps=n_steps)
+    end_time = datetime.now()
+    save_yaml({
+        "seed": seed,
+        "vocab_size": vocab,
+        "n_params_non_embedding": int(n_params),
+        "n_experts": tconfig.n_experts,
+        "pipeline_stages": 1,
+        "training_time": str(end_time - start_time),
+        "samples_per_sec": float(stats["samples_per_sec"]),
+    }, output_dir / "training_info.yaml")
+
+    # end-of-run greedy continuation of the stream's first tokens
+    n_tokens = int(dict(config.get("generation", {})).get(
+        "n_tokens", 16 if debug else 64))
+    prompt_len = 8
+    room = tconfig.block_size - prompt_len
+    if n_tokens > room:
+        print(f"generation.n_tokens={n_tokens} clamped to {room} (prompt "
+              f"{prompt_len} + new tokens must fit the block size "
+              f"{tconfig.block_size})")
+        n_tokens = room
+    if n_tokens > 0:
+        prompt = np.asarray(stream[:prompt_len])[None].astype(np.int64)
+        continuation = generate(model, prompt, n_tokens,
+                                temperature=0.0).cpu().numpy()
+        np.save(output_dir / "generation_final.npy",
+                continuation.astype(np.int32))
+        print(f"Greedy continuation: {continuation[0][:24]}...")
+    print("\nDone!")
+
+
+if __name__ == "__main__":
+    run_cli(main, "Train a dense GPT on a token stream (one GPU)")

@@ -12,19 +12,26 @@ Counterpart of tempo_tpu/nn/transformer.py with the same math:
   per-row position, or a paged cache (shared pools [P, page, kv, hd] and a
   block table [b, max_pages]) written by one flat scatter through the
   table. Caches are updated IN PLACE and returned (JAX returns new arrays).
-- attention: the no-cache forward and every cache call with t > 1 run the
-  plain masked attention (the XLA path); a t == 1 cache call goes through
-  K3 (ops/cuda_decode.py decode_attention) on a dense cache and K4
-  (paged_decode_attention) on a paged one, whatever ``decode_attn`` says:
-  all its values compute the same function.
+- attention: the no-cache forward (training) goes through K5
+  (ops/flash_attention.py) where ``_flash_ok`` picks it, GQA's K/V repeated
+  per group first, and otherwise runs the plain masked attention (the XLA
+  path); every cache call with t > 1 runs the plain masked attention; a
+  t == 1 cache call goes through K3 (ops/cuda_decode.py decode_attention)
+  on a dense cache and K4 (paged_decode_attention) on a paged one, whatever
+  ``decode_attn`` says: all its values compute the same function.
+- ``remat`` recomputes each block in the backward (torch.utils.checkpoint),
+  as nn.remat does.
 
 Parameters stay fp32 and are cast to ``compute_dtype`` at use, as flax's
 ``dtype`` does; the cast is cached until the parameter changes. Names
 follow the reference toolkit's torch GPT (``transformer.h.{i}.attn.c_attn``
 ...), so tempo_tpu/interop/gpt_ckpt.py reads ``state_dict()`` as it is.
 
-Not ported yet (raise NotImplementedError): ``attn_impl="flash"``,
-``seq_axis``, ``n_experts > 0``, ``quantize="int8"``, activation taps and
+Training: ``gpt_decay_mask`` / ``make_gpt_optimizer`` (AdamW, two
+parameter groups, no clipping) and ``estimate_mfu``.
+
+Not ported yet (raise NotImplementedError): ``seq_axis``, ``n_experts >
+0``, ``quantize="int8"``, dropout in training, activation taps and
 capture, and the untokenized / embedder modes.
 """
 
@@ -39,8 +46,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from tempo_tpu_torch.device import resolve_device
-from tempo_tpu_torch.ops import cuda_decode
+from tempo_tpu_torch.ops import cuda_decode, flash_attention
 from tempo_tpu_torch.ops.norms import gelu_exact
+from tempo_tpu_torch.train.state import Optimizer
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -96,7 +104,6 @@ class TransformerConfig:
 
 def _check_supported(cfg: TransformerConfig) -> None:
     unsupported = [
-        (cfg.attn_impl == "flash", "attn_impl='flash' (K5)"),
         (cfg.seq_axis is not None, "seq_axis (context parallelism)"),
         (cfg.n_experts > 0, "n_experts > 0 (MoE)"),
         (cfg.quantize != "none", f"quantize={cfg.quantize!r}"),
@@ -105,8 +112,21 @@ def _check_supported(cfg: TransformerConfig) -> None:
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet")
-    if cfg.attn_impl not in ("auto", "xla"):
+    if cfg.attn_impl not in ("auto", "xla", "flash"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+
+
+def _flash_ok(cfg: TransformerConfig, q: torch.Tensor) -> bool:
+    """Resolve cfg.attn_impl for a no-cache attention call on q [b, t, n,
+    hd]: 'flash' is K5 (its plain version on the CPU; a shape the kernels
+    refuse raises there), 'xla' the plain masked attention, 'auto' K5 when
+    q is on CUDA and the kernels take its head dim and type. The TPU's
+    512-multiple rule is a tiling limit the port does not have."""
+    if cfg.attn_impl == "flash":
+        return True
+    if cfg.attn_impl == "xla":
+        return False
+    return q.is_cuda and flash_attention.supported(q)
 
 
 def cast_param(owner: nn.Module, p: torch.Tensor,
@@ -237,7 +257,13 @@ class SelfAttention(nn.Module):
             k = apply_rope(k, rc)
 
         new_cache = None
-        if cache is None:
+        if cache is None and _flash_ok(cfg, q):
+            if kv < n:  # GQA trains at MHA FLOPs: K/V repeated per group
+                k = k.repeat_interleave(n // kv, dim=2)
+                v = v.repeat_interleave(n // kv, dim=2)
+            y = flash_attention.flash_attention(q, k, v, cfg.causal,
+                                                1.0 / math.sqrt(hd))
+        elif cache is None:
             q_idx = (torch.arange(t, device=x.device)[None] if cfg.causal
                      else None)
             y = cuda_decode.masked_attention(q, k, v, q_idx)
@@ -401,7 +427,7 @@ class Transformer(nn.Module):
         tensor, scalar or [b] (per-row positions)."""
         cfg = self.config
         if cfg.dropout > 0.0 and not deterministic:
-            raise NotImplementedError("dropout is not ported (serving path)")
+            raise NotImplementedError("dropout is not ported")
         if taps or capture:
             raise NotImplementedError("activation taps and capture are not "
                                       "ported yet")
@@ -420,10 +446,15 @@ class Transformer(nn.Module):
                 pos = torch.arange(t, device=dev)[None]
             wpe = self.transformer["wpe"].weight
             h = h + F.embedding(pos, wpe).to(cfg.dtype)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         new_caches = []
         for i, block in enumerate(self.transformer["h"]):
-            h, layer_cache = block(h, None if cache is None else cache[i],
-                                   input_pos)
+            if remat:
+                h, layer_cache = torch.utils.checkpoint.checkpoint(
+                    block, h, None, input_pos, use_reentrant=False)
+            else:
+                h, layer_cache = block(h, None if cache is None
+                                       else cache[i], input_pos)
             new_caches.append(layer_cache)
         if cfg.ln:
             h = self.transformer["ln_f"](h)
@@ -548,3 +579,53 @@ def num_params(model: nn.Module, non_embedding: bool = True) -> int:
     if non_embedding and "wpe" in model.transformer:
         total -= model.transformer["wpe"].weight.numel()
     return total
+
+
+def estimate_mfu(config: TransformerConfig, n_params: int,
+                 fwdbwd_per_iter: float, dt: float,
+                 peak_flops: float) -> float:
+    """Model FLOPs utilization, PaLM appendix-B accounting (as
+    tempo_tpu's estimate_mfu): 6 N + 12 L H Q T FLOPs per token, T tokens
+    per sequence, ``fwdbwd_per_iter`` sequences per iteration of ``dt``
+    seconds, over ``peak_flops`` (the card's peak, which the caller
+    states: there is no default)."""
+    L, H, Q, T = (config.n_layer, config.n_head, config.head_dim,
+                  config.block_size)
+    flops_per_token = 6 * n_params + 12 * L * H * Q * T
+    return flops_per_token * T * fwdbwd_per_iter / dt / peak_flops
+
+
+def gpt_decay_mask(model: nn.Module) -> dict:
+    """{parameter name: decays}: Linear weights and the wte/wpe tables
+    decay; biases and LayerNorm weights (norm scales, named ``weight`` in
+    torch) do not. tempo_tpu's name-keyed rule (``kernel``, ``wte``,
+    ``wpe``) on the port's modules."""
+    out = {}
+    for mod_name, mod in model.named_modules():
+        for leaf, _ in mod.named_parameters(recurse=False):
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            out[name] = leaf == "weight" and isinstance(
+                mod, (nn.Linear, nn.Embedding))
+    return out
+
+
+def make_gpt_optimizer(model: nn.Module, weight_decay: float, learning_rate,
+                       betas: Tuple[float, float],
+                       moments_dtype: Optional[str] = None) -> Optimizer:
+    """AdamW (eps 1e-8, no gradient clipping) with weight decay only on the
+    ``gpt_decay_mask`` parameters: two parameter groups, as the reference's
+    two optimizer groups. ``learning_rate`` is a float or a function of the
+    update count (train/schedules.py lr_schedule)."""
+    if moments_dtype is not None:
+        raise NotImplementedError("optimizer.moments_dtype is not ported")
+    mask = gpt_decay_mask(model)
+
+    def groups(m: nn.Module) -> list:
+        named = list(m.named_parameters())
+        return [{"params": [p for k, p in named if mask[k]],
+                 "weight_decay": weight_decay},
+                {"params": [p for k, p in named if not mask[k]],
+                 "weight_decay": 0.0}]
+
+    return Optimizer(learning_rate, groups, betas, eps=1e-8,
+                     max_grad_norm=None)

@@ -1,0 +1,1 @@
+"""Training of the PyTorch/CUDA port (counterpart of tempo_tpu.train)."""

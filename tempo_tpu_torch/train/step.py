@@ -1,0 +1,131 @@
+"""Train and eval steps; counterpart of tempo_tpu/train/step.py.
+
+A step is forward, loss, backward, the global gradient norm, the optional
+global-norm clip, the optimizer update at the schedule's learning rate for
+this update count, and the EMA of the metrics, all on the model's device
+with no host sync: metrics come back as 0-d device tensors, and the EMA is
+updated on the device (seeded with the raw metrics at step 0, as
+tempo_tpu's ``jnp.where(is_first, ...)``). PyTorch runs eagerly, so there is
+no compiled program; the parameters and optimizer moments are updated in
+place (JAX returns a new state; the port returns the same one).
+
+With ``grad_accum`` = k the batch's leading axis is split into k
+microbatches; gradients are summed over them and scaled by 1/k, and so are
+the metrics, so for a deterministic loss the update equals the one-shot
+step (tempo_tpu's lax.scan of microbatch means).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+from torch import nn
+
+from tempo_tpu_torch.ops.losses import lm_cross_entropy
+from tempo_tpu_torch.train.state import Optimizer, TrainState
+
+Metrics = Dict[str, torch.Tensor]
+LossFn = Callable[[nn.Module, torch.Tensor, torch.Generator],
+                  Tuple[torch.Tensor, Metrics]]
+
+
+def lm_loss_fn(model: nn.Module) -> LossFn:
+    """(model, batch [B, T+1], generator) -> (loss, metrics): the mean
+    next-token NLL of the dense GPT (cli/train_gpt.py's _lm_loss_fn). The
+    MoE loss with its aux term and dropout are not ported."""
+    cfg = model.config
+    if cfg.n_experts > 0:
+        raise NotImplementedError("the MoE LM loss is not ported")
+    if cfg.dropout > 0.0:
+        raise NotImplementedError("dropout in training is not ported")
+
+    def loss_fn(model, batch, generator):
+        tokens, targets = batch[:, :-1], batch[:, 1:]
+        nll = lm_cross_entropy(model(tokens), targets)
+        return nll, {"loss": nll, "nll": nll}
+
+    return loss_fn
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """The L2 norm of all tensors together (optax.global_norm), fp32."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def clip_by_global_norm(grads, norm: torch.Tensor, max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: g / norm * max_norm when the
+    norm reaches max_norm, g untouched below it (no host sync)."""
+    below = norm < max_norm
+    one = torch.ones((), device=norm.device)
+    torch._foreach_div_(grads, torch.where(below, one, norm))
+    torch._foreach_mul_(grads, torch.where(below, one, one * max_norm))
+
+
+def _detached(metrics: Metrics) -> Metrics:
+    return {k: v.detach().float() for k, v in metrics.items()}
+
+
+def make_train_step(loss_fn: LossFn, tx: Optimizer, ema_alpha: float = 0.99,
+                    grad_accum: int = 1
+                    ) -> Callable[[TrainState, torch.Tensor],
+                                  Tuple[TrainState, Metrics]]:
+    """Returns (state, batch) -> (state, metrics), the state updated in
+    place. state.ema (when not None; {} to start) gets EMA(ema_alpha) of
+    every metric, grad_norm included, seeded with the raw value where it
+    holds none yet (at step 0 always)."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+    def train_step(state: TrainState, batch: torch.Tensor):
+        model, opt = state.model, state.optimizer
+        params = [p for p in model.parameters() if p.requires_grad]
+        for p in params:
+            p.grad = None
+        if batch.shape[0] % grad_accum:
+            raise ValueError(f"batch {batch.shape[0]} not divisible by "
+                             f"grad_accum {grad_accum}")
+        metrics = None
+        for mb in batch.chunk(grad_accum):
+            loss, m = loss_fn(model, mb, state.generator)
+            loss.backward()
+            m = _detached(m)
+            metrics = m if metrics is None else {
+                k: metrics[k] + m[k] for k in metrics}
+        grads = [p.grad for p in params if p.grad is not None]
+        if grad_accum > 1:
+            inv = 1.0 / grad_accum
+            torch._foreach_mul_(grads, inv)
+            metrics = {k: v * inv for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm(grads)
+        if tx.max_grad_norm is not None:
+            clip_by_global_norm(grads, metrics["grad_norm"], tx.max_grad_norm)
+        lr = tx.lr(state.step)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        if state.ema is not None:
+            ema = state.ema
+            for k, v in metrics.items():
+                if state.step == 0 or k not in ema:
+                    ema[k] = v.clone()
+                else:
+                    ema[k] = ema_alpha * ema[k] + (1 - ema_alpha) * v
+        state.step += 1
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(loss_fn: LossFn
+                   ) -> Callable[[nn.Module, torch.Tensor, torch.Generator],
+                                 Metrics]:
+    """Returns (model, batch, generator) -> metrics, without gradients."""
+
+    def eval_step(model, batch, generator) -> Metrics:
+        with torch.no_grad():
+            _, metrics = loss_fn(model, batch, generator)
+        return _detached(metrics)
+
+    return eval_step

@@ -1,5 +1,6 @@
 """Guards of the PyTorch/CUDA port: it imports nothing of JAX or of the JAX
-package, its entry points default to CUDA and raise without it, and its
+package (nor yaml, matplotlib or msgpack, which the card's machine lacks)
+at load, its entry points default to CUDA and raise without it, and its
 CUDA wrappers refuse what the kernels do not take."""
 
 import pkgutil
@@ -26,18 +27,21 @@ def _port_modules():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port loads neither jax, flax, optax
-    nor any tempo_tpu module."""
+    """Importing every module of the port loads neither jax, flax, optax,
+    yaml, matplotlib, msgpack nor any tempo_tpu module."""
     mods = _port_modules()
-    assert "tempo_tpu_torch.ops.cuda_gn_conv" in mods
-    assert "tempo_tpu_torch.infer.paged" in mods
+    for name in ("ops.cuda_gn_conv", "infer.paged", "ops.flash_attention",
+                 "train.trainer", "train.checkpoint", "train.plots",
+                 "cli.train_gpt", "utils.config", "data.tokens"):
+        assert f"tempo_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
         "before = set(sys.modules)\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'tempo_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'tempo_tpu', 'yaml', "
+        "'matplotlib', 'msgpack'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -90,3 +94,32 @@ def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PagedLMServer(surface=surface)
     PagedLMServer(surface=surface, device="cpu")
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    from tempo_tpu_torch.cli.train_gpt import main
+    from tempo_tpu_torch.nn.transformer import (Transformer,
+                                                TransformerConfig,
+                                                make_gpt_optimizer)
+    from tempo_tpu_torch.train.state import create_train_state
+    from tempo_tpu_torch.train.step import lm_loss_fn
+    from tempo_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = Transformer(TransformerConfig(in_size=17, block_size=16,
+                                          n_layer=1, n_head=2, n_embd=32),
+                        device="cpu")
+    tx = make_gpt_optimizer(model, 0.1, 1e-3, (0.9, 0.95))
+    state = create_train_state(model, tx)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(lm_loss_fn(model), tx, state, tmp_path / "a")
+    Trainer(lm_loss_fn(model), tx, state, tmp_path / "b", device="cpu")
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(
+        f"output_dir: {tmp_path / 'run'}\n"
+        "data: {synthetic: {vocab_size: 17, length: 2000}, batch_size: 2}\n"
+        "model: {n_layer: 1, n_head: 2, n_embd: 32, block_size: 16}\n"
+        "training: {n_steps: 2}\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(str(cfg))

@@ -1,0 +1,160 @@
+"""The port's GPT training CLI (tempo_tpu_torch/cli/train_gpt.py) on the CPU,
+on the config of tests/test_train_gpt.py's dense case: it learns the
+synthetic affine stream and writes the same artifacts; the config checks
+and the unported options raise."""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from tempo_tpu_torch.cli import train_gpt
+from tempo_tpu_torch.data.tokens import TokenLoader, make_token_stream
+from tempo_tpu_torch.nn.transformer import (Transformer, TransformerConfig,
+                                            make_gpt_optimizer)
+from tempo_tpu_torch.train.checkpoint import list_checkpoints
+from tempo_tpu_torch.train.state import create_train_state
+from tempo_tpu_torch.train.step import lm_loss_fn
+from tempo_tpu_torch.train.trainer import Trainer
+
+torch.set_num_threads(1)
+
+BASE_MODEL = {"n_layer": 2, "n_head": 2, "n_embd": 32, "block_size": 32,
+              "dropout": 0.0}
+
+
+def _write(path: Path, cfg: dict) -> str:
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def _base_cfg(out: Path, **model_extra) -> dict:
+    return {
+        "output_dir": str(out),
+        "seed": 7,
+        "data": {"synthetic": {"vocab_size": 17, "length": 20000,
+                               "noise": 0.05},
+                 "batch_size": 16},
+        "model": {**BASE_MODEL, **model_extra},
+        "optimizer": {"lr": 3.0e-3, "weight_decay": 0.1},
+        "training": {"n_steps": 60, "log_every": 5, "save_every": 30,
+                     "val_every": 30, "plot_every": 1000},
+        "generation": {"n_tokens": 8},
+    }
+
+
+def test_train_gpt_learns_synthetic_stream(tmp_path):
+    """Train NLL drops well below the log(V) no-learning floor; the
+    checkpoints, metrics, run info and greedy continuation exist."""
+    out = tmp_path / "run"
+    train_gpt.main(_write(tmp_path / "cfg.yaml", _base_cfg(out)),
+                   device="cpu")
+    metrics = json.loads((out / "metrics.json").read_text())
+    losses = [m["loss"] for m in metrics["train"]]
+    floor = np.log(17)
+    assert losses[-1] < 0.75 * floor, (losses[0], losses[-1])
+    assert losses[-1] < losses[0]
+    assert [m["step"] for m in metrics["val"]] == [30, 60]
+    for step in (30, 60):
+        assert (out / "checkpoints" / f"ckpt_step={step:06d}.pt").exists()
+    assert (out / "config.yaml").exists()
+    gen = np.load(out / "generation_final.npy")
+    assert gen.shape == (1, 16) and gen.dtype == np.int32
+    info = yaml.safe_load((out / "training_info.yaml").read_text())
+    assert info["vocab_size"] == 17 and info["pipeline_stages"] == 1
+    assert info["n_params_non_embedding"] > 0 and info["samples_per_sec"] > 0
+    # an existing output dir is refused without --overwrite
+    with pytest.raises(SystemExit):
+        train_gpt.main(str(out / "config.yaml"), device="cpu")
+
+
+def test_train_gpt_resumes_and_plots(tmp_path):
+    """resume_from: auto re-enters the run and continues from its latest
+    checkpoint; plot_every writes the loss curve."""
+    out = tmp_path / "run"
+    cfg = _base_cfg(out)
+    cfg["training"].update(n_steps=10, save_every=5, val_every=5,
+                           plot_every=10, log_every=2)
+    cfg["model"]["attn_impl"] = "flash"
+    path = _write(tmp_path / "cfg.yaml", cfg)
+    train_gpt.main(path, device="cpu")
+    assert (out / "summary" / "loss.png").exists()
+    cfg["training"].update(n_steps=14, resume_from="auto")
+    train_gpt.main(_write(tmp_path / "cfg2.yaml", cfg), device="cpu")
+    steps = [m["step"] for m in json.loads(
+        (out / "metrics.json").read_text())["train"]]
+    assert steps == [2, 4, 6, 8, 10, 12, 14]
+    assert (out / "checkpoints" / "ckpt_step=000014.pt").exists()
+
+
+@pytest.mark.parametrize("mutate, error, match", [
+    (lambda c: c.pop("model"), ValueError, "model"),
+    (lambda c: c["data"].pop("synthetic"), ValueError, "tokens"),
+    (lambda c: c["data"].update(tokens="/nonexistent/stream.npy"),
+     ValueError, "doesn't exist"),
+    (lambda c: c.update(parallel={"bogus": 2}), ValueError, "bogus"),
+    (lambda c: c.update(parallel={"pipeline": 2}), NotImplementedError,
+     "pipeline"),
+    (lambda c: c.update(parallel={"fsdp": True}), NotImplementedError,
+     "fsdp"),
+    (lambda c: c.update(parallel={"context": 2}), NotImplementedError,
+     "context"),
+    (lambda c: c["model"].update(n_experts=2), NotImplementedError, "MoE"),
+    (lambda c: c.update(finetune={"lora_rank": 8}), NotImplementedError,
+     "LoRA"),
+    (lambda c: c["training"].update(checkpoint_format="sharded"),
+     NotImplementedError, "sharded"),
+    (lambda c: c["training"].update(checkpoint_format="async"),
+     NotImplementedError, "async"),
+    (lambda c: c["training"].update(checkpoint_format="zip"), ValueError,
+     "checkpoint_format"),
+], ids=["no_model", "no_data", "missing_stream", "unknown_parallel",
+        "pipeline", "fsdp", "context", "moe", "lora", "sharded", "async",
+        "unknown_format"])
+def test_validate_config_refuses(tmp_path, mutate, error, match):
+    cfg = _base_cfg(tmp_path / "run")
+    mutate(cfg)
+    with pytest.raises(error, match=match):
+        train_gpt.validate_config(cfg)
+    # serial parallel settings pass
+    ok = _base_cfg(tmp_path / "run")
+    ok["parallel"] = {"pipeline": 1, "tensor": 1, "fsdp": False,
+                      "n_micro": 4}
+    ok["training"]["checkpoint_format"] = "msgpack"
+    train_gpt.validate_config(ok)
+
+
+def test_unported_run_options_raise(tmp_path):
+    cfg = _base_cfg(tmp_path / "run_mu")
+    cfg["optimizer"]["moments_dtype"] = "bfloat16"
+    with pytest.raises(NotImplementedError, match="moments_dtype"):
+        train_gpt.main(_write(tmp_path / "mu.yaml", cfg), device="cpu")
+    cfg = _base_cfg(tmp_path / "run_drop")
+    cfg["model"]["dropout"] = 0.1
+    with pytest.raises(NotImplementedError, match="dropout"):
+        train_gpt.main(_write(tmp_path / "drop.yaml", cfg), device="cpu")
+
+
+def test_trainer_saves_at_save_steps(tmp_path):
+    """An explicit save_steps schedule replaces save_every; the last step
+    always saves; metrics.json holds the EMA history."""
+    cfg = TransformerConfig(in_size=17, block_size=16, n_layer=1, n_head=2,
+                            n_embd=32)
+    model = Transformer(cfg, device="cpu")
+    tx = make_gpt_optimizer(model, 0.1, 1e-3, (0.9, 0.95))
+    trainer = Trainer(lm_loss_fn(model), tx, create_train_state(model, tx),
+                      tmp_path, save_every=1, log_every=2, save_steps=[2],
+                      device="cpu", verbose=False)
+    loader = iter(TokenLoader(make_token_stream(17, 500), 2, 16))
+    stats = trainer.train(loader, n_steps=5)
+    assert stats["steps"] == 5 and stats["samples"] == 10
+    assert [p.name for p in list_checkpoints(tmp_path / "checkpoints")] == [
+        "ckpt_step=000002.pt", "ckpt_step=000005.pt"]
+    hist = json.loads((tmp_path / "metrics.json").read_text())
+    assert [m["step"] for m in hist["train"]] == [2, 4]
+    assert set(hist["train"][0]) == {"step", "loss", "nll", "grad_norm"}

@@ -238,7 +238,21 @@ def test_init_follows_jax_distributions():
 
 
 def test_unported_options_raise():
-    for kw in (dict(attn_impl="flash"), dict(seq_axis="seq"),
+    # attn_impl="flash" is ported (K5): its route runs and computes what
+    # the plain attention does
+    flash = pt.Transformer(pt.TransformerConfig(
+        in_size=29, block_size=16, n_layer=1, n_head=2, n_embd=32,
+        attn_impl="flash"), device="cpu")
+    xla = pt.Transformer(dataclasses.replace(flash.config, attn_impl="xla"),
+                         device="cpu")
+    toks = torch.from_numpy(_prompt(2, 9))
+    with torch.no_grad():
+        _rel_close(flash(toks).numpy(), xla(toks).numpy())
+    with pytest.raises(ValueError, match="attn_impl"):
+        pt.Transformer(dataclasses.replace(pt.TransformerConfig(n_layer=1),
+                                           attn_impl="pallas"),
+                       device="meta")
+    for kw in (dict(seq_axis="seq"),
                dict(n_experts=2), dict(quantize="int8"),
                dict(tokenized=False)):
         cfg = dataclasses.replace(pt.TransformerConfig(n_layer=1), **kw)
