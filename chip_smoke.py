@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build   compile the CUDA kernels from tempo_tpu_torch/csrc with nvcc;
+  1. build   compile the CUDA kernels from tempo_tpu_torch/csrc with nvcc, and
+             print what ptxas says of every kernel (registers, spills,
+             shared memory); K5f and K5dkv may not spill at head dim 64;
   2. kernels hold each kernel against its plain PyTorch version on the card
              at the shapes the main path gives it (discovered by running the
              tile batch and the granule once each), and time kernel, plain
@@ -38,8 +40,9 @@ Phases, each fatal on failure:
       more step from the reloaded checkpoint equals one from the live
       state, bit for bit;
   2''. K5 against its plain versions at the path's shape and at edge
-      cases (t 1, 63, 640, 1000; hd 32, 128; GQA 12/4; fp32), each kernel
-      timed alone beside its bound, plain version and SDPA;
+      cases (t 1, 63, 65, 129, 200, 640, 1000; hd 32, 128; GQA 12/4;
+      non-causal; fp32), each kernel timed alone beside its bound, plain
+      version and SDPA;
   4c. one train step's loss and gradients through K5 against the plain
       attention path (bf16 full size; fp32 with 2 layers at batch 2).
 Prints the card's name and power limit first, one {"kernels": [...]} line,
@@ -114,6 +117,11 @@ STEP_F32_TOL = {"loss": 1e-4, "grad": 1e-4}
 # The training path, as tools/bench_toolkit.py bench_gpt measures the JAX
 # package: GPT-2-small, batch 8 x 1024 tokens, AdamW lr 3e-4, wd 0.1.
 TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS, TRAINER_STEPS = 8, 3, 10, 30
+# K5f's and K5dkv's time a call before their redesign (mma.sync with
+# load-then-compute staging and a transposed second copy of the B operands),
+# read by this script at [8,1024,12,64] bf16 causal, alone with a cold L2.
+K5_PREV = {"K5f": 0.2148, "K5dkv": 0.4309,
+           "card": "NVIDIA H100 80GB HBM3, 700.00 W"}
 
 # The LM serving path, as tools/bench_toolkit.py measures the JAX package:
 # bench_decode(cache_len=1024) for generate, bench_workload for the server.
@@ -129,6 +137,36 @@ LM_POOLS = {"roomy": 65, "tight": 33}
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def ptxas_lines(build_log: str, smem_bytes) -> list[str]:
+    """One line per kernel from nvcc's -Xptxas -v output: its name (for the
+    tempo::flash kernels with their template arguments, else as mangled),
+    registers, static shared memory, spill bytes, and for the bf16 flash
+    kernels the dynamic shared memory a block asks for
+    (``smem_bytes(pass, hd)``)."""
+    import re
+
+    passes = {"fwd_bf16": 0, "dkv_bf16": 1, "dq_bf16": 2}
+    out, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN5tempo(\S+)'", line)
+        if m:
+            name, dyn = m.group(1), ""
+            f = re.search(r"^5flash\d+([a-z0-9_]+?)I(\S*?)EEv", name)
+            if f:
+                args = re.findall(r"L[ib](\d+)E", f.group(2))
+                name = f"tempo::flash {f.group(1)}<{','.join(args)}>"
+                if f.group(1) in passes:
+                    dyn = (f", {smem_bytes(passes[f.group(1)], int(args[0]))}"
+                           f" bytes dynamic smem")
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line:
+            used = line.split(":", 1)[1].strip()
+            out.append(f"{name}: {used}; {spill}{dyn}")
+            name = None
+    return out
 
 
 def smi_line() -> str:
@@ -961,11 +999,17 @@ def train_path(dev, gen, rows: dict) -> dict:
     for name, (eb, et, en, ehd, edt, ekv, causal) in {
             "t1": (2, 1, 4, 64, torch.bfloat16, None, True),
             "t63": (2, 63, 4, 64, torch.bfloat16, None, True),
+            "t65": (2, 65, 4, 64, torch.bfloat16, None, True),
+            "t129": (2, 129, 4, 64, torch.bfloat16, None, True),
+            "t200": (2, 200, 4, 64, torch.bfloat16, None, True),
             "t640": (2, 640, 4, 64, torch.bfloat16, None, True),
             "t1000": (2, 1000, 4, 64, torch.bfloat16, None, True),
             "hd32": (2, 1000, 4, 32, torch.bfloat16, None, True),
+            "hd32_t129": (2, 129, 4, 32, torch.bfloat16, None, True),
             "hd128": (2, 640, 4, 128, torch.bfloat16, None, True),
+            "hd128_t1000": (2, 1000, 4, 128, torch.bfloat16, None, True),
             "gqa12/4": (2, 1024, 12, 64, torch.bfloat16, 4, True),
+            "noncausal_t129": (2, 129, 4, 64, torch.bfloat16, None, False),
             "noncausal_t200": (2, 200, 4, 64, torch.bfloat16, None, False),
             "f32_t1000": (2, 1000, 4, 64, torch.float32, None, True),
             "f32_hd128": (2, 300, 2, 128, torch.float32, None, True),
@@ -1029,6 +1073,12 @@ def train_path(dev, gen, rows: dict) -> dict:
                  edge_checks=len(edges))
     rows["K5f"]["library_ms"] = rows["K5f"]["launches"] * lib["fwd"]
     rows["K5dkv"]["library_ms"] = rows["K5dkv"]["launches"] * lib["bwd"]
+    for name in ("K5f", "K5dkv"):
+        # on this text line only: the kernels line holds what this run read
+        print(f"[kernels] {name}: {rows[name]['per_call_ms']:.4f} ms a call "
+              f"on {card}; before the redesign {K5_PREV[name]:.4f} on "
+              f"{K5_PREV['card']}: x"
+              f"{K5_PREV[name] / rows[name]['per_call_ms']:.2f}", flush=True)
     for name in ("K5f", "K5dkv", "K5dq"):
         rows[name]["sdpa_per_call_ms"] = lib
         rows[name]["k5_fwd_bwd_per_call_ms"] = k5_whole
@@ -1118,9 +1168,22 @@ def main() -> int:
     _build.library()
     print(f"[build] {time.perf_counter() - t0:.1f} s (sources: "
           f"{[p.name for p in _build._sources()]})", flush=True)
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    if _build.build_log:
+        lines = ptxas_lines(_build.build_log,
+                            _build.library().tempo_flash_smem_bytes)
+        for line in lines:
+            print(f"[build] ptxas {line}", flush=True)
+        path_k5 = [ln for ln in lines if ln.startswith(
+            ("tempo::flash fwd_bf16<64", "tempo::flash dkv_bf16<64"))]
+        spilled = [ln for ln in path_k5 if "0 bytes spill stores, 0 bytes "
+                   "spill loads" not in ln]
+        if spilled or len(path_k5) != 2:
+            fail(f"K5f or K5dkv spills at hd 64, or ptxas said nothing of "
+                 f"them: {spilled or path_k5}")
+    else:
+        print("[build] the kernel library was loaded from build/kernels "
+              "(built by an earlier run): no ptxas output in this run",
+              flush=True)
 
     # ------------------------------------ model and inputs of the main path
     model, cfg = build_vae({}, device=dev, seed=SEED)

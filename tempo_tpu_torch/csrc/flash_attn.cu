@@ -27,41 +27,97 @@
 // sit just above it. A kernel near the bound must keep the tensor cores fed
 // while it streams each operand once.
 //
-// Design (simple and correct first; wgmma, TMA and pipelining are left for
-// later):
-// - One block per (64-row tile, batch x head): 64 query rows (K5f, K5dq) or
-//   64 key rows (K5dkv), 4 warps of 16 rows each. The TPU grid walked the
-//   other sequence axis serially through VMEM scratch; here that is a loop
-//   inside the block over tiles staged in shared memory (64 keys for K5f and
-//   K5dq; 64 queries for K5dkv, 32 at hd 128 to keep the accumulators in
-//   registers).
-// - bf16: mma.sync m16n8k16 bf16 with fp32 accumulation. The score tile
-//   stays in registers: its accumulator layout is re-packed in place as the
-//   A operand of the next product (p.V, ds.K, p^T.dO, ds^T.q), rounded to
-//   bf16 there. Operands read as B along their rows are also staged
-//   transposed (v in K5f, k in K5dq, q and do in K5dkv), so every fragment
-//   is two 32-bit shared loads; rows are padded by 8 values so the 8 row
-//   groups of a warp hit distinct banks.
-// - Online softmax in fp32 in the log2 domain (exp2f), the running max and
-//   sum per row shared by the row's 4 lanes; rows are normalised once at
-//   the end. lse = (m + log2 l) * ln 2.
-// - Causal: tiles wholly above the diagonal are not visited (the loop stops
-//   at the diagonal tile, K5dkv starts there); only elements of the
-//   diagonal tile are masked. Masked scores are -inf, p = 0, so a padded
-//   tail tile (t not a multiple of 64; its rows are staged as zeros) gives 0
-//   and never NaN. The TPU kernel adds DEFAULT_MASK_VALUE (-0.7 f32max)
-//   instead; with t_q = t_k no causal row is wholly masked, so both agree.
-// - K5f and K5dq walk the query tiles from the last one down, so the blocks
-//   with the most key tiles start first.
-// - fp32: the same blocks and tiles on CUDA cores (FMA), 8 warps; a warp
-//   owns 8 rows, its lanes split the tile's 64 keys (or queries) for the
-//   dot products and then the head dim for the accumulation. Slow, kept for
-//   fp32 runs that must match the plain version to 1e-4.
-// - Strides: q, k, v and do are taken as strided views (batch, sequence and
-//   head strides in elements, the head dim contiguous), so the wrapper passes
-//   the c_attn output's slices as they are; rows are read as 16-byte
-//   vectors (the wrapper checks the alignment). o, dq, dk and dv are
-//   written contiguous [b, t, n, hd]; lse and di are [b, n, t] fp32.
+// Design. Every pass keeps the score tile in registers: its fp32
+// accumulator layout is re-packed in place as the A operand of the next
+// product (p.v, ds.k, p^T.do, ds^T.q), rounded to bf16 there. The TPU grid
+// walked the other sequence axis serially through VMEM scratch; here that is
+// a loop inside the block over tiles staged in shared memory. K5f and K5dkv
+// (fwd_bf16, dkv_bf16) are built for Hopper; they share:
+// - Asynchronous staging. Tiles arrive by 16-byte cp.async.cg into a ring of
+//   2 stages (K5f: k and v; K5dkv: q, do and, by 4-byte cp.async, the
+//   tile's lse and di), one commit group a tile, the next tile's copies in
+//   flight while this tile's products run, one __syncthreads() a tile. Rows
+//   at or past t are zero-filled by the copy (src-size 0), not by a branch.
+//   Past the last tile an empty group is committed, so wait_group's count
+//   holds on every iteration. The strided source needs no tensor map.
+// - One copy of each operand, row-major; no transposed second copy exists.
+// - Masks only where they can bite. A tile that crosses a warp's diagonal
+//   or the ragged end of the sequence gets the compare; every other tile
+//   runs none, and tiles wholly outside the causal triangle are not
+//   visited. Masked scores are -inf, p = 0 and never NaN. The TPU kernel
+//   adds DEFAULT_MASK_VALUE (-0.7 f32max) instead; with t_q = t_k no causal
+//   row is wholly masked, so both agree.
+// - Outputs go through the warp's own rows of shared memory and leave as
+//   16-byte vectors.
+// - Grid: (batch x head) on x and the tile on y, heaviest tile first (K5f
+//   walks the query tiles from the last one down), so all heads' heavy
+//   blocks start first and the light ones fill the tail.
+//
+// K5f runs on wgmma. A block is one warpgroup and owns 64 query rows of one
+// (batch, head), 16 a warp, and walks key tiles of 64.
+// - q's A fragments are loaded once by ldmatrix.x4 and stay in registers
+//   (16 at hd 64); q's shared memory later carries o out.
+// - s = q.k^T is wgmma m64n64k16 with A = q from registers and B = the k
+//   tile through a descriptor, k-major; o += p.v has A = p from the score
+//   registers and B = the same kind of tile of v read n-major (bf16 allows
+//   the transposed B), so v needs no second copy either. wgmma.fence before,
+//   commit_group and wait_group 0 after each batch; the accumulators are
+//   pinned after the wait so the compiler keeps its arithmetic below it.
+// - The ring's tiles are dense and swizzled as the descriptors expect
+//   (128-byte rows XORed by row mod 8 in panels of 64 columns; 64-byte rows
+//   at hd 32), written in that layout by the cp.async destinations; a
+//   fence.proxy.async before the barrier hands them to wgmma.
+// - Softmax in fp32 in the log2 domain with the scale folded into the
+//   exponent's FMA: p = ex2(s * scale*log2e - m * scale*log2e), one FMA and
+//   one ex2.approx an element; the row maximum is taken on the raw scores (a
+//   negative scale moves into q's sign). The running max and sum per row are
+//   shared by the row's 4 lanes; rows are normalised once at the end.
+//   lse = (m * scale*log2e + log2 l) * ln 2.
+// - 128 registers and 42 KB at hd 64: 4 blocks an SM, which is what overlaps
+//   one warpgroup's softmax with another's products. Within a warpgroup the
+//   tile is still serial (products, wait, softmax, products, wait); starting
+//   the next tile's q.k^T under this tile's softmax, 128-key tiles and TMA
+//   are what is left. An mma.sync version of this pass (4 warps of 32 rows,
+//   k by ldmatrix.x4, v by ldmatrix.x4.trans) was 0.068 ms a call where this
+//   one takes 0.050 and SDPA's forward 0.052 ([8, 1024, 12, 64] bf16 causal,
+//   cold L2, NVIDIA H100 80GB HBM3 at 700 W).
+//
+// K5dkv runs on mma.sync m16n8k16. A block owns 64 key rows, 4 warps of 16,
+// and walks query tiles of 64 (32 at hd 128).
+// - Tiles are row-major with rows padded by 8 values (144-byte rows at hd
+//   64: the 8 rows of an ldmatrix phase fall in 8 distinct 16-byte bank
+//   groups). q and do are read along their rows by ldmatrix.x4 for k.q^T and
+//   v.do^T, and down their rows by ldmatrix.x4.trans for p^T.do and ds^T.q,
+//   from the same tile.
+// - k's and v's A fragments stay in registers (32 at hd 64; at hd 128 they
+//   are re-read by ldmatrix, or the accumulators would spill).
+// - A tile goes s^T = k.q^T -> p (packed to bf16) -> dv += p^T.do ->
+//   dp^T = v.do^T -> ds = p (dp - di), p read back from its pack -> dk +=
+//   ds^T.q, so one fp32 score tile is live beside the two accumulators (244
+//   registers at hd 64, no spill; 128 threads x 244 registers is under half
+//   of an SM's 65,536, so 2 blocks an SM without a minimum-blocks bound). A
+//   warp skips a tile that lies wholly before its keys.
+// - Off the training path's head dim, ptxas reports small spills that are
+//   accepted for now: 36 bytes at hd 128 and 8 bytes at hd 32 (a few values
+//   beside the accumulators and the score tile). Both stay correct
+//   and are checked on the card; retiling them belongs to the backward's
+//   move to wgmma.
+//
+// K5dq (dq_bf16) is still the first design: 64 query rows a block, 4 warps,
+// mma.sync, load-then-compute staging through __ldg, k staged a second time
+// transposed, fragments by 32-bit shared loads. It is the next to redesign;
+// K5dkv and K5dq on wgmma, and TMA, come after.
+//
+// fp32: 64-row blocks and tiles on CUDA cores (FMA), 8 warps; a warp owns 8
+// rows, its lanes split the tile's 64 keys (or queries) for the dot products
+// and then the head dim for the accumulation. Slow, kept for fp32 runs that
+// must match the plain version to 1e-4.
+//
+// Strides: q, k, v and do are taken as strided views (batch, sequence and
+// head strides in elements, the head dim contiguous), so the wrapper passes
+// the c_attn output's slices as they are; rows are read as 16-byte vectors
+// (the wrapper checks the alignment). o, dq, dk and dv are written
+// contiguous [b, t, n, hd]; lse and di are [b, n, t] fp32.
 #include <math.h>
 #include <stdint.h>
 
@@ -110,6 +166,7 @@ __device__ __forceinline__ size_t out_row(int bi, int r, int h, int t, int n,
 
 // ------------------------------------------------------------------ bf16
 
+// ld32, frag_a, frag_b, stage and the mma taking b as an array serve K5dq.
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -185,120 +242,443 @@ __device__ __forceinline__ bool visible(int row, int col, int t, int causal) {
   return col < t && row < t && !(causal && col > row);
 }
 
+// ------------------------------- building blocks of K5f and K5dkv (bf16)
+// (ldsm4_t, lane_cr and the mma taking b0, b1 serve K5dkv alone)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// BYTES (16 or 4) from global to shared memory, asynchronously; when not
+// live nothing is read and the destination is filled with zeros.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool live) {
+  const int n = live ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + R) of a strided [t, HD] matrix (row stride rs) into the
+// row-major tile x[R][HD + 8] by 16-byte asynchronous copies; rows at or
+// past t are zero-filled by the copy itself (it reads nothing: the source
+// stays at row 0, which exists).
+template <int R, int HD, int NT>
+__device__ __forceinline__ void stage_async(bf16* x, const bf16* src,
+                                            long long rs, int r0, int t) {
+  constexpr int kVec = HD / 8, LD = HD + 8, kAll = R * kVec;
+#pragma unroll
+  for (int it = 0; it < (kAll + NT - 1) / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    if (kAll % NT != 0 && i >= kAll) break;
+    const int r = i / kVec, c = (i % kVec) * 8;
+    const bool live = r0 + r < t;
+    cp_async<16>(x + r * LD + c, src + (live ? r0 + r : 0) * rs + c, live);
+  }
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i .. 8i+7 give the
+// row addresses of matrix i, and r[i] comes back as the mma fragment of
+// matrix i (lane (g, c) holds row g, columns 2c and 2c + 1).
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// The same with every matrix transposed on the way (lane (g, c) holds
+// column g, rows 2c and 2c + 1 of the stored matrix).
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// A lane's element offset into a row-major tile (row stride LD) for the two
+// ldmatrix.x4 address patterns:
+// - lane_rc: matrices (rows 0-7, cols 0-7), (rows 8-15, cols 0-7), (rows
+//   0-7, cols 8-15), (rows 8-15, cols 8-15) of a 16 x 16 block. Plain, it is
+//   the A operand of rows r0.. over columns k0..; transposed (ldsm4_t), the
+//   B operands (b0, b1) of two adjacent 8-column blocks n0.., n0+8.. over
+//   the 16 rows k0.. of an operand read down its rows (do and q in K5dkv's
+//   second products).
+// - lane_cr: matrices (rows 0-7, cols 0-7), (rows 0-7, cols 8-15), (rows
+//   8-15, cols 0-7), (rows 8-15, cols 8-15): plain, the B operands (b0, b1)
+//   of the 8-row blocks n0.., n0+8.. over columns k0.. of an operand read
+//   along its rows (B[kk][nn] = y[n0 + nn][k0 + kk]: q in k.q^T, do in
+//   v.do^T).
+template <int LD>
+__device__ __forceinline__ int lane_rc(int lane) {
+  return (lane & 15) * LD + ((lane >> 4) << 3);
+}
+template <int LD>
+__device__ __forceinline__ int lane_cr(int lane) {
+  return ((lane & 7) + ((lane >> 4) << 3)) * LD + (((lane >> 3) & 1) << 3);
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x in one instruction (ex2.approx: relative error 2^-22; -inf gives 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A warp's 16 x HD block of bf16 rows in shared memory (row stride HD + 8),
+// written by that warp alone, to rows [row0, row0 + 16) of a contiguous
+// [b, t, n, hd] output as 16-byte vectors; rows at or past t are left out.
 template <int HD>
-constexpr int fwd_smem() {
-  return ((kRows + kTile) * (HD + 8) + HD * (kTile + 8)) * 2;
+__device__ __forceinline__ void store_rows(bf16* out, const bf16* x, int bi,
+                                           int row0, int h, int t, int n,
+                                           int lane) {
+  constexpr int kVec = HD / 8, LD = HD + 8;
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * kVec; i += 32) {
+    const int r = i / kVec, c = (i % kVec) * 8;
+    if (row0 + r < t)
+      *reinterpret_cast<uint4*>(out + out_row(bi, row0 + r, h, t, n, HD) + c) =
+          *reinterpret_cast<const uint4*>(x + r * LD + c);
+  }
+}
+
+// ------------------------------------------------------------------ K5f
+
+// Warpgroup matrix multiply: 4 warps start one asynchronous m64nNk16 product,
+// A (16 rows a warp, mma.sync's A fragment) from registers, B from shared
+// memory through a 64-bit descriptor, the sum in registers in mma.sync's
+// accumulator layout (warp w holds rows 16w .. 16w + 15).
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins an accumulator between an asynchronous product and its first use:
+// the compiler may not move arithmetic on it above the wait.
+__device__ __forceinline__ void pin(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+// Makes writes through the generic proxy (cp.async, st.shared) visible to
+// wgmma's reads of shared memory (the async proxy).
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Shared-memory descriptor of a swizzled operand: start address, leading
+// and stride byte offsets (each >> 4), swizzle mode (1: 128 bytes, 2: 64).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, int lbo, int sbo,
+                                            int mode) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)mode << 62);
+}
+
+// d (+)= a . b, m64n64k16. TB = 0: b is stored with k contiguous (the k
+// tile in q.k^T); TB = 1: with n contiguous (the v tile in p.v, read down
+// its rows). acc = 0 overwrites d.
+template <int TB>
+__device__ __forceinline__ void wgmma(float (&d)[8][4],
+                                      const uint32_t (&a)[4], uint64_t b,
+                                      int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
+      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+        "n"(TB));
+}
+
+// The same with n = 32 (hd 32's output).
+template <int TB>
+__device__ __forceinline__ void wgmma(float (&d)[4][4],
+                                      const uint32_t (&a)[4], uint64_t b,
+                                      int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "{%16,%17,%18,%19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+        "n"(TB));
+}
+
+// A k or v tile as wgmma reads it: kTile rows in panels of PW = min(hd, 64)
+// columns (rows of 128 bytes; 64 at hd 32), each panel dense and swizzled:
+// the 16-byte chunk index of a byte offset is XORed with the offset's bits
+// 7.. (3 bits for 128-byte rows, 2 for 64-byte rows), which is the layout
+// the descriptor's mode names. One tile serves both readings: k-major (8-row
+// groups kSbo apart, a k step of 16 columns is 32 bytes further along the
+// row) and n-major (a k step of 16 rows is 2 groups further down).
+template <int HD>
+struct WgTile {
+  static constexpr int PW = HD < 64 ? HD : 64, NP = HD / PW;
+  static constexpr int kRowBytes = PW * 2, kBits = PW == 64 ? 3 : 2;
+  static constexpr int kMode = PW == 64 ? 1 : 2;
+  static constexpr int kPanelBytes = kTile * kRowBytes;
+  static constexpr int kBytes = NP * kPanelBytes;
+  static constexpr int kSbo = 8 * kRowBytes;
+  // Byte offset of the 8 values at row r, columns col .. col + 7.
+  __device__ static int offset(int r, int col) {
+    const int off = r * kRowBytes + (col % PW) * 2;
+    return (col / PW) * kPanelBytes +
+           (off ^ (((off >> 7) & ((1 << kBits) - 1)) << 4));
+  }
+};
+
+// Rows [r0, r0 + kTile) of a strided [t, HD] matrix into a WgTile, by
+// 16-byte asynchronous copies; rows at or past t are zero-filled.
+template <int HD, int NT>
+__device__ __forceinline__ void stage_async_wg(unsigned char* x,
+                                               const bf16* src, long long rs,
+                                               int r0, int t) {
+  constexpr int kVec = HD / 8, kAll = kTile * kVec;
+#pragma unroll
+  for (int it = 0; it < (kAll + NT - 1) / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    if (kAll % NT != 0 && i >= kAll) break;
+    const int r = i / kVec, c = (i % kVec) * 8;
+    const bool live = r0 + r < t;
+    cp_async<16>(x + WgTile<HD>::offset(r, c),
+                 src + (live ? r0 + r : 0) * rs + c, live);
+  }
+}
+
+// K5f's block: one warpgroup, 64 query rows (16 a warp), key tiles of kTile
+// rows in a ring of kFwdStages stages (a third stage costs a block an SM at
+// hd 64 and was slower).
+constexpr int kFwdStages = 2;
+
+template <int HD>
+constexpr int fwd_smem() {  // 1024: the ring is aligned for the swizzle
+  return 1024 + kFwdStages * 2 * WgTile<HD>::kBytes + kRows * (HD + 8) * 2;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128) fwd_bf16(Params p) {
-  constexpr int LD = HD + 8, LDT = kTile + 8;
+__global__ void __launch_bounds__(128, HD <= 64 ? 4 : 1) fwd_bf16(Params p) {
+  using Tile = WgTile<HD>;
+  constexpr int LD = HD + 8, NT = 128, NS = kFwdStages;
+  constexpr int PW = Tile::PW, NP = Tile::NP;
+  constexpr int kStage = 2 * Tile::kBytes;  // a k tile, then its v tile
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + kRows * LD;
-  bf16* vt = ks + kTile * LD;
+  unsigned char* ring = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(ring + NS * kStage);
   const int t = p.t, n = p.n;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int bi = blockIdx.y / n, h = blockIdx.y % n;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int bi = blockIdx.x / n, h = blockIdx.x % n;
   const bf16* q = head_ptr<bf16>(p.q, p.sq, bi, h);
   const bf16* k = head_ptr<bf16>(p.k, p.sk, bi, h);
   const bf16* v = head_ptr<bf16>(p.v, p.sv, bi, h);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3, wr = warp * 16;
-  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
-
-  stage<kRows, HD, LD, 0>(qs, nullptr, q, p.sq[1], q0, t);
-  float acc[HD / 8][4] = {};
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const float sl2 = p.scale * kLog2e;
+  const int g = lane >> 2, c = lane & 3;
+  const int wr = warp * 16;  // the warp's first row in the block
   int n_tiles = (t + kTile - 1) / kTile;
   if (p.causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / kTile + 1);
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();  // the previous tile is consumed
-    stage<kTile, HD, LD, 0>(ks, nullptr, k, p.sk[1], k0, t);
-    stage<kTile, HD, 0, LDT>(nullptr, vt, v, p.sv[1], k0, t);
-    __syncthreads();
+  // Tile j into stage j % NS as one commit group; past the last tile the
+  // group is empty, so the wait count below holds on every iteration.
+  auto load_tile = [&](int j) {
+    if (j < n_tiles) {
+      unsigned char* ks = ring + (j % NS) * kStage;
+      stage_async_wg<HD, NT>(ks, k, p.sk[1], j * kTile, t);
+      stage_async_wg<HD, NT>(ks + Tile::kBytes, v, p.sv[1], j * kTile, t);
+    }
+    cp_async_commit();
+  };
+  stage_async<kRows, HD, NT>(qs, q, p.sq[1], q0, t);  // in tile 0's group
+#pragma unroll
+  for (int j = 0; j < NS - 1; ++j) load_tile(j);
+  cp_async_wait<NS - 2>();
+  __syncthreads();
 
+  // q stays in registers as A fragments. A negative scale moves into q's
+  // sign, so the row maximum can be taken before scaling; a zero scale is
+  // floored (2^(s * 1e-30) is 1 in fp32 and -inf stays -inf).
+  uint32_t aq[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    ldsm4(aq[kk], qs + wr * LD + kk * 16 + lane_rc<LD>(lane));
+    if (p.scale < 0.f) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) aq[kk][e] ^= 0x80008000u;
+    }
+  }
+  const float sl2 = fmaxf(fabsf(p.scale) * kLog2e, 1e-30f);
+  float acc[NP][PW / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int wrow0 = q0 + wr;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<NS - 2>();  // this thread's copies of tile j have landed
+    fence_async_proxy();
+    __syncthreads();          // everyone's have, and tile j - 1 is consumed
+    load_tile(j + NS - 1);    // into the stage tile j - 1 held
+    const int k0 = j * kTile;
+    const uint32_t ks = smem_addr(ring + (j % NS) * kStage);
+    const uint32_t vs = ks + Tile::kBytes;
+
+    // s = q.k^T: k-major b, one product per 16 columns of the head dim.
     float s[kTile / 8][4] = {};
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4];
-      frag_a(a, qs, LD, wr, kk * 16, g, c);
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma<0>(s, aq[kk],
+               wg_desc(ks + (kk * 16 / PW) * Tile::kPanelBytes +
+                           (kk * 16 % PW) * 2,
+                       16, Tile::kSbo, Tile::kMode),
+               kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
 #pragma unroll
-      for (int nb = 0; nb < kTile / 8; ++nb) {
-        uint32_t b[2];
-        frag_b(b, ks, LD, nb * 8, kk * 16, g, c);
-        mma(s[nb], a, b);
-      }
+    for (int nb = 0; nb < kTile / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pin(s[nb][e]);
+
+    // Only a tile that crosses the warp's diagonal or the end of the
+    // sequence holds a masked element; the others run no compare.
+    if ((p.causal && k0 + kTile - 1 > wrow0) || k0 + kTile > t) {
+#pragma unroll
+      for (int nb = 0; nb < kTile / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + nb * 8 + 2 * c + (e & 1);
+          const int row = wrow0 + g + (e >> 1) * 8;
+          if (col >= t || (p.causal && col > row)) s[nb][e] = -INFINITY;
+        }
     }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nb = 0; nb < kTile / 8; ++nb)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nb * 8 + 2 * c + (e & 1);
-        float x = s[nb][e] * sl2;
-        if (col >= t || (p.causal && col > rows[e >> 1])) x = -INFINITY;
-        s[nb][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float base[2], alpha[2], rsum[2] = {0.f, 0.f};
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
+    // Every row of a visited tile sees at least the tile's first key (k0 <=
+    // q0 when causal), so the new maximum is finite.
+    float msc[2], alpha[2], rsum[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
       const float mn = fmaxf(m[i], mx[i]);
-      base[i] = mn == -INFINITY ? 0.f : mn;
-      alpha[i] = exp2f(m[i] - base[i]);
+      alpha[i] = fast_exp2((m[i] - mn) * sl2);
+      msc[i] = mn * sl2;
       m[i] = mn;
     }
 #pragma unroll
     for (int nb = 0; nb < kTile / 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float pe = exp2f(s[nb][e] - base[e >> 1]);
+        const float pe = fast_exp2(fmaf(s[nb][e], sl2, -msc[e >> 1]));
         s[nb][e] = pe;
         rsum[e >> 1] += pe;
       }
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rsum[i];
 #pragma unroll
-    for (int nb = 0; nb < HD / 8; ++nb) {
-      acc[nb][0] *= alpha[0];
-      acc[nb][1] *= alpha[0];
-      acc[nb][2] *= alpha[1];
-      acc[nb][3] *= alpha[1];
-    }
+    for (int pn = 0; pn < NP; ++pn)
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      frag_a_acc(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int nb = 0; nb < HD / 8; ++nb) {
-        uint32_t b[2];
-        frag_b(b, vt, LDT, nb * 8, kk * 16, g, c);
-        mma(acc[nb], a, b);
+      for (int nb = 0; nb < PW / 8; ++nb) {
+        acc[pn][nb][0] *= alpha[0];
+        acc[pn][nb][1] *= alpha[0];
+        acc[pn][nb][2] *= alpha[1];
+        acc[pn][nb][3] *= alpha[1];
       }
-    }
+
+    // o += p.v: p from the score registers, v n-major from its row-major
+    // tile, one product per 16 keys and panel of the head dim.
+    uint32_t ap[kTile / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      frag_a_acc(ap[kk], s[2 * kk], s[2 * kk + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn)
+        wgmma<1>(acc[pn], ap[kk],
+                 wg_desc(vs + pn * Tile::kPanelBytes +
+                             kk * 16 * Tile::kRowBytes,
+                         Tile::kPanelBytes, Tile::kSbo, Tile::kMode),
+                 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int nb = 0; nb < PW / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pin(acc[pn][nb][e]);
   }
 
-  bf16* o = static_cast<bf16*>(p.o);
+  // The warp's rows of o go through its own rows of qs (no other warp read
+  // them) and leave as 16-byte vectors.
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (rows[i] >= t) continue;
-    const float inv = 1.f / l[i];
-    bf16* orow = o + out_row(bi, rows[i], h, t, n, HD);
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const float inv = 1.f / li;
+    const int rl = wr + g + 8 * i;
 #pragma unroll
-    for (int nb = 0; nb < HD / 8; ++nb)
-      *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8 + 2 * c) =
-          __floats2bfloat162_rn(acc[nb][2 * i] * inv, acc[nb][2 * i + 1] * inv);
-    if (c == 0)
-      p.lse_out[(size_t)blockIdx.y * t + rows[i]] = (m[i] + log2f(l[i])) * kLn2;
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int nb = 0; nb < PW / 8; ++nb)
+        *reinterpret_cast<__nv_bfloat162*>(qs + rl * LD + pn * PW + nb * 8 +
+                                           2 * c) =
+            __floats2bfloat162_rn(acc[pn][nb][2 * i] * inv,
+                                  acc[pn][nb][2 * i + 1] * inv);
+    if (c == 0 && q0 + rl < t)
+      p.lse_out[(size_t)blockIdx.x * t + q0 + rl] =
+          (m[i] * sl2 + log2f(li)) * kLn2;
   }
+  store_rows<HD>(static_cast<bf16*>(p.o), qs + wr * LD, bi, wrow0, h, t, n,
+                 lane);
 }
 
 template <int HD>
@@ -400,122 +780,239 @@ __global__ void __launch_bounds__(128) dq_bf16(Params p) {
   }
 }
 
+// ---------------------------------------------------------------- K5dkv
+
 // Queries per staged tile in K5dkv: 32 at hd 128 keeps the dK and dV
-// accumulators and both score tiles in registers.
+// accumulators (128 registers there) and a score tile in registers.
 template <int HD>
 constexpr int kDkvTile = HD == 128 ? 32 : 64;
 
+// Whether K5dkv holds its k and v A fragments in registers for the whole
+// block (2 x HD / 4 registers); at hd 128 they are re-read by ldmatrix from
+// the block's own tiles instead, or the accumulators would spill.
 template <int HD>
-constexpr int dkv_smem() {
-  constexpr int BI = kDkvTile<HD>;
-  return ((2 * kRows + 2 * BI) * (HD + 8) + 2 * HD * (BI + 8)) * 2 +
-         2 * BI * 4;
+constexpr bool kDkvResident = HD <= 64;
+
+// One query tile of K5dkv for one warp (16 keys), in an order that keeps
+// one fp32 score tile live beside the two accumulators:
+// s^T = k.q^T -> p (packed to bf16) -> dv += p^T.do -> dp^T = v.do^T ->
+// ds = p (dp - di) (packed) -> dk += ds^T.q. q and do are read along their
+// rows by ldmatrix for the first products and down their rows by
+// ldmatrix.trans for the second, from the same row-major tiles.
+// MASK: the tile holds queries past t or (causal) before a key of the warp.
+template <int HD, bool RES, bool MASK>
+__device__ __forceinline__ void dkv_tile(
+    const bf16* qs, const bf16* dos, const float* lse_s, const float* di_s,
+    const bf16* kw, const bf16* vw, const uint32_t (&ak)[HD / 16][4],
+    const uint32_t (&av)[HD / 16][4], float (&dk)[HD / 8][4],
+    float (&dv)[HD / 8][4], float sl2, int i0, int key0, int t, int causal,
+    int lane) {
+  constexpr int BI = kDkvTile<HD>, LD = HD + 8;
+  const int c = lane & 3;
+  const bf16* qb = qs + lane_cr<LD>(lane);
+  const bf16* qbt = qs + lane_rc<LD>(lane);
+  const bf16* dob = dos + lane_cr<LD>(lane);
+  const bf16* dobt = dos + lane_rc<LD>(lane);
+  float s[BI / 8][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    if constexpr (RES) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = ak[kk][e];
+    } else {
+      ldsm4(a, kw + kk * 16 + lane_rc<LD>(lane));
+    }
+#pragma unroll
+    for (int nbp = 0; nbp < BI / 16; ++nbp) {
+      uint32_t b[4];
+      ldsm4(b, qb + nbp * 16 * LD + kk * 16);
+      mma(s[2 * nbp], a, b[0], b[1]);
+      mma(s[2 * nbp + 1], a, b[2], b[3]);
+    }
+  }
+  uint32_t ap[BI / 16][4];
+#pragma unroll
+  for (int nb = 0; nb < BI / 8; ++nb) {
+    const float2 ls = *reinterpret_cast<const float2*>(lse_s + nb * 8 + 2 * c);
+    const float l2[2] = {ls.x * kLog2e, ls.y * kLog2e};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float pe = fast_exp2(fmaf(s[nb][e], sl2, -l2[e & 1]));
+      if (MASK && !visible(i0 + nb * 8 + 2 * c + (e & 1),
+                           key0 + 8 * (e >> 1), t, causal))
+        pe = 0.f;
+      s[nb][e] = pe;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < BI / 16; ++kk) {
+    frag_a_acc(ap[kk], s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+    for (int nbp = 0; nbp < HD / 16; ++nbp) {
+      uint32_t b[4];
+      ldsm4_t(b, dobt + kk * 16 * LD + nbp * 16);
+      mma(dv[2 * nbp], ap[kk], b[0], b[1]);
+      mma(dv[2 * nbp + 1], ap[kk], b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int nb = 0; nb < BI / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    if constexpr (RES) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = av[kk][e];
+    } else {
+      ldsm4(a, vw + kk * 16 + lane_rc<LD>(lane));
+    }
+#pragma unroll
+    for (int nbp = 0; nbp < BI / 16; ++nbp) {
+      uint32_t b[4];
+      ldsm4(b, dob + nbp * 16 * LD + kk * 16);
+      mma(s[2 * nbp], a, b[0], b[1]);
+      mma(s[2 * nbp + 1], a, b[2], b[3]);
+    }
+  }
+  // ds = p (dp - di), p read back from its bf16 pack: ap[kk][2 hh + r] holds
+  // block 2 kk + hh, row half r, columns 2c (low half) and 2c + 1.
+#pragma unroll
+  for (int nb = 0; nb < BI / 8; ++nb) {
+    const float2 dd = *reinterpret_cast<const float2*>(di_s + nb * 8 + 2 * c);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t pk = ap[nb >> 1][2 * (nb & 1) + r];
+      s[nb][2 * r] = __uint_as_float(pk << 16) * (s[nb][2 * r] - dd.x);
+      s[nb][2 * r + 1] =
+          __uint_as_float(pk & 0xffff0000u) * (s[nb][2 * r + 1] - dd.y);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < BI / 16; ++kk) {
+    frag_a_acc(ap[kk], s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+    for (int nbp = 0; nbp < HD / 16; ++nbp) {
+      uint32_t b[4];
+      ldsm4_t(b, qbt + kk * 16 * LD + nbp * 16);
+      mma(dk[2 * nbp], ap[kk], b[0], b[1]);
+      mma(dk[2 * nbp + 1], ap[kk], b[2], b[3]);
+    }
+  }
+}
+
+// K5dkv's block: 4 warps of 16 key rows each (kRows keys); a ring stage
+// holds a q tile, its do tile and the tile's lse and di.
+constexpr int kDkvWarps = kRows / 16;
+
+template <int HD>
+constexpr int kDkvStageBytes =
+    2 * kDkvTile<HD> * (HD + 8) * 2 + 2 * kDkvTile<HD> * 4;
+
+template <int HD>
+constexpr int dkv_smem() {  // the k and v tiles, then the ring
+  return 2 * kRows * (HD + 8) * 2 + 2 * kDkvStageBytes<HD>;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128) dkv_bf16(Params p) {
-  constexpr int BI = kDkvTile<HD>;
-  constexpr int LD = HD + 8, LDT = BI + 8;
+__global__ void __launch_bounds__(kDkvWarps * 32) dkv_bf16(Params p) {
+  constexpr int BK = kRows, BI = kDkvTile<HD>, LD = HD + 8;
+  constexpr int NT = kDkvWarps * 32;
+  constexpr bool RES = kDkvResident<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kRows * LD;
-  bf16* qs = vs + kRows * LD;
-  bf16* dos = qs + BI * LD;
-  bf16* qt = dos + BI * LD;
-  bf16* dot = qt + HD * LDT;
-  float* lse_s = reinterpret_cast<float*>(dot + HD * LDT);
-  float* di_s = lse_s + BI;
+  bf16* vs = ks + BK * LD;
+  unsigned char* ring = smem + 2 * BK * LD * 2;
   const int t = p.t, n = p.n;
-  const int k0 = blockIdx.x * kRows;
-  const int bi = blockIdx.y / n, h = blockIdx.y % n;
+  const int k0 = blockIdx.y * BK;
+  const int bi = blockIdx.x / n, h = blockIdx.x % n;
   const bf16* q = head_ptr<bf16>(p.q, p.sq, bi, h);
   const bf16* k = head_ptr<bf16>(p.k, p.sk, bi, h);
   const bf16* v = head_ptr<bf16>(p.v, p.sv, bi, h);
   const bf16* dout = head_ptr<bf16>(p.dout, p.sdo, bi, h);
+  const float* lse = p.lse + (size_t)blockIdx.x * t;
+  const float* dig = p.di + (size_t)blockIdx.x * t;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3, wr = warp * 16;
-  const int keys[2] = {k0 + wr + g, k0 + wr + g + 8};
-
-  stage<kRows, HD, LD, 0>(ks, nullptr, k, p.sk[1], k0, t);
-  stage<kRows, HD, LD, 0>(vs, nullptr, v, p.sv[1], k0, t);
-  float dk[HD / 8][4] = {}, dv[HD / 8][4] = {};
-  const float sl2 = p.scale * kLog2e;
+  const int g = lane >> 2, c = lane & 3, wk = warp * 16;
   const int n_tiles = (t + BI - 1) / BI;
-  const float* lse = p.lse + (size_t)blockIdx.y * t;
-  const float* dig = p.di + (size_t)blockIdx.y * t;
+  const int it0 = p.causal ? k0 / BI : 0;  // the first tile with a visible pair
 
-  for (int it = p.causal ? k0 / BI : 0; it < n_tiles; ++it) {
-    const int i0 = it * BI;
-    __syncthreads();
-    stage<BI, HD, LD, LDT>(qs, qt, q, p.sq[1], i0, t);
-    stage<BI, HD, LD, LDT>(dos, dot, dout, p.sdo[1], i0, t);
-    for (int i = threadIdx.x; i < BI; i += blockDim.x) {
-      const bool live = i0 + i < t;
-      lse_s[i] = live ? lse[i0 + i] * kLog2e : 0.f;
-      di_s[i] = live ? dig[i0 + i] : 0.f;
+  // Query tile it into stage (it - it0) % 2 as one commit group (empty past
+  // the last tile): q, do, then lse and di by 4-byte copies, since a
+  // [b, n, t] row starts at a 16-byte boundary only when t is a multiple
+  // of 4.
+  auto load_tile = [&](int it) {
+    if (it < n_tiles) {
+      unsigned char* st = ring + ((it - it0) & 1) * kDkvStageBytes<HD>;
+      bf16* qs = reinterpret_cast<bf16*>(st);
+      bf16* dos = qs + BI * LD;
+      float* stats = reinterpret_cast<float*>(dos + BI * LD);
+      const int i0 = it * BI;
+      stage_async<BI, HD, NT>(qs, q, p.sq[1], i0, t);
+      stage_async<BI, HD, NT>(dos, dout, p.sdo[1], i0, t);
+      for (int i = threadIdx.x; i < 2 * BI; i += NT) {
+        const bool live = i0 + i % BI < t;
+        cp_async<4>(stats + i,
+                    (i < BI ? lse : dig) + (live ? i0 + i % BI : 0), live);
+      }
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  stage_async<BK, HD, NT>(ks, k, p.sk[1], k0, t);  // in the first tile's group
+  stage_async<BK, HD, NT>(vs, v, p.sv[1], k0, t);
+  load_tile(it0);
+  cp_async_wait<0>();
+  __syncthreads();
 
-    float s[BI / 8][4] = {}, dp[BI / 8][4] = {};
+  const bf16* kw = ks + wk * LD;  // the warp's own 16 rows of k and v
+  const bf16* vw = vs + wk * LD;
+  uint32_t ak[HD / 16][4], av[HD / 16][4];
+  if constexpr (RES) {
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      frag_a(ak, ks, LD, wr, kk * 16, g, c);
-      frag_a(av, vs, LD, wr, kk * 16, g, c);
-#pragma unroll
-      for (int nb = 0; nb < BI / 8; ++nb) {
-        uint32_t b[2];
-        frag_b(b, qs, LD, nb * 8, kk * 16, g, c);
-        mma(s[nb], ak, b);
-        frag_b(b, dos, LD, nb * 8, kk * 16, g, c);
-        mma(dp[nb], av, b);
-      }
+      ldsm4(ak[kk], kw + kk * 16 + lane_rc<LD>(lane));
+      ldsm4(av[kk], vw + kk * 16 + lane_rc<LD>(lane));
     }
-#pragma unroll
-    for (int nb = 0; nb < BI / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = nb * 8 + 2 * c + (e & 1);
-        float pe = 0.f, ds = 0.f;
-        if (visible(i0 + qi, keys[e >> 1], t, p.causal)) {
-          pe = exp2f(s[nb][e] * sl2 - lse_s[qi]);
-          ds = pe * (dp[nb][e] - di_s[qi]);
-        }
-        s[nb][e] = pe;
-        dp[nb][e] = ds;
-      }
-#pragma unroll
-    for (int kk = 0; kk < BI / 16; ++kk) {
-      uint32_t ap[4], ads[4];
-      frag_a_acc(ap, s[2 * kk], s[2 * kk + 1]);
-      frag_a_acc(ads, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int nb = 0; nb < HD / 8; ++nb) {
-        uint32_t b[2];
-        frag_b(b, dot, LDT, nb * 8, kk * 16, g, c);
-        mma(dv[nb], ap, b);
-        frag_b(b, qt, LDT, nb * 8, kk * 16, g, c);
-        mma(dk[nb], ads, b);
-      }
-    }
+  }
+  float dk[HD / 8][4] = {}, dv[HD / 8][4] = {};
+  const float sl2 = p.scale * kLog2e;
+  const int wkey0 = k0 + wk;
+
+  for (int it = it0; it < n_tiles; ++it) {
+    cp_async_wait<0>();  // this thread's copies of tile it have landed
+    __syncthreads();     // everyone's have, and tile it - 1 is consumed
+    load_tile(it + 1);   // into the stage tile it - 1 held
+    const int i0 = it * BI;
+    if (p.causal && wkey0 > i0 + BI - 1) continue;  // wholly before the keys
+    const unsigned char* st = ring + ((it - it0) & 1) * kDkvStageBytes<HD>;
+    const bf16* qs = reinterpret_cast<const bf16*>(st);
+    const bf16* dos = qs + BI * LD;
+    const float* lse_s = reinterpret_cast<const float*>(dos + BI * LD);
+    if ((p.causal && wkey0 + 15 > i0) || i0 + BI > t)
+      dkv_tile<HD, RES, true>(qs, dos, lse_s, lse_s + BI, kw, vw, ak, av, dk,
+                              dv, sl2, i0, wkey0 + g, t, p.causal, lane);
+    else
+      dkv_tile<HD, RES, false>(qs, dos, lse_s, lse_s + BI, kw, vw, ak, av, dk,
+                               dv, sl2, i0, wkey0 + g, t, p.causal, lane);
   }
 
-  bf16* dkp = static_cast<bf16*>(p.dk);
-  bf16* dvp = static_cast<bf16*>(p.dv);
+  // dk and dv leave through the warp's own rows of the k and v tiles.
+  bf16* kout = ks + wk * LD;
+  bf16* vout = vs + wk * LD;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (keys[i] >= t) continue;
-    const size_t at = out_row(bi, keys[i], h, t, n, HD);
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int nb = 0; nb < HD / 8; ++nb) {
-      const int col = nb * 8 + 2 * c;
-      *reinterpret_cast<__nv_bfloat162*>(dkp + at + col) =
-          __floats2bfloat162_rn(dk[nb][2 * i] * p.scale,
-                                dk[nb][2 * i + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + at + col) =
+      const int at = (g + 8 * i) * LD + nb * 8 + 2 * c;
+      *reinterpret_cast<__nv_bfloat162*>(kout + at) = __floats2bfloat162_rn(
+          dk[nb][2 * i] * p.scale, dk[nb][2 * i + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(vout + at) =
           __floats2bfloat162_rn(dv[nb][2 * i], dv[nb][2 * i + 1]);
     }
-  }
+  store_rows<HD>(static_cast<bf16*>(p.dk), kout, bi, wkey0, h, t, n, lane);
+  store_rows<HD>(static_cast<bf16*>(p.dv), vout, bi, wkey0, h, t, n, lane);
 }
 
 // ------------------------------------------------------------------ fp32
@@ -802,14 +1299,28 @@ __global__ void __launch_bounds__(256) dkv_f32(Params p) {
 
 enum Pass { kFwd = 0, kDkv = 1, kDq = 2 };
 
-template <typename Kernel>
-int launch(Kernel kernel, int smem, int threads, const Params& p, int b,
-           cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// One block per ROWS rows of the sequence and (batch, head). HEADS_FIRST
+// puts (batch, head) on grid.x, the axis blocks are handed out along first:
+// all heads' blocks of one tile start together, the tiles in the kernel's
+// order (heaviest first), so the light blocks fill the tail. The opt-in to
+// more than 48 KB of dynamic shared memory is made once per instantiation
+// and device, not on every launch.
+template <void (*KERNEL)(Params), int SMEM, int THREADS, int ROWS,
+          bool HEADS_FIRST>
+int launch(const Params& p, int b, cudaStream_t s) {
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.t + kRows - 1) / kRows, b * p.n);
-  kernel<<<grid, threads, smem, s>>>(p);
+  if (dev >= 64 || !ready[dev]) {
+    err = cudaFuncSetAttribute(
+        KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) ready[dev] = true;
+  }
+  const int tiles = (p.t + ROWS - 1) / ROWS;
+  const dim3 grid = HEADS_FIRST ? dim3(b * p.n, tiles) : dim3(tiles, b * p.n);
+  KERNEL<<<grid, THREADS, SMEM, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -817,13 +1328,18 @@ template <int HD>
 int launch_pass(int pass, int bf16_in, const Params& p, int b,
                 cudaStream_t s) {
   if (bf16_in) {
-    if (pass == kFwd) return launch(fwd_bf16<HD>, fwd_smem<HD>(), 128, p, b, s);
-    if (pass == kDkv) return launch(dkv_bf16<HD>, dkv_smem<HD>(), 128, p, b, s);
-    return launch(dq_bf16<HD>, dq_smem<HD>(), 128, p, b, s);
+    if (pass == kFwd)
+      return launch<fwd_bf16<HD>, fwd_smem<HD>(), 128, kRows, true>(p, b, s);
+    if (pass == kDkv)
+      return launch<dkv_bf16<HD>, dkv_smem<HD>(), kDkvWarps * 32, kRows,
+                    true>(p, b, s);
+    return launch<dq_bf16<HD>, dq_smem<HD>(), 128, kRows, false>(p, b, s);
   }
-  if (pass == kFwd) return launch(fwd_f32<HD>, fwd32_smem<HD>(), 256, p, b, s);
-  if (pass == kDkv) return launch(dkv_f32<HD>, dkv32_smem<HD>(), 256, p, b, s);
-  return launch(dq_f32<HD>, dq32_smem<HD>(), 256, p, b, s);
+  if (pass == kFwd)
+    return launch<fwd_f32<HD>, fwd32_smem<HD>(), 256, kRows, false>(p, b, s);
+  if (pass == kDkv)
+    return launch<dkv_f32<HD>, dkv32_smem<HD>(), 256, kRows, false>(p, b, s);
+  return launch<dq_f32<HD>, dq32_smem<HD>(), 256, kRows, false>(p, b, s);
 }
 
 int run(int pass, const Params& p, int dtype, int b, int hd, void* stream) {
@@ -839,6 +1355,12 @@ int run(int pass, const Params& p, int dtype, int b, int hd, void* stream) {
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+template <int HD>
+int smem_bytes(int pass) {
+  if (pass == kFwd) return fwd_smem<HD>();
+  return pass == kDkv ? dkv_smem<HD>() : dq_smem<HD>();
 }
 
 Params make_params(const void* q, const void* k, const void* v,
@@ -866,6 +1388,22 @@ Params make_params(const void* q, const void* k, const void* v,
 }  // namespace tempo
 
 extern "C" {
+
+// Dynamic shared memory, in bytes, that a block of the bf16 kernel of a pass
+// (0 forward, 1 dK/dV, 2 dQ) asks for at head dim hd; -1 for another hd.
+int tempo_flash_smem_bytes(int pass, int hd) {
+  using namespace tempo::flash;
+  switch (hd) {
+    case 32:
+      return smem_bytes<32>(pass);
+    case 64:
+      return smem_bytes<64>(pass);
+    case 128:
+      return smem_bytes<128>(pass);
+    default:
+      return -1;
+  }
+}
 
 // q, k, v [b, t, n, hd] (dtype 0 f32, 1 bf16) as strided views: strides
 // holds the batch, sequence and head strides in elements of q, k and v, in

@@ -13,6 +13,37 @@ its backward computes di = rowsum(dO * O) in fp32, as the library does
 outside its kernels, then runs the dK/dV pass and the dQ pass, both of
 which recompute the probabilities from q, k and the logsumexp.
 
+The kernels (csrc/flash_attn.cu), bf16 operands with fp32 accumulation and
+the score tile kept in registers:
+
+- K5f runs on ``wgmma``: a block is one warpgroup that owns 64 query rows
+  of one (batch, head) and walks 64-key tiles. q's A fragments are loaded
+  once by ``ldmatrix`` and stay in registers; k and v tiles arrive by
+  16-byte ``cp.async`` into a ring of 2 stages, the next tile in flight
+  during this tile's products, in the swizzled layout the ``wgmma``
+  descriptors read: k k-major for S = q.k^T, v n-major from its one
+  row-major tile for O += P.v, P straight from the score registers. The
+  softmax runs in the log2 domain with the scale folded into the
+  exponent's FMA. 128 registers and 42 KB a block at hd 64, 4 blocks an SM.
+- K5dkv runs on ``mma.sync``: a block owns 64 key rows (4 warps of 16) and
+  walks 64-query tiles (32 at hd 128). k's and v's A fragments stay in
+  registers (hd <= 64); q, dO, lse and di tiles arrive through the same
+  kind of ring; q and dO are read by ``ldmatrix.x4`` for S^T and dP^T and
+  by ``ldmatrix.x4.trans`` for dV and dK. A tile goes S^T -> P -> dV ->
+  dP^T -> dS -> dK, so one fp32 score tile is live beside the two
+  accumulators (244 registers at hd 64, no spill).
+- Both visit no tile wholly outside the causal triangle, mask only tiles
+  that cross the diagonal or the ragged end of the sequence, and zero-fill
+  rows past t in the copy itself. What bounds them: at hd 64 a call sits on
+  the ridge between bytes and tensor-core operations; the kernels
+  themselves are held by the serial chain of a tile (products, wait,
+  softmax or dS, products) and, in K5dkv, by the instruction stream around its
+  ``mma.sync`` products, not by memory.
+- K5dq is still the first design (load-then-compute staging, a transposed
+  second copy of k, 32-bit fragment loads). Left for later: K5dq's
+  redesign, ``wgmma`` for the two backward passes, overlapping a tile's
+  softmax with the next tile's products in K5f, and TMA.
+
 Each pass has a plain PyTorch version with the same math (the backward
 recomputes P from q, k and lse; it is not autograd through a softmax). A
 wrapper takes its plain version for a tensor on the CPU, and for a CUDA
