@@ -6,11 +6,13 @@
 Phases, each fatal on failure:
   1. build   compile the CUDA kernels from tempo_tpu_torch/csrc with nvcc, and
              print what ptxas says of every kernel (registers, spills,
-             shared memory); K5f and K5dkv may not spill at head dim 64;
+             shared memory); K5f and K5dkv may not spill at head dim 64,
+             nor any bf16 K2 tile configuration;
   2. kernels hold each kernel against its plain PyTorch version on the card
              at the shapes the main path gives it (discovered by running the
              tile batch and the granule once each), and time kernel, plain
-             version and library calls;
+             version and library calls (K2's lines name the tile
+             configuration and split its launcher chose);
   3. main    the flagship AutoencoderKL (27,289,893 parameters, bf16
              compute, weights from a seed): encode -> mode -> decode of an
              [8,64,64,1028] tile batch and GranuleCodec.reconstruct_raw of a
@@ -139,12 +141,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def ptxas_lines(build_log: str, smem_bytes) -> list[str]:
+def ptxas_lines(build_log: str, smem_bytes, k2_config) -> list[str]:
     """One line per kernel from nvcc's -Xptxas -v output: its name (for the
-    tempo::flash kernels with their template arguments, else as mangled),
-    registers, static shared memory, spill bytes, and for the bf16 flash
-    kernels the dynamic shared memory a block asks for
-    (``smem_bytes(pass, hd)``)."""
+    tempo::flash and tempo::gn_conv kernels with their template arguments,
+    else as mangled), registers, static shared memory, spill bytes, and for
+    the bf16 flash kernels and K2's bf16 instantiations the dynamic shared
+    memory a block asks for (``smem_bytes(pass, hd)``; ``k2_config(args)``
+    gives the configuration's name and bytes)."""
     import re
 
     passes = {"fwd_bf16": 0, "dkv_bf16": 1, "dq_bf16": 2}
@@ -154,12 +157,20 @@ def ptxas_lines(build_log: str, smem_bytes) -> list[str]:
         if m:
             name, dyn = m.group(1), ""
             f = re.search(r"^5flash\d+([a-z0-9_]+?)I(\S*?)EEv", name)
+            g = re.search(r"^7gn_conv\d+([a-z0-9_]+?)(?:I(\S*?)EEv|E)", name)
             if f:
                 args = re.findall(r"L[ib](\d+)E", f.group(2))
                 name = f"tempo::flash {f.group(1)}<{','.join(args)}>"
                 if f.group(1) in passes:
                     dyn = (f", {smem_bytes(passes[f.group(1)], int(args[0]))}"
                            f" bytes dynamic smem")
+            elif g:
+                args = re.findall(r"L[ib](\d+)E", g.group(2) or "")
+                name = f"tempo::gn_conv {g.group(1)}"
+                if args:
+                    config, nbytes = k2_config(tuple(map(int, args)))
+                    name += f"<{','.join(args)}> ({config})"
+                    dyn = f", {nbytes} bytes dynamic smem"
         elif name and "spill" in line:
             spill = line.strip()
         elif name and "Used" in line:
@@ -1169,8 +1180,16 @@ def main() -> int:
     print(f"[build] {time.perf_counter() - t0:.1f} s (sources: "
           f"{[p.name for p in _build._sources()]})", flush=True)
     if _build.build_log:
-        lines = ptxas_lines(_build.build_log,
-                            _build.library().tempo_flash_smem_bytes)
+        lib = _build.library()
+
+        def k2_config(args):
+            for name, (cid, *shape) in cuda_gn_conv.CONFIGS.items():
+                if tuple(shape) == args:
+                    return name, lib.tempo_gn_conv_smem_bytes(cid)
+            fail(f"K2 instantiation {args} is not in cuda_gn_conv.CONFIGS")
+
+        lines = ptxas_lines(_build.build_log, lib.tempo_flash_smem_bytes,
+                            k2_config)
         for line in lines:
             print(f"[build] ptxas {line}", flush=True)
         path_k5 = [ln for ln in lines if ln.startswith(
@@ -1180,6 +1199,14 @@ def main() -> int:
         if spilled or len(path_k5) != 2:
             fail(f"K5f or K5dkv spills at hd 64, or ptxas said nothing of "
                  f"them: {spilled or path_k5}")
+        # Every bf16 K2 configuration is one the path's launcher picks.
+        path_k2 = [ln for ln in lines
+                   if ln.startswith("tempo::gn_conv conv_bf16<")]
+        spilled = [ln for ln in path_k2 if "0 bytes spill stores, 0 bytes "
+                   "spill loads" not in ln]
+        if spilled or len(path_k2) != len(cuda_gn_conv.CONFIGS):
+            fail(f"a bf16 K2 configuration spills, or ptxas said nothing of "
+                 f"one: {spilled or path_k2}")
     else:
         print("[build] the kernel library was loaded from build/kernels "
               "(built by an earlier run): no ptxas output in this run",
@@ -1369,7 +1396,9 @@ def main() -> int:
             activated = nchw(cuda_gn.gn_apply_plain(x, st, scale, bias, act))
             ms = time_ms(lambda: cuda_gn_conv.conv3x3_from_stats(
                 x, st, scale, bias, weight, cb, act, packed))
-            add(r, {"x": list(shape), "f": f}, n, err, ok, ms,
+            config, split = cuda_gn_conv.choose_config(b, h, w, c, f)
+            add(r, {"x": list(shape), "f": f, "config": config,
+                    "split": split}, n, err, ok, ms,
                 time_ms(lambda: cuda_gn_conv.conv3x3_from_stats_plain(
                     x, st, scale, bias, weight, cb, act)),
                 bound, by,

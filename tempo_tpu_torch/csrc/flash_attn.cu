@@ -122,6 +122,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace tempo {
 namespace flash {
@@ -243,39 +244,8 @@ __device__ __forceinline__ bool visible(int row, int col, int t, int causal) {
 }
 
 // ------------------------------- building blocks of K5f and K5dkv (bf16)
-// (ldsm4_t, lane_cr and the mma taking b0, b1 serve K5dkv alone)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// BYTES (16 or 4) from global to shared memory, asynchronously; when not
-// live nothing is read and the destination is filled with zeros.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool live) {
-  const int n = live ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(n)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// (the mma taking b0, b1 serves K5dkv alone; the Hopper helpers, cp_async,
+// ldsm4, lane_rc/lane_cr, wgmma and its fences, are in hopper.cuh)
 
 // Rows [r0, r0 + R) of a strided [t, HD] matrix (row stride rs) into the
 // row-major tile x[R][HD + 8] by 16-byte asynchronous copies; rows at or
@@ -293,49 +263,6 @@ __device__ __forceinline__ void stage_async(bf16* x, const bf16* src,
     const bool live = r0 + r < t;
     cp_async<16>(x + r * LD + c, src + (live ? r0 + r : 0) * rs + c, live);
   }
-}
-
-// Four 8 x 8 bf16 matrices from shared memory: lanes 8i .. 8i+7 give the
-// row addresses of matrix i, and r[i] comes back as the mma fragment of
-// matrix i (lane (g, c) holds row g, columns 2c and 2c + 1).
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// The same with every matrix transposed on the way (lane (g, c) holds
-// column g, rows 2c and 2c + 1 of the stored matrix).
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// A lane's element offset into a row-major tile (row stride LD) for the two
-// ldmatrix.x4 address patterns:
-// - lane_rc: matrices (rows 0-7, cols 0-7), (rows 8-15, cols 0-7), (rows
-//   0-7, cols 8-15), (rows 8-15, cols 8-15) of a 16 x 16 block. Plain, it is
-//   the A operand of rows r0.. over columns k0..; transposed (ldsm4_t), the
-//   B operands (b0, b1) of two adjacent 8-column blocks n0.., n0+8.. over
-//   the 16 rows k0.. of an operand read down its rows (do and q in K5dkv's
-//   second products).
-// - lane_cr: matrices (rows 0-7, cols 0-7), (rows 0-7, cols 8-15), (rows
-//   8-15, cols 0-7), (rows 8-15, cols 8-15): plain, the B operands (b0, b1)
-//   of the 8-row blocks n0.., n0+8.. over columns k0.. of an operand read
-//   along its rows (B[kk][nn] = y[n0 + nn][k0 + kk]: q in k.q^T, do in
-//   v.do^T).
-template <int LD>
-__device__ __forceinline__ int lane_rc(int lane) {
-  return (lane & 15) * LD + ((lane >> 4) << 3);
-}
-template <int LD>
-__device__ __forceinline__ int lane_cr(int lane) {
-  return ((lane & 7) + ((lane >> 4) << 3)) * LD + (((lane >> 3) & 1) << 3);
 }
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
@@ -373,82 +300,6 @@ __device__ __forceinline__ void store_rows(bf16* out, const bf16* x, int bi,
 }
 
 // ------------------------------------------------------------------ K5f
-
-// Warpgroup matrix multiply: 4 warps start one asynchronous m64nNk16 product,
-// A (16 rows a warp, mma.sync's A fragment) from registers, B from shared
-// memory through a 64-bit descriptor, the sum in registers in mma.sync's
-// accumulator layout (warp w holds rows 16w .. 16w + 15).
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pins an accumulator between an asynchronous product and its first use:
-// the compiler may not move arithmetic on it above the wait.
-__device__ __forceinline__ void pin(float& x) {
-  asm volatile("" : "+f"(x)::"memory");
-}
-// Makes writes through the generic proxy (cp.async, st.shared) visible to
-// wgmma's reads of shared memory (the async proxy).
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Shared-memory descriptor of a swizzled operand: start address, leading
-// and stride byte offsets (each >> 4), swizzle mode (1: 128 bytes, 2: 64).
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, int lbo, int sbo,
-                                            int mode) {
-  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)mode << 62);
-}
-
-// d (+)= a . b, m64n64k16. TB = 0: b is stored with k contiguous (the k
-// tile in q.k^T); TB = 1: with n contiguous (the v tile in p.v, read down
-// its rows). acc = 0 overwrites d.
-template <int TB>
-__device__ __forceinline__ void wgmma(float (&d)[8][4],
-                                      const uint32_t (&a)[4], uint64_t b,
-                                      int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,"
-      "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
-      "{%32,%33,%34,%35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
-        "n"(TB));
-}
-
-// The same with n = 32 (hd 32's output).
-template <int TB>
-__device__ __forceinline__ void wgmma(float (&d)[4][4],
-                                      const uint32_t (&a)[4], uint64_t b,
-                                      int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
-      "{%16,%17,%18,%19}, %20, p, 1, 1, %22;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
-        "n"(TB));
-}
 
 // A k or v tile as wgmma reads it: kTile rows in panels of PW = min(hd, 64)
 // columns (rows of 128 bytes; 64 at hd 32), each panel dense and swizzled:

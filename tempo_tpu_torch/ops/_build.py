@@ -29,16 +29,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FLASH_TAIL = [_P, _I, _I, _I, _I, _I, _F, _I, _P]  # strides .. stream
 # C entry point -> argtypes; every entry point returns cudaGetLastError(),
-# but tempo_flash_smem_bytes, which returns a size.
+# but tempo_flash_smem_bytes and tempo_gn_conv_smem_bytes, which return a
+# size.
 SIGNATURES = {
     "tempo_flash_smem_bytes": [_I, _I],
+    "tempo_gn_conv_smem_bytes": [_I],
     "tempo_flash_fwd": [_P] * 5 + _FLASH_TAIL,
     "tempo_flash_bwd_dkv": [_P] * 8 + _FLASH_TAIL,
     "tempo_flash_bwd_dq": [_P] * 7 + _FLASH_TAIL,
     "tempo_gn_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "tempo_gn_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "tempo_gn_conv3x3": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _P],
+    "tempo_gn_conv3x3": [_P] * 8 + [_I] * 9 + [_P],
     "tempo_decode_attention": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P],
 }

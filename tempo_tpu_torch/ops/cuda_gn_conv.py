@@ -7,7 +7,9 @@ the H100 and how it is laid out. The GroupNorm statistics come from K1a
 through ``conv3x3_from_stats``, which launches K2 alone.
 
 Each wrapper takes its plain version beside it for a tensor on the CPU, and
-for a CUDA tensor launches the kernel or raises. It counts its launches in
+for a CUDA tensor launches the kernel or raises. ``choose_config`` picks the
+bf16 kernel's tile configuration per call (``CONFIGS``, the table of the
+.cu source). It counts its launches in
 ``LAUNCHES``. There is no backward yet: with grad mode on
 and an input that requires grad, the CUDA path raises NotImplementedError.
 """
@@ -25,13 +27,60 @@ from tempo_tpu_torch.ops.norms import group_norm
 # Launches of the kernel, counted by its wrapper where it launches it.
 LAUNCHES = {"gn_act_conv3x3": 0}
 
+# The bf16 kernel's tile configurations, as csrc/gn_conv.cu's
+# TEMPO_GN_CONV_CONFIGS lists them: name -> (id, warpgroups, tile rows,
+# tile columns, output channels). A warpgroup owns 64 output pixels.
+CONFIGS = {"m128n128": (0, 2, 8, 16, 128), "m64n64": (1, 1, 4, 16, 64)}
+CHUNK = 64   # input channels a k chunk; the packed weight pads C and F to it
+TAPS = 9
+SMS = 132    # streaming multiprocessors of an H100 SXM: one wave of blocks
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def config_blocks(name: str, b: int, h: int, w: int, f: int) -> int:
+    """Blocks of configuration ``name`` over a [B, H, W] x F output."""
+    _, _, th, tw, bn = CONFIGS[name]
+    return b * _ceil(h, th) * _ceil(w, tw) * _ceil(f, bn)
+
+
+def choose_config(b: int, h: int, w: int, c: int,
+                  f: int) -> tuple[str, int]:
+    """The bf16 kernel's tile configuration and split of its k iterations
+    (9 x the 64-channel chunks of C) for one call: 8x16 pixels x 128
+    channels where that takes at most a split in two to fill a wave of
+    blocks, else 4x16 x 64; either split over the k iterations until one
+    wave is launched. No split is empty: every one has ceil(nk / split)
+    iterations but the last.
+    """
+    nk = TAPS * _ceil(c, CHUNK)
+
+    def split_for(n: int) -> int:
+        """The fewest splits that take ``n`` blocks to a wave."""
+        if n >= SMS:
+            return 1
+        kper = _ceil(nk, min(nk, _ceil(SMS, n)))
+        return _ceil(nk, kper)
+
+    n = config_blocks("m128n128", b, h, w, f)
+    if f > 64 and 2 * n >= SMS:
+        return "m128n128", split_for(n)
+    return "m64n64", split_for(config_blocks("m64n64", b, h, w, f))
+
 
 def pack_conv3x3_weight(weight: torch.Tensor,
                         dtype: torch.dtype) -> torch.Tensor:
-    """Conv2d weight [F, C, 3, 3] -> the kernel's [9, C, F] in ``dtype``."""
+    """Conv2d weight [F, C, 3, 3] -> the kernel's [9, Cp, Fp] in ``dtype``:
+    tap 3*di + dj, input channel, output channel, with C and F zero-padded
+    up to multiples of 64 (whole k chunks and 128-byte rows for the kernel's
+    16-byte copies)."""
     f, c = weight.shape[0], weight.shape[1]
-    return weight.detach().permute(2, 3, 1, 0).reshape(9, c, f).to(
-        dtype).contiguous()
+    packed = torch.zeros((9, _ceil(c, CHUNK) * CHUNK, _ceil(f, 64) * 64),
+                         dtype=dtype, device=weight.device)
+    packed[:, :c, :f] = weight.detach().permute(2, 3, 1, 0).reshape(9, c, f)
+    return packed
 
 
 def gn_act_conv3x3_plain(x: torch.Tensor, scale: Optional[torch.Tensor],
@@ -103,19 +152,31 @@ def conv3x3_from_stats(x: torch.Tensor, stats: torch.Tensor,
                          "on x's device")
     if packed is None:
         packed = pack_conv3x3_weight(weight, x.dtype)
-    if (packed.shape != (9, c, f) or packed.dtype != x.dtype
+    cp, fp = _ceil(c, CHUNK) * CHUNK, _ceil(f, 64) * 64
+    if (packed.shape != (9, cp, fp) or packed.dtype != x.dtype
             or packed.device != x.device or not packed.is_contiguous()):
-        raise ValueError("packed weight must be a contiguous [9, C, F] "
-                         "tensor of x's type on x's device")
-    scale32 = cuda_gn.f32_param(scale, c, 1.0, x)
-    bias32 = cuda_gn.f32_param(bias, c, 0.0, x)
+        raise ValueError(f"packed weight must be a contiguous [9, {cp}, "
+                         f"{fp}] tensor of x's type on x's device")
+    config, split = (choose_config(b, h, w, c, f)
+                     if x.dtype == torch.bfloat16 else (None, 1))
+    # The kernel reads x, the statistics and the affine vectors as 16-byte
+    # vectors from their base addresses; a view may start off that grain.
+    x, stats, scale32, bias32 = (
+        t if t.data_ptr() % 16 == 0 else t.clone()
+        for t in (x, stats, cuda_gn.f32_param(scale, c, 1.0, x),
+                  cuda_gn.f32_param(bias, c, 0.0, x)))
     cbias32 = cuda_gn.f32_param(conv_bias, f, 0.0, x)
     out = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
-    lib = _build.library()
-    err = lib.tempo_gn_conv3x3(
+    # A split sums into an fp32 workspace that the kernel's second pass
+    # reduces.
+    ws = (torch.empty((split, b * h * w, f), dtype=torch.float32,
+                      device=x.device) if split > 1 else None)
+    err = _build.library().tempo_gn_conv3x3(
         x.data_ptr(), stats.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
         packed.data_ptr(), cbias32.data_ptr(), out.data_ptr(),
-        cuda_gn.DTYPE_CODES[x.dtype], b, h, w, c, f, cuda_gn.ACT_CODES[act],
+        None if ws is None else ws.data_ptr(), cuda_gn.DTYPE_CODES[x.dtype],
+        b, h, w, c, f, cuda_gn.ACT_CODES[act],
+        -1 if config is None else CONFIGS[config][0], split,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "tempo_gn_conv3x3")
     LAUNCHES["gn_act_conv3x3"] += 1

@@ -66,12 +66,15 @@ def test_matches_pallas_interpret_bf16():
 
 
 def test_packed_weight_layout():
-    """The kernel's [9, C, F] weight is the HWIO kernel with the taps
-    flattened row-major: packed[3*di + dj] == hwio[di, dj]."""
+    """The kernel's [9, Cp, Fp] weight is the HWIO kernel with the taps
+    flattened row-major, packed[3*di + dj, :C, :F] == hwio[di, dj], and C
+    and F zero-padded up to multiples of 64."""
     _, _, _, kern, _ = _inputs(1, 1, 1, 6, 5)
     packed = cuda_gn_conv.pack_conv3x3_weight(_oihw(kern), torch.float32)
-    assert packed.shape == (9, 6, 5) and packed.is_contiguous()
-    np.testing.assert_array_equal(packed.numpy(), kern.reshape(9, 6, 5))
+    assert packed.shape == (9, 64, 64) and packed.is_contiguous()
+    np.testing.assert_array_equal(packed[:, :6, :5].numpy(),
+                                  kern.reshape(9, 6, 5))
+    assert not packed[:, 6:].any() and not packed[:, :, 5:].any()
 
 
 @pytest.mark.parametrize("act", ["gelu", None])
