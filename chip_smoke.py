@@ -7,7 +7,9 @@ Phases, each fatal on failure:
   1. build   compile the CUDA kernels from tempo_tpu_torch/csrc with nvcc, and
              print what ptxas says of every kernel (registers, spills,
              shared memory); K5f and K5dkv may not spill at head dim 64,
-             nor any bf16 K2 tile configuration;
+             K5dq at 32, 64 or 128, any decode kernel, nor any bf16 K2
+             tile configuration; K5f's and K5dq's SASS must hold HGMMA
+             (wgmma) at every head dim;
   2. kernels hold each kernel against its plain PyTorch version on the card
              at the shapes the main path gives it (discovered by running the
              tile batch and the granule once each), and time kernel, plain
@@ -28,7 +30,11 @@ Phases, each fatal on failure:
       on a roomy and a tight (preempting) pool, the K4 counter set to 0
       before and read after; greedy outputs equal across the two pools;
   2'. K3/K4 against their plain versions at every recorded call and at
-      edge cases, each call timed with its bound and library call;
+      edge cases (positions 0, the split length L - 1, L, L + 1, the
+      longest unsplit row 2L - 1 and past it, block and page edges, the
+      cache's end), each call timed with its bound and
+      library call; each row of a batch bitwise the same alone and inside
+      the batch (K4: another pool, another page order);
   3c. one decode step's logits (dense and paged, bf16 and fp32) against
       the plain path.
   then the GPT-2-small training path (bf16, attn_impl "auto", weights from a
@@ -47,8 +53,10 @@ Phases, each fatal on failure:
       version and SDPA;
   4c. one train step's loss and gradients through K5 against the plain
       attention path (bf16 full size; fp32 with 2 layers at batch 2).
-Prints the card's name and power limit first, one {"kernels": [...]} line,
-and as the last line {"ok": true, "device": {...}}. Exits non-zero, with no
+Prints the card's name and power limit first, each redesigned kernel's
+time against its time before the redesign (KERNEL_PREV), one
+{"kernels": [...]} line, and as the last line
+{"ok": true, "device": {...}}. Exits non-zero, with no
 result, when there is no CUDA device or the package is not beside it.
 """
 
@@ -57,6 +65,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -119,12 +128,14 @@ STEP_F32_TOL = {"loss": 1e-4, "grad": 1e-4}
 # The training path, as tools/bench_toolkit.py bench_gpt measures the JAX
 # package: GPT-2-small, batch 8 x 1024 tokens, AdamW lr 3e-4, wd 0.1.
 TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS, TRAINER_STEPS = 8, 3, 10, 30
-# K5f's and K5dkv's time a call before their redesign (mma.sync with
-# load-then-compute staging and a transposed second copy of the B operands),
-# read by this script at [8,1024,12,64] bf16 causal, alone with a cold L2.
-K5_PREV = {"K5f": 0.2148, "K5dkv": 0.4309,
-           "card": "NVIDIA H100 80GB HBM3, 700.00 W"}
-
+# Each redesigned kernel's time a call before its redesign, read by this
+# script alone with a cold L2: K5f, K5dkv, K5dq at [8,1024,12,64] bf16
+# causal (mma.sync with load-then-compute staging and a transposed second
+# copy of a B operand); K3 and K4 at their average call on the LM path (one
+# block per (row, kv head) walking the whole row).
+KERNEL_PREV = {"K5f": 0.2148, "K5dkv": 0.4309, "K5dq": 0.2480,
+               "K3": 0.01055, "K4": 0.0166,
+               "card": "NVIDIA H100 80GB HBM3, 700.00 W"}
 # The LM serving path, as tools/bench_toolkit.py measures the JAX package:
 # bench_decode(cache_len=1024) for generate, bench_workload for the server.
 LM_BATCH, LM_PROMPT, LM_NEW, LM_CACHE = 8, 64, 128, 1024
@@ -143,12 +154,11 @@ def fail(msg: str) -> None:
 
 def ptxas_lines(build_log: str, smem_bytes, k2_config) -> list[str]:
     """One line per kernel from nvcc's -Xptxas -v output: its name (for the
-    tempo::flash and tempo::gn_conv kernels with their template arguments,
-    else as mangled), registers, static shared memory, spill bytes, and for
-    the bf16 flash kernels and K2's bf16 instantiations the dynamic shared
-    memory a block asks for (``smem_bytes(pass, hd)``; ``k2_config(args)``
-    gives the configuration's name and bytes)."""
-    import re
+    tempo::flash, tempo::gn_conv and decode kernels with their template
+    arguments, else as mangled), registers, static shared memory, spill
+    bytes, and for the bf16 flash kernels and K2's bf16 instantiations the
+    dynamic shared memory a block asks for (``smem_bytes(pass, hd)``;
+    ``k2_config(args)`` gives the configuration's name and bytes)."""
 
     passes = {"fwd_bf16": 0, "dkv_bf16": 1, "dq_bf16": 2}
     out, name, spill = [], None, ""
@@ -158,7 +168,15 @@ def ptxas_lines(build_log: str, smem_bytes, k2_config) -> list[str]:
             name, dyn = m.group(1), ""
             f = re.search(r"^5flash\d+([a-z0-9_]+?)I(\S*?)EEv", name)
             g = re.search(r"^7gn_conv\d+([a-z0-9_]+?)(?:I(\S*?)EEv|E)", name)
-            if f:
+            d = re.search(r"^\d+(decode_[a-z]+)(?:I(\S*?)EEv|E)", name)
+            if d:
+                targs = d.group(2) or ""
+                args = re.findall(r"L[ib](\d+)E", targs)
+                if targs:
+                    args.insert(0, "bf16" if "bfloat16" in targs else "f32")
+                name = f"tempo::decode {d.group(1)}" + (
+                    f"<{','.join(args)}>" if args else "")
+            elif f:
                 args = re.findall(r"L[ib](\d+)E", f.group(2))
                 name = f"tempo::flash {f.group(1)}<{','.join(args)}>"
                 if f.group(1) in passes:
@@ -178,6 +196,25 @@ def ptxas_lines(build_log: str, smem_bytes, k2_config) -> list[str]:
             out.append(f"{name}: {used}; {spill}{dyn}")
             name = None
     return out
+
+
+def sass_counts(library_path: str, kernels: tuple) -> dict:
+    """{kernel: (HGMMA, HMMA)}: the warpgroup and warp tensor-core
+    instructions in the SASS of each wgmma kernel whose mangled name holds
+    one of ``kernels`` (``cuobjdump -sass`` of the built library)."""
+    out = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
+                          library_path], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode:
+        fail(f"cuobjdump failed: {out.stderr.strip()[:500]}")
+    counts = {}
+    for fn in re.split(r"\n\s*Function : ", out.stdout)[1:]:
+        name = fn.split("\n", 1)[0]
+        m = re.search(r"(%s)ILi(\d+)E" % "|".join(kernels), name)
+        if m:
+            counts[f"{m.group(1)}<{m.group(2)}>"] = (fn.count("HGMMA"),
+                                                   fn.count("HMMA"))
+    return counts
 
 
 def smi_line() -> str:
@@ -428,12 +465,88 @@ def device_profile(fn, top: int = 8):
             "top": [[k[:60], round(v, 3)] for k, v in ranked]}
 
 
+def call_breakdown(fn, iters: int = 10) -> dict:
+    """Device time of each tempo kernel in one ``fn()``, by torch.profiler
+    over ``iters`` calls made as ``time_ms`` makes them (cold L2, the card
+    busy until the call is enqueued), in us a call; {} where the profiler
+    gives no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    per = {}
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                torch.cuda._sleep(SPIN_CYCLES)
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            name = re.search(r"tempo::(\w+)", e.key)
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if name and us > 0:
+                per[name.group(1)] = us / iters
+    except Exception as exc:  # measurement only: the run's checks stand
+        print(f"[kernels] torch.profiler failed: {exc!r}", flush=True)
+    return per
+
+
+def decode_batch_independence(dev, gen, split: int) -> list:
+    """K3 and K4: each row of a batch of 8 (positions around the split
+    length, the cache's end, a short row) computed alone, then inside the
+    batch; for K4 the batch reads a larger pool in which every page of the
+    rows lies elsewhere (shuffled table) and the alone run the row's own.
+    Returns (kernel, dtype, n, kv, rows bitwise equal, all equal) tuples."""
+    import torch
+
+    from tempo_tpu_torch.ops import cuda_decode
+
+    pos = torch.tensor([5, 300, split - 1, LM_CACHE - 1, split, 700,
+                        split + 1, 2], dtype=torch.int32, device=dev)
+    out = []
+    for dtype, n, kv in ((torch.bfloat16, 12, 12), (torch.float32, 12, 4)):
+        q = torch.randn((8, 1, n, 64), generator=gen, device=dev).to(dtype)
+        ck = torch.randn((8, LM_CACHE, kv, 64), generator=gen,
+                         device=dev).to(dtype)
+        cv = torch.randn((8, LM_CACHE, kv, 64), generator=gen,
+                         device=dev).to(dtype)
+        batch = cuda_decode.decode_attention(q, ck, cv, pos)
+        same = [bool(torch.equal(batch[r:r + 1], cuda_decode.decode_attention(
+            q[r:r + 1], ck[r:r + 1], cv[r:r + 1], pos[r:r + 1])))
+            for r in range(8)]
+        out.append(("K3", str(dtype), n, kv, same, all(same)))
+        pages = LM_CACHE // LM_PAGE
+        pk = ck.reshape(8 * pages, LM_PAGE, kv, 64)  # row r: pages r*8 ..
+        pv = cv.reshape(8 * pages, LM_PAGE, kv, 64)
+        own = torch.arange(8 * pages, device=dev, dtype=torch.int32).reshape(
+            8, pages)
+        where = 3 + torch.randperm(8 * pages, device=dev)  # pool of 8*8 + 5
+        big_k = torch.randn((8 * pages + 5,) + pk.shape[1:], generator=gen,
+                            device=dev).to(dtype)
+        big_v = torch.randn(big_k.shape, generator=gen, device=dev).to(dtype)
+        big_k[where], big_v[where] = pk, pv
+        table = where.to(torch.int32)[own.long()]
+        batch = cuda_decode.paged_decode_attention(q, big_k, big_v, table, pos)
+        same = [bool(torch.equal(batch[r:r + 1],
+                                 cuda_decode.paged_decode_attention(
+                                     q[r:r + 1], pk, pv, own[r:r + 1],
+                                     pos[r:r + 1])))
+                for r in range(8)]
+        out.append(("K4", str(dtype), n, kv, same, all(same)))
+    return out
+
+
 def lm_path(dev, gen, rows: dict) -> dict:
     """The GPT-2-small serving path: (a) generate through K3, (b) the paged
     server through K4 on a roomy and a tight pool, both counted; K3/K4
     against their plain versions at every recorded call and at edge cases,
-    each timed; (c) one-step logits against the plain path. Adds the K3 and
-    K4 rows; returns the LM metrics."""
+    each timed, and each row bitwise the same alone and inside a batch; (c)
+    one-step logits against the plain path. Adds the K3 and K4 rows;
+    returns the LM metrics."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -446,6 +559,7 @@ def lm_path(dev, gen, rows: dict) -> dict:
                                                 num_params)
     from tempo_tpu_torch.ops import cuda_decode
 
+    split = cuda_decode.split_len()
     cfg = TransformerConfig(compute_dtype="bfloat16")
     model = Transformer(cfg, device=dev, seed=SEED)
     n_params = num_params(model)
@@ -589,6 +703,13 @@ def lm_path(dev, gen, rows: dict) -> dict:
             qt, kt, vt = q.transpose(1, 2), ck.transpose(1, 2), \
                 cv.transpose(1, 2)
             gqa = {"enable_gqa": True} if q.shape[2] != kv else {}
+            if sum(n.values()) > r.get("breakdown_calls", 0):
+                r["breakdown_calls"] = sum(n.values())
+                r["breakdown_pos"] = list(pos)
+                r["breakdown_us"] = call_breakdown(
+                    lambda: cuda_decode.decode_attention(q, ck, cv, p))
+                r["breakdown_us"]["whole call"] = 1e3 * time_ms(
+                    lambda: cuda_decode.decode_attention(q, ck, cv, p))
             lm_add(r, n, err, ok,
                    time_ms(lambda: cuda_decode.decode_attention(q, ck, cv, p),
                            iters=3, warmup=1),
@@ -621,6 +742,15 @@ def lm_path(dev, gen, rows: dict) -> dict:
                 cuda_decode.paged_decode_attention_plain(q, pk, pv, table, p),
                 decode_tol(pdt))
             checks_ok &= ok
+            if sum(n.values()) > r.get("breakdown_calls", 0):
+                r["breakdown_calls"] = sum(n.values())
+                r["breakdown_pos"] = list(pos)
+                r["breakdown_us"] = call_breakdown(
+                    lambda: cuda_decode.paged_decode_attention(
+                        q, pk, pv, table, p))
+                r["breakdown_us"]["whole call"] = 1e3 * time_ms(
+                    lambda: cuda_decode.paged_decode_attention(
+                        q, pk, pv, table, p))
             live = [min(v, cap - 1) + 1 for v in pos]
             bound = 1e3 * (decode_bytes(q, pk.element_size(), kv, live)
                            + 4 * sum(-(-n_ // pg) for n_ in live)) \
@@ -635,7 +765,8 @@ def lm_path(dev, gen, rows: dict) -> dict:
                             dtype=str(k[4])) for k in inputs]
         del inputs
 
-        # edge cases: GQA n=12 kv=4, pos 0, block/page edges, S-1, f32/bf16
+        # edge cases: GQA n=12 kv=4, pos 0, split/block/page edges, S-1,
+        # f32/bf16
         edges = []
         for dtype in (torch.float32, torch.bfloat16):
             for n, kv in ((12, 12), (12, 4)):
@@ -645,7 +776,10 @@ def lm_path(dev, gen, rows: dict) -> dict:
                                  device=dev).to(dtype)
                 cv = torch.randn((4, LM_CACHE, kv, 64), generator=gen,
                                  device=dev).to(dtype)
-                for pos in ([0, 255, 256, LM_CACHE - 1], 0, LM_CACHE - 1):
+                for pos in ([0, 255, 256, LM_CACHE - 1],
+                            [split - 1, split, split + 1, 2 * split],
+                            [2 * split - 1, 2 * split + 1, 3 * split, 700],
+                            0, LM_CACHE - 1):
                     p = torch.tensor(pos, dtype=torch.int32, device=dev)
                     err, ok = max_err(
                         cuda_decode.decode_attention(q, ck, cv, p),
@@ -657,7 +791,9 @@ def lm_path(dev, gen, rows: dict) -> dict:
                 table = torch.randperm(pk.shape[0], device=dev)[:32].reshape(
                     4, 8).to(torch.int32)
                 table[3, 2:] = 0  # dead logical pages on the trash page
-                for pos in ([0, 127, 128, LM_CACHE - 1], [1023, 128, 127, 255]):
+                for pos in ([0, 127, 128, LM_CACHE - 1], [1023, 128, 127, 255],
+                            [split - 1, split, split + 1, 2 * split + 1],
+                            [2 * split - 1, 2 * split, 3 * split, 700]):
                     p = torch.tensor(pos, dtype=torch.int32, device=dev)
                     err, ok = max_err(
                         cuda_decode.paged_decode_attention(q, pk, pv, table,
@@ -672,15 +808,36 @@ def lm_path(dev, gen, rows: dict) -> dict:
                   f"pos={e[4]}: max_abs_err={e[5]:.3e} ok={e[6]}", flush=True)
         rows["K3"]["edge_checks"] = sum(e[0] == "K3" for e in edges)
         rows["K4"]["edge_checks"] = sum(e[0] == "K4" for e in edges)
+        independent = decode_batch_independence(dev, gen, split)
+    for e in independent:
+        checks_ok &= e[-1]
+        rows[e[0]]["batch_independent"] = (
+            rows[e[0]].get("batch_independent", True) and e[-1])
+        print(f"[kernels] {e[0]} {e[1]} n={e[2]} kv={e[3]}: each row alone "
+              f"== inside the batch, bitwise: {e[4]}", flush=True)
+    card = smi_line()
     for name in ("K3", "K4"):
         rr = rows[name]
+        rr["split_len"] = split
         print(f"[kernels] {name}: {rr['calls']} calls, max_abs_err "
               f"{rr['max_abs_err']:.3e}, ms {rr['ms']:.3f} "
               f"(by run {json.dumps(rr['ms_by_run'])}), plain "
               f"{rr['plain_ms']:.3f}, bound {rr['bound_ms']:.4f}, library "
-              f"{rr['library_ms']}", flush=True)
+              f"{rr['library_ms']}; split length {split}", flush=True)
+        print(f"[kernels] {name} at its most frequent call (positions "
+              f"{rr['breakdown_pos']}, {rr['breakdown_calls']} calls), us: "
+              f"{json.dumps(rr['breakdown_us'])} (the kernel's device time "
+              f"by torch.profiler; the whole call by CUDA events, as the "
+              f"row's ms)", flush=True)
+        # on this text line only: the kernels line holds what this run read
+        per_call = rr["ms"] / rr["calls"]
+        print(f"[kernels] {name}: {per_call:.5f} ms at the average call on "
+              f"{card}; before the redesign {KERNEL_PREV[name]:.5f} on "
+              f"{KERNEL_PREV['card']}: x{KERNEL_PREV[name] / per_call:.2f}",
+              flush=True)
     if not checks_ok:
-        fail("K3/K4 disagree with their plain versions beyond tolerance")
+        fail("K3/K4 disagree with their plain versions beyond tolerance, or "
+             "a row's result depends on the rest of its batch")
 
     # ------------------------------- (c) logits against the plain path
     errs = {}
@@ -726,7 +883,8 @@ def lm_row(name: str, replaces: str, library: str) -> dict:
             "library_ms": None, "library": library, "calls": 0,
             "per": "the LM main-path runs (generate for K3; the roomy and "
                    "the tight serve for K4): sum over the kernel's calls "
-                   "there, each timed alone with a cold L2",
+                   "there, each the wrapper's whole call timed alone with a "
+                   "cold L2",
             "ms_by_run": {}}
 
 
@@ -1084,12 +1242,13 @@ def train_path(dev, gen, rows: dict) -> dict:
                  edge_checks=len(edges))
     rows["K5f"]["library_ms"] = rows["K5f"]["launches"] * lib["fwd"]
     rows["K5dkv"]["library_ms"] = rows["K5dkv"]["launches"] * lib["bwd"]
-    for name in ("K5f", "K5dkv"):
+    for name in ("K5f", "K5dkv", "K5dq"):
         # on this text line only: the kernels line holds what this run read
         print(f"[kernels] {name}: {rows[name]['per_call_ms']:.4f} ms a call "
-              f"on {card}; before the redesign {K5_PREV[name]:.4f} on "
-              f"{K5_PREV['card']}: x"
-              f"{K5_PREV[name] / rows[name]['per_call_ms']:.2f}", flush=True)
+              f"on {card}; before the redesign {KERNEL_PREV[name]:.4f} on "
+              f"{KERNEL_PREV['card']}: x"
+              f"{KERNEL_PREV[name] / rows[name]['per_call_ms']:.2f}",
+              flush=True)
     for name in ("K5f", "K5dkv", "K5dq"):
         rows[name]["sdpa_per_call_ms"] = lib
         rows[name]["k5_fwd_bwd_per_call_ms"] = k5_whole
@@ -1163,7 +1322,8 @@ def main() -> int:
     try:
         from tempo_tpu_torch.infer.granule_codec import GranuleCodec
         from tempo_tpu_torch.models.vae import build_vae
-        from tempo_tpu_torch.ops import _build, cuda_gn, cuda_gn_conv
+        from tempo_tpu_torch.ops import (_build, cuda_decode, cuda_gn,
+                                         cuda_gn_conv)
         from tempo_tpu_torch.ops.norms import ACTIVATIONS
     except ImportError as e:
         fail(f"the tempo_tpu_torch package is not beside this script: {e}")
@@ -1193,12 +1353,21 @@ def main() -> int:
         for line in lines:
             print(f"[build] ptxas {line}", flush=True)
         path_k5 = [ln for ln in lines if ln.startswith(
-            ("tempo::flash fwd_bf16<64", "tempo::flash dkv_bf16<64"))]
+            ("tempo::flash fwd_bf16<64", "tempo::flash dkv_bf16<64",
+             "tempo::flash dq_bf16<"))]
         spilled = [ln for ln in path_k5 if "0 bytes spill stores, 0 bytes "
                    "spill loads" not in ln]
-        if spilled or len(path_k5) != 2:
-            fail(f"K5f or K5dkv spills at hd 64, or ptxas said nothing of "
-                 f"them: {spilled or path_k5}")
+        if spilled or len(path_k5) != 5:
+            fail(f"K5f or K5dkv spills at hd 64 or K5dq at hd 32, 64 or 128, "
+                 f"or ptxas said nothing of them: {spilled or path_k5}")
+        # The decode kernel at every cache type, head dim and group width.
+        path_dec = [ln for ln in lines
+                    if ln.startswith("tempo::decode decode_split<")]
+        spilled = [ln for ln in path_dec if "0 bytes spill stores, 0 bytes "
+                   "spill loads" not in ln]
+        if spilled or len(path_dec) != 2 * len(cuda_decode.HEAD_DIMS) * 4:
+            fail(f"a decode kernel spills, or ptxas said nothing of it: "
+                 f"{spilled or path_dec}")
         # Every bf16 K2 configuration is one the path's launcher picks.
         path_k2 = [ln for ln in lines
                    if ln.startswith("tempo::gn_conv conv_bf16<")]
@@ -1211,6 +1380,11 @@ def main() -> int:
         print("[build] the kernel library was loaded from build/kernels "
               "(built by an earlier run): no ptxas output in this run",
               flush=True)
+    # K5f and K5dq run on wgmma: their SASS must hold HGMMA.
+    sass = sass_counts(_build.library()._name, ("fwd_bf16", "dq_bf16"))
+    print(f"[build] SASS (HGMMA, HMMA): {json.dumps(sass)}", flush=True)
+    if len(sass) != 6 or not all(h > 0 for h, _ in sass.values()):
+        fail(f"K5f or K5dq issues no wgmma at some head dim: {sass}")
 
     # ------------------------------------ model and inputs of the main path
     model, cfg = build_vae({}, device=dev, seed=SEED)

@@ -31,15 +31,15 @@
 // accumulator layout is re-packed in place as the A operand of the next
 // product (p.v, ds.k, p^T.do, ds^T.q), rounded to bf16 there. The TPU grid
 // walked the other sequence axis serially through VMEM scratch; here that is
-// a loop inside the block over tiles staged in shared memory. K5f and K5dkv
-// (fwd_bf16, dkv_bf16) are built for Hopper; they share:
+// a loop inside the block over tiles staged in shared memory. The bf16
+// kernels (fwd_bf16, dkv_bf16, dq_bf16) are built for Hopper; they share:
 // - Asynchronous staging. Tiles arrive by 16-byte cp.async.cg into a ring of
-//   2 stages (K5f: k and v; K5dkv: q, do and, by 4-byte cp.async, the
-//   tile's lse and di), one commit group a tile, the next tile's copies in
-//   flight while this tile's products run, one __syncthreads() a tile. Rows
-//   at or past t are zero-filled by the copy (src-size 0), not by a branch.
-//   Past the last tile an empty group is committed, so wait_group's count
-//   holds on every iteration. The strided source needs no tensor map.
+//   2 stages (K5f and K5dq: k and v; K5dkv: q, do and, by 4-byte cp.async,
+//   the tile's lse and di), one commit group a tile, the next tile's copies
+//   in flight while this tile's products run, one __syncthreads() a tile.
+//   Rows at or past t are zero-filled by the copy (src-size 0), not by a
+//   branch. Past the last tile an empty group is committed, so wait_group's
+//   count holds on every iteration. The strided source needs no tensor map.
 // - One copy of each operand, row-major; no transposed second copy exists.
 // - Masks only where they can bite. A tile that crosses a warp's diagonal
 //   or the ragged end of the sequence gets the compare; every other tile
@@ -50,37 +50,52 @@
 // - Outputs go through the warp's own rows of shared memory and leave as
 //   16-byte vectors.
 // - Grid: (batch x head) on x and the tile on y, heaviest tile first (K5f
-//   walks the query tiles from the last one down), so all heads' heavy
-//   blocks start first and the light ones fill the tail.
+//   and K5dq walk the query tiles from the last one down), so all heads'
+//   heavy blocks start first and the light ones fill the tail.
 //
-// K5f runs on wgmma. A block is one warpgroup and owns 64 query rows of one
-// (batch, head), 16 a warp, and walks key tiles of 64.
-// - q's A fragments are loaded once by ldmatrix.x4 and stay in registers
-//   (16 at hd 64); q's shared memory later carries o out.
-// - s = q.k^T is wgmma m64n64k16 with A = q from registers and B = the k
-//   tile through a descriptor, k-major; o += p.v has A = p from the score
-//   registers and B = the same kind of tile of v read n-major (bf16 allows
-//   the transposed B), so v needs no second copy either. wgmma.fence before,
-//   commit_group and wait_group 0 after each batch; the accumulators are
-//   pinned after the wait so the compiler keeps its arithmetic below it.
+// K5f and K5dq run on wgmma. A block is one warpgroup and owns 64 query
+// rows of one (batch, head), 16 a warp, and walks key tiles (64 keys; 32 in
+// K5dq at hd 128).
+// - q's (and in K5dq do's) A fragments are loaded once by ldmatrix.x4 and
+//   stay in registers (16 each at hd 64); q's shared memory later carries
+//   the output out.
+// - s = q.k^T is wgmma m64nNk16 with A = q from registers and B = the k
+//   tile through a descriptor, k-major; K5dq's dp = do.v^T is the same
+//   product on the v tile, issued in the same commit group. o += p.v has
+//   A = p from the score registers and B = the v tile read n-major (bf16
+//   allows the transposed B); K5dq's dq += ds.k reads the k tile that s
+//   read k-major, n-major, so neither pass keeps a second copy. wgmma.fence
+//   before, commit_group and wait_group 0 after each batch; the accumulators
+//   are pinned after the wait so the compiler keeps its arithmetic below it.
 // - The ring's tiles are dense and swizzled as the descriptors expect
 //   (128-byte rows XORed by row mod 8 in panels of 64 columns; 64-byte rows
 //   at hd 32), written in that layout by the cp.async destinations; a
 //   fence.proxy.async before the barrier hands them to wgmma.
-// - Softmax in fp32 in the log2 domain with the scale folded into the
-//   exponent's FMA: p = ex2(s * scale*log2e - m * scale*log2e), one FMA and
-//   one ex2.approx an element; the row maximum is taken on the raw scores (a
-//   negative scale moves into q's sign). The running max and sum per row are
-//   shared by the row's 4 lanes; rows are normalised once at the end.
-//   lse = (m * scale*log2e + log2 l) * ln 2.
-// - 128 registers and 42 KB at hd 64: 4 blocks an SM, which is what overlaps
-//   one warpgroup's softmax with another's products. Within a warpgroup the
-//   tile is still serial (products, wait, softmax, products, wait); starting
-//   the next tile's q.k^T under this tile's softmax, 128-key tiles and TMA
-//   are what is left. An mma.sync version of this pass (4 warps of 32 rows,
-//   k by ldmatrix.x4, v by ldmatrix.x4.trans) was 0.068 ms a call where this
-//   one takes 0.050 and SDPA's forward 0.052 ([8, 1024, 12, 64] bf16 causal,
-//   cold L2, NVIDIA H100 80GB HBM3 at 700 W).
+// - K5f's softmax runs in fp32 in the log2 domain with the scale folded into
+//   the exponent's FMA: p = ex2(s * scale*log2e - m * scale*log2e), one FMA
+//   and one ex2.approx an element; the row maximum is taken on the raw scores
+//   (a negative scale moves into q's sign). The running max and sum per row
+//   are shared by the row's 4 lanes; rows are normalised once at the end.
+//   lse = (m * scale*log2e + log2 l) * ln 2. K5dq recomputes p the same way
+//   from the stored lse, p = ex2(s * scale*log2e - lse*log2e), with no
+//   running max, and ds = p (dp - di) in place, zeroed where masked.
+// - K5f: 128 registers and 42 KB at hd 64, 4 blocks an SM, which is what
+//   overlaps one warpgroup's softmax with another's products. Within a
+//   warpgroup the tile is still serial (products, wait, softmax, products,
+//   wait); starting the next tile's q.k^T under this tile's softmax,
+//   128-key tiles and TMA are what is left. An mma.sync version of this
+//   pass (4 warps of 32 rows, k by ldmatrix.x4, v by ldmatrix.x4.trans) was
+//   0.068 ms a call where this one takes 0.050 and SDPA's forward 0.052
+//   ([8, 1024, 12, 64] bf16 causal, cold L2, NVIDIA H100 80GB HBM3 at
+//   700 W).
+// - K5dq: 174 registers and 51 KB at hd 64 (2 blocks an SM), no spill at hd
+//   32, 64 or 128; at hd 128 the dq accumulator takes 64 registers and
+//   64-key s and dp tiles beside it spilled, so the key tile is 32 there.
+//   0.074 ms a call (261 TFLOP/s) where the mma.sync design before it, with
+//   load-then-compute staging, k staged twice and fragments by 32-bit
+//   shared loads, took 0.248; with K5dkv, 0.195 against SDPA's whole
+//   backward 0.169 ([8, 1024, 12, 64] bf16 causal, cold L2, the same card).
+//   Like K5f it is serial within a warpgroup (s and dp, wait, ds, dq, wait).
 //
 // K5dkv runs on mma.sync m16n8k16. A block owns 64 key rows, 4 warps of 16,
 // and walks query tiles of 64 (32 at hd 128).
@@ -100,13 +115,8 @@
 // - Off the training path's head dim, ptxas reports small spills that are
 //   accepted for now: 36 bytes at hd 128 and 8 bytes at hd 32 (a few values
 //   beside the accumulators and the score tile). Both stay correct
-//   and are checked on the card; retiling them belongs to the backward's
-//   move to wgmma.
-//
-// K5dq (dq_bf16) is still the first design: 64 query rows a block, 4 warps,
-// mma.sync, load-then-compute staging through __ldg, k staged a second time
-// transposed, fragments by 32-bit shared loads. It is the next to redesign;
-// K5dkv and K5dq on wgmma, and TMA, come after.
+//   and are checked on the card; retiling them belongs to K5dkv's move to
+//   wgmma.
 //
 // fp32: 64-row blocks and tiles on CUDA cores (FMA), 8 warps; a warp owns 8
 // rows, its lanes split the tile's 64 keys (or queries) for the dot products
@@ -167,44 +177,9 @@ __device__ __forceinline__ size_t out_row(int bi, int r, int h, int t, int n,
 
 // ------------------------------------------------------------------ bf16
 
-// ld32, frag_a, frag_b, stage and the mma taking b as an array serve K5dq.
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a . b, m16n8k16, bf16 operands, fp32 accumulators.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A operand (16 x 16) at rows r0.., columns k0.. of row-major x (stride ld).
-// Lane (g = lane / 4, c = lane % 4) holds rows g and g + 8, columns 2c, 2c+1
-// and 2c+8, 2c+9.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* x,
-                                       int ld, int r0, int k0, int g, int c) {
-  const bf16* p = x + (r0 + g) * ld + k0 + 2 * c;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B operand (16 x 8), B[kk][nn] = y[n0 + nn][k0 + kk] for row-major y.
-__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const bf16* y,
-                                       int ld, int n0, int k0, int g, int c) {
-  const bf16* p = y + (n0 + g) * ld + k0 + 2 * c;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
 }
 
 // The accumulators of two adjacent 16 x 8 tiles (columns 16kk .. 16kk+15)
@@ -218,33 +193,12 @@ __device__ __forceinline__ void frag_a_acc(uint32_t (&a)[4],
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-// Rows [r0, r0 + R) of a strided [t, HD] matrix (row stride rs) into shared
-// memory, row-major x[R][LD] and/or transposed xt[HD][LDT]; rows at or past t
-// are zeros.
-template <int R, int HD, int LD, int LDT>
-__device__ __forceinline__ void stage(bf16* x, bf16* xt, const bf16* src,
-                                      long long rs, int r0, int t) {
-  constexpr int kVec = HD / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < R * kVec; i += blockDim.x) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < t)
-      val = __ldg(reinterpret_cast<const uint4*>(src + (r0 + r) * rs + c));
-    if (x != nullptr) *reinterpret_cast<uint4*>(x + r * LD + c) = val;
-    if (xt != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) xt[(c + j) * LDT + r] = e[j];
-    }
-  }
-}
-
 __device__ __forceinline__ bool visible(int row, int col, int t, int causal) {
   return col < t && row < t && !(causal && col > row);
 }
 
-// ------------------------------- building blocks of K5f and K5dkv (bf16)
-// (the mma taking b0, b1 serves K5dkv alone; the Hopper helpers, cp_async,
+// --------------------------------- building blocks of the bf16 kernels
+// (the mma.sync below serves K5dkv alone; the Hopper helpers, cp_async,
 // ldsm4, lane_rc/lane_cr, wgmma and its fences, are in hopper.cuh)
 
 // Rows [r0, r0 + R) of a strided [t, HD] matrix (row stride rs) into the
@@ -265,6 +219,7 @@ __device__ __forceinline__ void stage_async(bf16* x, const bf16* src,
   }
 }
 
+// d += a . b, m16n8k16, bf16 operands, fp32 accumulators.
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -301,19 +256,19 @@ __device__ __forceinline__ void store_rows(bf16* out, const bf16* x, int bi,
 
 // ------------------------------------------------------------------ K5f
 
-// A k or v tile as wgmma reads it: kTile rows in panels of PW = min(hd, 64)
+// A k or v tile as wgmma reads it: ROWS rows in panels of PW = min(hd, 64)
 // columns (rows of 128 bytes; 64 at hd 32), each panel dense and swizzled:
 // the 16-byte chunk index of a byte offset is XORed with the offset's bits
 // 7.. (3 bits for 128-byte rows, 2 for 64-byte rows), which is the layout
 // the descriptor's mode names. One tile serves both readings: k-major (8-row
 // groups kSbo apart, a k step of 16 columns is 32 bytes further along the
 // row) and n-major (a k step of 16 rows is 2 groups further down).
-template <int HD>
+template <int HD, int ROWS = kTile>
 struct WgTile {
   static constexpr int PW = HD < 64 ? HD : 64, NP = HD / PW;
   static constexpr int kRowBytes = PW * 2, kBits = PW == 64 ? 3 : 2;
   static constexpr int kMode = PW == 64 ? 1 : 2;
-  static constexpr int kPanelBytes = kTile * kRowBytes;
+  static constexpr int kPanelBytes = ROWS * kRowBytes;
   static constexpr int kBytes = NP * kPanelBytes;
   static constexpr int kSbo = 8 * kRowBytes;
   // Byte offset of the 8 values at row r, columns col .. col + 7.
@@ -324,20 +279,20 @@ struct WgTile {
   }
 };
 
-// Rows [r0, r0 + kTile) of a strided [t, HD] matrix into a WgTile, by
+// Rows [r0, r0 + ROWS) of a strided [t, HD] matrix into a WgTile, by
 // 16-byte asynchronous copies; rows at or past t are zero-filled.
-template <int HD, int NT>
+template <int HD, int NT, int ROWS = kTile>
 __device__ __forceinline__ void stage_async_wg(unsigned char* x,
                                                const bf16* src, long long rs,
                                                int r0, int t) {
-  constexpr int kVec = HD / 8, kAll = kTile * kVec;
+  constexpr int kVec = HD / 8, kAll = ROWS * kVec;
 #pragma unroll
   for (int it = 0; it < (kAll + NT - 1) / NT; ++it) {
     const int i = it * NT + threadIdx.x;
     if (kAll % NT != 0 && i >= kAll) break;
     const int r = i / kVec, c = (i % kVec) * 8;
     const bool live = r0 + r < t;
-    cp_async<16>(x + WgTile<HD>::offset(r, c),
+    cp_async<16>(x + WgTile<HD, ROWS>::offset(r, c),
                  src + (live ? r0 + r : 0) * rs + c, live);
   }
 }
@@ -532,103 +487,173 @@ __global__ void __launch_bounds__(128, HD <= 64 ? 4 : 1) fwd_bf16(Params p) {
                  lane);
 }
 
+// ------------------------------------------------------------------ K5dq
+
+// K5dq's block: one warpgroup, 64 query rows (16 a warp), k and v tiles of
+// kDqTile rows in a ring of kDqStages stages, as K5f's.
+constexpr int kDqStages = 2;
+
+// Keys per staged tile in K5dq: 32 at hd 128, where the dq accumulator
+// takes 64 registers and the s and dp tiles of 64 keys beside it spill.
 template <int HD>
-constexpr int dq_smem() {
-  return ((2 * kRows + 2 * kTile) * (HD + 8) + HD * (kTile + 8)) * 2;
+constexpr int kDqTile = HD == 128 ? 32 : 64;
+
+template <int HD>
+constexpr int dq_smem() {  // 1024: the ring is aligned for the swizzle
+  return 1024 + kDqStages * 2 * WgTile<HD, kDqTile<HD>>::kBytes +
+         2 * kRows * (HD + 8) * 2;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(128) dq_bf16(Params p) {
-  constexpr int LD = HD + 8, LDT = kTile + 8;
+__global__ void __launch_bounds__(128, HD <= 64 ? 2 : 1) dq_bf16(Params p) {
+  constexpr int BK = kDqTile<HD>;
+  using Tile = WgTile<HD, BK>;
+  constexpr int LD = HD + 8, NT = 128, NS = kDqStages;
+  constexpr int PW = Tile::PW, NP = Tile::NP;
+  constexpr int kStage = 2 * Tile::kBytes;  // a k tile, then its v tile
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
+  unsigned char* ring = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(ring + NS * kStage);
   bf16* dos = qs + kRows * LD;
-  bf16* ks = dos + kRows * LD;
-  bf16* vs = ks + kTile * LD;
-  bf16* kt = vs + kTile * LD;
   const int t = p.t, n = p.n;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const int bi = blockIdx.y / n, h = blockIdx.y % n;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int bi = blockIdx.x / n, h = blockIdx.x % n;
   const bf16* q = head_ptr<bf16>(p.q, p.sq, bi, h);
   const bf16* k = head_ptr<bf16>(p.k, p.sk, bi, h);
   const bf16* v = head_ptr<bf16>(p.v, p.sv, bi, h);
   const bf16* dout = head_ptr<bf16>(p.dout, p.sdo, bi, h);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, c = lane & 3, wr = warp * 16;
-  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
+  const int g = lane >> 2, c = lane & 3;
+  const int wr = warp * 16;  // the warp's first row in the block
+  int n_tiles = (t + BK - 1) / BK;
+  if (p.causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / BK + 1);
 
-  stage<kRows, HD, LD, 0>(qs, nullptr, q, p.sq[1], q0, t);
-  stage<kRows, HD, LD, 0>(dos, nullptr, dout, p.sdo[1], q0, t);
-  float lse2[2], di[2];
+  // Tile j into stage j % NS as one commit group (empty past the last).
+  auto load_tile = [&](int j) {
+    if (j < n_tiles) {
+      unsigned char* ks = ring + (j % NS) * kStage;
+      stage_async_wg<HD, NT, BK>(ks, k, p.sk[1], j * BK, t);
+      stage_async_wg<HD, NT, BK>(ks + Tile::kBytes, v, p.sv[1], j * BK, t);
+    }
+    cp_async_commit();
+  };
+  stage_async<kRows, HD, NT>(qs, q, p.sq[1], q0, t);  // in tile 0's group
+  stage_async<kRows, HD, NT>(dos, dout, p.sdo[1], q0, t);
+#pragma unroll
+  for (int j = 0; j < NS - 1; ++j) load_tile(j);
+  const int wrow0 = q0 + wr;
+  float lse2[2], di[2];  // the lane's two rows, g and g + 8
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const size_t at = (size_t)blockIdx.y * t + rows[i];
-    lse2[i] = rows[i] < t ? p.lse[at] * kLog2e : 0.f;
-    di[i] = rows[i] < t ? p.di[at] : 0.f;
+    const int row = wrow0 + g + 8 * i;
+    const size_t at = (size_t)blockIdx.x * t + row;
+    lse2[i] = row < t ? p.lse[at] * kLog2e : 0.f;
+    di[i] = row < t ? p.di[at] : 0.f;
   }
-  float acc[HD / 8][4] = {};
+  cp_async_wait<NS - 2>();
+  __syncthreads();
+
+  // q and do stay in registers as A fragments.
+  uint32_t aq[HD / 16][4], ado[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    ldsm4(aq[kk], qs + wr * LD + kk * 16 + lane_rc<LD>(lane));
+    ldsm4(ado[kk], dos + wr * LD + kk * 16 + lane_rc<LD>(lane));
+  }
   const float sl2 = p.scale * kLog2e;
-  int n_tiles = (t + kTile - 1) / kTile;
-  if (p.causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / kTile + 1);
+  float acc[NP][PW / 8][4] = {};
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();
-    stage<kTile, HD, LD, LDT>(ks, kt, k, p.sk[1], k0, t);
-    stage<kTile, HD, LD, 0>(vs, nullptr, v, p.sv[1], k0, t);
-    __syncthreads();
+    cp_async_wait<NS - 2>();  // this thread's copies of tile j have landed
+    fence_async_proxy();
+    __syncthreads();          // everyone's have, and tile j - 1 is consumed
+    load_tile(j + NS - 1);    // into the stage tile j - 1 held
+    const int k0 = j * BK;
+    const uint32_t ks = smem_addr(ring + (j % NS) * kStage);
+    const uint32_t vs = ks + Tile::kBytes;
 
-    float s[kTile / 8][4] = {}, dp[kTile / 8][4] = {};
+    // s = q.k^T and dp = do.v^T in one group: k and v k-major.
+    float s[BK / 8][4] = {}, dp[BK / 8][4] = {};
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t aq[4], ado[4];
-      frag_a(aq, qs, LD, wr, kk * 16, g, c);
-      frag_a(ado, dos, LD, wr, kk * 16, g, c);
-#pragma unroll
-      for (int nb = 0; nb < kTile / 8; ++nb) {
-        uint32_t b[2];
-        frag_b(b, ks, LD, nb * 8, kk * 16, g, c);
-        mma(s[nb], aq, b);
-        frag_b(b, vs, LD, nb * 8, kk * 16, g, c);
-        mma(dp[nb], ado, b);
-      }
+      const int at = (kk * 16 / PW) * Tile::kPanelBytes + (kk * 16 % PW) * 2;
+      wgmma<0>(s, aq[kk], wg_desc(ks + at, 16, Tile::kSbo, Tile::kMode),
+               kk > 0);
+      wgmma<0>(dp, ado[kk], wg_desc(vs + at, 16, Tile::kSbo, Tile::kMode),
+               kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
 #pragma unroll
-    for (int nb = 0; nb < kTile / 8; ++nb)
+    for (int nb = 0; nb < BK / 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nb * 8 + 2 * c + (e & 1);
-        float ds = 0.f;
-        if (visible(rows[e >> 1], col, t, p.causal)) {
-          const float pe = exp2f(s[nb][e] * sl2 - lse2[e >> 1]);
-          ds = pe * (dp[nb][e] - di[e >> 1]);
+        pin(s[nb][e]);
+        pin(dp[nb][e]);
+      }
+
+    // ds = p (dp - di), p = 2^(s * scale*log2e - lse*log2e). Only a tile
+    // that crosses the warp's diagonal or the end of the sequence holds a
+    // masked element; there ds is 0 (p may overflow past t: selected, not
+    // multiplied away).
+    const bool masked = (p.causal && k0 + BK - 1 > wrow0) || k0 + BK > t;
+#pragma unroll
+    for (int nb = 0; nb < BK / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = fast_exp2(fmaf(s[nb][e], sl2, -lse2[e >> 1]));
+        float ds = pe * (dp[nb][e] - di[e >> 1]);
+        if (masked) {
+          const int col = k0 + nb * 8 + 2 * c + (e & 1);
+          const int row = wrow0 + g + (e >> 1) * 8;
+          if (col >= t || (p.causal && col > row)) ds = 0.f;
         }
         s[nb][e] = ds;
       }
+
+    // dq += ds.k: ds from the score registers, k n-major from the same tile
+    // that s read k-major, one product per 16 keys and panel of the head dim.
+    uint32_t ads[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      frag_a_acc(a, s[2 * kk], s[2 * kk + 1]);
+    for (int kk = 0; kk < BK / 16; ++kk)
+      frag_a_acc(ads[kk], s[2 * kk], s[2 * kk + 1]);
+    wgmma_fence();
 #pragma unroll
-      for (int nb = 0; nb < HD / 8; ++nb) {
-        uint32_t b[2];
-        frag_b(b, kt, LDT, nb * 8, kk * 16, g, c);
-        mma(acc[nb], a, b);
-      }
-    }
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn)
+        wgmma<1>(acc[pn], ads[kk],
+                 wg_desc(ks + pn * Tile::kPanelBytes +
+                             kk * 16 * Tile::kRowBytes,
+                         Tile::kPanelBytes, Tile::kSbo, Tile::kMode),
+                 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int nb = 0; nb < PW / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pin(acc[pn][nb][e]);
   }
 
-  bf16* dq = static_cast<bf16*>(p.dq);
+  // The warp's rows of dq (times the scale) go through its own rows of qs
+  // and leave as 16-byte vectors.
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= t) continue;
-    bf16* row = dq + out_row(bi, rows[i], h, t, n, HD);
+    const int rl = wr + g + 8 * i;
 #pragma unroll
-    for (int nb = 0; nb < HD / 8; ++nb)
-      *reinterpret_cast<__nv_bfloat162*>(row + nb * 8 + 2 * c) =
-          __floats2bfloat162_rn(acc[nb][2 * i] * p.scale,
-                                acc[nb][2 * i + 1] * p.scale);
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int nb = 0; nb < PW / 8; ++nb)
+        *reinterpret_cast<__nv_bfloat162*>(qs + rl * LD + pn * PW + nb * 8 +
+                                           2 * c) =
+            __floats2bfloat162_rn(acc[pn][nb][2 * i] * p.scale,
+                                  acc[pn][nb][2 * i + 1] * p.scale);
   }
+  store_rows<HD>(static_cast<bf16*>(p.dq), qs + wr * LD, bi, wrow0, h, t, n,
+                 lane);
 }
 
 // ---------------------------------------------------------------- K5dkv
@@ -1184,7 +1209,7 @@ int launch_pass(int pass, int bf16_in, const Params& p, int b,
     if (pass == kDkv)
       return launch<dkv_bf16<HD>, dkv_smem<HD>(), kDkvWarps * 32, kRows,
                     true>(p, b, s);
-    return launch<dq_bf16<HD>, dq_smem<HD>(), 128, kRows, false>(p, b, s);
+    return launch<dq_bf16<HD>, dq_smem<HD>(), 128, kRows, true>(p, b, s);
   }
   if (pass == kFwd)
     return launch<fwd_f32<HD>, fwd32_smem<HD>(), 256, kRows, false>(p, b, s);

@@ -40,8 +40,9 @@ SIGNATURES = {
     "tempo_gn_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "tempo_gn_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tempo_gn_conv3x3": [_P] * 8 + [_I] * 9 + [_P],
-    "tempo_decode_attention": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _P],
+    "tempo_decode_split_len": [],
+    "tempo_decode_attention": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -11,6 +11,16 @@ cache with kv <= n heads (q heads kv-major: q head h*g + i reads kv head
 h), fp32 math, output in q's type. ``pos`` is an int or an int tensor,
 one position or one per row.
 
+On the card a call is one launch (csrc/decode.cu). A row of up to
+2 * ``split_len()`` live positions is walked whole by one block per kv
+head. A longer row is split: each block covers ``split_len()`` positions
+of one (row, kv head) and writes its partial softmax state to a scratch
+tensor this module allocates, and the last live split of a (row, kv head)
+to finish folds the row's splits in split order, elected by a counter in
+an int32 buffer this module keeps per device and stream (zero between
+calls). A row's result depends on its own position, q and cache alone,
+bit for bit.
+
 Each wrapper takes the plain PyTorch version beside it for a tensor on the
 CPU, and for a CUDA tensor launches its kernel or raises. Each counts its
 launches in ``LAUNCHES``.
@@ -18,6 +28,7 @@ launches in ``LAUNCHES``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Union
 
@@ -120,6 +131,31 @@ def _check_paged(q, pk, pv, table):
 
 # ------------------------------------------------------------ CUDA wrappers
 
+@functools.cache
+def split_len() -> int:
+    """Positions one block of the kernel covers (csrc/decode.cu: kSplit)."""
+    return int(_build.library().tempo_decode_split_len())
+
+
+def scratch_numel(b: int, n: int, hd: int, cap: int) -> int:
+    """fp32 values of the splits' partial state: for each (row, q head) and
+    each of ceil(cap / split) splits, the [hd] numerator, max and sum."""
+    return b * n * -(-cap // split_len()) * (hd + 2)
+
+
+_COUNTERS: dict = {}  # (device, stream) -> int32 counters, zero between calls
+
+
+def _counters(device: torch.device, stream: int, numel: int) -> torch.Tensor:
+    """The kernel's per-(row, kv head) arrival counters for calls on
+    ``stream``: zeroed once, left at zero by every call."""
+    c = _COUNTERS.get((device, stream))
+    if c is None or c.numel() < numel:
+        c = torch.zeros(numel, dtype=torch.int32, device=device)
+        _COUNTERS[(device, stream)] = c
+    return c
+
+
 def _launch(q, k, v, pos, table, cap, page, max_pages, name):
     for t, nm in ((q, "q"), (k, "k"), (v, "v")):
         check_cuda_input(t, nm)
@@ -148,12 +184,16 @@ def _launch(q, k, v, pos, table, cap, page, max_pages, name):
             raise ValueError(f"{name}: table on {table.device}")
         table = table.to(torch.int32).contiguous()
         table_ptr = table.data_ptr()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
+    scratch = torch.empty(scratch_numel(b, n, hd, cap), dtype=torch.float32,
+                          device=q.device)
+    counters = _counters(q.device, stream, b * kv)
     err = _build.library().tempo_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
         0 if p.numel() == 1 else 1, table_ptr, out.data_ptr(),
-        DTYPE_CODES[k.dtype], DTYPE_CODES[q.dtype], b, n, kv, hd, cap, page,
-        max_pages, torch.cuda.current_stream(q.device).cuda_stream)
+        scratch.data_ptr(), counters.data_ptr(), DTYPE_CODES[k.dtype],
+        DTYPE_CODES[q.dtype], b, n, kv, hd, cap, page, max_pages, stream)
     _build.check(err, "tempo_decode_attention")
     LAUNCHES[name] += 1
     return out

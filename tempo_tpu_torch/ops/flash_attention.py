@@ -25,6 +25,12 @@ the score tile kept in registers:
   row-major tile for O += P.v, P straight from the score registers. The
   softmax runs in the log2 domain with the scale folded into the
   exponent's FMA. 128 registers and 42 KB a block at hd 64, 4 blocks an SM.
+- K5dq is K5f's block with three products: S = q.k^T and dP = dO.v^T in
+  one ``wgmma`` group (q's and dO's A fragments resident, k and v tiles
+  k-major from the same ring), then dQ += dS.k with dS packed to bf16 from
+  the score registers and k read n-major from the tile S read k-major. Key
+  tiles of 64 (32 at hd 128, where 64-key score tiles beside the 64
+  accumulator registers spill). 174 registers and 51 KB at hd 64.
 - K5dkv runs on ``mma.sync``: a block owns 64 key rows (4 warps of 16) and
   walks 64-query tiles (32 at hd 128). k's and v's A fragments stay in
   registers (hd <= 64); q, dO, lse and di tiles arrive through the same
@@ -32,17 +38,15 @@ the score tile kept in registers:
   by ``ldmatrix.x4.trans`` for dV and dK. A tile goes S^T -> P -> dV ->
   dP^T -> dS -> dK, so one fp32 score tile is live beside the two
   accumulators (244 registers at hd 64, no spill).
-- Both visit no tile wholly outside the causal triangle, mask only tiles
-  that cross the diagonal or the ragged end of the sequence, and zero-fill
-  rows past t in the copy itself. What bounds them: at hd 64 a call sits on
-  the ridge between bytes and tensor-core operations; the kernels
-  themselves are held by the serial chain of a tile (products, wait,
-  softmax or dS, products) and, in K5dkv, by the instruction stream around its
-  ``mma.sync`` products, not by memory.
-- K5dq is still the first design (load-then-compute staging, a transposed
-  second copy of k, 32-bit fragment loads). Left for later: K5dq's
-  redesign, ``wgmma`` for the two backward passes, overlapping a tile's
-  softmax with the next tile's products in K5f, and TMA.
+- All three visit no tile wholly outside the causal triangle, mask only
+  tiles that cross the diagonal or the ragged end of the sequence, and
+  zero-fill rows past t in the copy itself. What bounds them: at hd 64 a
+  call sits on the ridge between bytes and tensor-core operations; the
+  kernels themselves are held by the serial chain of a tile (products,
+  wait, softmax or dS, products) and, in K5dkv, by the instruction stream
+  around its ``mma.sync`` products, not by memory. Left for later: K5dkv
+  on ``wgmma``, overlapping a tile's elementwise step with the next tile's
+  products, and TMA.
 
 Each pass has a plain PyTorch version with the same math (the backward
 recomputes P from q, k and lse; it is not autograd through a softmax). A

@@ -1,7 +1,7 @@
-"""The tile walk of the redesigned K5f and K5dkv (tempo_tpu_torch/csrc/
-flash_attn.cu: ``fwd_bf16`` and ``dkv_bf16`` / ``dkv_tile``),
-emulated in PyTorch on the CPU and held against ``flash_fwd_plain`` and
-``flash_bwd_dkv_plain``.
+"""The tile walk of the redesigned K5f, K5dkv and K5dq (tempo_tpu_torch/
+csrc/flash_attn.cu: ``fwd_bf16``, ``dkv_bf16`` / ``dkv_tile`` and
+``dq_bf16``), emulated in PyTorch on the CPU and held against
+``flash_fwd_plain``, ``flash_bwd_dkv_plain`` and ``flash_bwd_dq_plain``.
 
 The CUDA kernels run only on the card; what can go wrong in them before
 any instruction does is the index arithmetic, and that is plain integer
@@ -95,6 +95,24 @@ assert re.search(r"const int wr = warp \* %d;" % WARP_ROWS, FWD)
 assert re.search(r"launch<fwd_bf16<HD>, fwd_smem<HD>\(\), %d, kRows,"
                  % (32 * K_ROWS // WARP_ROWS), SOURCE)
 
+DQ = _kernel_body("dq_bf16")
+DQ_TILE = _find(r"constexpr int kDqTile = ([^;]+);")
+assert re.search(r"constexpr int BK = kDqTile<HD>;", DQ)
+assert re.search(r"const int wr = warp \* %d;" % WARP_ROWS, DQ)
+DQ_Q0 = _find(r"const int q0 = ([^;]+);", DQ)
+DQ_TILES = _find(r"\n  int n_tiles = ([^;]+);", DQ)
+DQ_TILES_CAUSAL = _find(r"if \(p\.causal\) n_tiles = ([^;]+);", DQ)
+DQ_MASKED = _find(r"const bool masked = ([^;]+);", DQ)
+DQ_MASK = _find(r"if \((col >= t[^)]+\))\) ds = 0\.f;", DQ)
+# The element mask of a masked K5dq tile, held against its vectorised form
+# (_killed below) over every case of its comparisons.
+assert all(_c_eval(DQ_MASK, col=c, row=r, t=t, causal=cz)
+           == (c >= t or (cz and c > r))
+           for c in range(4) for r in range(4) for t in range(4)
+           for cz in (False, True))
+assert re.search(r"launch<dq_bf16<HD>, dq_smem<HD>\(\), %d, kRows, true>"
+                 % (32 * K_ROWS // WARP_ROWS), SOURCE)
+
 DKV = _kernel_body("dkv_bf16")
 assert re.search(r"constexpr int BK = kRows, BI = kDkvTile<HD>,", DKV)
 assert re.search(r"const int k0 = blockIdx\.y \* BK;", DKV)
@@ -109,6 +127,11 @@ DKV_MASKED = _find(r"if \((\(p\.causal && wkey0[^;]+?)\)\s+dkv_tile<HD, RES, tru
 def dkv_tile_rows(hd: int) -> int:
     """kDkvTile: queries per staged tile in K5dkv."""
     return _c_eval(DKV_TILE, HD=hd)
+
+
+def dq_tile_rows(hd: int) -> int:
+    """kDqTile: keys per staged tile in K5dq."""
+    return _c_eval(DQ_TILE, HD=hd)
 
 
 def _inputs(t: int, hd: int, seed: int = 0):
@@ -126,6 +149,15 @@ def _staged(x: torch.Tensor, r0: int, rows: int) -> torch.Tensor:
     live = max(0, min(rows, t - r0))
     tile[:, :live] = x[:, r0:r0 + live]
     return tile.transpose(1, 2)
+
+
+def _killed(rows: torch.Tensor, cols: torch.Tensor, t: int,
+            causal: bool) -> torch.Tensor:
+    """[len(rows), len(cols)]: K5dq's mask zeroes the pair (DQ_MASK)."""
+    kill = (cols[None, :] >= t).expand(len(rows), len(cols))
+    if causal:
+        kill = kill | (cols[None, :] > rows[:, None])
+    return kill
 
 
 def _visible(rows: torch.Tensor, cols: torch.Tensor, t: int,
@@ -248,6 +280,65 @@ def emulate_dkv(q, k, v, do, lse, di, causal: bool, sm_scale: float):
     return dk_out, dv_out
 
 
+def emulate_dq(q, k, v, do, lse, di, causal: bool, sm_scale: float):
+    """dq_bf16's walk, one warp (16 query rows) at a time; (dq, tiles
+    visited). The block's warpgroup runs every key tile of the block (the
+    products are the warpgroup's); only the masking is a warp's own."""
+    b, t, n, hd = q.shape
+    bk = dq_tile_rows(hd)
+    dq = torch.zeros_like(q)
+    sl2 = sm_scale * LOG2E
+    visited = 0
+    grid_y = (t + K_ROWS - 1) // K_ROWS
+    starts = []
+    for block_y in range(grid_y):
+        q0 = _c_eval(DQ_Q0, grid_y=grid_y, block_y=block_y, **SIZES)
+        starts.append(q0)
+        env = dict(SIZES, t=t, q0=q0, causal=causal, BK=bk)
+        n_tiles = _c_eval(DQ_TILES, **env)
+        if causal:
+            n_tiles = _c_eval(DQ_TILES_CAUSAL, n_tiles=n_tiles, **env)
+        assert n_tiles >= 1
+        block_rows = torch.arange(q0, q0 + K_ROWS)
+        for j in range(n_tiles):
+            k0 = j * bk
+            cols = torch.arange(k0, k0 + bk)
+            # no visited tile lies wholly outside the triangle: the block's
+            # rows see at least one of its keys
+            assert _visible(block_rows, cols, t, causal).any()
+            visited += 1
+        for warp in range(K_ROWS // WARP_ROWS):
+            wrow0 = q0 + warp * WARP_ROWS
+            rows = torch.arange(wrow0, wrow0 + WARP_ROWS)
+            qw, dow = _staged(q, wrow0, WARP_ROWS), _staged(do, wrow0,
+                                                            WARP_ROWS)
+            live = max(0, min(WARP_ROWS, t - wrow0))
+            lse2 = torch.zeros((b, n, WARP_ROWS))
+            di_w = torch.zeros((b, n, WARP_ROWS))
+            lse2[..., :live] = lse[..., wrow0:wrow0 + live] * LOG2E
+            di_w[..., :live] = di[..., wrow0:wrow0 + live]
+            acc = torch.zeros((b, n, WARP_ROWS, hd))
+            for j in range(n_tiles):
+                k0 = j * bk
+                cols = torch.arange(k0, k0 + bk)
+                kill = _killed(rows, cols, t, causal)
+                masked = _c_eval(DQ_MASKED, k0=k0, wrow0=wrow0, **env)
+                kt = _staged(k, k0, bk)
+                s = qw @ kt.transpose(-1, -2)
+                dp = dow @ _staged(v, k0, bk).transpose(-1, -2)
+                pe = torch.exp2(s * sl2 - lse2[..., None])
+                ds = pe * (dp - di_w[..., None])
+                if masked:
+                    ds = torch.where(kill, torch.zeros(()), ds)
+                else:
+                    assert not kill.any()   # an unmasked tile: no masked pair
+                acc = acc + ds @ kt                             # dS.K
+            dq[:, wrow0:wrow0 + live] = (acc * sm_scale).transpose(
+                1, 2)[:, :live]
+    assert starts == sorted(range(0, t, K_ROWS), reverse=True)
+    return dq, visited
+
+
 def _scale(hd: int) -> float:
     return 1.0 / math.sqrt(hd)
 
@@ -275,6 +366,32 @@ def test_dkv_tile_walk(t, hd, causal):
     dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, di, causal)
     assert torch.allclose(dk, dk_p, atol=ATOL, rtol=0)
     assert torch.allclose(dv, dv_p, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("t", T_VALUES)
+def test_dq_tile_walk(t, hd, causal):
+    q, k, v, do = _inputs(t, hd, seed=3)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, causal)
+    di = fa.attention_di(o_p, do)
+    dq, visited = emulate_dq(q, k, v, do, lse_p, di, causal, _scale(hd))
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, di, causal)
+    assert visited >= 1
+    assert torch.allclose(dq, dq_p, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_causal_dq_visits_only_tiles_with_a_visible_pair(hd):
+    """At t = 1024: the block of rows q0 .. q0 + 63 walks the key tiles up
+    to its last row's, (q0 + 64) / BK of them; counted against the closed
+    form."""
+    t, bk = 1024, dq_tile_rows(hd)
+    q, k, v, do = _inputs(t, hd, seed=4)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, True)
+    _, visited = emulate_dq(q, k, v, do, lse_p, fa.attention_di(o_p, do),
+                            True, _scale(hd))
+    assert visited == sum((q0 + K_ROWS) // bk for q0 in range(0, t, K_ROWS))
 
 
 @pytest.mark.parametrize("sm_scale", [-0.2, 0.0, 0.37])
@@ -311,15 +428,18 @@ def test_wgmma_tile_swizzle_is_a_permutation_within_128_byte_lines():
     consts = dict(re.findall(r"(\w+) = ([^,;]+)[,;]", tile))
     off_src = _find(r"const int off = ([^;]+);", tile)
     ret_src = _find(r"return ([^;]+);", tile)
-    for hd in HEAD_DIMS:
+    cases = {(hd, rows) for hd in HEAD_DIMS
+             for rows in (KEY_TILE, dq_tile_rows(hd))}
+    for hd, rows in sorted(cases):
         pw = _c_eval(consts["PW"], HD=hd)
-        env = dict(PW=pw, kTile=KEY_TILE)
+        env = dict(PW=pw, kTile=KEY_TILE, ROWS=rows)
         for name in ("kRowBytes", "kBits", "kPanelBytes"):
             env[name] = _c_eval(consts[name], **env)
         row_bytes, bits = env["kRowBytes"], env["kBits"]
         assert (row_bytes, bits) == (pw * 2, 3 if pw == 64 else 2)
+        assert env["kPanelBytes"] % 1024 == 0  # panels keep the alignment
         seen = set()
-        for r in range(KEY_TILE):
+        for r in range(rows):
             for col in range(0, hd, 8):
                 off = _c_eval(off_src, r=r, col=col, **env)
                 at = _c_eval(ret_src, off=off, col=col, **env)
@@ -328,4 +448,4 @@ def test_wgmma_tile_swizzle_is_a_permutation_within_128_byte_lines():
                 if off % 1024 < row_bytes and bits == 3:
                     assert swz == off
                 seen.add(at)
-        assert seen == set(range(0, KEY_TILE * hd * 2, 16))
+        assert seen == set(range(0, rows * hd * 2, 16))
