@@ -7,14 +7,20 @@ Phases, each fatal on failure:
   1. build   compile the CUDA kernels from tempo_tpu_torch/csrc with nvcc, and
              print what ptxas says of every kernel (registers, spills,
              shared memory); K5f and K5dkv may not spill at head dim 64,
-             K5dq at 32, 64 or 128, any decode kernel, nor any bf16 K2
-             tile configuration; K5f's and K5dq's SASS must hold HGMMA
-             (wgmma) at every head dim;
+             K5dq at 32, 64 or 128, any decode kernel, any bf16 K2 tile
+             configuration, nor any K1 kernel; K5f's and K5dq's SASS must
+             hold HGMMA (wgmma) at every head dim;
   2. kernels hold each kernel against its plain PyTorch version on the card
              at the shapes the main path gives it (discovered by running the
              tile batch and the granule once each), and time kernel, plain
              version and library calls (K2's lines name the tile
-             configuration and split its launcher chose);
+             configuration and split its launcher chose). K1a is also held
+             bitwise to itself on a repeat and, for each sample, alone
+             against in a batch, and counted under torch.profiler as one
+             device kernel a call; K1a and K1b are checked at edge shapes
+             (HW 1, 7x9, 3x1000; C 40 in 8 groups; B 1 and 8; bf16, fp32,
+             an unaligned x), and the five [1,128,2048,512] calls are
+             printed beside their byte bound;
   3. main    the flagship AutoencoderKL (27,289,893 parameters, bf16
              compute, weights from a seed): encode -> mode -> decode of an
              [8,64,64,1028] tile batch and GranuleCodec.reconstruct_raw of a
@@ -54,7 +60,7 @@ Phases, each fatal on failure:
   4c. one train step's loss and gradients through K5 against the plain
       attention path (bf16 full size; fp32 with 2 layers at batch 2).
 Prints the card's name and power limit first, each redesigned kernel's
-time against its time before the redesign (KERNEL_PREV), one
+time against its time before the redesign (KERNEL_PREV, K1_PREV), one
 {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no
 result, when there is no CUDA device or the package is not beside it.
@@ -136,6 +142,13 @@ TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS, TRAINER_STEPS = 8, 3, 10, 30
 KERNEL_PREV = {"K5f": 0.2148, "K5dkv": 0.4309, "K5dq": 0.2480,
                "K3": 0.01055, "K4": 0.0166,
                "card": "NVIDIA H100 80GB HBM3, 700.00 W"}
+# K1's times a main-path run before its redesign (partial sums, then a fold
+# kernel; an elementwise grid-stride apply), read the same way.
+K1_PREV = {"K1a": 1.490, "K1b": 0.038, "k1_whole_ms": 0.075}
+# K1's edge shapes: HW 1, 7x9 and 3x1000; C 128 and 40 in 8 groups (5
+# channels a group: not a whole 16-byte pack, the element path); B 1 and 8.
+K1_EDGE = [(b, h, w, c) for b in (1, 8) for h, w in ((1, 1), (7, 9), (3, 1000))
+           for c in (128, 40)]
 # The LM serving path, as tools/bench_toolkit.py measures the JAX package:
 # bench_decode(cache_len=1024) for generate, bench_workload for the server.
 LM_BATCH, LM_PROMPT, LM_NEW, LM_CACHE = 8, 64, 128, 1024
@@ -154,8 +167,8 @@ def fail(msg: str) -> None:
 
 def ptxas_lines(build_log: str, smem_bytes, k2_config) -> list[str]:
     """One line per kernel from nvcc's -Xptxas -v output: its name (for the
-    tempo::flash, tempo::gn_conv and decode kernels with their template
-    arguments, else as mangled), registers, static shared memory, spill
+    tempo::flash, tempo::gn_conv, decode and K1 (tempo::gn) kernels with
+    their template arguments, else as mangled), registers, static shared memory, spill
     bytes, and for the bf16 flash kernels and K2's bf16 instantiations the
     dynamic shared memory a block asks for (``smem_bytes(pass, hd)``;
     ``k2_config(args)`` gives the configuration's name and bytes)."""
@@ -169,7 +182,12 @@ def ptxas_lines(build_log: str, smem_bytes, k2_config) -> list[str]:
             f = re.search(r"^5flash\d+([a-z0-9_]+?)I(\S*?)EEv", name)
             g = re.search(r"^7gn_conv\d+([a-z0-9_]+?)(?:I(\S*?)EEv|E)", name)
             d = re.search(r"^\d+(decode_[a-z]+)(?:I(\S*?)EEv|E)", name)
-            if d:
+            k1 = re.search(r"^\d+(gn_(?:stats|apply)_kernel)I(\S*?)EEv", name)
+            if k1:
+                args = re.findall(r"L[ib](\d+)E", k1.group(2))
+                args.insert(0, "bf16" if "bfloat16" in k1.group(2) else "f32")
+                name = f"tempo::gn {k1.group(1)}<{','.join(args)}>"
+            elif d:
                 targs = d.group(2) or ""
                 args = re.findall(r"L[ib](\d+)E", targs)
                 if targs:
@@ -368,6 +386,23 @@ def recording_decode(calls: dict, run: str):
     finally:
         (cuda_decode.decode_attention,
          cuda_decode.paged_decode_attention) = saved
+
+
+def device_kernels(fn) -> list:
+    """The device kernels (and copies) one ``fn()`` runs, by torch.profiler;
+    fails where the profiler records none on this machine."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        fail("torch.profiler recorded no device activity for one call")
+    return names
 
 
 def decode_tol(dtype) -> dict:
@@ -1376,6 +1411,14 @@ def main() -> int:
         if spilled or len(path_k2) != len(cuda_gn_conv.CONFIGS):
             fail(f"a bf16 K2 configuration spills, or ptxas said nothing of "
                  f"one: {spilled or path_k2}")
+        # K1a (bf16, fp32; packs or elements) and K1b (bf16, fp32; 16-byte
+        # or one-element packs): eight instantiations, none may spill.
+        path_k1 = [ln for ln in lines if ln.startswith("tempo::gn ")]
+        spilled = [ln for ln in path_k1 if "0 bytes spill stores, 0 bytes "
+                   "spill loads" not in ln]
+        if spilled or len(path_k1) != 8:
+            fail(f"a K1 kernel spills, or ptxas said nothing of it: "
+                 f"{spilled or path_k1}")
     else:
         print("[build] the kernel library was loaded from build/kernels "
               "(built by an earlier run): no ptxas output in this run",
@@ -1476,25 +1519,69 @@ def main() -> int:
         return out
 
     with torch.inference_mode():
-        # K1a: statistics at every shape the path gives it.
+        # K1a: statistics at every shape the path gives it; each is bitwise
+        # the same on a repeat and, in a batch, for each sample alone.
         r = row("K1a", "tempo_tpu_torch/csrc/gn.cu",
                 "tempo_tpu/ops/pallas_gn.py:66",
-                "torch.var_mean over the [B,HW,G,C/G] view")
+                "torch.var_mean over the [B,HW,G,C/G] view", copy_ms=0.0)
         for (shape, groups, eps), n in count(calls["K1a"]).items():
             b, c = shape[0], shape[-1]
             x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
             got = cuda_gn.gn_stats(x, groups, eps)
             want = cuda_gn.gn_stats_plain(x, groups, eps)
             err, ok = max_err(got, want, STATS_TOL)
-            checks_ok &= ok
+            repeat = torch.equal(got, cuda_gn.gn_stats(x, groups, eps))
+            alone = all(torch.equal(got[i:i + 1], cuda_gn.gn_stats(
+                x[i:i + 1], groups, eps)) for i in range(b))
+            checks_ok &= ok and repeat and alone
+            # A yardstick of the card's memory rate: a device-to-device
+            # copy of half of x moves as many bytes as K1a reads.
+            half = x.view(-1)[: x.numel() // 2]
+            dst = torch.empty_like(half)
+            extra = {"bitwise_repeat": repeat, "bitwise_alone": alone,
+                     "copy_ms": time_ms(lambda: dst.copy_(half))}
             nbytes = x.numel() * 2 + got.numel() * 4
             xg = x.view(b, -1, groups, c // groups)
-            add(r, {"x": list(shape)}, n, err, ok,
+            add(r, {"x": list(shape),
+                    "split": cuda_gn.choose_stats_split(
+                        x.numel() // (b * c), c, x.dtype)}, n, err, ok,
                 time_ms(lambda: cuda_gn.gn_stats(x, groups, eps)),
                 time_ms(lambda: cuda_gn.gn_stats_plain(x, groups, eps)),
                 1e3 * nbytes / HBM_BYTES_PER_S, "bytes",
                 time_ms(lambda: torch.var_mean(xg, dim=(1, 3),
-                                               correction=0)))
+                                               correction=0)), extra)
+            del x, xg, half, dst
+        # The five granule calls at [1,128,2048,512] hold 76% of K1a's
+        # bytes. Yardsticks beside them: the copy of the same bytes above,
+        # torch.sum reading them, and a one-element kernel (what time_ms
+        # reads for a call that does nothing).
+        x = torch.randn((1, 128, 2048, 512), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        one = torch.zeros(1, device=dev)
+        r["sum_1x128x2048x512_ms"] = time_ms(
+            lambda: x.sum(dtype=torch.float32))
+        r["one_element_kernel_ms"] = time_ms(lambda: one.add_(1))
+        del x
+        for sh in r["shapes"]:
+            if sh["x"] == [1, 128, 2048, 512]:
+                print(f"[kernels] K1a [1,128,2048,512] x"
+                      f"{sum(sh['calls'].values())}: {sh['ms']:.5f} ms a call"
+                      f", byte bound {sh['bound_ms']:.5f} ms "
+                      f"({sh['bound_ms'] / sh['ms']:.1%} of it); copy_ of "
+                      f"half {sh['copy_ms']:.5f} ms "
+                      f"({sh['bound_ms'] / sh['copy_ms']:.1%})"
+                      f"; torch.sum {r['sum_1x128x2048x512_ms']:.5f} ms; a "
+                      f"one-element kernel {r['one_element_kernel_ms']:.5f} "
+                      f"ms", flush=True)
+        # One device kernel a call, at the largest and a small path shape.
+        for shape in ((1, 128, 2048, 512), (8, 16, 16, 128)):
+            x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            cuda_gn.gn_stats(x, 8)
+            names = device_kernels(lambda: cuda_gn.gn_stats(x, 8))
+            print(f"[kernels] K1a {list(shape)}: device kernels in one call "
+                  f"{names}", flush=True)
+            checks_ok &= len(names) == 1 and "gn_stats_kernel" in names[0]
+            del x
 
         # K1b: apply from given statistics at the path's shapes and at the
         # two shapes asked of K1. The library GroupNorm computes the
@@ -1605,12 +1692,57 @@ def main() -> int:
             print(f"[kernels] {name} [8,16,16,128]: max_abs_err={err:.3e} "
                   f"tol={F32_TOL} ok={ok}", flush=True)
             checks_ok &= ok
+
+        # K1 at its edge shapes, bf16 and fp32, and from an unaligned x
+        # (the element path at C 128): K1a to STATS_TOL, bitwise the same on
+        # a repeat and for each sample alone; K1b with every activation to
+        # BF16_TOL (F32_TOL in fp32).
+        edge_ok = True
+        for (b, h, w, c), dtype in [(e, d) for e in K1_EDGE for d in (
+                torch.bfloat16, torch.float32)] + [((8, 7, 9, 128), None)]:
+            x = torch.randn((b, h, w, c), generator=gen, device=dev) + 0.5
+            if dtype is None:   # the same values one element off alignment
+                dtype = torch.bfloat16
+                x = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[
+                    1:].view(x.shape).copy_(x)
+            x = x.to(dtype)
+            got = cuda_gn.gn_stats(x, 8)
+            want = cuda_gn.gn_stats_plain(x, 8)
+            err, ok = max_err(got, want, STATS_TOL)
+            ok &= torch.equal(got, cuda_gn.gn_stats(x, 8))
+            ok &= all(torch.equal(got[i:i + 1], cuda_gn.gn_stats(
+                x[i:i + 1], 8)) for i in range(b))
+            scale, bias = affine(c)
+            tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+            for act in (None, "gelu", "relu", "silu"):
+                a_err, a_ok = max_err(
+                    cuda_gn.gn_apply(x, want, scale, bias, act),
+                    cuda_gn.gn_apply_plain(x, want, scale, bias, act), tol)
+                err, ok = max(err, a_err), ok and a_ok
+            edge_ok &= ok
+            print(f"[kernels] K1 edge {[b, h, w, c]} {str(dtype)[6:]}"
+                  f"{' unaligned' if x.data_ptr() % 16 else ''}: "
+                  f"max_abs_err={err:.3e} ok={ok}", flush=True)
+        checks_ok &= edge_ok
     torch.cuda.synchronize()
     for r in rows.values():
         for s in r["shapes"]:
             print(f"[kernels] {r['name']} {json.dumps(s)}", flush=True)
+    card = smi_line()
+    print(f"[kernels] K1a: {rows['K1a']['ms']:.4f} ms a run; a device copy "
+          f"of half of each call's x (as many bytes moved) "
+          f"{rows['K1a']['copy_ms']:.4f} ms a run; byte bound "
+          f"{rows['K1a']['bound_ms']:.4f} ms", flush=True)
+    for name, key in (("K1a", "ms"), ("K1b", "ms"), ("K1b", "k1_whole_ms")):
+        prev = K1_PREV[name if key == "ms" else key]
+        print(f"[kernels] {name if key == 'ms' else 'K1 whole'}: "
+              f"{rows[name][key]:.4f} ms a run on {card}; before the "
+              f"redesign {prev:.3f} on {KERNEL_PREV['card']}: "
+              f"x{prev / rows[name][key]:.2f}", flush=True)
     if not checks_ok:
-        fail("a kernel disagrees with its plain version beyond tolerance")
+        fail("a kernel disagrees with its plain version beyond tolerance, "
+             "or K1a is not one kernel, bitwise repeatable and the same "
+             "for a sample alone")
 
     # ---------------------------------------------------------- 3. main path
     with torch.inference_mode():

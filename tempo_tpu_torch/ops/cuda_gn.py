@@ -4,6 +4,11 @@ Counterpart of tempo_tpu/ops/pallas_gn.py (``_stats_kernel`` and
 ``_apply_kernel``); the CUDA source is csrc/gn.cu, whose header says what
 bounds the kernels on the H100 and how they are laid out.
 
+K1a is one launch: ``choose_stats_split`` cuts each sample's rows into
+blocks from (HW, C, dtype) alone, each block writes its per-group partial
+sums, and the last block of a sample to arrive (a per-sample counter, kept
+per stream at zero between calls) folds them in block order.
+
 Each wrapper takes the plain PyTorch version beside it for a tensor on the
 CPU, and for a CUDA tensor launches its kernel or raises. Each counts its
 launches in ``LAUNCHES``. There is no backward yet: with grad mode on and an
@@ -21,10 +26,21 @@ from tempo_tpu_torch.ops.norms import ACTIVATIONS
 
 ACT_CODES = {None: 0, "gelu": 1, "relu": 2, "silu": 3}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_STATS_BLOCKS = 1024  # target number of blocks for the partial-sum kernel
-_STATS_CHANNELS = 32  # channels per stats block (csrc/gn.cu kStatsChannels)
+# csrc/gn.cu's constants: threads a block, the largest C K1a folds in
+# shared memory.
+THREADS = 256
+MAX_CHANNELS = 8192
+# K1a's split of a sample: at least BLOCK_BYTES of x a block, at most
+# MAX_BLOCKS blocks (one wave at 4 blocks an SM on the H100's 132 SMs). A
+# sample larger than one block gets at least MIN_BLOCKS blocks where each
+# still holds MIN_BLOCK_BYTES, so that a batch of small samples does not
+# walk each in a few long blocks.
+BLOCK_BYTES = 64 << 10
+MIN_BLOCKS, MIN_BLOCK_BYTES = 16, 16 << 10
+MAX_BLOCKS = 4 * 132
 # Launches of each kernel, counted by its wrapper where it launches it.
 LAUNCHES = {"gn_stats": 0, "gn_apply": 0}
+_COUNTERS: dict = {}
 
 
 # ----------------------------------------------------------- plain versions
@@ -94,6 +110,38 @@ def f32_param(t: Optional[torch.Tensor], n: int, fill: float,
     return t.float().contiguous()
 
 
+def choose_stats_split(hw: int, c: int, dtype: torch.dtype
+                       ) -> tuple[int, int]:
+    """K1a's split of one sample, from (HW, C, dtype) alone and never from
+    B: (blocks_per_sample, rows_per_block). Block j sums rows
+    [j * rows_per_block, min(HW, (j + 1) * rows_per_block))."""
+    sample_bytes = hw * c * (2 if dtype == torch.bfloat16 else 4)
+    want = -(-sample_bytes // BLOCK_BYTES)
+    if want > 1:
+        want = max(want, min(MIN_BLOCKS, -(-sample_bytes // MIN_BLOCK_BYTES)))
+    want = max(1, min(MAX_BLOCKS, hw, want))
+    rows = -(-hw // want)
+    return -(-hw // rows), rows
+
+
+def stats_vectorized(c: int, dtype: torch.dtype, ptr: int) -> bool:
+    """Whether K1a loads 16-byte packs: C a whole number of packs, a block's
+    pass (THREADS packs) a whole number of rows, and x 16-byte aligned.
+    Otherwise the same kernel loads element by element."""
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    return c % vec == 0 and (THREADS * vec) % c == 0 and ptr % 16 == 0
+
+
+def _counters(device: torch.device, stream: int, numel: int) -> torch.Tensor:
+    """K1a's per-sample arrival counters for calls on ``stream``: zeroed
+    once, left at zero by every call."""
+    cnt = _COUNTERS.get((device, stream))
+    if cnt is None or cnt.numel() < numel:
+        cnt = torch.zeros(numel, dtype=torch.int32, device=device)
+        _COUNTERS[(device, stream)] = cnt
+    return cnt
+
+
 def gn_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-6
              ) -> torch.Tensor:
     """K1a: x [B, ..., C] -> [B, 2, C] fp32 per-channel (mean, rstd)."""
@@ -104,19 +152,20 @@ def gn_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-6
     b, c = x.shape[0], x.shape[-1]
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    if c > MAX_CHANNELS or b > 65535:
+        raise ValueError(f"K1a takes C <= {MAX_CHANNELS} and B <= 65535, got "
+                         f"C {c}, B {b}")
     hw = x.numel() // (b * c)
-    cblocks = -(-c // _STATS_CHANNELS)
-    n_chunks = max(1, min(hw, -(-_STATS_BLOCKS // (b * cblocks))))
-    rows = -(-hw // n_chunks)
-    n_chunks = -(-hw // rows)
-    partial = torch.empty(b * n_chunks * 2 * c, dtype=torch.float32,
+    blocks, rows = choose_stats_split(hw, c, x.dtype)
+    partial = torch.empty(b * blocks * 2 * num_groups, dtype=torch.float32,
                           device=x.device)
     stats = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    err = lib.tempo_gn_stats(
-        x.data_ptr(), partial.data_ptr(), stats.data_ptr(),
-        DTYPE_CODES[x.dtype], b, hw, c, num_groups, rows, n_chunks,
-        float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _build.library().tempo_gn_stats(
+        x.data_ptr(), partial.data_ptr(),
+        _counters(x.device, stream, b).data_ptr(), stats.data_ptr(),
+        DTYPE_CODES[x.dtype], b, hw, c, num_groups, blocks, rows,
+        int(stats_vectorized(c, x.dtype, x.data_ptr())), float(eps), stream)
     _build.check(err, "tempo_gn_stats")
     LAUNCHES["gn_stats"] += 1
     return stats
@@ -138,6 +187,8 @@ def gn_apply(x: torch.Tensor, stats: torch.Tensor,
                          "on x's device")
     if act not in ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
+    if b > 65535:
+        raise ValueError(f"K1b takes B <= 65535, got {b}")
     scale32 = f32_param(scale, c, 1.0, x)
     bias32 = f32_param(bias, c, 0.0, x)
     out = torch.empty_like(x)
