@@ -59,9 +59,31 @@ Phases, each fatal on failure:
       version and SDPA;
   4c. one train step's loss and gradients through K5 against the plain
       attention path (bf16 full size; fp32 with 2 layers at batch 2).
-Prints the card's name and power limit first, each redesigned kernel's
-time against its time before the redesign (KERNEL_PREV, K1_PREV), one
-{"kernels": [...]} line, and as the last line
+  then the flagship VAE training path (bf16, weights from a seed with the
+  zero-init output convs re-drawn), K1a, K1b and K2 in the forward, their
+  backward the plain recompute:
+  5a. train steps on the bench_train batch ([64, 64, 64, 1028] fp32 from
+      a seed, AdamW lr 1e-4, betas (0.9, 0.95), wd 0.05 after the
+      global-norm clip): 3 warm, then 10 timed, the K1/K2 counters set to
+      0 before and read after (launches a step equal to the calls of one
+      training forward); step ms, patches/s, peak memory, a profiled step
+      by kind of kernel and its busy share (also at batch 8); the loss
+      falls; one loss and backward with remat equals the one without
+      (peak memory of each);
+  2'''. the K1 and K2 autograd Functions' backward at every shape the step
+      records against autograd through the plain chain, same inputs;
+  5b. Trainer.train for 30 steps at batch 8 over a TileLoader of
+      make_tile_shards' flagship fp16 shards: a validation of 10 batches,
+      checkpoint and metrics.json written; one more step from the reloaded
+      checkpoint equals one from the live state, bit for bit (cuDNN
+      deterministic for the two); samples/s and the loader's share;
+  5c. one step's loss, pixel MSE and gradients through K1/K2 against the
+      plain path, under the L2 loss (bf16 at batch 64; fp32 with two
+      levels at batch 2), and under the flagship's L1 loss in bf16, its
+      gradients held against the same step in fp32 (VAE_BF16_ACC).
+Prints the card's name and power limit first, each phase's seconds, each
+redesigned kernel's time against its time before the redesign
+(KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no
 result, when there is no CUDA device or the package is not beside it.
 """
@@ -134,6 +156,36 @@ STEP_F32_TOL = {"loss": 1e-4, "grad": 1e-4}
 # The training path, as tools/bench_toolkit.py bench_gpt measures the JAX
 # package: GPT-2-small, batch 8 x 1024 tokens, AdamW lr 3e-4, wd 0.1.
 TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS, TRAINER_STEPS = 8, 3, 10, 30
+# The VAE training path, as bench.py bench_train measures the JAX package:
+# the flagship (VAE_MODEL = {}: build_vae's defaults) at batch 64 of
+# [64,64,1028] tiles, the optimizer of configs/training/
+# train_vae_default.yaml (AdamW lr 1e-4, betas (0.9, 0.95), weight decay
+# 0.05) after the VAE recipe's global-norm clip at 1.0; 3 warm steps, then
+# 10 timed. The Trainer takes 30 steps at batch 8 over a TileLoader of 5
+# shards of 8 flagship tiles in fp16 (336 MB), a buffer of 24. The fp32
+# step check (5c) cuts the depth to two levels of three, at batch 2.
+VAE_MODEL: dict = {}
+VAE_F32_MODEL = {"chs": [512, 256]}
+VAE_TRAIN_BATCH, VAE_TRAINER_BATCH, VAE_TRAINER_STEPS = 64, 8, 30
+VAE_SHARDS, VAE_TILES_PER_SHARD, VAE_BUFFER = 5, 8, 24
+# The K1/K2 Functions' backward against autograd through the plain chain
+# from the same inputs: the same recompute (cuDNN deterministic), so the
+# fp32 tolerance, relative L2, holds the saved-tensor plumbing.
+FN_BWD_REL = 1e-4
+# The VAE step against the plain path (5c). Under the L1 reconstruction
+# loss of the flagship, d loss / d recon is sign(recon - x): any change of
+# rounding in the forward flips it at the elements where recon and x
+# nearly meet, a fraction f of them, and moves every gradient by ~2 sqrt(f)
+# relative L2 whatever the kernels do: beyond STEP_F32_TOL in fp32 and
+# beyond STEP_BF16_TOL in bf16 on the card (5c prints f). The
+# per-gradient tolerances are therefore held with the flagship's widths
+# under the smooth L2 loss, STEP_BF16_TOL and STEP_F32_TOL as for GPT; the
+# flagship's L1 step in bf16 is held to STEP_BF16_TOL in its loss and
+# pixel MSE, and each of its gradients against the same step in fp32 (the
+# plain path, TF32 off, same weights, batch and noise): within
+# STEP_BF16_TOL["grad"] of it, or no more than VAE_BF16_ACC times as far
+# from it as the plain bf16 path's gradient is.
+VAE_BF16_ACC = 1.25
 # Each redesigned kernel's time a call before its redesign, read by this
 # script alone with a cold L2: K5f, K5dkv, K5dq at [8,1024,12,64] bf16
 # causal (mma.sync with load-then-compute staging and a transposed second
@@ -1021,43 +1073,70 @@ def flash_work(b, t, n, hd, elem, causal=True) -> dict:
             "K5dq": (3 * mat, 5 * x + 2 * stats)}     # s, dp, dq
 
 
-def step_breakdown(fn) -> dict:
+# Kinds of device kernels in a train step, by substrings of their names
+# (lower case; the first kind that matches takes a kernel).
+LM_STEP_KINDS = {"k5": ("tempo::flash",),
+                 "gemm": ("gemm", "xmma", "cutlass", "nvjet", "cublas",
+                          "splitk"),
+                 "optimizer": ("multi_tensor_apply", "adam"),
+                 "reduce": ("reduce_kernel", "softmax", "logsumexp"),
+                 "layernorm": ("layer_norm",),
+                 "embedding": ("embedding", "index", "scatter", "gather"),
+                 "elementwise": ("elementwise",)}
+# The VAE step: K1a, K1b and K2 in the forward; cuDNN's convolutions (the
+# plain recompute of GN+act+conv in the backward and the strided convs:
+# "fprop" forward, "dgrad" data gradient and the transposed conv's forward,
+# "wgrad" weight gradient); cuBLAS for the 1x1 convs and attention.
+VAE_STEP_KINDS = {"K1a": ("gn_stats_kernel",),
+                  "K1b": ("gn_apply_kernel",),
+                  "K2": ("tempo::gn_conv", "conv_bf16", "reduce_splits",
+                         "conv_f32"),
+                  "conv_dgrad": ("dgrad",),
+                  "conv_wgrad": ("wgrad",),
+                  "elementwise": ("elementwise",),
+                  "conv_fprop": ("fprop", "conv", "implicit"),
+                  "gemm": ("gemm", "xmma", "cutlass", "nvjet", "cublas",
+                           "splitk"),
+                  "optimizer": ("multi_tensor_apply", "adam"),
+                  "reduce": ("reduce_kernel", "softmax")}
+
+
+def step_breakdown(fn, kinds: dict = LM_STEP_KINDS,
+                   label: str = "train") -> dict:
     """Device kernel time of one ``fn()`` (a train step) by torch.profiler,
     summed by kind of kernel from the kernels' full names (user annotation
     ranges such as the optimizer's step are left out: their kernels are
-    counted themselves); None where the profiler gives no device time."""
+    counted themselves), with the counts of device kernels and host
+    operators and the host operators of most self time; None where the
+    profiler gives no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    kinds = {"k5": ("tempo::flash",),
-             "gemm": ("gemm", "xmma", "cutlass", "nvjet", "cublas",
-                      "splitk"),
-             "optimizer": ("multi_tensor_apply", "adam"),
-             "reduce": ("reduce_kernel", "softmax", "logsumexp"),
-             "layernorm": ("layer_norm",),
-             "embedding": ("embedding", "index", "scatter", "gather"),
-             "elementwise": ("elementwise",)}
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        per = {}
+        per, kernels, host_ops, host = {}, 0, 0, {}
         for e in prof.key_averages():
-            if (e.device_type == torch.autograd.DeviceType.CPU
-                    or getattr(e, "is_user_annotation", False)
-                    or "#" in e.key):
+            if getattr(e, "is_user_annotation", False) or "#" in e.key:
+                continue
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                host_ops += e.count
+                host[e.key] = e.self_cpu_time_total / 1e3
                 continue
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
             if us > 0:
                 per[e.key] = per.get(e.key, 0.0) + us / 1e3
+                kernels += e.count
     except Exception as exc:  # measurement only: the run's checks stand
-        print(f"[train] torch.profiler failed: {exc!r}", flush=True)
+        print(f"[{label}] torch.profiler failed: {exc!r}", flush=True)
         return None
     if not per:
-        print("[train] torch.profiler recorded no device time", flush=True)
+        print(f"[{label}] torch.profiler recorded no device time",
+              flush=True)
         return None
     out = {k: 0.0 for k in kinds}
     out["other"] = 0.0
@@ -1066,10 +1145,14 @@ def step_breakdown(fn) -> dict:
         kind = next((k for k, keys in kinds.items()
                      if any(key in low for key in keys)), "other")
         out[kind] += ms
-    ranked = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+    ranked = sorted(per.items(), key=lambda kv: -kv[1])[:16]
+    host_ranked = sorted(host.items(), key=lambda kv: -kv[1])[:8]
     return {"device_ms": sum(per.values()),
             "by_kind_ms": {k: round(v, 3) for k, v in out.items()},
-            "top": [[k[:80], round(v, 3)] for k, v in ranked]}
+            "top": [[k[:100], round(v, 3)] for k, v in ranked],
+            "device_kernels": kernels, "host_ops": host_ops,
+            "host_self_ms_top": [[k[:60], round(v, 3)]
+                                 for k, v in host_ranked]}
 
 
 def train_path(dev, gen, rows: dict) -> dict:
@@ -1333,6 +1416,406 @@ def train_path(dev, gen, rows: dict) -> dict:
             "k5_edges": {e[0]: e[1]["ok"] for e in edges}}
 
 
+def vae_train_path(dev, rows: dict) -> dict:
+    """The flagship VAE training path: (a) train steps at batch 64 through
+    K1a, K1b and K2, counted, timed and profiled, and one step with remat;
+    (2''') the K1/K2 Functions' backward at every shape the step records;
+    (b) the Trainer over a TileLoader, a checkpoint reloaded bit for bit;
+    (c) one step against the plain path. Adds each kernel's launches a
+    train step to its row; returns the metrics."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.data.loader import TileLoader
+    from tempo_tpu_torch.data.synthetic import make_tile_shards
+    from tempo_tpu_torch.models.vae import build_vae
+    from tempo_tpu_torch.nn.blocks import Conv2d
+    from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
+    from tempo_tpu_torch.ops.norms import group_norm
+    from tempo_tpu_torch.train.checkpoint import checkpoint_path
+    from tempo_tpu_torch.train.state import (create_train_state,
+                                             make_optimizer)
+    from tempo_tpu_torch.train.step import make_train_step, vae_loss_fn
+    from tempo_tpu_torch.train.trainer import Trainer, to_device
+
+    card = smi_line()
+    seconds = {}
+    counters = {"K1a": (cuda_gn.LAUNCHES, "gn_stats"),
+                "K1b": (cuda_gn.LAUNCHES, "gn_apply"),
+                "K2": (cuda_gn_conv.LAUNCHES, "gn_act_conv3x3")}
+
+    def fresh(model_cfg=VAE_MODEL, dtype=None, remat=False, seed=SEED):
+        model, _ = build_vae(dict(model_cfg, remat=remat),
+                             compute_dtype=dtype, device=dev, seed=seed)
+        nudge_zero_init(model, torch.Generator(device=dev).manual_seed(seed))
+        tx = make_optimizer(lr=1e-4, betas=(0.9, 0.95), weight_decay=0.05)
+        return model, tx, create_train_state(model, tx, SEED)
+
+    def noise():
+        """The posterior's draws: the same on both sides of a check."""
+        return torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def loss_and_grads(model, x):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, metrics = model.get_loss(x, noise())
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        grads = {k: p.grad.clone() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return ({k: float(v) for k, v in metrics.items()}, grads, peak)
+
+    def compare(a, b):
+        """Loss and pixel MSE relative errors, and the largest gradient
+        relative L2 (the attention key biases, whose exact gradient is 0,
+        are reported by norm: both sides hold rounding)."""
+        (ma, ga, _), (mb, gb, _) = a, b
+        zero = [k for k in gb if k.endswith("attn1.k.bias")]
+        return {"loss_a": ma["loss"], "loss_b": mb["loss"],
+                "loss_rel": abs(ma["loss"] - mb["loss"]) / abs(mb["loss"]),
+                "pixel_mse_rel": abs(ma["pixel_mse"] - mb["pixel_mse"])
+                / abs(mb["pixel_mse"]),
+                "max_grad_rel_l2": max(rel_l2(ga[k], gb[k]) for k in gb
+                                       if k not in zero),
+                "grads_bitwise": all(torch.equal(ga[k], gb[k]) for k in gb),
+                "key_bias_grad_norms": [float(gb[k].norm()) for k in zero]}
+
+    # ------------------------------------------ (a) train steps, counted
+    t_phase = time.perf_counter()
+    model, tx, state = fresh()
+    c, h, w = model.config.shape
+    host = np.random.default_rng(SEED).standard_normal(
+        (VAE_TRAIN_BATCH, h, w, c), dtype=np.float32)
+    batch = torch.from_numpy(host).to(dev)
+    del host
+    # the kernels' calls in one training forward, with their shapes (2''')
+    calls = {"K1a": [], "K1b": [], "K2": []}
+    with recording(calls, "train"):
+        loss, _ = model.get_loss(batch, noise())
+    del loss
+    per_forward = {k: len(v) for k, v in calls.items()}
+    step = make_train_step(vae_loss_fn(model), tx)
+    losses = []
+    for _ in range(TRAIN_WARM):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    for table, key in counters.values():
+        table[key] = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: table[key] / TRAIN_STEPS
+                for k, (table, key) in counters.items()}
+    losses = torch.stack(losses).tolist()
+    print(f"[vae_train] launches a train step: {launches} (calls in one "
+          f"training forward {per_forward}; the backward is the plain "
+          f"recompute)", flush=True)
+    for name, n in launches.items():
+        rows[name]["train_launches_per_step"] = n
+        if n == 0 or n != per_forward[name]:
+            fail(f"{name}: {n} launches a train step, {per_forward[name]} "
+                 f"calls in a training forward")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"VAE train loss not finite or not falling: {losses}")
+    patches_s = VAE_TRAIN_BATCH / dt
+    profile = step_breakdown(lambda: step(state, batch), VAE_STEP_KINDS,
+                             "vae_train")
+    busy = None if profile is None else profile["device_ms"] / (1e3 * dt)
+    # the same step at the Trainer's batch (5b): how much of it is host
+    small = batch[:VAE_TRAINER_BATCH]
+    step(state, small)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARM):
+        step(state, small)
+    torch.cuda.synchronize()
+    dt_small = (time.perf_counter() - t0) / TRAIN_WARM
+    profile_small = step_breakdown(lambda: step(state, small),
+                                   VAE_STEP_KINDS, "vae_train")
+    busy_small = (None if profile_small is None
+                  else profile_small["device_ms"] / (1e3 * dt_small))
+    # the 3x3 weights K2 took in the steps, repacked after each update
+    convs = [m for m in model.modules()
+             if isinstance(m, Conv2d) and m._packed is not None]
+    pack_ms = time_ms(lambda: [cuda_gn_conv.pack_conv3x3_weight(
+        m.weight, torch.bfloat16) for m in convs], iters=5)
+    print(f"[vae_train] flagship bf16 batch {VAE_TRAIN_BATCH} x "
+          f"[{h},{w},{c}]: vae_train.step_ms {1e3 * dt:.2f}, "
+          f"vae_train.patches_per_s {patches_s:.1f}, "
+          f"vae_train.peak_device_gb {peak_gb:.2f} (on {card}); loss "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g} over {len(losses)} steps",
+          flush=True)
+    print(f"[vae_train] one step under torch.profiler: {json.dumps(profile)}"
+          f"; device busy share {busy}; the {len(convs)} 3x3 weights "
+          f"repacked for K2 each step (AdamW bumps their version): "
+          f"{pack_ms:.3f} ms", flush=True)
+    print(f"[vae_train] at batch {VAE_TRAINER_BATCH}: step "
+          f"{1e3 * dt_small:.2f} ms, device busy share {busy_small}; "
+          f"{json.dumps(profile_small)}", flush=True)
+    # one step with remat: the same loss and gradients, its peak memory
+    plain_run = loss_and_grads(model, batch)
+    remat_model, _, _ = fresh(remat=True)
+    remat_model.load_state_dict(model.state_dict())
+    remat_run = loss_and_grads(remat_model, batch)
+    remat = dict(compare(remat_run, plain_run), peak_gb=remat_run[2],
+                 peak_gb_without=plain_run[2])
+    del remat_model, plain_run, remat_run
+    print(f"[vae_train] remat=True vs False, one loss and backward: "
+          f"{json.dumps(remat)} (tol {STEP_BF16_TOL})", flush=True)
+    if not (remat["loss_rel"] <= STEP_BF16_TOL["loss"]
+            and remat["max_grad_rel_l2"] <= STEP_BF16_TOL["grad"]):
+        fail("the step with remat disagrees with the step without")
+    seconds["5a"] = time.perf_counter() - t_phase
+
+    # ------------- (2''') the Functions' backward at every recorded shape
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    groups, eps = model.config.norm_groups, model.config.norm_eps
+    del model, tx, state, step
+    torch.cuda.empty_cache()
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+
+    def check_bwd(fn, plain, inputs, out_shape, name):
+        inputs = [t.requires_grad_() for t in inputs]
+        out = fn(*inputs)
+        g = randn(*out_shape, dtype=out.dtype)
+        got = torch.autograd.grad(out, inputs, g)
+        want = torch.autograd.grad(plain(*inputs), inputs, g)
+        return {"fn": type(out.grad_fn).__name__ == name,
+                "rel_l2": max(rel_l2(a, b) for a, b in zip(got, want)),
+                "bitwise": all(torch.equal(a, b) for a, b in zip(got, want))}
+
+    fn_bwd = {}
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for shape, act in sorted({k for k, _ in calls["K1b"]}, key=str):
+            cc = shape[-1]
+            fn_bwd[f"K1 {list(shape)} {act}"] = check_bwd(
+                lambda x, s_, b_: cuda_gn.fused_group_norm_act(
+                    x, s_, b_, groups, eps, act),
+                lambda x, s_, b_: group_norm(x, groups, s_, b_, eps, act),
+                [randn(*shape, dtype=torch.bfloat16),
+                 1 + randn(cc, scale=0.1), randn(cc, scale=0.1)], shape,
+                "GroupNormActFnBackward")
+        for shape, f, grp, ep, act in sorted({k for k, _ in calls["K2"]},
+                                             key=str):
+            b, hh, ww, cc = shape
+            bound = (9 * cc) ** -0.5
+            weight = (2 * torch.rand((f, cc, 3, 3), generator=gen,
+                                     device=dev) - 1) * bound
+            packed = cuda_gn_conv.pack_conv3x3_weight(weight, torch.bfloat16)
+            fn_bwd[f"K2 {list(shape)}->{f} {act}"] = check_bwd(
+                lambda x, s_, b_, w_, cb: cuda_gn_conv.gn_act_conv3x3(
+                    x, s_, b_, w_, cb, grp, ep, act, packed),
+                lambda x, s_, b_, w_, cb: cuda_gn_conv.gn_act_conv3x3_plain(
+                    x, s_, b_, w_, cb, grp, ep, act),
+                [randn(*shape, dtype=torch.bfloat16),
+                 1 + randn(cc, scale=0.1), randn(cc, scale=0.1), weight,
+                 randn(f, scale=0.01)], (b, hh, ww, f),
+                "GnActConv3x3FnBackward")
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+    for key, r in fn_bwd.items():
+        print(f"[kernels] Function backward {key}: {json.dumps(r)}",
+              flush=True)
+    if not all(r["fn"] and r["rel_l2"] <= FN_BWD_REL
+               for r in fn_bwd.values()):
+        fail(f"a K1/K2 Function's backward disagrees with autograd through "
+             f"the plain chain beyond rel L2 {FN_BWD_REL}, or the wrapper "
+             f"did not go through the Function")
+    seconds["2'''"] = time.perf_counter() - t_phase
+
+    # ---------------------- (b) the Trainer over a TileLoader, a checkpoint
+    t_phase = time.perf_counter()
+
+    class Timed:
+        """The loader, with the host's wait on each batch summed."""
+
+        def __init__(self, it):
+            self.it, self.wait_s = it, 0.0
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            t = time.perf_counter()
+            try:
+                return next(self.it)
+            finally:
+                self.wait_s += time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as tmp:
+        shards = make_tile_shards(
+            Path(tmp) / "tiles", n_files=VAE_SHARDS,
+            tiles_per_file=VAE_TILES_PER_SHARD, tile=h, n_spectral=c,
+            seed=SEED, dtype=np.float16)
+        loader = TileLoader(shards, batch_size=VAE_TRAINER_BATCH,
+                            min_buffer_size=VAE_BUFFER, seed=SEED)
+        val = TileLoader(shards, batch_size=VAE_TRAINER_BATCH,
+                         min_buffer_size=VAE_BUFFER, seed=SEED + 1,
+                         num_threads=1)
+        try:
+            timed = Timed(loader)
+            model, tx, state = fresh()
+            out = Path(tmp) / "run"
+            trainer = Trainer(vae_loss_fn(model), tx, state, out,
+                              save_every=VAE_TRAINER_STEPS,
+                              val_every=VAE_TRAINER_STEPS, log_every=10,
+                              plot_every=VAE_TRAINER_STEPS + 1, device=dev,
+                              verbose=False)
+            stats = trainer.train(timed, lambda: iter(val),
+                                  VAE_TRAINER_STEPS)
+            ckpt = checkpoint_path(out / "checkpoints", VAE_TRAINER_STEPS)
+            if not ckpt.exists() or not (out / "metrics.json").exists():
+                fail(f"the VAE trainer did not write {ckpt.name} and "
+                     f"metrics.json")
+            history = json.loads((out / "metrics.json").read_text())
+            _, tx2, state2 = fresh(seed=SEED + 99)
+            trainer2 = Trainer(vae_loss_fn(state2.model), tx2, state2, out,
+                               device=dev, verbose=False)
+            trainer2.load_checkpoint(ckpt)
+            batch8 = to_device(next(loader), dev)
+        finally:
+            loader.close()
+            val.close()
+    # cuDNN's weight gradients may sum with atomics: deterministic
+    # algorithms for the two steps compared bit for bit
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        live, _ = trainer.train_step(trainer.state, batch8)
+        again, _ = trainer2.train_step(trainer2.state, batch8)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    same = all(torch.equal(a, b) for a, b in zip(
+        live.model.parameters(), again.model.parameters()))
+    same &= all(torch.equal(live.ema[k], again.ema[k]) for k in live.ema)
+    wait_share = timed.wait_s / stats["elapsed_s"]
+    print(f"[vae_train] Trainer {VAE_TRAINER_STEPS} steps at batch "
+          f"{VAE_TRAINER_BATCH} over a TileLoader ({VAE_SHARDS} fp16 shards "
+          f"of {VAE_TILES_PER_SHARD}, buffer {VAE_BUFFER}): "
+          f"{stats['samples_per_sec']:.2f} samples/s (host wall, incl. a "
+          f"validation of 10 batches and a checkpoint); the loader's share "
+          f"of the host wall (waiting on next()) {wait_share:.4f}; train "
+          f"history {history['train']}, val {history['val']}; one more "
+          f"step from the reloaded checkpoint equals the live state's bit "
+          f"for bit: {same}", flush=True)
+    if not same:
+        fail("a VAE step from the reloaded checkpoint differs from the live "
+             "state's")
+    trainer_stats = {"samples_per_sec": stats["samples_per_sec"],
+                     "loader_wait_share": wait_share,
+                     "train": history["train"], "val": history["val"]}
+    del trainer, trainer2, live, again, model, state, state2, batch8
+    torch.cuda.empty_cache()
+    seconds["5b"] = time.perf_counter() - t_phase
+
+    # ------------------------------- (c) one step against the plain path
+    t_phase = time.perf_counter()
+
+    def accuracy(kernel_run, plain_run, ref_run):
+        """Each gradient's relative L2 to the fp32 step, kernel and plain
+        bf16 paths; those beyond VAE_BF16_ACC's rule."""
+        gk, gp, gt = kernel_run[1], plain_run[1], ref_run[1]
+        rel = {k: (rel_l2(gk[k], gt[k]), rel_l2(gp[k], gt[k])) for k in gt
+               if not k.endswith("attn1.k.bias")}
+        bad = [k for k, (rk, rp) in rel.items()
+               if rk > max(STEP_BF16_TOL["grad"], VAE_BF16_ACC * rp)]
+        worst = sorted(rel, key=lambda k: -rel[k][0])[:6]
+        return {"kernel_vs_fp32_max": max(r[0] for r in rel.values()),
+                "plain_vs_fp32_max": max(r[1] for r in rel.values()),
+                "kernel_farther_than_plain": sum(r[0] > r[1]
+                                                 for r in rel.values()),
+                "grads": len(rel), "beyond_rule": bad,
+                "worst": {k: [round(v, 5) for v in rel[k]] for k in worst},
+                "loss_fp32": ref_run[0]["loss"],
+                "pixel_mse_fp32": ref_run[0]["pixel_mse"]}
+
+    def sign_flips(model, x):
+        """The share of elements where sign(recon - x) differs between
+        the kernels and the plain path (the L1 loss's gradient there)."""
+        with torch.no_grad():
+            rk, _ = model(x, generator=noise())
+            with plain_kernels():
+                rp, _ = model(x, generator=noise())
+            return float(((rk.float() - x).sign()
+                          != (rp.float() - x).sign()).float().mean())
+
+    l2 = {"nll_loss_type": "l2"}
+    step_errs = {}
+    for label, model_cfg, dtype, n, tol in (
+            ("bf16_l2", dict(VAE_MODEL, **l2), None, VAE_TRAIN_BATCH,
+             STEP_BF16_TOL),
+            ("f32_l2_2level_b2", dict(VAE_F32_MODEL, **l2), "float32", 2,
+             STEP_F32_TOL),
+            ("bf16_l1", VAE_MODEL, None, VAE_TRAIN_BATCH, STEP_BF16_TOL)):
+        model, _, _ = fresh(model_cfg, dtype)
+        kernel_run = loss_and_grads(model, batch[:n])
+        with plain_kernels():
+            plain_run = loss_and_grads(model, batch[:n])
+        err = dict(compare(kernel_run, plain_run), peak_gb=kernel_run[2],
+                   peak_gb_plain=plain_run[2])
+        ok = (err["loss_rel"] <= tol["loss"]
+              and err["pixel_mse_rel"] <= tol["loss"])
+        if model.config.nll_loss_type == "l1":
+            err["sign_flip_share"] = sign_flips(model, batch[:n])
+            ref, _, _ = fresh(model_cfg, "float32")
+            ref.load_state_dict(model.state_dict())
+            del model
+            with plain_kernels():
+                ref_run = loss_and_grads(ref, batch[:n])
+            del ref
+            err["fp32_reference"] = accuracy(kernel_run, plain_run, ref_run)
+            ok &= not err["fp32_reference"]["beyond_rule"]
+            del ref_run
+        else:
+            del model
+            ok &= err["max_grad_rel_l2"] <= tol["grad"]
+        step_errs[label] = err
+        del kernel_run, plain_run
+        torch.cuda.empty_cache()
+        if not ok:
+            fail(f"the {label} VAE train step through K1/K2 disagrees with "
+                 f"the plain path: {err} (tol {tol}; the L1 step's gradients "
+                 f"against fp32 by VAE_BF16_ACC {VAE_BF16_ACC})")
+    print(f"[vae_train] one step, K1/K2 vs the plain path: "
+          f"{json.dumps(step_errs)} (tol bf16 {STEP_BF16_TOL}, f32 "
+          f"{STEP_F32_TOL}; the L1 step's gradients within "
+          f"{STEP_BF16_TOL['grad']} of the fp32 step or {VAE_BF16_ACC}x the "
+          f"plain bf16 path's distance to it)", flush=True)
+    seconds["5c"] = time.perf_counter() - t_phase
+    print(f"[time] VAE training phases, s: {json.dumps(seconds)}",
+          flush=True)
+    return {"card": card, "batch": VAE_TRAIN_BATCH, "step_ms": 1e3 * dt,
+            "patches_per_s": patches_s, "peak_device_gb": peak_gb,
+            "launches_per_step": launches, "losses": losses,
+            "profile": profile, "device_busy_share": busy,
+            "small_batch": {"step_ms": 1e3 * dt_small,
+                            "device_busy_share": busy_small,
+                            "profile": profile_small},
+            "pack_ms": pack_ms, "remat": remat, "function_bwd": fn_bwd,
+            "trainer": trainer_stats, "step_vs_plain": step_errs,
+            "seconds": seconds}
+
+
 def nudge_zero_init(model, generator) -> None:
     """Random weights in place of the zero-initialized output convs, so the
     reconstruction depends on every layer."""
@@ -1370,7 +1853,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     # ------------------------------------------------------------ 1. build
-    t0 = time.perf_counter()
+    seconds = {}
+    t_phase = t0 = time.perf_counter()
     _build.library()
     print(f"[build] {time.perf_counter() - t0:.1f} s (sources: "
           f"{[p.name for p in _build._sources()]})", flush=True)
@@ -1429,7 +1913,10 @@ def main() -> int:
     if len(sass) != 6 or not all(h > 0 for h, _ in sass.values()):
         fail(f"K5f or K5dq issues no wgmma at some head dim: {sass}")
 
+    seconds["1"] = time.perf_counter() - t_phase
+
     # ------------------------------------ model and inputs of the main path
+    t_phase = time.perf_counter()
     model, cfg = build_vae({}, device=dev, seed=SEED)
     n_params = sum(p.numel() for p in model.parameters())
     if n_params != 27_289_893:
@@ -1744,7 +2231,10 @@ def main() -> int:
              "or K1a is not one kernel, bitwise repeatable and the same "
              "for a sample alone")
 
+    seconds["2"] = time.perf_counter() - t_phase
+
     # ---------------------------------------------------------- 3. main path
+    t_phase = time.perf_counter()
     with torch.inference_mode():
         encode_decode()                        # warm: cuDNN plans, caches
         granule_forward()
@@ -1821,7 +2311,10 @@ def main() -> int:
     if not err_f32 <= MODEL_F32_REL_L2:
         fail("fp32 reconstruction disagrees with the plain path")
 
+    seconds["3"] = time.perf_counter() - t_phase
+
     # ------------------------------------------------ the LM serving path
+    t_phase = time.perf_counter()
     rows["K3"] = lm_row(
         "K3", "tempo_tpu/ops/pallas_decode.py:41",
         "F.scaled_dot_product_attention(q, K, V, attn_mask=[b,1,1,S] bool, "
@@ -1831,7 +2324,10 @@ def main() -> int:
         "none: no single PyTorch call reads K/V through a block table")
     lm = lm_path(dev, gen, rows)
 
+    seconds["lm_serving"] = time.perf_counter() - t_phase
+
     # ---------------------------------------------- the GPT training path
+    t_phase = time.perf_counter()
     lib = "F.scaled_dot_product_attention(is_causal=True) over [b,n,t,hd]"
     rows["K5f"] = flash_row(
         "K5f", "tempo_tpu/nn/transformer.py:151 -> "
@@ -1845,6 +2341,13 @@ def main() -> int:
         "K5dq", "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
         "none alone: SDPA's backward computes dQ with dK and dV (see K5dkv)")
     train = train_path(dev, gen, rows)
+    seconds["lm_train"] = time.perf_counter() - t_phase
+
+    # ---------------------------------------------- the VAE training path
+    t_phase = time.perf_counter()
+    vae_train = vae_train_path(dev, rows)
+    seconds["vae_train"] = time.perf_counter() - t_phase
+    print(f"[time] phases, s: {json.dumps(seconds)}", flush=True)
 
     for r in rows.values():
         r.pop("shapes", None)
@@ -1854,7 +2357,8 @@ def main() -> int:
         "granule_reconstruct_raw_s": t_granule,
         "granule_reconstruct_ms": t_granule_fwd, "peak_device_gb": peak_gb,
         "recon_rel_l2_bf16": err_bf16, "recon_rel_l2_granule": err_granule,
-        "recon_rel_l2_f32": err_f32, "lm": lm, "train": train}}))
+        "recon_rel_l2_f32": err_f32, "lm": lm, "train": train,
+        "vae_train": vae_train, "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,200 @@
+#!/usr/bin/env python3
+"""Train the TEMPO spectral VAE on one GPU; counterpart of
+tempo_tpu/cli/train_vae.py's single-device path.
+
+    python -m tempo_tpu_torch.cli.train_vae config.yaml [--overwrite] [--debug]
+
+The same config schema, directory contract and artifacts: config.yaml
+copied into output_dir, checkpoints/ckpt_step=NNNNNN.pt, figures/
+reconstructions_step_NNNNNN.png at every checkpoint, summary plots,
+logs/, metrics.json and training_info.yaml (with samples_per_sec).
+--debug shrinks the run to 200 steps and a buffer of 10 tiles. Batches come
+from the host TileLoader (data/loader.py); the step is the VAE's
+``get_loss`` (its GroupNorm and GroupNorm+act+conv through the K1 and K2
+kernels, their backward a recompute of the plain versions), the global-norm
+clip at 1.0 and AdamW (train/state.py make_optimizer_from_config). Weights
+come from the config's seed through the port's own initializer, so a run
+does not reproduce the JAX package's weights.
+
+Not ported (NotImplementedError from validate_config): ``distributed``
+(multi-host), ``parallel.tensor`` > 1 and ``parallel.fsdp``,
+``data.loader: device`` (the device-resident tile buffer), the sharded and
+async ``training.checkpoint_format``, ``training.metrics_jsonl``,
+``training.profile_steps`` and the in-model NO2 probe.
+"""
+
+from __future__ import annotations
+
+from datetime import datetime
+from pathlib import Path
+from typing import Union
+
+import torch
+
+from tempo_tpu_torch.cli import run_cli
+from tempo_tpu_torch.data.loader import TileLoader
+from tempo_tpu_torch.device import resolve_device
+from tempo_tpu_torch.models.vae import build_vae
+from tempo_tpu_torch.train.checkpoint import (resolve_resume_from,
+                                              wants_auto_resume)
+from tempo_tpu_torch.train.schedules import sqrt_save_steps
+from tempo_tpu_torch.train.state import (create_train_state,
+                                         make_optimizer_from_config)
+from tempo_tpu_torch.train.step import vae_loss_fn
+from tempo_tpu_torch.train.trainer import Trainer
+from tempo_tpu_torch.utils.config import (copy_config, load_config,
+                                          require_keys, save_yaml)
+from tempo_tpu_torch.utils.dirs import init_directory
+
+
+def validate_config(config) -> None:
+    require_keys(config, ["output_dir", "data", "data.train_dir", "model",
+                          "training"])
+    data, train = config["data"], config["training"]
+    for key in ("train_dir", "val_dir"):
+        if key in data and not Path(data[key]).exists():
+            raise ValueError(f"FATAL: {key} doesn't exist: {data[key]}")
+    if dict(config.get("distributed", {})).get("enabled", False):
+        raise NotImplementedError("distributed (multi-host) training is not "
+                                  "ported: the port trains on one device")
+    parallel = dict(config.get("parallel", {}))
+    if int(parallel.get("tensor", 1)) != 1:
+        raise NotImplementedError("parallel.tensor > 1 is not ported: the "
+                                  "port trains on one device")
+    if parallel.get("fsdp", False):
+        raise NotImplementedError("parallel.fsdp is not ported: the port "
+                                  "trains on one device")
+    loader = data.get("loader", "host")
+    if loader == "device":
+        raise NotImplementedError("data.loader: device (the device-resident "
+                                  "tile buffer) is not ported")
+    if loader != "host":
+        raise ValueError(f"FATAL: data.loader must be 'host' or 'device', "
+                         f"got {loader!r}")
+    fmt = train.get("checkpoint_format", "msgpack")
+    if fmt in ("sharded", "async"):
+        raise NotImplementedError(f"training.checkpoint_format {fmt!r} is "
+                                  f"not ported")
+    if fmt != "msgpack":  # the single-file format; the port writes .pt
+        raise ValueError(f"FATAL: unknown training.checkpoint_format "
+                         f"{fmt!r}")
+    if train.get("metrics_jsonl"):
+        raise NotImplementedError("training.metrics_jsonl is not ported")
+    if train.get("profile_steps"):
+        raise NotImplementedError("training.profile_steps is not ported")
+    model = config["model"] or {}
+    if (model.get("no2_mlp_hidden") is not None
+            and float(model.get("no2_weight", 0.0)) > 0):
+        raise NotImplementedError("the in-model NO2 probe is not ported")
+
+
+def main(config_path: str, overwrite: bool = False, debug: bool = False,
+         device: Union[str, torch.device, None] = None) -> None:
+    """Train as the config says, on ``device`` (None: CUDA, raising
+    without it)."""
+    config = load_config(config_path)
+    validate_config(config)
+    dev = resolve_device(device)
+    resume_auto = wants_auto_resume(config["training"])
+    output_dir = init_directory(Path(config["output_dir"]),
+                                overwrite=overwrite,
+                                allow_existing=resume_auto)
+    for sub in ("checkpoints", "figures", "logs"):
+        (output_dir / sub).mkdir(parents=True, exist_ok=True)
+    copy_config(config_path, output_dir)
+
+    seed = config.get("seed", 42)
+    if debug:
+        print("DEBUG MODE: Reduced training steps and data")
+        config["training"]["n_steps"] = min(
+            200, config["training"].get("n_steps", 10000))
+        config["data"]["min_buffer_size"] = min(
+            10, config["data"].get("min_buffer_size", 200))
+        config["training"]["save_every"] = 50
+        config["training"]["val_every"] = 25
+        config["training"]["plot_every"] = 20
+
+    data_cfg = config["data"]
+    batch_size = data_cfg.get("batch_size", 16)
+    print("\nLoading training data...")
+    train_loader = TileLoader(
+        data_dir=data_cfg["train_dir"], batch_size=batch_size,
+        min_buffer_size=data_cfg.get("min_buffer_size", 200), seed=seed,
+        prefetch=data_cfg.get("prefetch", 2),
+        num_threads=data_cfg.get("loader_threads",
+                                 data_cfg.get("num_workers", 2)),
+        verbose=True)
+    val_loader = None
+    if "val_dir" in data_cfg:
+        print("\nLoading validation data...")
+        val_loader = TileLoader(
+            data_dir=data_cfg["val_dir"], batch_size=batch_size,
+            min_buffer_size=data_cfg.get("val_min_buffer_size", 100),
+            seed=seed + 1, num_threads=data_cfg.get("val_num_workers", 1),
+            verbose=True)
+
+    print("\nInitializing model...")
+    model, model_cfg = build_vae(config.get("model", {}), device=dev,
+                                 seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"Model parameters: {n_params:,}")
+
+    train_cfg = config["training"]
+    tx = make_optimizer_from_config(
+        config.get("optimizer", {}),
+        n_steps=int(train_cfg.get("n_steps", 10_000)))
+    state = create_train_state(model, tx, seed + 2)
+    save_steps = None
+    if train_cfg.get("save_schedule") == "sqrt":
+        save_steps = sqrt_save_steps(train_cfg["n_steps"],
+                                     train_cfg.get("n_saves", 100))
+    trainer = Trainer(
+        loss_fn=vae_loss_fn(model), tx=tx, state=state,
+        output_dir=output_dir,
+        save_every=train_cfg.get("save_every", 1000),
+        val_every=train_cfg.get("val_every", 100),
+        log_every=train_cfg.get("log_every", 10),
+        plot_every=train_cfg.get("plot_every", 50),
+        save_steps=save_steps,
+        grad_accum=int(train_cfg.get("grad_accum", 1)),
+        device=dev,
+        recon_fn=lambda m, x, g: m.reconstruct(x, generator=g))
+    resume_from = resolve_resume_from(train_cfg, output_dir)
+    if resume_from:
+        print(f"\nResuming from checkpoint: {resume_from}")
+        trainer.load_checkpoint(resume_from)
+
+    n_steps = train_cfg["n_steps"]
+    print(f"\nStarting training for {n_steps} steps...")
+    print(f"Output directory: {output_dir}")
+    start_time = datetime.now()
+    try:
+        stats = trainer.train(
+            train_iter=iter(train_loader),
+            val_iter_factory=(None if val_loader is None
+                              else lambda: iter(val_loader)),
+            n_steps=n_steps)
+    finally:
+        train_loader.close()
+        if val_loader is not None:
+            val_loader.close()
+    end_time = datetime.now()
+    save_yaml({
+        "seed": seed,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else str(dev)),
+        "n_devices": 1,
+        "n_processes": 1,
+        "n_params": int(n_params),
+        "compute_dtype": model_cfg.compute_dtype,
+        "training_time": str(end_time - start_time),
+        "start_time": start_time.isoformat(),
+        "end_time": end_time.isoformat(),
+        "samples_per_sec": float(stats["samples_per_sec"]),
+    }, output_dir / "training_info.yaml")
+    print(f"Training info saved to {output_dir / 'training_info.yaml'}")
+    print("\nDone!")
+
+
+if __name__ == "__main__":
+    run_cli(main, "Train VAE on TEMPO tiles (one GPU)")

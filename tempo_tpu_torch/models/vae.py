@@ -5,7 +5,12 @@ tempo_tpu/models/vae.py.
 - decode: 1x1 post-quant conv -> decoder.
 - loss: per-element L1 (or L2, or k-space MSE) reconstruction scaled by a
   learned scalar logvar (init 6.0), SUM reduction divided by the batch,
-  plus kl_weight * sum(KL) / B.
+  plus kl_weight * sum(KL) / B. ``get_loss`` is the training loss: the
+  posterior sample, deterministic=True (dropout never acts in VAE
+  training, as in the JAX package), then the loss in fp32.
+- remat: the encoder and the decoder run under torch.utils.checkpoint
+  when a graph is being built, so their activations are recomputed in the
+  backward (the JAX package's nn.remat).
 
 Flagship instantiation: 27,289,893 parameters, input (64, 64, 1028). Public
 tensors are NHWC [B, H, W, C]. Parameters stay fp32; activations run in
@@ -19,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.nn.blocks import Dense, init_weights
@@ -30,9 +36,11 @@ from tempo_tpu_torch.ops.losses import multiscale_mse
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
-    """The fields of tempo_tpu's VAEConfig. ``pad_boundary`` and ``remat``
-    are accepted and ignored: the TPU lane padding does not change the
-    numbers, and rematerialization belongs to training."""
+    """The fields of tempo_tpu's VAEConfig. ``pad_boundary`` is accepted
+    and ignored: the TPU lane padding does not change the numbers.
+    ``remat`` recomputes the encoder's and the decoder's activations in the
+    backward instead of keeping them (the same loss and gradients, less
+    memory, one more forward)."""
 
     shape: Tuple[int, int, int] = (1028, 64, 64)  # (C, H, W)
     chs: Tuple[int, ...] = (512, 256, 128)
@@ -113,15 +121,23 @@ class AutoencoderKL(nn.Module):
         with torch.no_grad():
             self.logvar.fill_(cfg.logvar_init)
 
+    def _run(self, net: nn.Module, x: torch.Tensor,
+             deterministic: bool) -> torch.Tensor:
+        """``net(x, deterministic)``, rematerialized when the config asks
+        and a graph is being built."""
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(net, x, deterministic, use_reentrant=False)
+        return net(x, deterministic)
+
     def encode(self, x: torch.Tensor, deterministic: bool = True
                ) -> DiagonalGaussian:
-        moments = self.quant_conv(self.encoder(x, deterministic))
+        moments = self.quant_conv(self._run(self.encoder, x, deterministic))
         return DiagonalGaussian.from_params(moments)
 
     def decode(self, z: torch.Tensor, deterministic: bool = True
                ) -> torch.Tensor:
         z = self.post_quant_conv(z.to(self.config.dtype))
-        return self.decoder(z, deterministic)
+        return self._run(self.decoder, z, deterministic)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -143,6 +159,15 @@ class AutoencoderKL(nn.Module):
         recon, _ = self(x, generator=generator,
                         sample_posterior=sample_posterior)
         return recon
+
+    def get_loss(self, x: torch.Tensor, generator: torch.Generator
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of a [B, H, W, C] batch: the posterior sample
+        drawn from ``generator``, deterministic=True, then ``vae_loss``
+        (tempo_tpu/models/vae.py ``get_loss``)."""
+        recon, posterior = self(x, generator=generator,
+                                sample_posterior=True, deterministic=True)
+        return vae_loss(x, recon, posterior, self.logvar, self.config)
 
 
 def vae_loss(x: torch.Tensor, recon: torch.Tensor,

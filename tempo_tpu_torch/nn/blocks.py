@@ -4,8 +4,9 @@ Counterpart of tempo_tpu/nn/blocks.py with the same math:
 
 - ResNetBlock: GN -> act -> conv3x3; GN -> act -> (dropout) -> zero-init
   conv3x3; 1x1 skip conv on a channel change. Without active dropout each
-  GN -> act -> conv3x3 half is one K2 call (ops/cuda_gn_conv.py).
-- AttnBlock: GN (K1), 1x1 q/k/v, channel-major multi-head attention (the
+  GN -> act -> conv3x3 half is one K2 call (ops/cuda_gn_conv.py), whose
+  backward recomputes the plain chain; with it, K1 then the conv.
+- AttnBlock: GN (K1, its backward a plain recompute), 1x1 q/k/v, channel-major multi-head attention (the
   head index varies fastest on the channel axis), softmax over keys in
   fp32, 1x1 proj, residual.
 - Downsample2x / Upsample2x: kernel-2 stride-2 (transposed) convs.

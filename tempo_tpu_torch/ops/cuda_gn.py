@@ -11,8 +11,12 @@ per stream at zero between calls) folds them in block order.
 
 Each wrapper takes the plain PyTorch version beside it for a tensor on the
 CPU, and for a CUDA tensor launches its kernel or raises. Each counts its
-launches in ``LAUNCHES``. There is no backward yet: with grad mode on and an
-input that requires grad, the CUDA path raises NotImplementedError.
+launches in ``LAUNCHES``. The raw launchers ``gn_stats`` and ``gn_apply``
+have no backward: with grad mode on and an input that requires grad, their
+CUDA path raises NotImplementedError. ``fused_group_norm_act`` builds a
+graph through ``GroupNormActFn``, whose forward is K1a then K1b and whose
+backward recomputes the plain GroupNorm + act and takes its
+vector-Jacobian product (tempo_tpu/ops/pallas_gn.py ``_fwd``/``_bwd``).
 """
 
 from __future__ import annotations
@@ -45,6 +49,12 @@ _COUNTERS: dict = {}
 
 # ----------------------------------------------------------- plain versions
 
+def accumulation_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32 for bf16, fp16 and fp32 inputs; float64 stays float64 (the
+    gradient checks run the plain versions in float64)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def gn_stats_plain(x: torch.Tensor, num_groups: int,
                    eps: float = 1e-6) -> torch.Tensor:
     """x [B, ..., C] -> [B, 2, C] fp32: each channel's group mean and rstd."""
@@ -52,7 +62,7 @@ def gn_stats_plain(x: torch.Tensor, num_groups: int,
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
     cg = c // num_groups
-    x32 = x.float().reshape(b, -1, c)
+    x32 = x.to(accumulation_dtype(x)).reshape(b, -1, c)
     n = x32.shape[1] * cg
     sum_g = x32.sum(1).view(b, num_groups, cg).sum(-1)
     sumsq_g = x32.square().sum(1).view(b, num_groups, cg).sum(-1)
@@ -68,11 +78,12 @@ def gn_apply_plain(x: torch.Tensor, stats: torch.Tensor,
                    act: Optional[str] = None) -> torch.Tensor:
     """act((x - mean) * rstd * scale + bias) in fp32, out in x's type."""
     shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
-    y = (x.float() - stats[:, 0].view(shape)) * stats[:, 1].view(shape)
+    acc = accumulation_dtype(x)
+    y = (x.to(acc) - stats[:, 0].view(shape)) * stats[:, 1].view(shape)
     if scale is not None:
-        y = y * scale.float()
+        y = y * scale.to(acc)
     if bias is not None:
-        y = y + bias.float()
+        y = y + bias.to(acc)
     if act is not None:
         y = ACTIVATIONS[act](y)
     return y.to(x.dtype)
@@ -90,13 +101,35 @@ def check_cuda_input(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether a call would build a graph through one of ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def refuse_grad(*tensors: Optional[torch.Tensor]) -> None:
-    """The kernels have no backward yet; refuse to build a graph."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    """A raw kernel launcher has no backward; refuse to build a graph (the
+    autograd Functions call the launchers with grad mode off)."""
+    if wants_grad(*tensors):
         raise NotImplementedError(
-            "the CUDA kernels have no backward yet: run under "
+            "the raw CUDA kernel launchers have no backward: call the "
+            "fused wrappers, which differentiate, or run under "
             "torch.no_grad() or torch.inference_mode()")
+
+
+def recompute_vjp(plain, inputs: tuple, needs: tuple,
+                  grad_out: torch.Tensor) -> list:
+    """The vector-Jacobian product of ``plain(*inputs)`` at ``grad_out``,
+    recomputed with grad on: one gradient per input, None where ``needs``
+    says it is not wanted (or the input is None)."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(inputs, needs)]
+        out = plain(*leaves)
+        wanted = [t for t, n in zip(leaves, needs) if t is not None and n]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return [next(grads) if t is not None and n else None
+            for t, n in zip(leaves, needs)]
 
 
 def f32_param(t: Optional[torch.Tensor], n: int, fill: float,
@@ -206,9 +239,37 @@ def gn_apply(x: torch.Tensor, stats: torch.Tensor,
     return out
 
 
+class GroupNormActFn(torch.autograd.Function):
+    """K1a then K1b forward; the backward recomputes the plain GroupNorm +
+    act from the saved (x, scale, bias) and returns its vector-Jacobian
+    product. On the CPU the forward is the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, act):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.config = (num_groups, eps, act)
+        return gn_apply(x, gn_stats(x, num_groups, eps), scale, bias, act)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from tempo_tpu_torch.ops.norms import group_norm
+
+        num_groups, eps, act = ctx.config
+
+        def plain(x, scale, bias):
+            return group_norm(x, num_groups, scale, bias, eps, act)
+
+        grads = recompute_vjp(plain, ctx.saved_tensors,
+                              ctx.needs_input_grad[:3], grad_out)
+        return (*grads, None, None, None)
+
+
 def fused_group_norm_act(x: torch.Tensor, scale: Optional[torch.Tensor],
                          bias: Optional[torch.Tensor], num_groups: int,
                          eps: float = 1e-6,
                          act: Optional[str] = "gelu") -> torch.Tensor:
-    """GroupNorm + activation: K1a then K1b (plain pieces on the CPU)."""
+    """GroupNorm + activation: K1a then K1b (plain pieces on the CPU),
+    through ``GroupNormActFn`` when a graph is being built."""
+    if wants_grad(x, scale, bias):
+        return GroupNormActFn.apply(x, scale, bias, num_groups, eps, act)
     return gn_apply(x, gn_stats(x, num_groups, eps), scale, bias, act)

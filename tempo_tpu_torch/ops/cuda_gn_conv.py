@@ -9,9 +9,14 @@ through ``conv3x3_from_stats``, which launches K2 alone.
 Each wrapper takes its plain version beside it for a tensor on the CPU, and
 for a CUDA tensor launches the kernel or raises. ``choose_config`` picks the
 bf16 kernel's tile configuration per call (``CONFIGS``, the table of the
-.cu source). It counts its launches in
-``LAUNCHES``. There is no backward yet: with grad mode on
-and an input that requires grad, the CUDA path raises NotImplementedError.
+.cu source). It counts its launches in ``LAUNCHES``. ``conv3x3_from_stats``
+alone has no backward (its CUDA path raises NotImplementedError when a
+graph is being built); ``gn_act_conv3x3`` builds a graph through
+``GnActConv3x3Fn``, whose forward is K1a then K2 and whose backward
+recomputes the plain chain (GroupNorm + act in fp32, cast to x's type, the
+3x3 conv on cuDNN) and takes its vector-Jacobian product, the gradient
+going to the fp32 OIHW weight, never to the packed copy
+(tempo_tpu/ops/pallas_gn_conv.py ``_fwd``/``_bwd``).
 """
 
 from __future__ import annotations
@@ -105,23 +110,60 @@ def conv3x3_from_stats_plain(x: torch.Tensor, stats: torch.Tensor,
     return conv2d_nhwc(h, weight, conv_bias, padding=1)
 
 
-def gn_act_conv3x3(x: torch.Tensor, scale: Optional[torch.Tensor],
-                   bias: Optional[torch.Tensor], weight: torch.Tensor,
-                   conv_bias: Optional[torch.Tensor], num_groups: int,
-                   eps: float = 1e-6, act: Optional[str] = "gelu",
-                   packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x [B, H, W, C], weight [F, C, 3, 3] -> [B, H, W, F] in x's type:
-    K1a's statistics, then the K2 kernel.
-
-    ``packed`` is the weight in the kernel's layout
-    (``pack_conv3x3_weight(weight, x.dtype)``), which a module caches; when
-    it is None the wrapper lays the weight out for this call."""
+def _gn_act_conv3x3(x, scale, bias, weight, conv_bias, num_groups, eps, act,
+                    packed):
+    """The forward: the plain chain on the CPU, else K1a then K2."""
     if x.device.type == "cpu":
         return gn_act_conv3x3_plain(x, scale, bias, weight, conv_bias,
                                     num_groups, eps, act)
     cuda_gn.check_cuda_input(x, "x")
     return conv3x3_from_stats(x, cuda_gn.gn_stats(x, num_groups, eps), scale,
                               bias, weight, conv_bias, act, packed)
+
+
+class GnActConv3x3Fn(torch.autograd.Function):
+    """K1a then K2 forward (the packed weight is not differentiated); the
+    backward recomputes ``gn_act_conv3x3_plain`` from the saved (x, scale,
+    bias, weight, conv_bias) and returns its vector-Jacobian product."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, weight, conv_bias, packed, num_groups,
+                eps, act):
+        ctx.save_for_backward(x, scale, bias, weight, conv_bias)
+        ctx.config = (num_groups, eps, act)
+        return _gn_act_conv3x3(x, scale, bias, weight, conv_bias, num_groups,
+                               eps, act, packed)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        num_groups, eps, act = ctx.config
+
+        def plain(x, scale, bias, weight, conv_bias):
+            return gn_act_conv3x3_plain(x, scale, bias, weight, conv_bias,
+                                        num_groups, eps, act)
+
+        grads = cuda_gn.recompute_vjp(plain, ctx.saved_tensors,
+                                      ctx.needs_input_grad[:5], grad_out)
+        return (*grads, None, None, None, None)
+
+
+def gn_act_conv3x3(x: torch.Tensor, scale: Optional[torch.Tensor],
+                   bias: Optional[torch.Tensor], weight: torch.Tensor,
+                   conv_bias: Optional[torch.Tensor], num_groups: int,
+                   eps: float = 1e-6, act: Optional[str] = "gelu",
+                   packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [B, H, W, C], weight [F, C, 3, 3] -> [B, H, W, F] in x's type:
+    K1a's statistics, then the K2 kernel; through ``GnActConv3x3Fn`` when a
+    graph is being built.
+
+    ``packed`` is the weight in the kernel's layout
+    (``pack_conv3x3_weight(weight, x.dtype)``), which a module caches; when
+    it is None the wrapper lays the weight out for this call."""
+    if cuda_gn.wants_grad(x, scale, bias, weight, conv_bias):
+        return GnActConv3x3Fn.apply(x, scale, bias, weight, conv_bias,
+                                    packed, num_groups, eps, act)
+    return _gn_act_conv3x3(x, scale, bias, weight, conv_bias, num_groups, eps,
+                           act, packed)
 
 
 def conv3x3_from_stats(x: torch.Tensor, stats: torch.Tensor,

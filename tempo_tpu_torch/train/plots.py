@@ -1,16 +1,20 @@
-"""Live training curves; counterpart of tempo_tpu/train/plots.py
-``update_summary_plots``.
+"""Live training curves and reconstruction figures; counterpart of
+tempo_tpu/train/plots.py ``update_summary_plots`` and
+``save_reconstruction_figure``.
 
 summary/{loss,recons_err,kl}.png, one per metric the history carries,
 log-log from step 100 on, with the validation loss as markers on the loss
-curve. matplotlib is imported inside the function, so the package imports
-where it is absent. The reconstruction figures wait for VAE training.
+curve; figures/reconstructions_step_NNNNNN.png, one row per shown sample.
+matplotlib is imported inside the functions, so the package imports where
+it is absent. The L2 target/prediction columns come with the L2 variant.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, List, Union
+from typing import Dict, List, Sequence, Union
+
+import numpy as np
 
 LOG_SCALE_FROM = 100  # steps >= this switch the summary curves to log-log
 
@@ -68,3 +72,67 @@ def update_summary_plots(summary_dir: Union[str, Path],
         fig.tight_layout()
         fig.savefig(summary_dir / filename, dpi=100, bbox_inches="tight")
         plt.close(fig)
+
+
+def _rgb_composite(patch_hwc: np.ndarray,
+                   channels: Sequence[int]) -> np.ndarray:
+    """[H, W, C] -> [H, W, 3] min-max normalized composite over the three
+    display channels (clamped to the channel count for narrow models)."""
+    chans = [c for c in channels if c < patch_hwc.shape[-1]]
+    while len(chans) < 3:
+        chans.append(chans[-1] if chans else 0)
+    img = patch_hwc[..., chans[:3]].astype(np.float32)
+    lo, hi = img.min(), img.max()
+    return (img - lo) / (hi - lo + 1e-8)
+
+
+def save_reconstruction_figure(figures_dir: Union[str, Path], step: int,
+                               batch_hwc: np.ndarray, recon_hwc: np.ndarray,
+                               rgb_channels: Sequence[int] = (100, 500, 900)
+                               ) -> Path:
+    """batch/recon: [B, H, W, C] numpy. One row per shown sample (at most
+    4): original RGB | recon RGB | |diff| heatmap (+MSE) | center-pixel
+    spectrum."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    n_rows, n_cols = 4, 4
+    n_show = min(n_rows, batch_hwc.shape[0])
+    per_sample_mse = np.mean((batch_hwc - recon_hwc) ** 2, axis=(1, 2, 3))
+    mid_y, mid_x = batch_hwc.shape[1] // 2, batch_hwc.shape[2] // 2
+    fig, axes = plt.subplots(n_rows, n_cols, figsize=(4.0 * n_cols,
+                                                      4.0 * n_rows),
+                             squeeze=False)
+    for i in range(n_show):
+        orig = _rgb_composite(batch_hwc[i], rgb_channels)
+        rec = _rgb_composite(recon_hwc[i], rgb_channels)
+        for ax, img, cmap, title in (
+                (axes[i, 0], orig, None, f"Original {i}"),
+                (axes[i, 1], rec, None, f"Recon {i}"),
+                (axes[i, 2], np.abs(orig - rec), "hot",
+                 f"|Diff| (MSE={per_sample_mse[i]:.4f})")):
+            ax.imshow(img, cmap=cmap)
+            ax.set_title(title)
+            ax.axis("off")
+        ax = axes[i, 3]
+        channels = np.arange(batch_hwc.shape[-1])
+        ax.plot(channels, batch_hwc[i, mid_y, mid_x, :], alpha=0.8,
+                label="Original")
+        ax.plot(channels, recon_hwc[i, mid_y, mid_x, :], alpha=0.8,
+                label="Recon")
+        ax.set_title(f"Spectrum at ({mid_y},{mid_x})")
+        ax.set_xlabel("Spectral Channel")
+        ax.legend()
+        ax.grid(True, alpha=0.3)
+    for i in range(n_show, n_rows):
+        for j in range(n_cols):
+            axes[i, j].axis("off")
+    path = Path(figures_dir) / f"reconstructions_step_{step:06d}.png"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fig.suptitle(f"Reconstructions at Step {step}")
+    fig.tight_layout()
+    fig.savefig(path, dpi=100, bbox_inches="tight")
+    plt.close(fig)
+    return path

@@ -48,8 +48,8 @@ class Optimizer:
 @dataclasses.dataclass
 class TrainState:
     """step counts the updates made; the model's parameters are fp32;
-    ``generator`` draws the step's randomness (unused by the deterministic
-    losses ported so far); ``ema`` holds the EMA(0.99)-smoothed metrics as
+    ``generator`` draws the step's randomness (the VAE's posterior sample;
+    the LM loss draws none); ``ema`` holds the EMA(0.99)-smoothed metrics as
     0-d fp32 tensors on the model's device, updated without a host sync
     (None before the trainer attaches it)."""
 

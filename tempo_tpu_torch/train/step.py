@@ -30,6 +30,16 @@ LossFn = Callable[[nn.Module, torch.Tensor, torch.Generator],
                   Tuple[torch.Tensor, Metrics]]
 
 
+def vae_loss_fn(model: nn.Module) -> LossFn:
+    """(model, batch [B, H, W, C], generator) -> (loss, metrics): the VAE's
+    ``get_loss``, its posterior sample drawn from the generator."""
+
+    def loss_fn(model, batch, generator):
+        return model.get_loss(batch, generator)
+
+    return loss_fn
+
+
 def lm_loss_fn(model: nn.Module) -> LossFn:
     """(model, batch [B, T+1], generator) -> (loss, metrics): the mean
     next-token NLL of the dense GPT (cli/train_gpt.py's _lm_loss_fn). The

@@ -6,25 +6,29 @@ to the history every log_every steps (the loop's only periodic host sync);
 validation over n_val_batches every val_every steps, its sample-weighted
 sums kept on the device until one fetch at the end; summary plots every
 plot_every steps; a checkpoint every save_every steps (or at the steps of
-``save_steps``) and always at the last step; metrics.json at the end; and
-samples/s over the loop's host wall time. Multi-process runs, profiling
-windows, metric sinks and reconstruction figures are not ported; the
-checkpoints are the single-file format (train/checkpoint.py).
+``save_steps``) and always at the last step, each with a reconstruction
+figure of the last batch's first 8 samples in figures/ when a ``recon_fn``
+is given; metrics.json at the end; and samples/s over the loop's host wall
+time. Multi-process runs, profiling windows, metric sinks and the L2
+figures are not ported; the checkpoints are the single-file format
+(train/checkpoint.py).
 """
 
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence, Union
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.train import checkpoint as ckpt_lib
 from tempo_tpu_torch.train.metrics import save_metrics
-from tempo_tpu_torch.train.plots import update_summary_plots
+from tempo_tpu_torch.train.plots import (save_reconstruction_figure,
+                                          update_summary_plots)
 from tempo_tpu_torch.train.state import Optimizer, TrainState
 from tempo_tpu_torch.train.step import LossFn, make_eval_step, make_train_step
 
@@ -53,9 +57,13 @@ class Trainer:
         save_steps: Optional[Sequence[int]] = None,
         grad_accum: int = 1,
         device: Union[str, torch.device, None] = None,
+        recon_fn: Optional[Callable[[nn.Module, torch.Tensor,
+                                     torch.Generator], torch.Tensor]] = None,
     ):
         """``device`` (None: CUDA, raising without it) is where batches
-        go; the state's model must be there."""
+        go; the state's model must be there. ``recon_fn(model, x,
+        generator)`` reconstructs a batch for the figures (None: no
+        figures)."""
         self.device = resolve_device(device)
         self.tx = tx
         self.state = state
@@ -66,9 +74,11 @@ class Trainer:
         self.plot_every = plot_every
         self.verbose = verbose
         self.save_steps = set(save_steps) if save_steps is not None else None
+        self.recon_fn = recon_fn
         self.ckpt_dir = self.output_dir / "checkpoints"
         self.summary_dir = self.output_dir / "summary"
-        for d in (self.ckpt_dir, self.summary_dir):
+        self.figures_dir = self.output_dir / "figures"
+        for d in (self.ckpt_dir, self.summary_dir, self.figures_dir):
             d.mkdir(parents=True, exist_ok=True)
         self.loss_fn = loss_fn
         self.train_step = make_train_step(loss_fn, tx, grad_accum=grad_accum)
@@ -114,6 +124,24 @@ class Trainer:
             return {}
         return {f"val_{k}": float(v) / n_samples for k, v in totals.items()}
 
+    # -------------------------------------------------------------- figures
+
+    def _save_recon_figure(self, batch) -> None:
+        """The reconstruction figure of the batch's first 8 samples, the
+        posterior sampled from a generator seeded with the step."""
+        if self.recon_fn is None:
+            return
+        x = batch[:8]
+        x = (x.float().cpu().numpy() if isinstance(x, torch.Tensor)
+             else np.asarray(x, dtype=np.float32))
+        generator = torch.Generator(device=self.device).manual_seed(
+            self.step)
+        with torch.no_grad():
+            recon = self.recon_fn(self.state.model,
+                                  to_device(x, self.device), generator)
+        save_reconstruction_figure(self.figures_dir, self.step, x,
+                                   recon.float().cpu().numpy())
+
     # ----------------------------------------------------------------- loop
 
     def train(self, train_iter: Iterator, val_iter_factory=None,
@@ -150,6 +178,7 @@ class Trainer:
                            else self.step % self.save_every == 0)
             if should_save or self.step == n_steps:
                 self.save_checkpoint()
+                self._save_recon_figure(batch)
 
         elapsed = time.perf_counter() - t_start
         save_metrics(self.output_dir, self.train_metrics, self.val_metrics)

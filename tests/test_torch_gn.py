@@ -112,8 +112,9 @@ def test_cpu_tensor_takes_plain_path_without_launch():
 
 
 def test_cpu_path_is_differentiable():
-    """The plain path keeps autograd (the CUDA path refuses grad: the
-    kernels have no backward yet)."""
+    """The CPU path is differentiable: with grad on, the wrapper goes
+    through GroupNormActFn, whose forward is the plain version here and
+    whose backward recomputes the plain GroupNorm + act, as on the card."""
     x, scale, bias = _inputs((1, 4, 4, 16), seed=4)
     xt = torch.from_numpy(x).requires_grad_()
     group_norm_act(xt, 4, torch.from_numpy(scale), torch.from_numpy(bias),

@@ -32,7 +32,9 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     for name in ("ops.cuda_gn_conv", "infer.paged", "ops.flash_attention",
                  "train.trainer", "train.checkpoint", "train.plots",
-                 "cli.train_gpt", "utils.config", "data.tokens"):
+                 "cli.train_gpt", "utils.config", "data.tokens",
+                 "data.loader", "data.native", "data.tiles",
+                 "data.synthetic", "cli.train_vae"):
         assert f"tempo_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -123,3 +125,31 @@ def test_training_entry_points_default_to_cuda_and_raise_without_it(
         "training: {n_steps: 2}\n")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(str(cfg))
+
+
+def test_vae_training_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    from tempo_tpu_torch.cli.train_vae import main
+    from tempo_tpu_torch.data.synthetic import make_tile_shards
+    from tempo_tpu_torch.train.state import create_train_state, make_optimizer
+    from tempo_tpu_torch.train.step import vae_loss_fn
+    from tempo_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = AutoencoderKL(VAEConfig(**TINY), device="cpu")
+    tx = make_optimizer()
+    state = create_train_state(model, tx)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(vae_loss_fn(model), tx, state, tmp_path / "a")
+    Trainer(vae_loss_fn(model), tx, state, tmp_path / "b", device="cpu")
+    tiles = make_tile_shards(tmp_path / "tiles", n_files=1)
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(
+        f"output_dir: {tmp_path / 'run'}\n"
+        f"data: {{train_dir: {tiles}, batch_size: 2, min_buffer_size: 2}}\n"
+        "model: {shape: [8, 16, 16], chs: [16, 12, 8], z_channels: 4,"
+        " embed_dim: 4, n_attention_heads: 2, norm_groups: 4}\n"
+        "training: {n_steps: 2}\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(str(cfg))
+    assert not (tmp_path / "run").exists()
