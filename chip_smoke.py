@@ -17,7 +17,9 @@ Phases, each fatal on failure:
              configuration and split its launcher chose). K1a is also held
              bitwise to itself on a repeat and, for each sample, alone
              against in a batch, and counted under torch.profiler as one
-             device kernel a call; K1a and K1b are checked at edge shapes
+             device kernel a call (or, where three profiler sessions list
+             nothing, as one node of a CUDA graph captured around the
+             call); K1a and K1b are checked at edge shapes
              (HW 1, 7x9, 3x1000; C 40 in 8 groups; B 1 and 8; bf16, fp32,
              an unaligned x), and the five [1,128,2048,512] calls are
              printed beside their byte bound;
@@ -28,19 +30,38 @@ Phases, each fatal on failure:
              just before and read just after; then its timings, and the tile
              and granule reconstructions against the same model run through
              the plain versions.
-  then the GPT-2-small serving path (bf16, weights from a seed), K3 and K4:
+  then the GPT-2-small serving path (bf16, weights from a seed), K3 and K4,
+  every fixed-shape decode call captured as a CUDA graph and replayed:
   3a. generate of 8 x (64 + 128) tokens over a 1024-slot cache, the K3
-      counter set to 0 before and read after (12 x 127 launches);
+      counter set to 0 before and read after (12 x 127 launches: the first
+      step's eager warm-up, then replays); bitwise equal to the eager loop
+      (_generate_eager), both timed in the same run, the captured one also
+      under torch.profiler;
   3b. PagedLMServer over live_paged_surface: 64 mixed requests (prompts
       32-512, 64-128 new tokens), 8 slots, k_decode 16, chunked prefill,
       on a roomy and a tight (preempting) pool, the K4 counter set to 0
-      before and read after; greedy outputs equal across the two pools;
+      before and read after; greedy outputs equal across the two pools and
+      to the same server run eagerly (whose K3/K4 calls phase 2' reads);
   2'. K3/K4 against their plain versions at every recorded call and at
       edge cases (positions 0, the split length L - 1, L, L + 1, the
       longest unsplit row 2L - 1 and past it, block and page edges, the
       cache's end), each call timed with its bound and
       library call; each row of a batch bitwise the same alone and inside
       the batch (K4: another pool, another page order);
+  3d. exported serving: GPT-2-small written by export_lm and loaded with
+      device None; (i) decode_step, decode_rows, decode_k (K 16),
+      decode_paged and decode_paged_k replayed against their eager calls
+      at the capture's and another position and table, outputs and caches
+      bitwise, 12 x K decode launches a replay, each replay timed by CUDA
+      events; (ii) the 64 requests
+      through cli/serve_lm.py's build_server and _serve_batch with a dict
+      config, bucketed, continuous (8 slots, k_decode 16) and paged (65
+      and 33 pages): tokens/s, dispatches, bursts, preemptions, the device
+      busy share under torch.profiler over the first 16 requests and the
+      decode kernels it lists against the launch count; the paged
+      completions equal 3b's eager server's on both pools; (iii)
+      _serve_http on 127.0.0.1, port 0: /healthz gives the meta, one POST
+      /v1/completions equals batch mode;
   3c. one decode step's logits (dense and paged, bf16 and fp32) against
       the plain path.
   then the GPT-2-small training path (bf16, attn_impl "auto", weights from a
@@ -210,6 +231,9 @@ LM_REQUESTS, LM_SLOTS, LM_K, LM_PAGE, LM_CHUNK = 64, 8, 16, 128, 128
 # the tight run takes 33, the largest pool that preempts: for greedy
 # requests without eos the schedule depends only on lengths and budgets.
 LM_POOLS = {"roomy": 65, "tight": 33}
+# 3d profiles each scheduler over the first requests of the mix (prompts
+# 32-256), not all 64: the profiler's record of a whole run takes minutes.
+LM_PROFILED = 8
 
 
 def fail(msg: str) -> None:
@@ -440,21 +464,67 @@ def recording_decode(calls: dict, run: str):
          cuda_decode.paged_decode_attention) = saved
 
 
-def device_kernels(fn) -> list:
-    """The device kernels (and copies) one ``fn()`` runs, by torch.profiler;
-    fails where the profiler records none on this machine."""
+def device_kernels(fn, sessions: int = 3) -> list:
+    """The device kernels (and copies) one ``fn()`` runs, by torch.profiler.
+
+    A profiler session that lists no device activity at all is repeated, up
+    to ``sessions`` of them: on an H100 the first session of a process has
+    once listed none around a call that launched its kernel. Where every
+    session lists none, the call's nodes are read from a CUDA graph captured
+    around it instead (``graph_nodes``); fails where that shows none
+    either."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for session in range(1, sessions + 1):
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+        print(f"[kernels] torch.profiler session {session} of {sessions} "
+              f"listed no device activity for one call", flush=True)
+    names = graph_nodes(fn)
+    print(f"[kernels] the call's nodes, read from a captured CUDA graph "
+          f"instead: {len(names)}", flush=True)
     if not names:
-        fail("torch.profiler recorded no device activity for one call")
+        fail("neither torch.profiler nor a captured CUDA graph shows device "
+             "work for one call")
     return names
+
+
+def graph_nodes(fn) -> list:
+    """The nodes of a CUDA graph captured around one ``fn()``, as the labels
+    of the graph's DOT dump (a kernel node's label names its function).
+    ``fn`` runs once on the capture's stream first, so that what it sets up
+    for a stream is made outside the graph."""
+    import tempfile
+
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for the dump
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "graph.dot"
+        graph.debug_dump(str(path))
+        dot = path.read_text()
+    del graph
+    # node definitions start a line with their quoted name and "["; edges
+    # start theirs with a name and "->"
+    starts = list(re.finditer(r'^\s*"([^"]+)"\s*\[', dot, re.M))
+    ends = [m.start() for m in starts[1:]] + [len(dot)]
+    return [" ".join(dot[m.end():end].split())
+            for m, end in zip(starts, ends)]
 
 
 def decode_tol(dtype) -> dict:
@@ -520,17 +590,21 @@ def lm_step_logits(model, dev, dtype, paged: bool):
     return step
 
 
-def device_profile(fn, top: int = 8):
+def device_profile(fn, top: int = 8, cpu: bool = True):
     """Device kernel time of one ``fn()`` by torch.profiler, with the
-    kernels that take most of it; None (and the reason printed) where the
-    profiler gives no device time on this machine."""
+    kernels that take most of it and the count of decode-attention kernels
+    (K3/K4, ``decode_split``) it lists, inside CUDA graph replays too; None
+    (and the reason printed) where the profiler gives no device time on
+    this machine."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    decode_kernels = 0
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu
+                                            else [])
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
         per = {}
@@ -541,6 +615,8 @@ def device_profile(fn, top: int = 8):
                          getattr(e, "self_cuda_time_total", 0.0))
             if us > 0:
                 per[e.key] = per.get(e.key, 0.0) + us / 1e3
+                if "decode_split" in e.key:
+                    decode_kernels += e.count
     except Exception as exc:  # measurement only: the run's checks stand
         print(f"[main] torch.profiler failed: {exc!r}", flush=True)
         return None
@@ -548,7 +624,7 @@ def device_profile(fn, top: int = 8):
         print("[main] torch.profiler recorded no device time", flush=True)
         return None
     ranked = sorted(per.items(), key=lambda kv: -kv[1])[:top]
-    return {"device_ms": sum(per.values()),
+    return {"device_ms": sum(per.values()), "decode_kernels": decode_kernels,
             "top": [[k[:60], round(v, 3)] for k, v in ranked]}
 
 
@@ -642,7 +718,8 @@ def lm_path(dev, gen, rows: dict) -> dict:
     from tempo_tpu_torch.infer.export_lm import live_paged_surface
     from tempo_tpu_torch.infer.paged import PagedLMServer
     from tempo_tpu_torch.nn.transformer import (Transformer,
-                                                TransformerConfig, generate,
+                                                TransformerConfig,
+                                                _generate_eager, generate,
                                                 num_params)
     from tempo_tpu_torch.ops import cuda_decode
 
@@ -656,18 +733,20 @@ def lm_path(dev, gen, rows: dict) -> dict:
         0, cfg.in_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)).to(dev)
     calls = {"K3": [], "K4": []}
 
-    def run_generate():
-        return generate(model, prompt, LM_NEW, temperature=0.0,
-                        cache_dtype=torch.bfloat16, cache_len=LM_CACHE)
+    def run_generate(fn=generate):
+        return fn(model, prompt, LM_NEW, temperature=0.0,
+                  cache_dtype=torch.bfloat16, cache_len=LM_CACHE)
 
-    # ------------------------------------------ (a) generate, counted
+    seconds, t_part = {}, time.perf_counter()
+
+    # ------------------------------- (a) generate, captured, counted
     cuda_decode.LAUNCHES["decode_attention"] = 0
-    with recording_decode(calls, "generate"):
-        out = run_generate()
+    out = run_generate()
     torch.cuda.synchronize()
     k3 = cuda_decode.LAUNCHES["decode_attention"]
     print(f"[main] generate: K3 launches {k3} (want {cfg.n_layer} x "
-          f"{LM_NEW - 1})", flush=True)
+          f"{LM_NEW - 1}: the first step's eager warm-up, then {LM_NEW - 2} "
+          f"replays of the captured step)", flush=True)
     if k3 != cfg.n_layer * (LM_NEW - 1):
         fail(f"K3 launched {k3} times in generate, want "
              f"{cfg.n_layer * (LM_NEW - 1)}")
@@ -676,40 +755,56 @@ def lm_path(dev, gen, rows: dict) -> dict:
             or not torch.equal(out[:, :LM_PROMPT], prompt.long())
             or int(out.min()) < 0 or int(out.max()) >= cfg.in_size):
         fail(f"generate output bad: {tuple(out.shape)}")
-    t0 = time.perf_counter()
-    out_again = run_generate()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    # the eager loop makes the same K3 calls, one per step: recorded for 2'
+    with recording_decode(calls, "generate"):
+        out_eager = run_generate(_generate_eager)
+    if not torch.equal(out, out_eager):
+        fail("captured generate differs from the eager loop")
+    out_again, dt = timed(run_generate)
+    _, dt_eager = timed(lambda: run_generate(_generate_eager))
     gen_ms_tok = 1e3 * dt / LM_NEW
     gen_tok_s = LM_BATCH * LM_NEW / dt
+    eager_ms_tok = 1e3 * dt_eager / LM_NEW
     print(f"[main] generate b={LM_BATCH} prompt {LM_PROMPT} +{LM_NEW} "
-          f"cache {LM_CACHE} bf16: {gen_ms_tok:.3f} ms/token, "
-          f"{gen_tok_s:.1f} tokens/s (host wall, one run after a warm one); "
-          f"repeat equal: {bool(torch.equal(out, out_again))}", flush=True)
+          f"cache {LM_CACHE} bf16, captured: {gen_ms_tok:.3f} ms/token, "
+          f"{gen_tok_s:.1f} tokens/s; eager loop: {eager_ms_tok:.3f} "
+          f"ms/token, {LM_BATCH * LM_NEW / dt_eager:.1f} tokens/s (host "
+          f"wall of one run each after warm ones, incl. the capture); "
+          f"bitwise equal: True; repeat equal: "
+          f"{bool(torch.equal(out, out_again))}", flush=True)
     gen_profile = device_profile(run_generate)
     if gen_profile is not None:
         gen_profile["busy_share"] = gen_profile["device_ms"] / (1e3 * dt)
         print(f"[main] generate under torch.profiler: "
               f"{json.dumps(gen_profile)} (busy_share: device kernel time "
-              f"over the unprofiled run's wall)", flush=True)
+              f"over the unprofiled run's wall; decode_kernels: K3 kernels "
+              f"listed, want {k3})", flush=True)
+        if gen_profile["decode_kernels"] != k3:
+            print("[main] the profiler does not list every K3 kernel of the "
+                  "replays: the captured times above are CUDA-event and "
+                  "host-clock times", flush=True)
 
-    # --------------------------------------- (b) paged server, counted
+    seconds["3a"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # ------------------------ (b) paged server, captured, counted
     surface = live_paged_surface(model, max_seq=LM_CACHE,
                                  decode_chunk=LM_K, page_size=LM_PAGE,
                                  device=dev)
+    eager_surface = export_lm._live_surface(
+        model, LM_CACHE, LM_K, LM_PAGE, dev, captured=False).paged_dict()
     reqs = lm_workload(cfg.in_size)
 
-    def server(pool):
-        return PagedLMServer(surface=surface, n_slots=LM_SLOTS,
+    def server(pool, surf=surface):
+        return PagedLMServer(surface=surf, n_slots=LM_SLOTS,
                              n_pages=LM_POOLS[pool], k_decode=LM_K,
                              prefill_chunk=LM_CHUNK, device=dev)
 
     cuda_decode.LAUNCHES["paged_decode_attention"] = 0
-    served = {}
+    served, servers = {}, {}
     for pool in LM_POOLS:
-        srv = server(pool)
-        with recording_decode(calls, pool):
-            resp = srv.serve(reqs)
+        servers[pool] = srv = server(pool)
+        resp = srv.serve(reqs)
         served[pool] = (resp, dict(srv.last_stats))
     torch.cuda.synchronize()
     k4 = cuda_decode.LAUNCHES["paged_decode_attention"]
@@ -726,20 +821,40 @@ def lm_path(dev, gen, rows: dict) -> dict:
         fail(f"the tight pool ({LM_POOLS['tight']} pages) did not preempt")
     if [r["tokens"] for r in roomy[0]] != [r["tokens"] for r in tight[0]]:
         fail("greedy outputs differ between the roomy and the tight pool")
+    # the eager server makes the same K4 calls: recorded for 2', and the
+    # reference of the captured servers (here and in 3d)
+    eager_tokens, eager_stats = {}, {}
+    for pool in LM_POOLS:
+        srv = server(pool, eager_surface)
+        with recording_decode(calls, pool):
+            resp = srv.serve(reqs)
+        eager_tokens[pool] = [r["tokens"] for r in resp]
+        eager_stats[pool] = dict(srv.last_stats)
+        if eager_tokens[pool] != [r["tokens"] for r in served[pool][0]]:
+            fail(f"{pool}: the captured paged server's greedy outputs differ "
+                 f"from the eager server's")
+        del srv
     serve_stats = {}
     for pool in LM_POOLS:
-        srv = server(pool)
-        srv.serve(reqs)
+        srv = servers[pool]
+        srv.serve(reqs)  # its graphs are captured: a warm run
         st = srv.last_stats
         serve_stats[pool] = {k: st[k] for k in (
             "tokens_per_sec", "seconds", "n_generated", "decode_steps",
             "decode_bursts", "prefills", "preemptions", "peak_pages",
             "n_pages")}
-        print(f"[main] serve {pool} ({LM_POOLS[pool]} pages): "
-              f"{json.dumps(serve_stats[pool])} (the counted run: "
-              f"preemptions {served[pool][1]['preemptions']}, peak_pages "
+        serve_stats[pool]["first_run_s"] = served[pool][1]["seconds"]
+        serve_stats[pool]["eager"] = {k: eager_stats[pool][k] for k in (
+            "tokens_per_sec", "seconds")}
+        print(f"[main] serve {pool} ({LM_POOLS[pool]} pages), captured: "
+              f"{json.dumps(serve_stats[pool])} (warm run; first_run_s: the "
+              f"counted run, captures included; eager: the recorded run; "
+              f"the counted run: preemptions "
+              f"{served[pool][1]['preemptions']}, peak_pages "
               f"{served[pool][1]['peak_pages']})", flush=True)
-        del srv
+    del servers, surface, eager_surface
+    seconds["3b"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
     # the sampled stream draws the same bits on the CPU and on the card
     seeds = torch.arange(8, dtype=torch.int64) * 977
     spos = torch.arange(8, dtype=torch.int64) + 300
@@ -927,10 +1042,14 @@ def lm_path(dev, gen, rows: dict) -> dict:
              "a row's result depends on the rest of its batch")
 
     # ------------------------------- (c) logits against the plain path
+    seconds["2'"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    exported = exported_serving(dev, model, reqs, eager_tokens)
+    t_part = time.perf_counter()
+
     errs = {}
     for dtype_name, m in (("bf16", model), ("f32", None)):
         if m is None:
-            del surface
             m = Transformer(TransformerConfig(compute_dtype="float32"),
                             device=dev, seed=SEED)
         dt_ = m.config.dtype
@@ -941,7 +1060,7 @@ def lm_path(dev, gen, rows: dict) -> dict:
                 want = step()
             errs[f"{kind}_{dtype_name}"] = rel_l2(got, want)
     with plain_decode():
-        out_plain = run_generate()
+        out_plain = run_generate(_generate_eager)
     new_k, new_p = out[:, LM_PROMPT:], out_plain[:, LM_PROMPT:]
     agree = float((new_k == new_p).float().mean())
     first = [int(torch.nonzero(a != b_)[0]) if bool((a != b_).any())
@@ -954,11 +1073,313 @@ def lm_path(dev, gen, rows: dict) -> dict:
     for k, v in errs.items():
         if not v <= (LM_BF16_REL_L2 if k.endswith("bf16") else LM_F32_REL_L2):
             fail(f"{k} logits disagree with the plain path: rel L2 {v}")
-    return {"n_params": n_params, "generate_ms_per_token": gen_ms_tok,
+    seconds["3c"] = time.perf_counter() - t_part
+    seconds["3d"] = exported["seconds"]
+    print(f"[time] LM serving phases, s: {json.dumps(seconds)}", flush=True)
+    return {"seconds": seconds, "n_params": n_params,
+            "generate_ms_per_token": gen_ms_tok,
             "generate_tokens_per_s": gen_tok_s,
+            "generate_eager_ms_per_token": eager_ms_tok,
             "generate_profile": gen_profile, "serve": serve_stats,
+            "exported": exported,
             "logits_rel_l2": errs, "greedy_plain_agreement": agree,
             "greedy_plain_first_divergence": first}
+
+
+def timed(fn):
+    """(fn(), host seconds) with the card synchronised on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def bitwise(a, b) -> bool:
+    """Tensors, or nested tuples of them, equal bit for bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (a.shape == b.shape and a.dtype == b.dtype
+                and bool(torch.equal(a, b)))
+    return len(a) == len(b) and all(bitwise(x, y) for x, y in zip(a, b))
+
+
+def replay_checks(surface, eager, n_layer: int) -> list:
+    """3d(i): each captured call of a loaded surface against the same call
+    run eagerly (``eager``: the same model, nothing captured), from the
+    same caches and inputs: first at the capture's position (and table),
+    then at another; the outputs and the caches afterwards compared bit
+    for bit, and the K3/K4 launches of one more replay counted. Returns
+    (call, bitwise, launches a replay, launches wanted) tuples."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.ops import cuda_decode
+
+    dev = surface.device
+    vocab = surface.cfg.in_size
+    rng = np.random.default_rng(SEED + 2)
+    k = surface.k
+    with torch.no_grad():
+        _, base = eager.prefill(rng.integers(0, vocab, (LM_BATCH, 300)))
+        table0 = (1 + torch.randperm(64, device=dev)).reshape(8, 8).to(
+            torch.int32)
+        table1 = torch.roll(table0, 1, dims=0)
+        shape = (65, LM_PAGE) + tuple(base[0][0].shape[2:])
+        pools = tuple((torch.zeros(shape, dtype=base[0][0].dtype, device=dev),
+                       torch.zeros(shape, dtype=base[0][0].dtype, device=dev),
+                       table0) for _ in range(n_layer))
+        for r in range(LM_BATCH):
+            eager.admit_paged(pools, tuple((ck[r:r + 1], cv[r:r + 1])
+                                           for ck, cv in base), table0[r])
+    rows_pos = np.arange(300, 300 - 10 * LM_BATCH, -10)
+
+    def tok():
+        return torch.from_numpy(rng.integers(0, vocab, (LM_BATCH, 1))).to(dev)
+
+    calls = {
+        "decode_step": (base, [lambda: 300, lambda: 301], 1,
+                        "decode_attention"),
+        "decode_rows": (base, [lambda: rows_pos, lambda: rows_pos + 1], 1,
+                        "decode_attention"),
+        "decode_k": (base, [lambda: 300, lambda: 300 + k], k,
+                     "decode_attention"),
+        "decode_paged": (pools, [lambda: rows_pos, lambda: rows_pos + 1], 1,
+                         "paged_decode_attention"),
+        "decode_paged_k": (pools, [lambda: rows_pos, lambda: rows_pos + k],
+                           k, "paged_decode_attention"),
+    }
+    def copy(cache):
+        """A copy of a cache; a paged one keeps one table for all layers."""
+        if len(cache[0]) == 2:
+            return tuple((ck.clone(), cv.clone()) for ck, cv in cache)
+        tab = cache[0][2].clone()
+        return tuple((pk.clone(), pv.clone(), tab) for pk, pv, _ in cache)
+
+    out = []
+    for name, (cache0, positions, steps, counter) in calls.items():
+        cc, ce = copy(cache0), copy(cache0)
+        paged = len(cc[0]) == 3
+        same = True
+        for i, pos in enumerate(positions):
+            if paged and i == 1:  # another table, updated in place
+                cc[0][2].copy_(table1)
+                ce[0][2].copy_(table1)
+            t, p = tok(), pos()
+            got = getattr(surface, name)(t, cc, p)
+            got = tuple(x.clone() for x in got[:-1])  # before any replay
+            want = getattr(eager, name)(t, ce, p)[:-1]
+            same &= bitwise(got, want) and bitwise(cc, ce)
+        t, p = tok(), surface.tensor(positions[1](), torch.int32)
+        cuda_decode.LAUNCHES[counter] = 0
+        getattr(surface, name)(t, cc, p)
+        torch.cuda.synchronize()
+        launched = cuda_decode.LAUNCHES[counter]
+        # the replay's device time by CUDA events (inputs already on the
+        # device: two small copies and the graph)
+        ms = time_ms(lambda: getattr(surface, name)(t, cc, p), iters=5,
+                     warmup=1)
+        out.append((name, same, launched, n_layer * steps, ms))
+    return out
+
+
+def exported_serving(dev, model, reqs, eager_tokens: dict) -> dict:
+    """3d: GPT-2-small exported and loaded (device None: CUDA); (i) every
+    captured call bitwise its eager call; (ii) the 64 requests through
+    cli/serve_lm.py's functions with a dict config under each scheduler,
+    the paged server's greedy completions equal to 3b's eager server's;
+    (iii) one POST /v1/completions over loopback equal to batch mode.
+    Returns the metrics."""
+    import tempfile
+
+    from tempo_tpu_torch.cli.serve_lm import _serve_batch, build_server
+    from tempo_tpu_torch.infer import export_lm
+    from tempo_tpu_torch.ops import cuda_decode
+
+    result = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        art = export_lm.export_lm(model.state_dict(), model.config,
+                                  tmp / "lm", max_seq=LM_CACHE,
+                                  decode_chunk=LM_K, page_size=LM_PAGE)
+        prefill, _, meta = export_lm.load_exported_lm(art)
+        result["export_load_s"] = time.perf_counter() - t0
+        surface = prefill.__self__
+        eager = export_lm._Surface(surface.model, surface.meta,
+                                   captured=False)
+
+        # ---------------------------------- (i) replay equals eager
+        t_i = time.perf_counter()
+        checks = replay_checks(surface, eager, model.config.n_layer)
+        result["replay_checks_s"] = time.perf_counter() - t_i
+        for name, same, n, want, ms in checks:
+            where = "position and table" if "paged" in name else "position"
+            print(f"[3d] {name}: captured == eager bitwise at the capture's "
+                  f"and another {where} (outputs and caches): {same}; K3/K4 "
+                  f"launches a replay {n} (want {want}); a replay "
+                  f"{ms:.3f} ms of device time (CUDA events, cold L2, b=8, "
+                  f"{want // model.config.n_layer} model steps)", flush=True)
+            if not same:
+                fail(f"3d: captured {name} differs from its eager call")
+            if n != want:
+                fail(f"3d: {name} launched {n} decode kernels a replay, "
+                     f"want {want}")
+        result["replay_bitwise"] = {c[0]: c[1] for c in checks}
+        result["replay_ms"] = {c[0]: c[4] for c in checks}
+        del eager
+
+        # --------------------------- (ii) the CLI's batch mode, per scheduler
+        req_path = tmp / "requests.jsonl"
+        req_path.write_text("".join(json.dumps(r) + "\n" for r in reqs))
+        fused = {"slots": LM_SLOTS, "k_decode": LM_K,
+                 "prefill_chunk": LM_CHUNK}
+        configs = {
+            "bucketed": {"scheduler": "bucketed", "prefill_chunk": LM_CHUNK},
+            "continuous": {"scheduler": "continuous", **fused},
+            "paged_roomy": {"scheduler": "paged", "n_pages":
+                            LM_POOLS["roomy"], **fused},
+            "paged_tight": {"scheduler": "paged", "n_pages":
+                            LM_POOLS["tight"], **fused},
+        }
+        tokens, stats = {}, {}
+        for name, extra in configs.items():
+            t_run = time.perf_counter()
+            cfg = {"artifacts": str(art), "requests": str(req_path), **extra}
+            captures = surface.graphs.captures
+            srv = build_server(cfg)
+            # two requests first capture the server's graphs
+            srv.serve_requests(reqs[:2], default_new_tokens=64)
+            warm_captures = surface.graphs.captures - captures
+            out_dir = tmp / name
+            out_dir.mkdir()
+            _serve_batch(srv, cfg, out_dir, 64)
+            info = json.loads((out_dir / "serving_info.yaml").read_text())
+            done = [json.loads(line) for line in
+                    (out_dir / "completions.jsonl").read_text().splitlines()]
+            if [r["n_generated"] for r in done] != [
+                    q["n_tokens"] for q in reqs]:
+                fail(f"3d {name}: wrong token counts")
+            tokens[name] = [r["tokens"] for r in done]
+            # the device busy share over 8 requests, and the decode kernels
+            # the profiler lists inside the replays
+            few = reqs[:LM_PROFILED]
+            _, t_few = timed(lambda: srv.serve_requests(few, 64))
+            before = dict(cuda_decode.LAUNCHES)
+            t_prof = time.perf_counter()
+            prof = device_profile(lambda: srv.serve_requests(few, 64),
+                                  cpu=False)
+            t_prof = time.perf_counter() - t_prof
+            launched = sum(cuda_decode.LAUNCHES[k] - before[k]
+                           for k in before)
+            st = info.get("scheduler_stats", {})
+            stats[name] = {
+                "tokens_per_sec": info["tokens_per_sec"],
+                "elapsed_s": info["elapsed_s"],
+                "decode_dispatches": st.get("decode_steps"),
+                "bursts": st.get("decode_bursts"),
+                "preemptions": st.get("preemptions"),
+                "graphs_captured": surface.graphs.captures - captures,
+                "graphs_captured_by_warmup": warm_captures,
+                "busy_share": (None if prof is None else
+                               prof["device_ms"] / (1e3 * t_few)),
+                "decode_kernels_profiled": (None if prof is None else
+                                            prof["decode_kernels"]),
+                "decode_launches_profiled": launched,
+            }
+            print(f"[3d] serve_lm {name}: {json.dumps(stats[name])} "
+                  f"(tokens_per_sec: host wall of _serve_batch over the 64 "
+                  f"requests after a 2-request warm-up that captures the "
+                  f"graphs; busy_share: device kernel time under "
+                  f"torch.profiler over the unprofiled wall of the first "
+                  f"{LM_PROFILED} requests; {time.perf_counter() - t_run:.1f}"
+                  f" s, the profile {t_prof:.1f} s)", flush=True)
+            if prof is not None and prof["decode_kernels"] != launched:
+                print(f"[3d] {name}: the profiler lists "
+                      f"{prof['decode_kernels']} decode kernels for "
+                      f"{launched} launches: its busy share misses part of "
+                      f"the replays; each replay's device time by CUDA "
+                      f"events is in 3d(i)'s lines", flush=True)
+            if name == "continuous":
+                http = http_check(srv, cfg, tmp, reqs[:2])
+            del srv
+        for pool in LM_POOLS:
+            if tokens[f"paged_{pool}"] != eager_tokens[pool]:
+                fail(f"3d: the exported paged server ({pool}) differs from "
+                     f"3b's eager server")
+        ref = tokens["paged_roomy"]
+        agree = {name: sum(a == b for a, b in zip(t, ref)) / len(ref)
+                 for name, t in tokens.items()}
+        print(f"[3d] greedy completions equal to 3b's eager paged server on "
+              f"both pools: True; share of requests equal to the paged "
+              f"server's, by scheduler (reported, not a gate: other batch "
+              f"shapes may round bf16 otherwise): {json.dumps(agree)}",
+              flush=True)
+    result.update(serve=stats, agreement=agree, http=http,
+                  seconds=time.perf_counter() - t_phase)
+    print(f"[time] 3d: {result['seconds']:.1f} s", flush=True)
+    return result
+
+
+def http_check(srv, cfg: dict, tmp: Path, two: list) -> dict:
+    """3d(iii): ``_serve_http`` on 127.0.0.1, port 0, in a thread; GET
+    /healthz must give the artifact's meta, and one POST /v1/completions
+    of two prompts (max_tokens 16, greedy) the batch mode's tokens."""
+    import threading
+    import urllib.request
+
+    from tempo_tpu_torch.cli.serve_lm import _serve_batch, _serve_http
+
+    reqs = [{"tokens": r["tokens"], "n_tokens": 16} for r in two]
+    path = tmp / "two.jsonl"
+    path.write_text("".join(json.dumps(r) + "\n" for r in reqs))
+    batch_dir = tmp / "http_batch"
+    batch_dir.mkdir()
+    _serve_batch(srv, {**cfg, "requests": str(path)}, batch_dir, 64)
+    want = [json.loads(line)["tokens"] for line in
+            (batch_dir / "completions.jsonl").read_text().splitlines()]
+    http_dir = tmp / "http"
+    http_dir.mkdir()
+    th = threading.Thread(target=_serve_http, args=(srv, {
+        **cfg, "host": "127.0.0.1", "port": 0, "max_requests": 1},
+        http_dir, 64), daemon=True)
+    th.start()
+    info = http_dir / "serving_info.yaml"
+    for _ in range(600):
+        if info.exists() and info.read_text().strip():
+            break
+        time.sleep(0.05)
+    else:
+        fail("3d: the HTTP server did not start")
+    base = f"http://127.0.0.1:{json.loads(info.read_text())['port']}"
+    with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    meta = json.loads((Path(cfg["artifacts"]) / "meta.json").read_text())
+    if health.get("status") != "ok" or any(health.get(k) != v
+                                           for k, v in meta.items()):
+        fail("3d: /healthz does not give the artifact's meta")
+    body = json.dumps({"prompt": [r["tokens"] for r in reqs],
+                       "max_tokens": 16}).encode()
+    post = urllib.request.Request(f"{base}/v1/completions", data=body,
+                                  headers={"Content-Type":
+                                           "application/json"})
+    with urllib.request.urlopen(post, timeout=120) as r:
+        got = json.loads(r.read())
+    th.join(timeout=60)
+    if th.is_alive():
+        fail("3d: the HTTP server did not stop after its one request")
+    tokens = [c["tokens"] for c in got["choices"]]
+    print(f"[3d] HTTP on 127.0.0.1: /healthz gives the meta; POST "
+          f"/v1/completions of 2 prompts x 16 tokens equals batch mode: "
+          f"{tokens == want}; usage {json.dumps(got['usage'])}", flush=True)
+    if tokens != want:
+        fail("3d: /v1/completions differs from batch mode")
+    return {"healthz_meta": True, "completions_equal_batch": True,
+            "usage": got["usage"]}
 
 
 def lm_row(name: str, replaces: str, library: str) -> dict:

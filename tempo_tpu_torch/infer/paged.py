@@ -11,10 +11,13 @@ the canonical stream of serving.device_sample (a pure function of seed,
 position and logits). Decode runs K4 (ops/cuda_decode.py) through the
 model's paged branch; prompts ingest through ``extend_paged``.
 
-The server runs on a live surface (infer/export_lm.py
-``live_paged_surface``); loading exported artifacts and speculation
-(``draft_dir`` / ``k_draft``, which needs the dense continuous server) are
-not ported yet.
+The server runs on exported artifacts (``artifacts_dir``, through the
+loaders of infer/export_lm.py) or on a live surface (``surface=``,
+``live_paged_surface``); both are the same calls, with the decode calls
+captured as CUDA graphs on the card. The server owns its pools and one
+static block table per row count, updated in place from the scheduler's
+host table before each call, so a captured call sees the same tensors at
+every replay. Speculation (``draft_dir`` / ``k_draft``) is not ported yet.
 
 Two scheduler faults of the JAX package are not carried over: a
 cancelled pending request leaves no trace in ``preempted_tickets``, and a
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from tempo_tpu_torch.device import resolve_device
-from tempo_tpu_torch.infer import serving
+from tempo_tpu_torch.infer import export_lm, serving
 from tempo_tpu_torch.infer.serving import (_TicketEngine, check_stops,
                                             parse_stops, token_logprob)
 
@@ -91,8 +94,9 @@ class PagePool:
 class PagedLMServer:
     """Continuous batching over a paged KV cache with preemption.
 
-    ``surface`` is ``live_paged_surface(model, ...)``; ``device`` (None
-    means CUDA) is where the pools live and must be the surface's. A
+    ``artifacts_dir`` is an export with ``page_size`` > 0, loaded on
+    ``device`` (None means CUDA); or ``surface`` is
+    ``live_paged_surface(model, ...)``, and ``device`` must be its. A
     request of total length L holds ceil(L / page_size) pages; ``n_pages``
     sizes the pool (usable pages = n_pages - 1; default: no
     oversubscription). ``k_decode`` > 0 dispatches fused k-token chunks
@@ -104,14 +108,14 @@ class PagedLMServer:
                  k_draft: int = 0, prefill_chunk: Optional[int] = None,
                  surface: Optional[Dict[str, Any]] = None,
                  device: Union[str, torch.device, None] = None):
-        if artifacts_dir is not None:
-            raise NotImplementedError("exported artifacts are not ported; "
-                                      "pass surface=live_paged_surface(...)")
         if draft_dir is not None or k_draft:
             raise NotImplementedError(
                 "speculation (draft_dir / k_draft) is not ported yet")
-        if surface is None:
-            raise ValueError("need surface=live_paged_surface(model, ...)")
+        if (artifacts_dir is None) == (surface is None):
+            raise ValueError("pass artifacts_dir or surface="
+                             "live_paged_surface(model, ...), one of them")
+        if artifacts_dir is not None:
+            surface = _artifact_surface(artifacts_dir, k_decode, device)
         dev = resolve_device(device)
         self.decode_paged = surface["decode_paged"]
         self.extend_paged = surface["extend_paged"]
@@ -151,6 +155,7 @@ class PagedLMServer:
         self._pools = [(torch.zeros(shape, dtype=dt, device=self.device),
                         torch.zeros(shape, dtype=dt, device=self.device))
                        for _ in range(int(self.meta["n_layer"]))]
+        self._tables: Dict[int, torch.Tensor] = {}  # rows -> block table
         self.prefill_chunk = (int(prefill_chunk)
                               if prefill_chunk else None)
 
@@ -180,7 +185,14 @@ class PagedLMServer:
                 raise ValueError(f"request {i}: {exc}") from None
 
     def _cache(self, table: np.ndarray):
-        t = torch.as_tensor(table).to(self.device)
+        """The paged cache through this server's static block table for
+        len(table) rows, updated in place from ``table``."""
+        t = self._tables.get(len(table))
+        if t is None:
+            t = torch.zeros(table.shape, dtype=torch.int32,
+                            device=self.device)
+            self._tables[len(table)] = t
+        t.copy_(torch.from_numpy(np.ascontiguousarray(table, np.int32)))
         return tuple((pk, pv, t) for pk, pv in self._pools)
 
     def _ingest_row(self, table: np.ndarray, s: int, toks: np.ndarray,
@@ -302,6 +314,22 @@ class PagedLMServer:
     def serve_requests(self, requests: Sequence[Dict[str, Any]],
                        default_new_tokens: int = 64) -> List[Dict[str, Any]]:
         return self.serve(requests, default_new_tokens)
+
+
+def _artifact_surface(artifacts_dir, k_decode: int,
+                      device) -> Dict[str, Any]:
+    """PagedLMServer's surface dict from an exported artifact directory."""
+    prefill, decode_paged, admit_paged, meta = export_lm.load_exported_paged(
+        artifacts_dir, device)
+    surface = {"prefill": prefill, "decode_paged": decode_paged,
+               "admit_paged": admit_paged,
+               "extend_paged": export_lm.load_exported_extend_paged(
+                   artifacts_dir, device),
+               "meta": meta}
+    if k_decode > 0:
+        (surface["decode_paged_k"], surface["decode_paged_k_sample"],
+         _) = export_lm.load_exported_paged_k(artifacts_dir, device)
+    return surface
 
 
 class PagedLMEngine(_TicketEngine):
@@ -633,13 +661,16 @@ class PagedLMEngine(_TicketEngine):
         all_greedy = all(slots[s]["temperature"] == 0.0 for s in active)
         policy = None if all_greedy else self._policy_arrays(active)
 
+        cache = srv._cache(table)  # the table holds still during a burst
+        if policy is not None:
+            policy = tuple(torch.as_tensor(a).to(srv.device) for a in policy)
+
         def dispatch(tok_dev, pos_dev):
             if all_greedy:
-                chunk, lps, _ = srv.decode_paged_k(
-                    tok_dev, srv._cache(table), pos_dev)
+                chunk, lps, _ = srv.decode_paged_k(tok_dev, cache, pos_dev)
             else:
                 chunk, lps, _ = srv.decode_paged_k_sample(
-                    tok_dev, srv._cache(table), pos_dev, *policy)
+                    tok_dev, cache, pos_dev, *policy)
             return chunk, lps
 
         self._run_burst(active, k, chains, dispatch)

@@ -129,12 +129,27 @@ def _flash_ok(cfg: TransformerConfig, q: torch.Tensor) -> bool:
     return q.is_cuda and flash_attention.supported(q)
 
 
+def _capturing(device: torch.device) -> bool:
+    """Whether a CUDA graph is being captured on ``device``'s current
+    stream (infer/graphs.py): what a call sets up lazily must then exist
+    already, made by the capture's warm-up, or it would live in the
+    graph's memory and hold nothing until a replay."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _refuse_setup_in_capture(device: torch.device, what: str) -> None:
+    if _capturing(device):
+        raise RuntimeError(f"{what} would be made inside a CUDA graph "
+                           f"capture: make a warm-up call first")
+
+
 def cast_param(owner: nn.Module, p: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:
     """``p`` in ``dtype``, cached on ``owner`` until ``p`` changes (in
     place, or moved) or another type is asked for. Not cached where a
     graph is being built, nor for a parameter made under
-    torch.inference_mode() (no version count)."""
+    torch.inference_mode() (no version count). A cast missing from the
+    cache inside a CUDA graph capture raises."""
     if p.dtype == dtype:
         return p
     if (torch.is_grad_enabled() and p.requires_grad) or p.is_inference():
@@ -143,6 +158,7 @@ def cast_param(owner: nn.Module, p: torch.Tensor,
     key = (p.device, p.data_ptr(), p._version, dtype)
     hit = cache.get(id(p))
     if hit is None or hit[0] != key:
+        _refuse_setup_in_capture(p.device, "a parameter's cast")
         hit = (key, p.detach().to(dtype))
         cache[id(p)] = hit
     return hit[1]
@@ -233,6 +249,7 @@ class SelfAttention(nn.Module):
     def _rope_table(self, device: torch.device) -> torch.Tensor:
         cfg = self.config
         if self._rope is None or self._rope.device != device:
+            _refuse_setup_in_capture(device, "the RoPE table")
             self._rope = rope_cache(cfg.block_size, cfg.head_dim,
                                     cfg.rope_base, device)
         return self._rope
@@ -527,6 +544,10 @@ def generate(model: Transformer, idx, max_new_tokens: int, seed: int = 0,
     """Continue idx [b, t0] by max_new_tokens with a dense KV cache: one
     prefill, then one single-token step (K3) per new token, all on the
     model's device with no host sync until the caller reads the result.
+    On CUDA the step (model, draw, position increment) is captured once as
+    a CUDA graph and replayed for each token after the first, whose eager
+    run is the graph's warm-up (infer/graphs.py); on the CPU it runs
+    eagerly (``_generate_eager``). Both give the same tokens.
 
     temperature 0 is greedy (first-max argmax). Otherwise the draw is
     infer/export_lm.py ``sample_rows``: temperature, top-k, then nucleus,
@@ -535,6 +556,45 @@ def generate(model: Transformer, idx, max_new_tokens: int, seed: int = 0,
     threefry stream cannot be reproduced, so only greedy output equals
     tempo_tpu's. The cache defaults to fp32 and to the request rounded up
     to 64 slots; ``cache_len`` overrides that (e.g. a full serving window)."""
+    out, step = _generate_start(model, idx, max_new_tokens, seed,
+                                temperature, top_k, top_p, cache_dtype,
+                                cache_len)
+    if max_new_tokens > 1 and out.is_cuda:
+        from tempo_tpu_torch.infer.graphs import CapturedCall
+
+        graph = CapturedCall(step, stream=torch.cuda.Stream(out.device))
+        for _ in range(max_new_tokens - 2):
+            graph()
+    else:
+        for _ in range(max_new_tokens - 1):
+            step()
+    return out
+
+
+@torch.no_grad()
+def _generate_eager(model: Transformer, idx, max_new_tokens: int,
+                    seed: int = 0, temperature: float = 1.0,
+                    top_k: Optional[int] = None,
+                    top_p: Optional[float] = None,
+                    cache_dtype: Optional[torch.dtype] = None,
+                    cache_len: Optional[int] = None) -> torch.Tensor:
+    """``generate`` with every step run eagerly, on any device: the CPU's
+    path, and the reference the captured steps are held to on the card."""
+    out, step = _generate_start(model, idx, max_new_tokens, seed,
+                                temperature, top_k, top_p, cache_dtype,
+                                cache_len)
+    for _ in range(max_new_tokens - 1):
+        step()
+    return out
+
+
+def _generate_start(model, idx, max_new_tokens, seed, temperature, top_k,
+                    top_p, cache_dtype, cache_len):
+    """Prefill, the first new token, and the single-token step. Returns
+    (out, step): out [b, t0 + max_new_tokens] holds the prompt and the
+    tokens so far (column = absolute position); step() feeds out[:, pos],
+    writes the drawn token to out[:, pos + 1] and advances pos (a 0-dim
+    device tensor), all on the device with fixed shapes."""
     from tempo_tpu_torch.infer.export_lm import sample_rows
 
     cfg = model.config
@@ -563,14 +623,20 @@ def generate(model: Transformer, idx, max_new_tokens: int, seed: int = 0,
         return sample_rows(logits_last, seeds, pos.expand(b), temp, topk,
                            topp)
 
+    out = torch.zeros((b, t0 + max_new_tokens), dtype=torch.long, device=dev)
+    out[:, :t0] = idx
     pos = torch.full((), t0, dtype=torch.int32, device=dev)
     logits, cache = model(idx, cache=cache, input_pos=torch.zeros_like(pos))
-    toks = [sample(logits[:, -1], pos - 1)]
-    for _ in range(max_new_tokens - 1):
-        logits, cache = model(toks[-1][:, None], cache=cache, input_pos=pos)
-        toks.append(sample(logits[:, -1], pos))
-        pos = pos + 1
-    return torch.cat([idx, torch.stack(toks, dim=1)], dim=1)
+    out[:, t0] = sample(logits[:, -1], pos - 1)
+
+    def step():
+        col = pos.long().reshape(1)
+        logits, _ = model(out.index_select(1, col), cache=cache,
+                          input_pos=pos)
+        out.index_copy_(1, col + 1, sample(logits[:, -1], pos)[:, None])
+        pos.add_(1)
+
+    return out, step
 
 
 def num_params(model: nn.Module, non_embedding: bool = True) -> int:

@@ -23,7 +23,16 @@ bit for bit.
 
 Each wrapper takes the plain PyTorch version beside it for a tensor on the
 CPU, and for a CUDA tensor launches its kernel or raises. Each counts its
-launches in ``LAUNCHES``.
+launches in ``LAUNCHES`` (ops/launches.py: a call recorded into a CUDA
+graph counts at each replay of the graph).
+
+Capture (infer/graphs.py). The kernel reads the positions and the table
+from device memory, and its grid comes from the cache's capacity, so one
+captured launch is valid at any position and table. While a graph is being
+captured the wrapper takes only device tensors for ``pos`` (a host value
+would be a copy from pageable memory, illegal there), and the counters of
+the capture's stream must already exist: the warm-up call on that stream
+makes them, and the library and ``split_len`` are loaded there too.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from typing import Optional, Union
 
 import torch
 
-from tempo_tpu_torch.ops import _build
+from tempo_tpu_torch.ops import _build, launches
 from tempo_tpu_torch.ops.cuda_gn import DTYPE_CODES, check_cuda_input, refuse_grad
 
 HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernels are built for
@@ -143,14 +152,30 @@ def scratch_numel(b: int, n: int, hd: int, cap: int) -> int:
     return b * n * -(-cap // split_len()) * (hd + 2)
 
 
-_COUNTERS: dict = {}  # (device, stream) -> int32 counters, zero between calls
+# (device, stream) -> the int32 arrival counters of the calls on that stream,
+# zero between calls: each call leaves them zero, so a captured launch that
+# holds them keeps the invariant across its replays. Calls that share
+# counters must stay ordered on one stream: eager calls on the stream they
+# were made for, and graphs captured on one stream, which hold that
+# stream's counters, replayed one after another on the caller's stream.
+# A grown buffer never frees the one it replaces: a captured graph may
+# still hold it.
+_COUNTERS: dict = {}
+_RETIRED: list = []
 
 
 def _counters(device: torch.device, stream: int, numel: int) -> torch.Tensor:
     """The kernel's per-(row, kv head) arrival counters for calls on
-    ``stream``: zeroed once, left at zero by every call."""
+    ``stream``: zeroed once, left at zero by every call. Made by the first
+    eager call on the stream, never inside a capture."""
     c = _COUNTERS.get((device, stream))
     if c is None or c.numel() < numel:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "decode attention: no counters for the capturing stream; "
+                "make a warm-up call on that stream before the capture")
+        if c is not None:
+            _RETIRED.append(c)
         c = torch.zeros(numel, dtype=torch.int32, device=device)
         _COUNTERS[(device, stream)] = c
     return c
@@ -173,6 +198,10 @@ def _launch(q, k, v, pos, table, cap, page, max_pages, name):
                          f"{MAX_GROUP}")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError(f"{name}: k and v must be 16-byte aligned")
+    if torch.cuda.is_current_stream_capturing() and not (
+            isinstance(pos, torch.Tensor) and pos.device == q.device):
+        raise ValueError(f"{name}: while a CUDA graph is captured, pos must "
+                         f"be a tensor on {q.device}")
     p = torch.as_tensor(pos, device=q.device).to(torch.int32).reshape(-1)
     if p.numel() not in (1, b):
         raise ValueError(f"{name}: pos must be one position or [b={b}], got "
@@ -195,7 +224,7 @@ def _launch(q, k, v, pos, table, cap, page, max_pages, name):
         scratch.data_ptr(), counters.data_ptr(), DTYPE_CODES[k.dtype],
         DTYPE_CODES[q.dtype], b, n, kv, hd, cap, page, max_pages, stream)
     _build.check(err, "tempo_decode_attention")
-    LAUNCHES[name] += 1
+    launches.count(LAUNCHES, name)
     return out
 
 

@@ -34,7 +34,9 @@ def test_port_imports_no_jax():
                  "train.trainer", "train.checkpoint", "train.plots",
                  "cli.train_gpt", "utils.config", "data.tokens",
                  "data.loader", "data.native", "data.tiles",
-                 "data.synthetic", "cli.train_vae"):
+                 "data.synthetic", "cli.train_vae", "infer.graphs",
+                 "infer.serving", "infer.export_lm", "ops.launches",
+                 "cli.export_lm", "cli.serve_lm"):
         assert f"tempo_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
