@@ -102,6 +102,32 @@ Phases, each fatal on failure:
       plain path, under the L2 loss (bf16 at batch 64; fp32 with two
       levels at batch 2), and under the flagship's L1 loss in bf16, its
       gradients held against the same step in fp32 (VAE_BF16_ACC).
+  then the L2-supervised VAE training path (the flagship and the 512-512-4
+  head, bf16, weights from a seed, zero-init output convs re-drawn), K1a,
+  K1b (also at the head's [64,16,16,512], eps 1e-5, held in phase 2) and
+  K2:
+  6a. train steps at batch 64 on batches of a DeviceTileBuffer (2 slots
+      over 4 fp16 shards of 32 flagship tiles with the four products' fp32
+      fields at 5% NaN, a swap every 5): 3 warm, then 10 timed, the K1/K2
+      counters set to 0 before and read after (launches a step equal to
+      the calls of one training forward: 26/4/22); step ms, patches/s,
+      peak memory, a profiled step by kind with its busy share, the
+      gather's device time; every loss finite, the loss of a fixed batch
+      falls over the 13 steps; GroupNormActFn's backward at the head's
+      shape against autograd through the plain chain (2''');
+  6b. 12 batches of the buffer on the card, swapping every 3, bit for bit
+      those of the same buffer on the CPU (spectral and every product);
+  6c. cli/train_vae_l2.py ``run`` with configs/demo/flagship_train_l2.yaml's
+      values (FLAGSHIP_L2) for 20 steps, once with the device buffer and
+      once with the TileLoader, the VAE warm-started from 5b's checkpoint:
+      checkpoint, summary/l2_losses.png (drawn by train/png.py: the card's
+      machine has no matplotlib), the figure and metrics.json written;
+      samples/s and the loader's share of the host wall; one more step
+      from the reloaded checkpoint equals the live state's bit for bit;
+  6d. one L2 step against the plain path: bf16 at batch 64 under the L1
+      loss (each product's loss, the loss and pixel MSE rel 1e-2, each
+      head gradient rel L2 5e-2, the VAE's gradients by 5c's rule) and
+      fp32 at batch 2 under the L2 loss (1e-4 each).
 Prints the card's name and power limit first, each phase's seconds, each
 redesigned kernel's time against its time before the redesign
 (KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
@@ -118,6 +144,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -207,6 +234,42 @@ FN_BWD_REL = 1e-4
 # STEP_BF16_TOL["grad"] of it, or no more than VAE_BF16_ACC times as far
 # from it as the plain bf16 path's gradient is.
 VAE_BF16_ACC = 1.25
+# The L2-supervised VAE training path (phase 6), as configs/demo/
+# flagship_train_l2.yaml trains it: the flagship VAE and the 512-512-4 head
+# in bf16 at batch 64 (VAE_TRAIN_BATCH), the optimizer of 5a, batches from
+# a DeviceTileBuffer of fp16 flagship shards with the four products' fp32
+# fields at 5% NaN (make_tile_shards): 2 slots over 4 shards of 32 tiles
+# (~270 MB each), a swap every 5 batches. 6b compares 12 batches of a
+# buffer swapping every 3 (three swaps) with the CPU buffer's. 6c runs the
+# CLI with FLAGSHIP_L2 (the yaml's values; the card's machine has no yaml)
+# for 20 steps, logging every 5 and plotting every 10 so that the curves
+# are drawn, and saving at the last step. 6d's fp32 check keeps the three
+# levels (the head reads a latent 4x smaller than the tile, as the pooled
+# targets are) at batch 2.
+VAE_L2_HIDDEN = (512, 512)
+VAE_L2_SHARDS, VAE_L2_TILES, VAE_L2_SLOTS, VAE_L2_SWAP = 4, 32, 2, 5
+VAE_L2_EQ_SWAP, VAE_L2_EQ_BATCHES, VAE_L2_CLI_STEPS = 3, 12, 20
+FLAGSHIP_L2 = {
+    "seed": 42,
+    "data": {"batch_size": 64, "loader": "device", "buffer_slots": 2,
+             "swap_every": 60, "buffer_dtype": "float16",
+             "loader_threads": 1, "val_num_workers": 1,
+             "min_buffer_size": 16, "val_min_buffer_size": 8},
+    "model": {"shape": [1028, 64, 64], "embed_dim": 32,
+              "chs": [512, 256, 128], "mid_attn": True,
+              "num_res_blocks": 1, "z_channels": 32, "double_z": True,
+              "n_attention_heads": 4, "norm_groups": 8, "kl_weight": 1e-6,
+              "nll_loss_type": "l1", "compute_dtype": "bfloat16"},
+    "l2": {"components": ["NO2", "O3TOT", "HCHO", "CLDO4"],
+           "weights": {"NO2": 0.1, "O3TOT": 0.1, "HCHO": 0.1, "CLDO4": 0.1},
+           "mlp_hidden": [512, 512]},
+    "optimizer": {"lr": 0.0001, "betas": [0.9, 0.95], "weight_decay": 0.05},
+    "training": {"n_steps": 300, "save_every": 300, "val_every": 100000,
+                 "log_every": 50, "plot_every": 100000},
+}
+# The head's GroupNorm shape on the L2 path, held in phase 2 (batch 64 of
+# 16x16 latents, 512 channels, bf16, eps 1e-5).
+K1_HEAD = ((64, 16, 16, 512), 1e-5)
 # Each redesigned kernel's time a call before its redesign, read by this
 # script alone with a cold L2: K5f, K5dkv, K5dq at [8,1024,12,64] bf16
 # causal (mma.sync with load-then-compute staging and a transposed second
@@ -1520,6 +1583,12 @@ VAE_STEP_KINDS = {"K1a": ("gn_stats_kernel",),
                            "splitk"),
                   "optimizer": ("multi_tensor_apply", "adam"),
                   "reduce": ("reduce_kernel", "softmax")}
+# The L2 step profiled with its batch's gather (index_select over the
+# pool) and, in a step that starts a swap, the shard's copy to the staging
+# tensor on the buffer's side stream.
+VAE_L2_STEP_KINDS = {"gather": ("indexselect", "gather_kernel",
+                                "index_elementwise"),
+                     "swap_copy": ("memcpy htod",), **VAE_STEP_KINDS}
 
 
 def step_breakdown(fn, kinds: dict = LM_STEP_KINDS,
@@ -1837,13 +1906,15 @@ def train_path(dev, gen, rows: dict) -> dict:
             "k5_edges": {e[0]: e[1]["ok"] for e in edges}}
 
 
-def vae_train_path(dev, rows: dict) -> dict:
+def vae_train_path(dev, rows: dict, keep: Path) -> dict:
     """The flagship VAE training path: (a) train steps at batch 64 through
     K1a, K1b and K2, counted, timed and profiled, and one step with remat;
     (2''') the K1/K2 Functions' backward at every shape the step records;
-    (b) the Trainer over a TileLoader, a checkpoint reloaded bit for bit;
+    (b) the Trainer over a TileLoader, a checkpoint reloaded bit for bit
+    (and copied to ``keep``/vae.pt, where phase 6 warm-starts from it);
     (c) one step against the plain path. Adds each kernel's launches a
     train step to its row; returns the metrics."""
+    import shutil
     import tempfile
 
     import numpy as np
@@ -1854,7 +1925,6 @@ def vae_train_path(dev, rows: dict) -> dict:
     from tempo_tpu_torch.models.vae import build_vae
     from tempo_tpu_torch.nn.blocks import Conv2d
     from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
-    from tempo_tpu_torch.ops.norms import group_norm
     from tempo_tpu_torch.train.checkpoint import checkpoint_path
     from tempo_tpu_torch.train.state import (create_train_state,
                                              make_optimizer)
@@ -2006,33 +2076,13 @@ def vae_train_path(dev, rows: dict) -> dict:
     del model, tx, state, step
     torch.cuda.empty_cache()
 
-    def randn(*shape, dtype=torch.float32, scale=1.0):
-        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
-            dtype)
-
-    def check_bwd(fn, plain, inputs, out_shape, name):
-        inputs = [t.requires_grad_() for t in inputs]
-        out = fn(*inputs)
-        g = randn(*out_shape, dtype=out.dtype)
-        got = torch.autograd.grad(out, inputs, g)
-        want = torch.autograd.grad(plain(*inputs), inputs, g)
-        return {"fn": type(out.grad_fn).__name__ == name,
-                "rel_l2": max(rel_l2(a, b) for a, b in zip(got, want)),
-                "bitwise": all(torch.equal(a, b) for a, b in zip(got, want))}
-
     fn_bwd = {}
     saved_det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         for shape, act in sorted({k for k, _ in calls["K1b"]}, key=str):
-            cc = shape[-1]
-            fn_bwd[f"K1 {list(shape)} {act}"] = check_bwd(
-                lambda x, s_, b_: cuda_gn.fused_group_norm_act(
-                    x, s_, b_, groups, eps, act),
-                lambda x, s_, b_: group_norm(x, groups, s_, b_, eps, act),
-                [randn(*shape, dtype=torch.bfloat16),
-                 1 + randn(cc, scale=0.1), randn(cc, scale=0.1)], shape,
-                "GroupNormActFnBackward")
+            fn_bwd[f"K1 {list(shape)} {act}"] = check_k1_bwd(
+                gen, shape, groups, eps, act)
         for shape, f, grp, ep, act in sorted({k for k, _ in calls["K2"]},
                                              key=str):
             b, hh, ww, cc = shape
@@ -2041,13 +2091,14 @@ def vae_train_path(dev, rows: dict) -> dict:
                                      device=dev) - 1) * bound
             packed = cuda_gn_conv.pack_conv3x3_weight(weight, torch.bfloat16)
             fn_bwd[f"K2 {list(shape)}->{f} {act}"] = check_bwd(
+                gen,
                 lambda x, s_, b_, w_, cb: cuda_gn_conv.gn_act_conv3x3(
                     x, s_, b_, w_, cb, grp, ep, act, packed),
                 lambda x, s_, b_, w_, cb: cuda_gn_conv.gn_act_conv3x3_plain(
                     x, s_, b_, w_, cb, grp, ep, act),
-                [randn(*shape, dtype=torch.bfloat16),
-                 1 + randn(cc, scale=0.1), randn(cc, scale=0.1), weight,
-                 randn(f, scale=0.01)], (b, hh, ww, f),
+                [randn(gen, *shape, dtype=torch.bfloat16),
+                 1 + randn(gen, cc, scale=0.1), randn(gen, cc, scale=0.1),
+                 weight, randn(gen, f, scale=0.01)], (b, hh, ww, f),
                 "GnActConv3x3FnBackward")
     finally:
         torch.backends.cudnn.deterministic = saved_det
@@ -2063,22 +2114,6 @@ def vae_train_path(dev, rows: dict) -> dict:
 
     # ---------------------- (b) the Trainer over a TileLoader, a checkpoint
     t_phase = time.perf_counter()
-
-    class Timed:
-        """The loader, with the host's wait on each batch summed."""
-
-        def __init__(self, it):
-            self.it, self.wait_s = it, 0.0
-
-        def __iter__(self):
-            return self
-
-        def __next__(self):
-            t = time.perf_counter()
-            try:
-                return next(self.it)
-            finally:
-                self.wait_s += time.perf_counter() - t
 
     with tempfile.TemporaryDirectory() as tmp:
         shards = make_tile_shards(
@@ -2106,6 +2141,7 @@ def vae_train_path(dev, rows: dict) -> dict:
                 fail(f"the VAE trainer did not write {ckpt.name} and "
                      f"metrics.json")
             history = json.loads((out / "metrics.json").read_text())
+            shutil.copy(ckpt, keep / "vae.pt")
             _, tx2, state2 = fresh(seed=SEED + 99)
             trainer2 = Trainer(vae_loss_fn(state2.model), tx2, state2, out,
                                device=dev, verbose=False)
@@ -2235,6 +2271,431 @@ def vae_train_path(dev, rows: dict) -> dict:
             "pack_ms": pack_ms, "remat": remat, "function_bwd": fn_bwd,
             "trainer": trainer_stats, "step_vs_plain": step_errs,
             "seconds": seconds}
+
+
+def bits(t):
+    """A tensor's bits as integers (NaN-aware bitwise comparison)."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.contiguous().view(ints[t.element_size()])
+
+
+def vae_l2_path(dev, rows: dict, warm_ckpt: Path) -> dict:
+    """The L2-supervised VAE training path: (6a) train steps at batch 64
+    on a DeviceTileBuffer's batches through K1a, K1b and K2, counted,
+    timed and profiled; (2''') GroupNormActFn's backward at the head's
+    shapes; (6b) the buffer's batches against the CPU buffer's, bit for
+    bit; (6c) the train_vae_l2 CLI from a dict, once a loader, its VAE
+    warm-started from ``warm_ckpt``, and its checkpoint reloaded bit for
+    bit; (6d) one step against the plain path. Adds each kernel's launches
+    an L2 step to its row; returns the metrics."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.cli import train_vae_l2
+    from tempo_tpu_torch.data.device_buffer import DeviceTileBuffer
+    from tempo_tpu_torch.data.synthetic import make_tile_shards
+    from tempo_tpu_torch.models.vae_l2 import L2_PRODUCTS, build_vae_l2
+    from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
+    from tempo_tpu_torch.train.checkpoint import checkpoint_path
+    from tempo_tpu_torch.train.state import (create_train_state,
+                                             make_optimizer)
+    from tempo_tpu_torch.train.step import make_train_step, vae_l2_loss_fn
+    from tempo_tpu_torch.train.trainer import Trainer
+
+    card = smi_line()
+    seconds = {}
+    products = list(L2_PRODUCTS)
+    counters = {"K1a": (cuda_gn.LAUNCHES, "gn_stats"),
+                "K1b": (cuda_gn.LAUNCHES, "gn_apply"),
+                "K2": (cuda_gn_conv.LAUNCHES, "gn_act_conv3x3")}
+    batch_n = VAE_TRAIN_BATCH
+
+    def fresh(model_cfg=VAE_MODEL, dtype=None, seed=SEED):
+        model, _ = build_vae_l2(model_cfg, VAE_L2_HIDDEN, compute_dtype=dtype,
+                                device=dev, seed=seed)
+        nudge_zero_init(model, torch.Generator(device=dev).manual_seed(seed))
+        tx = make_optimizer(lr=1e-4, betas=(0.9, 0.95), weight_decay=0.05)
+        return model, tx, create_train_state(model, tx, SEED)
+
+    def noise():
+        """The posterior's two draws: the same on both sides of a check."""
+        return torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def loss_and_grads(model, batch):
+        model.zero_grad(set_to_none=True)
+        loss, metrics = model.compute_loss(batch, noise())
+        loss.backward()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return {k: float(v.detach()) for k, v in metrics.items()}, grads
+
+    def buffer(shards, swap_every, device, seed=SEED):
+        return DeviceTileBuffer(shards, batch_size=batch_n,
+                                slots=VAE_L2_SLOTS, swap_every=swap_every,
+                                seed=seed, dtype="float16", device=device,
+                                l2_products=products)
+
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    try:
+        # --------------------- (a) train steps on the buffer, counted
+        t_phase = time.perf_counter()
+        c, h, w = FLAGSHIP_L2["model"]["shape"]
+        shards = make_tile_shards(
+            tmp / "tiles" / "train", n_files=VAE_L2_SHARDS,
+            tiles_per_file=VAE_L2_TILES, tile=h, n_spectral=c,
+            l2_products=products, seed=SEED, dtype=np.float16)
+        model, tx, state = fresh()
+        buf = buffer(shards, VAE_L2_SWAP, dev)
+        try:
+            fixed = next(buf)
+            calls = {"K1a": [], "K1b": [], "K2": []}
+            with recording(calls, "l2_train"):
+                loss, _ = model.compute_loss(fixed, noise())
+            del loss
+            per_forward = {k: len(v) for k, v in calls.items()}
+            with torch.no_grad():
+                before = float(model.compute_loss(fixed, noise())[0])
+            step = make_train_step(vae_l2_loss_fn(model), tx)
+            history = []
+            for _ in range(TRAIN_WARM):
+                state, m = step(state, next(buf))
+                history.append(m)
+            torch.cuda.synchronize()
+            for table, key in counters.values():
+                table[key] = 0
+            torch.cuda.reset_peak_memory_stats()
+            resident_gb = torch.cuda.memory_allocated() / 1e9
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                state, m = step(state, next(buf))
+                history.append(m)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / TRAIN_STEPS
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            launches = {k: table[key] / TRAIN_STEPS
+                        for k, (table, key) in counters.items()}
+            with torch.no_grad():
+                after = float(model.compute_loss(fixed, noise())[0])
+            history = [{k: float(v) for k, v in m.items()} for m in history]
+            profile = step_breakdown(lambda: step(state, next(buf)),
+                                     VAE_L2_STEP_KINDS, "vae_l2")
+            busy = None if profile is None else profile["device_ms"] / (
+                1e3 * dt)
+            buf.swap_every = 10 ** 9  # the gather alone in the window
+            gather_ms = time_ms(lambda: next(buf))
+        finally:
+            buf.close()
+        gather_bytes = 2 * sum(v.numel() * v.element_size()
+                               for v in fixed.values())
+        gather_bound = 1e3 * gather_bytes / HBM_BYTES_PER_S
+        print(f"[vae_l2] launches an L2 train step: {launches} (calls in "
+              f"one training forward {per_forward}; the base VAE step's "
+              f"24/2/22 and the head's two GroupNorms, each one K1a and one "
+              f"K1b)", flush=True)
+        for name, n in launches.items():
+            rows[name]["l2_train_launches_per_step"] = n
+            if n == 0 or n != per_forward[name]:
+                fail(f"{name}: {n} launches an L2 train step, "
+                     f"{per_forward[name]} calls in its forward")
+        keys = ["loss"] + [f"{p}_loss" for p in products]
+        finite = all(math.isfinite(m[k]) for m in history for k in keys)
+        print(f"[vae_l2] flagship + head bf16, batch {batch_n} from the "
+              f"DeviceTileBuffer ({VAE_L2_SLOTS} slots of "
+              f"{VAE_L2_SHARDS} fp16 shards x {VAE_L2_TILES}, a swap every "
+              f"{VAE_L2_SWAP}): vae_l2.step_ms {1e3 * dt:.2f}, "
+              f"vae_l2.patches_per_s {batch_n / dt:.1f}, "
+              f"vae_l2.peak_device_gb {peak_gb:.2f} ({resident_gb:.2f} "
+              f"resident before the steps: the pool, the model, the "
+              f"optimizer and what earlier phases hold; on {card}); the fixed "
+              f"batch's loss {before:.6g} -> {after:.6g} over "
+              f"{len(history)} steps; per step "
+              f"{[{k: round(m[k], 5) for k in keys} for m in history]}",
+              flush=True)
+        print(f"[vae_l2] one step (with its gather) under torch.profiler: "
+              f"{json.dumps(profile)}; device busy share {busy}; the "
+              f"gather {gather_ms:.4f} ms a batch of device time, byte "
+              f"bound {gather_bound:.4f} ms", flush=True)
+        if not finite or not after < before:
+            fail(f"the L2 train loss or a product's loss is not finite, or "
+                 f"the fixed batch's loss did not fall: {before} -> {after}")
+        seconds["6a"] = time.perf_counter() - t_phase
+
+        # ---------------- (2''') GroupNormActFn's backward at the head
+        t_phase = time.perf_counter()
+        del model, tx, state, step
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        head = sorted({k for k, _ in calls["K1a"] if k[2] == K1_HEAD[1]},
+                      key=str)
+        fn_bwd = {}
+        saved_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for shape, groups, eps in head:
+                fn_bwd[f"K1 {list(shape)} gelu eps {eps}"] = check_k1_bwd(
+                    gen, shape, groups, eps, "gelu")
+        finally:
+            torch.backends.cudnn.deterministic = saved_det
+        for key, r in fn_bwd.items():
+            print(f"[kernels] Function backward (L2 head) {key}: "
+                  f"{json.dumps(r)}", flush=True)
+        if not head or not all(r["fn"] and r["rel_l2"] <= FN_BWD_REL
+                               for r in fn_bwd.values()):
+            fail(f"GroupNormActFn's backward at the head's shapes {head} "
+                 f"disagrees with autograd through the plain chain beyond "
+                 f"rel L2 {FN_BWD_REL}")
+        seconds["2'''"] = time.perf_counter() - t_phase
+
+        # --------------------- (b) the buffer against the CPU buffer
+        t_phase = time.perf_counter()
+        on_dev = buffer(shards, VAE_L2_EQ_SWAP, dev, SEED + 3)
+        on_cpu = buffer(shards, VAE_L2_EQ_SWAP, "cpu", SEED + 3)
+        try:
+            same = []
+            for _ in range(VAE_L2_EQ_BATCHES):
+                a, b = next(on_dev), next(on_cpu)
+                same.append(sorted(a) == sorted(b) and all(
+                    a[k].dtype == b[k].dtype
+                    and torch.equal(bits(a[k].cpu()), bits(b[k]))
+                    for k in b))
+        finally:
+            on_dev.close()
+            on_cpu.close()
+        print(f"[vae_l2] buffer on the card vs on the CPU, same seed, "
+              f"{VAE_L2_EQ_BATCHES} batches across "
+              f"{VAE_L2_EQ_BATCHES // VAE_L2_EQ_SWAP - 1} swaps (spectral "
+              f"and every product, bit for bit): {same}", flush=True)
+        if not all(same):
+            fail(f"the device buffer's batches differ from the CPU "
+                 f"buffer's: {same}")
+        seconds["6b"] = time.perf_counter() - t_phase
+
+        # ------------------------ (c) the CLI, once a loader, resumed
+        t_phase = time.perf_counter()
+        cli = {}
+        live = None
+        real = train_vae_l2.make_train_loader
+        for loader in ("device", "host"):
+            cfg = copy.deepcopy(FLAGSHIP_L2)
+            cfg["output_dir"] = str(tmp / f"run_{loader}")
+            cfg["data"].update(data_dir=str(tmp / "tiles"), loader=loader)
+            cfg["model"]["init_from_vae_checkpoint"] = str(warm_ckpt)
+            cfg["training"].update(n_steps=VAE_L2_CLI_STEPS,
+                                   save_every=VAE_L2_CLI_STEPS,
+                                   log_every=5, plot_every=10)
+            timed = []
+
+            def timed_loader(*args, **kwargs):
+                timed.append(Timed(real(*args, **kwargs)))
+                return timed[-1]
+
+            train_vae_l2.make_train_loader = timed_loader
+            try:
+                trainer, stats = train_vae_l2.run(cfg, device=dev)
+            finally:
+                train_vae_l2.make_train_loader = real
+            out = Path(cfg["output_dir"])
+            ckpt = checkpoint_path(out / "checkpoints", VAE_L2_CLI_STEPS)
+            written = {name: p.exists() for name, p in (
+                ("checkpoint", ckpt),
+                ("l2_losses.png", out / "summary" / "l2_losses.png"),
+                ("figure", out / "figures" /
+                 f"reconstructions_step_{VAE_L2_CLI_STEPS:06d}.png"),
+                ("metrics.json", out / "metrics.json"),
+                ("training_info.yaml", out / "training_info.yaml"))}
+            last = json.loads((out / "metrics.json").read_text())["train"][-1]
+            cli[loader] = {"samples_per_sec": stats["samples_per_sec"],
+                           "loader_wait_share":
+                               timed[0].wait_s / stats["elapsed_s"],
+                           "elapsed_s": stats["elapsed_s"],
+                           "written": written, "last": last}
+            print(f"[vae_l2] train_vae_l2.run, loader {loader}, "
+                  f"{VAE_L2_CLI_STEPS} steps at batch {batch_n}, warm-started "
+                  f"from 5b's checkpoint: {json.dumps(cli[loader])}",
+                  flush=True)
+            if not all(written.values()):
+                fail(f"train_vae_l2 ({loader} loader) did not write "
+                     f"{[k for k, v in written.items() if not v]}")
+            if loader == "device":
+                live, live_ckpt = trainer, ckpt
+            del trainer
+        model2, _, _ = fresh(seed=SEED + 99)
+        state2 = create_train_state(model2, live.tx, SEED)
+        weights = FLAGSHIP_L2["l2"]["weights"]
+        again = Trainer(vae_l2_loss_fn(model2, weights), live.tx, state2,
+                        tmp / "resume", device=dev, verbose=False)
+        again.load_checkpoint(live_ckpt)
+        saved = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            s1, _ = live.train_step(live.state, fixed)
+            s2, _ = again.train_step(again.state, fixed)
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = saved
+        resumed = all(torch.equal(a, b) for a, b in zip(
+            s1.model.parameters(), s2.model.parameters()))
+        resumed &= all(torch.equal(s1.ema[k], s2.ema[k]) for k in s1.ema)
+        print(f"[vae_l2] one more step from the CLI's reloaded checkpoint "
+              f"equals the live state's bit for bit: {resumed}", flush=True)
+        if not resumed:
+            fail("an L2 step from the reloaded checkpoint differs from the "
+                 "live state's")
+        del live, again, s1, s2, model2, state2
+        torch.cuda.empty_cache()
+        seconds["6c"] = time.perf_counter() - t_phase
+
+        # ------------------------ (d) one step against the plain path
+        t_phase = time.perf_counter()
+
+        def compare(kernel_run, plain_run):
+            (mk, gk), (mp, gp) = kernel_run, plain_run
+            rel = {k: abs(mk[k] - mp[k]) / abs(mp[k]) for k in mp
+                   if k in ("loss", "pixel_mse") or k.endswith("_loss")
+                   and k[:-5] in products}
+            head = {k: rel_l2(gk[k], gp[k]) for k in gp
+                    if k.startswith("l2_head.")}
+            body = {k: rel_l2(gk[k], gp[k]) for k in gp
+                    if k.startswith("vae.") and not k.endswith("k.bias")}
+            return {"rel": rel, "max_head_grad_rel_l2": max(head.values()),
+                    "max_vae_grad_rel_l2": max(body.values())}
+
+        step_errs = {}
+        for label, model_cfg, dtype, n, tol in (
+                ("bf16_l1", VAE_MODEL, None, batch_n, STEP_BF16_TOL),
+                ("f32_l2_b2", dict(VAE_MODEL, nll_loss_type="l2"),
+                 "float32", 2, STEP_F32_TOL)):
+            model, _, _ = fresh(model_cfg, dtype)
+            batch = {k: v[:n] for k, v in fixed.items()}
+            kernel_run = loss_and_grads(model, batch)
+            with plain_kernels():
+                plain_run = loss_and_grads(model, batch)
+            err = compare(kernel_run, plain_run)
+            ok = (max(err["rel"].values()) <= tol["loss"]
+                  and err["max_head_grad_rel_l2"] <= tol["grad"])
+            if dtype is None:
+                # the VAE's gradients under L1, against the fp32 step
+                # (5c's rule, VAE_BF16_ACC)
+                ref, _, _ = fresh(model_cfg, "float32")
+                ref.load_state_dict(model.state_dict())
+                del model
+                with plain_kernels():
+                    ref_run = loss_and_grads(ref, batch)
+                del ref
+                gk, gp, gt = kernel_run[1], plain_run[1], ref_run[1]
+                acc = {k: (rel_l2(gk[k], gt[k]), rel_l2(gp[k], gt[k]))
+                       for k in gt if k.startswith("vae.")
+                       and not k.endswith("attn1.k.bias")}
+                beyond = [k for k, (rk, rp) in acc.items()
+                          if rk > max(tol["grad"], VAE_BF16_ACC * rp)]
+                err["vae_grads_vs_fp32"] = {
+                    "kernel_max": max(r[0] for r in acc.values()),
+                    "plain_max": max(r[1] for r in acc.values()),
+                    "beyond_rule": beyond}
+                ok &= not beyond
+                del ref_run
+            else:
+                del model
+                ok &= err["max_vae_grad_rel_l2"] <= tol["grad"]
+            step_errs[label] = err
+            del kernel_run, plain_run
+            torch.cuda.empty_cache()
+            if not ok:
+                fail(f"the {label} L2 step through K1/K2 disagrees with the "
+                     f"plain path: {err} (tol {tol}; the L1 step's VAE "
+                     f"gradients against fp32 by VAE_BF16_ACC "
+                     f"{VAE_BF16_ACC})")
+        print(f"[vae_l2] one step, K1/K2 vs the plain path: "
+              f"{json.dumps(step_errs)} (each product's loss, the loss and "
+              f"pixel MSE within {STEP_BF16_TOL['loss']} bf16 / "
+              f"{STEP_F32_TOL['loss']} fp32; head gradients within "
+              f"{STEP_BF16_TOL['grad']} / {STEP_F32_TOL['grad']})",
+              flush=True)
+        seconds["6d"] = time.perf_counter() - t_phase
+    finally:
+        tmp_dir.cleanup()
+    print(f"[time] L2 training phases, s: {json.dumps(seconds)}", flush=True)
+    return {"card": card, "batch": batch_n, "step_ms": 1e3 * dt,
+            "patches_per_s": batch_n / dt, "peak_device_gb": peak_gb,
+            "resident_gb": resident_gb,
+            "launches_per_step": launches, "fixed_batch_loss":
+                [before, after], "history": history, "profile": profile,
+            "device_busy_share": busy, "gather_ms": gather_ms,
+            "gather_bound_ms": gather_bound, "function_bwd": fn_bwd,
+            "buffer_bitwise": same, "cli": cli, "resume_bitwise": resumed,
+            "step_vs_plain": step_errs, "seconds": seconds}
+
+
+class Timed:
+    """A loader, with the host's wait on each batch summed."""
+
+    def __init__(self, it):
+        self.it, self.wait_s = it, 0.0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t = time.perf_counter()
+        try:
+            return next(self.it)
+        finally:
+            self.wait_s += time.perf_counter() - t
+
+    def close(self) -> None:
+        self.it.close()
+
+
+def randn(gen, *shape, dtype=None, scale=1.0):
+    """scale * N(0, 1) of ``shape`` on ``gen``'s device, then in
+    ``dtype`` (fp32 when None)."""
+    import torch
+
+    t = scale * torch.randn(shape, generator=gen, device=gen.device)
+    return t if dtype is None else t.to(dtype)
+
+
+def check_bwd(gen, fn, plain, inputs, out_shape, name) -> dict:
+    """An autograd Function's gradients against autograd through the plain
+    chain from the same inputs and output gradient."""
+    import torch
+
+    inputs = [t.requires_grad_() for t in inputs]
+    out = fn(*inputs)
+    g = randn(gen, *out_shape, dtype=out.dtype)
+    got = torch.autograd.grad(out, inputs, g)
+    want = torch.autograd.grad(plain(*inputs), inputs, g)
+    return {"fn": type(out.grad_fn).__name__ == name,
+            "rel_l2": max(rel_l2(a, b) for a, b in zip(got, want)),
+            "bitwise": all(torch.equal(a, b) for a, b in zip(got, want))}
+
+
+def check_k1_bwd(gen, shape, groups, eps, act) -> dict:
+    """check_bwd of GroupNormActFn (K1 forward, plain recompute backward)
+    on a bf16 x of ``shape``."""
+    import torch
+
+    from tempo_tpu_torch.ops import cuda_gn
+    from tempo_tpu_torch.ops.norms import group_norm
+
+    cc = shape[-1]
+    return check_bwd(
+        gen,
+        lambda x, s_, b_: cuda_gn.fused_group_norm_act(x, s_, b_, groups,
+                                                       eps, act),
+        lambda x, s_, b_: group_norm(x, groups, s_, b_, eps, act),
+        [randn(gen, *shape, dtype=torch.bfloat16),
+         1 + randn(gen, cc, scale=0.1), randn(gen, cc, scale=0.1)], shape,
+        "GroupNormActFnBackward")
 
 
 def nudge_zero_init(model, generator) -> None:
@@ -2632,6 +3093,48 @@ def main() -> int:
                   f"{' unaligned' if x.data_ptr() % 16 else ''}: "
                   f"max_abs_err={err:.3e} ok={ok}", flush=True)
         checks_ok &= edge_ok
+
+        # K1 at the L2 head's shape (phase 6 runs it): K1a to STATS_TOL,
+        # bitwise the same on a repeat and for each sample alone; K1b with
+        # GELU to BF16_TOL; each timed beside its byte bound.
+        shape, eps = K1_HEAD
+        b, c = shape[0], shape[-1]
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        scale, bias = affine(c)
+        got = cuda_gn.gn_stats(x, 8, eps)
+        want = cuda_gn.gn_stats_plain(x, 8, eps)
+        err, ok = max_err(got, want, STATS_TOL)
+        repeat = torch.equal(got, cuda_gn.gn_stats(x, 8, eps))
+        alone = all(torch.equal(got[i:i + 1], cuda_gn.gn_stats(
+            x[i:i + 1], 8, eps)) for i in range(b))
+        b_err, b_ok = max_err(cuda_gn.gn_apply(x, want, scale, bias, "gelu"),
+                              cuda_gn.gn_apply_plain(x, want, scale, bias,
+                                                     "gelu"), BF16_TOL)
+        head = {
+            "K1a": {"x": list(shape), "eps": eps,
+                    "split": cuda_gn.choose_stats_split(
+                        shape[1] * shape[2], c, x.dtype),
+                    "max_abs_err": err, "ok": ok, "bitwise_repeat": repeat,
+                    "bitwise_alone": alone,
+                    "ms": time_ms(lambda: cuda_gn.gn_stats(x, 8, eps)),
+                    "plain_ms": time_ms(
+                        lambda: cuda_gn.gn_stats_plain(x, 8, eps)),
+                    "bound_ms": 1e3 * (x.numel() * 2 + got.numel() * 4)
+                    / HBM_BYTES_PER_S},
+            "K1b": {"x": list(shape), "act": "gelu", "max_abs_err": b_err,
+                    "ok": b_ok,
+                    "ms": time_ms(lambda: cuda_gn.gn_apply(
+                        x, want, scale, bias, "gelu")),
+                    "plain_ms": time_ms(lambda: cuda_gn.gn_apply_plain(
+                        x, want, scale, bias, "gelu")),
+                    "bound_ms": 1e3 * (2 * x.numel() * 2 + got.numel() * 4
+                                       + 2 * c * 4) / HBM_BYTES_PER_S}}
+        for name, r in head.items():
+            rows[name]["l2_head_shape"] = r
+            print(f"[kernels] {name} L2 head shape {json.dumps(r)}",
+                  flush=True)
+        checks_ok &= ok and repeat and alone and b_ok
+        del x
     torch.cuda.synchronize()
     for r in rows.values():
         for s in r["shapes"]:
@@ -2766,8 +3269,17 @@ def main() -> int:
 
     # ---------------------------------------------- the VAE training path
     t_phase = time.perf_counter()
-    vae_train = vae_train_path(dev, rows)
-    seconds["vae_train"] = time.perf_counter() - t_phase
+    keep = tempfile.TemporaryDirectory()
+    try:
+        vae_train = vae_train_path(dev, rows, Path(keep.name))
+        seconds["vae_train"] = time.perf_counter() - t_phase
+
+        # ---------------------------------- the L2-supervised training path
+        t_phase = time.perf_counter()
+        vae_l2 = vae_l2_path(dev, rows, Path(keep.name) / "vae.pt")
+        seconds["vae_l2"] = time.perf_counter() - t_phase
+    finally:
+        keep.cleanup()
     print(f"[time] phases, s: {json.dumps(seconds)}", flush=True)
 
     for r in rows.values():
@@ -2779,7 +3291,7 @@ def main() -> int:
         "granule_reconstruct_ms": t_granule_fwd, "peak_device_gb": peak_gb,
         "recon_rel_l2_bf16": err_bf16, "recon_rel_l2_granule": err_granule,
         "recon_rel_l2_f32": err_f32, "lm": lm, "train": train,
-        "vae_train": vae_train, "seconds": seconds}}))
+        "vae_train": vae_train, "vae_l2": vae_l2, "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

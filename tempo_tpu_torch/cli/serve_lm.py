@@ -72,14 +72,9 @@ from typing import Any, Dict, Union
 import torch
 
 from tempo_tpu_torch.cli import run_cli
-from tempo_tpu_torch.utils.config import copy_config, load_config, require_keys
+from tempo_tpu_torch.utils.config import (copy_config, load_config,
+                                          require_keys, save_json_yaml)
 from tempo_tpu_torch.utils.dirs import init_directory
-
-
-def _write_info(info: Dict[str, Any], path: Path) -> None:
-    """serving_info.yaml, written as JSON: YAML readers read it, and no
-    YAML writer is needed."""
-    path.write_text(json.dumps(info, indent=2) + "\n")
 
 
 def build_server(config: Dict[str, Any],
@@ -150,7 +145,7 @@ def _serve_batch(server, config: dict, output_dir: Path,
     }
     if getattr(server, "last_stats", None):
         info["scheduler_stats"] = server.last_stats
-    _write_info(info, Path(output_dir) / "serving_info.yaml")
+    save_json_yaml(info, Path(output_dir) / "serving_info.yaml")
     print(f"Wrote {out_path}")
     print(f"Generated {n_generated} tokens in {elapsed:.2f}s "
           f"({info['tokens_per_sec']} tok/s)")
@@ -273,7 +268,7 @@ def _serve_http(server, config: dict, output_dir: Path,
           f"(POST /generate, POST /v1/completions, GET /healthz)"
           + (f", exiting after {max_requests} requests" if max_requests
              else ""))
-    _write_info({"host": bound[0], "port": int(bound[1]),
+    save_json_yaml({"host": bound[0], "port": int(bound[1]),
                  "artifacts": str(config["artifacts"])},
                 Path(output_dir) / "serving_info.yaml")
     try:

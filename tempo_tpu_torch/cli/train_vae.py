@@ -9,7 +9,9 @@ copied into output_dir, checkpoints/ckpt_step=NNNNNN.pt, figures/
 reconstructions_step_NNNNNN.png at every checkpoint, summary plots,
 logs/, metrics.json and training_info.yaml (with samples_per_sec).
 --debug shrinks the run to 200 steps and a buffer of 10 tiles. Batches come
-from the host TileLoader (data/loader.py); the step is the VAE's
+from the host TileLoader (data/loader.py) or, with ``data.loader: device``,
+from the device-resident DeviceTileBuffer (data/device_buffer.py:
+``buffer_slots``, ``swap_every``, ``buffer_dtype``); the step is the VAE's
 ``get_loss`` (its GroupNorm and GroupNorm+act+conv through the K1 and K2
 kernels, their backward a recompute of the plain versions), the global-norm
 clip at 1.0 and AdamW (train/state.py make_optimizer_from_config). Weights
@@ -18,9 +20,9 @@ does not reproduce the JAX package's weights.
 
 Not ported (NotImplementedError from validate_config): ``distributed``
 (multi-host), ``parallel.tensor`` > 1 and ``parallel.fsdp``,
-``data.loader: device`` (the device-resident tile buffer), the sharded and
-async ``training.checkpoint_format``, ``training.metrics_jsonl``,
-``training.profile_steps`` and the in-model NO2 probe.
+``data.partition: process``, the sharded and async
+``training.checkpoint_format``, ``training.metrics_jsonl`` and
+``training.profile_steps``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Union
 import torch
 
 from tempo_tpu_torch.cli import run_cli
+from tempo_tpu_torch.data.device_buffer import DeviceTileBuffer
 from tempo_tpu_torch.data.loader import TileLoader
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.models.vae import build_vae
@@ -50,10 +53,17 @@ from tempo_tpu_torch.utils.dirs import init_directory
 def validate_config(config) -> None:
     require_keys(config, ["output_dir", "data", "data.train_dir", "model",
                           "training"])
-    data, train = config["data"], config["training"]
+    data = config["data"]
     for key in ("train_dir", "val_dir"):
         if key in data and not Path(data[key]).exists():
             raise ValueError(f"FATAL: {key} doesn't exist: {data[key]}")
+    refuse_unported(config)
+
+
+def refuse_unported(config) -> None:
+    """NotImplementedError for what the port's trainers do not do,
+    ValueError for unknown choices."""
+    data, train = config["data"], config["training"]
     if dict(config.get("distributed", {})).get("enabled", False):
         raise NotImplementedError("distributed (multi-host) training is not "
                                   "ported: the port trains on one device")
@@ -65,12 +75,13 @@ def validate_config(config) -> None:
         raise NotImplementedError("parallel.fsdp is not ported: the port "
                                   "trains on one device")
     loader = data.get("loader", "host")
-    if loader == "device":
-        raise NotImplementedError("data.loader: device (the device-resident "
-                                  "tile buffer) is not ported")
-    if loader != "host":
+    if loader not in ("host", "device"):
         raise ValueError(f"FATAL: data.loader must be 'host' or 'device', "
                          f"got {loader!r}")
+    if loader == "device" and data.get("partition") == "process":
+        raise NotImplementedError("data.partition: process (a buffer per "
+                                  "host process) is not ported: the port "
+                                  "trains on one device")
     fmt = train.get("checkpoint_format", "msgpack")
     if fmt in ("sharded", "async"):
         raise NotImplementedError(f"training.checkpoint_format {fmt!r} is "
@@ -82,10 +93,27 @@ def validate_config(config) -> None:
         raise NotImplementedError("training.metrics_jsonl is not ported")
     if train.get("profile_steps"):
         raise NotImplementedError("training.profile_steps is not ported")
-    model = config["model"] or {}
-    if (model.get("no2_mlp_hidden") is not None
-            and float(model.get("no2_weight", 0.0)) > 0):
-        raise NotImplementedError("the in-model NO2 probe is not ported")
+
+
+def make_train_loader(data_cfg, train_dir, batch_size: int, seed: int,
+                      device, l2_products=None):
+    """The training stream ``data.loader`` asks for: the host TileLoader
+    or the DeviceTileBuffer on ``device``."""
+    if data_cfg.get("loader", "host") == "device":
+        return DeviceTileBuffer(
+            train_dir, batch_size=batch_size,
+            slots=data_cfg.get("buffer_slots", 4),
+            swap_every=data_cfg.get("swap_every", 16), seed=seed,
+            dtype=data_cfg.get("buffer_dtype", "float32"), device=device,
+            l2_products=l2_products)
+    return TileLoader(
+        data_dir=train_dir, batch_size=batch_size,
+        min_buffer_size=data_cfg.get("min_buffer_size", 200),
+        l2_products=l2_products, seed=seed,
+        prefetch=data_cfg.get("prefetch", 2),
+        num_threads=data_cfg.get("loader_threads",
+                                 data_cfg.get("num_workers", 2)),
+        verbose=True)
 
 
 def main(config_path: str, overwrite: bool = False, debug: bool = False,
@@ -117,13 +145,8 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
     data_cfg = config["data"]
     batch_size = data_cfg.get("batch_size", 16)
     print("\nLoading training data...")
-    train_loader = TileLoader(
-        data_dir=data_cfg["train_dir"], batch_size=batch_size,
-        min_buffer_size=data_cfg.get("min_buffer_size", 200), seed=seed,
-        prefetch=data_cfg.get("prefetch", 2),
-        num_threads=data_cfg.get("loader_threads",
-                                 data_cfg.get("num_workers", 2)),
-        verbose=True)
+    train_loader = make_train_loader(data_cfg, data_cfg["train_dir"],
+                                     batch_size, seed, dev)
     val_loader = None
     if "val_dir" in data_cfg:
         print("\nLoading validation data...")

@@ -13,7 +13,8 @@ its own copy of the layout conversions, inverted:
   [in, out, 2, 2]
 - GroupNorm scale/bias -> weight/bias
 
-``gpt_state_dict_from_jax`` does the same for the GPT (the inverse of
+``l2_state_dict_from_jax`` does it for the L2-supervised VAE (the inverse
+of ``l2_params_from_torch_state_dict``), ``gpt_state_dict_from_jax`` does the same for the GPT (the inverse of
 tempo_tpu/interop/gpt_ckpt.py). The tree comes as nested dicts of numpy arrays (``{"params": ...}`` or the
 bare tree).
 """
@@ -109,8 +110,39 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
         out[f"{name}.weight"] = _dense(tree[name]["kernel"])
         out[f"{name}.bias"] = tree[name]["bias"]
     out["logvar"] = tree["logvar"]
+    probe = sorted((k for k in tree if k.startswith("no2_probe_")
+                    and k != "no2_probe_out"), key=lambda k: int(k[10:]))
+    for i, name in enumerate(probe + ["no2_probe_out"] if probe else []):
+        out[f"no2_probe.{i}.weight"] = _dense(tree[name]["kernel"])
+        out[f"no2_probe.{i}.bias"] = tree[name]["bias"]
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in out.items()}
+
+
+def l2_state_dict_from_jax(params: Mapping[str, Any],
+                           mlp_hidden=(512, 512)
+                           ) -> Dict[str, torch.Tensor]:
+    """JAX VAEWithL2Head params ({'vae', 'l2_head'}) -> the port's (and
+    the reference VAEWithL2Supervision's) state_dict: ``vae.*`` as
+    ``state_dict_from_jax_params``, and ``l2_head.mlp.{3i}`` (the bias-free
+    dense), ``l2_head.mlp.{3i+1}`` (its GroupNorm) for each hidden width,
+    then the output dense; the inverse of tempo_tpu/interop/torch_ckpt.py
+    ``l2_params_from_torch_state_dict``."""
+    tree = params.get("params", params)
+    out = {f"vae.{k}": v
+           for k, v in state_dict_from_jax_params(tree["vae"]).items()}
+    head: Dict[str, np.ndarray] = {}
+    h = tree["l2_head"]
+    for i in range(len(mlp_hidden)):
+        head[f"{3 * i}.weight"] = _dense(h[f"dense{i}_kernel"])
+        head[f"{3 * i + 1}.weight"] = h[f"norm{i}"]["scale"]
+        head[f"{3 * i + 1}.bias"] = h[f"norm{i}"]["bias"]
+    last = 3 * len(mlp_hidden)
+    head[f"{last}.weight"] = _dense(h["out_kernel"])
+    head[f"{last}.bias"] = h["out_bias"]
+    out.update({f"l2_head.mlp.{k}": torch.from_numpy(
+        np.array(v, dtype=np.float32)) for k, v in head.items()})
+    return out
 
 
 def gpt_state_dict_from_jax(params: Mapping[str, Any],

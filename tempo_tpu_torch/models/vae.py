@@ -11,6 +11,9 @@ tempo_tpu/models/vae.py.
 - remat: the encoder and the decoder run under torch.utils.checkpoint
   when a graph is being built, so their activations are recomputed in the
   backward (the JAX package's nn.remat).
+- the vestigial in-model NO2 probe (``no2_mlp_hidden`` set and
+  ``no2_weight`` > 0): a 1x1-conv ReLU MLP on the latent mean,
+  ``predict_no2``; no loss reads it, as in the JAX package.
 
 Flagship instantiation: 27,289,893 parameters, input (64, 64, 1028). Public
 tensors are NHWC [B, H, W, C]. Parameters stay fp32; activations run in
@@ -93,8 +96,6 @@ class AutoencoderKL(nn.Module):
     def __init__(self, config: VAEConfig, device=None, seed: int = 0):
         super().__init__()
         cfg = config
-        if cfg.no2_mlp_hidden is not None and cfg.no2_weight > 0:
-            raise NotImplementedError("the in-model NO2 probe is not ported")
         dev = resolve_device(device)
         self.config = cfg
         common = dict(
@@ -115,6 +116,12 @@ class AutoencoderKL(nn.Module):
             self.post_quant_conv = Dense(cfg.embed_dim, cfg.z_channels,
                                          cfg.dtype)
             self.logvar = nn.Parameter(torch.empty(()))
+            self.no2_probe = None
+            if cfg.no2_mlp_hidden is not None and cfg.no2_weight > 0:
+                widths = (cfg.embed_dim,) + tuple(cfg.no2_mlp_hidden) + (1,)
+                self.no2_probe = nn.ModuleList(
+                    Dense(a, b, cfg.dtype)
+                    for a, b in zip(widths[:-1], widths[1:]))
         self.to_empty(device=dev)
         generator = torch.Generator(device=dev).manual_seed(seed)
         init_weights(self, generator)
@@ -159,6 +166,17 @@ class AutoencoderKL(nn.Module):
         recon, _ = self(x, generator=generator,
                         sample_posterior=sample_posterior)
         return recon
+
+    def predict_no2(self, x: torch.Tensor) -> torch.Tensor:
+        """The latent mean -> [B, Hl, Wl, 1] NO2 map through the in-model
+        probe: ReLU after each hidden dense (tempo_tpu/models/vae.py
+        ``predict_no2``)."""
+        if self.no2_probe is None:
+            raise ValueError("NO2 probe not initialized")
+        h = self.encode(x).mean.to(self.config.dtype)
+        for layer in self.no2_probe[:-1]:
+            h = torch.relu(layer(h))
+        return self.no2_probe[-1](h)
 
     def get_loss(self, x: torch.Tensor, generator: torch.Generator
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -68,8 +68,9 @@ class Dense(nn.Conv2d):
     """1x1 conv over NHWC (a channel-last matmul); weight [out, in, 1, 1]."""
 
     def __init__(self, cin: int, cout: int,
-                 compute_dtype: torch.dtype = torch.float32):
-        super().__init__(cin, cout, 1)
+                 compute_dtype: torch.dtype = torch.float32,
+                 bias: bool = True):
+        super().__init__(cin, cout, 1, bias=bias)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -201,7 +202,7 @@ class AttnBlock(nn.Module):
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """PyTorch's default init (uniform in +-1/sqrt(fan_in) for conv weights
-    and biases, fan_in from weight dim 1, as torch computes it for
+    and biases where they have one, fan_in from weight dim 1, as torch computes it for
     ConvTranspose2d too), from ``generator``; zeros for ``zero_init`` convs;
     ones/zeros for GroupNorm."""
     for m in module.modules():
@@ -214,7 +215,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             bound = 1.0 / math.sqrt(fan_in)
             with torch.no_grad():
                 m.weight.uniform_(-bound, bound, generator=generator)
-                m.bias.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
         elif isinstance(m, nn.GroupNorm) and m.affine:
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)

@@ -9,15 +9,17 @@ tempo_tpu's ``jnp.where(is_first, ...)``). PyTorch runs eagerly, so there is
 no compiled program; the parameters and optimizer moments are updated in
 place (JAX returns a new state; the port returns the same one).
 
-With ``grad_accum`` = k the batch's leading axis is split into k
-microbatches; gradients are summed over them and scaled by 1/k, and so are
-the metrics, so for a deterministic loss the update equals the one-shot
-step (tempo_tpu's lax.scan of microbatch means).
+A batch is a tensor or a dict of tensors (the L2 variant's
+{'spectral', '<PRODUCT>'}). With ``grad_accum`` = k the batch's leading
+axis (each value's, for a dict) is split into k microbatches; gradients
+are summed over them and scaled by 1/k, and so are the metrics, so for a
+deterministic loss the update equals the one-shot step (tempo_tpu's
+lax.scan of microbatch means).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple, Union
 
 import torch
 from torch import nn
@@ -26,7 +28,8 @@ from tempo_tpu_torch.ops.losses import lm_cross_entropy
 from tempo_tpu_torch.train.state import Optimizer, TrainState
 
 Metrics = Dict[str, torch.Tensor]
-LossFn = Callable[[nn.Module, torch.Tensor, torch.Generator],
+Batch = Union[torch.Tensor, Dict[str, torch.Tensor]]
+LossFn = Callable[[nn.Module, Batch, torch.Generator],
                   Tuple[torch.Tensor, Metrics]]
 
 
@@ -38,6 +41,33 @@ def vae_loss_fn(model: nn.Module) -> LossFn:
         return model.get_loss(batch, generator)
 
     return loss_fn
+
+
+def vae_l2_loss_fn(model: nn.Module, l2_weights=None) -> LossFn:
+    """(model, batch dict, generator) -> (loss, metrics): the
+    L2-supervised VAE's ``compute_loss`` with ``l2_weights`` (None: 0.1
+    for every product)."""
+
+    def loss_fn(model, batch, generator):
+        return model.compute_loss(batch, generator, l2_weights)
+
+    return loss_fn
+
+
+def batch_size(batch: Batch) -> int:
+    """The leading dimension of a tensor batch or of a dict's values."""
+    first = next(iter(batch.values())) if isinstance(batch, dict) else batch
+    return first.shape[0]
+
+
+def split_batch(batch: Batch, k: int) -> List[Batch]:
+    """k microbatches along the leading axis (of each value, for a
+    dict)."""
+    if not isinstance(batch, dict):
+        return list(batch.chunk(k))
+    parts = {key: value.chunk(k) for key, value in batch.items()}
+    return [{key: chunks[i] for key, chunks in parts.items()}
+            for i in range(k)]
 
 
 def lm_loss_fn(model: nn.Module) -> LossFn:
@@ -79,7 +109,7 @@ def _detached(metrics: Metrics) -> Metrics:
 
 def make_train_step(loss_fn: LossFn, tx: Optimizer, ema_alpha: float = 0.99,
                     grad_accum: int = 1
-                    ) -> Callable[[TrainState, torch.Tensor],
+                    ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Metrics]]:
     """Returns (state, batch) -> (state, metrics), the state updated in
     place. state.ema (when not None; {} to start) gets EMA(ema_alpha) of
@@ -88,16 +118,17 @@ def make_train_step(loss_fn: LossFn, tx: Optimizer, ema_alpha: float = 0.99,
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
-    def train_step(state: TrainState, batch: torch.Tensor):
+    def train_step(state: TrainState, batch: Batch):
         model, opt = state.model, state.optimizer
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
-        if batch.shape[0] % grad_accum:
-            raise ValueError(f"batch {batch.shape[0]} not divisible by "
+        n = batch_size(batch)
+        if n % grad_accum:
+            raise ValueError(f"batch {n} not divisible by "
                              f"grad_accum {grad_accum}")
         metrics = None
-        for mb in batch.chunk(grad_accum):
+        for mb in split_batch(batch, grad_accum):
             loss, m = loss_fn(model, mb, state.generator)
             loss.backward()
             m = _detached(m)
@@ -129,7 +160,7 @@ def make_train_step(loss_fn: LossFn, tx: Optimizer, ema_alpha: float = 0.99,
 
 
 def make_eval_step(loss_fn: LossFn
-                   ) -> Callable[[nn.Module, torch.Tensor, torch.Generator],
+                   ) -> Callable[[nn.Module, Batch, torch.Generator],
                                  Metrics]:
     """Returns (model, batch, generator) -> metrics, without gradients."""
 

@@ -9,16 +9,19 @@ plot_every steps; a checkpoint every save_every steps (or at the steps of
 ``save_steps``) and always at the last step, each with a reconstruction
 figure of the last batch's first 8 samples in figures/ when a ``recon_fn``
 is given; metrics.json at the end; and samples/s over the loop's host wall
-time. Multi-process runs, profiling windows, metric sinks and the L2
-figures are not ported; the checkpoints are the single-file format
-(train/checkpoint.py).
+time. Batches are tensors or the L2 variant's dicts; with ``l2_products``
+the per-product loss curves go to summary/l2_losses.png at every plot, and
+the figures show each product's pooled target beside the head's
+prediction. Multi-process runs, profiling windows and metric sinks are not
+ported; the checkpoints are the single-file format (train/checkpoint.py).
 """
 
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Union)
 
 import numpy as np
 import torch
@@ -27,17 +30,29 @@ from torch import nn
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.train import checkpoint as ckpt_lib
 from tempo_tpu_torch.train.metrics import save_metrics
-from tempo_tpu_torch.train.plots import (save_reconstruction_figure,
+from tempo_tpu_torch.train.plots import (plot_per_product_losses,
+                                          save_reconstruction_figure,
                                           update_summary_plots)
 from tempo_tpu_torch.train.state import Optimizer, TrainState
-from tempo_tpu_torch.train.step import LossFn, make_eval_step, make_train_step
+from tempo_tpu_torch.train.step import (LossFn, batch_size, make_eval_step,
+                                        make_train_step)
 
 
-def to_device(batch, device: torch.device) -> torch.Tensor:
-    """A host batch (numpy or tensor) on ``device``."""
+def to_device(batch, device: torch.device):
+    """A batch (numpy or tensor, or a dict of them) on ``device``; a
+    tensor already there is used as it is, not copied."""
+    if isinstance(batch, dict):
+        return {k: to_device(v, device) for k, v in batch.items()}
     if isinstance(batch, np.ndarray):
         batch = torch.from_numpy(batch)
     return batch.to(device, non_blocking=True)
+
+
+def _host_f32(t) -> np.ndarray:
+    """A tensor or array as fp32 numpy on the host."""
+    if isinstance(t, torch.Tensor):
+        return t.float().cpu().numpy()
+    return np.asarray(t, dtype=np.float32)
 
 
 class Trainer:
@@ -58,12 +73,15 @@ class Trainer:
         grad_accum: int = 1,
         device: Union[str, torch.device, None] = None,
         recon_fn: Optional[Callable[[nn.Module, torch.Tensor,
-                                     torch.Generator], torch.Tensor]] = None,
+                                     torch.Generator], Any]] = None,
+        l2_products: Optional[Sequence[str]] = None,
     ):
         """``device`` (None: CUDA, raising without it) is where batches
         go; the state's model must be there. ``recon_fn(model, x,
         generator)`` reconstructs a batch for the figures (None: no
-        figures)."""
+        figures): a tensor, or a dict with ``reconstruction`` and
+        ``l2_predictions`` ({product: [B, Hl, Wl]}). ``l2_products``: the
+        products whose losses and targets the L2 plots and figures show."""
         self.device = resolve_device(device)
         self.tx = tx
         self.state = state
@@ -75,6 +93,7 @@ class Trainer:
         self.verbose = verbose
         self.save_steps = set(save_steps) if save_steps is not None else None
         self.recon_fn = recon_fn
+        self.l2_products = list(l2_products) if l2_products else None
         self.ckpt_dir = self.output_dir / "checkpoints"
         self.summary_dir = self.output_dir / "summary"
         self.figures_dir = self.output_dir / "figures"
@@ -112,7 +131,7 @@ class Trainer:
         for i, batch in enumerate(val_iter):
             if i >= self.n_val_batches:
                 break
-            bsz = batch.shape[0]
+            bsz = batch_size(batch)
             metrics = self.eval_step(self.state.model,
                                      to_device(batch, self.device),
                                      self.eval_generator)
@@ -128,19 +147,34 @@ class Trainer:
 
     def _save_recon_figure(self, batch) -> None:
         """The reconstruction figure of the batch's first 8 samples, the
-        posterior sampled from a generator seeded with the step."""
+        posterior sampled from a generator seeded with the step; for a dict
+        batch and a dict output, each product's 4x pooled target beside the
+        head's prediction."""
         if self.recon_fn is None:
             return
-        x = batch[:8]
-        x = (x.float().cpu().numpy() if isinstance(x, torch.Tensor)
-             else np.asarray(x, dtype=np.float32))
+        from tempo_tpu_torch.models.vae_l2 import avg_pool_4x_nan
+
+        x = _host_f32((batch["spectral"] if isinstance(batch, dict)
+                       else batch)[:8])
         generator = torch.Generator(device=self.device).manual_seed(
             self.step)
         with torch.no_grad():
-            recon = self.recon_fn(self.state.model,
-                                  to_device(x, self.device), generator)
+            out = self.recon_fn(self.state.model,
+                                to_device(x, self.device), generator)
+        if not isinstance(out, dict):
+            save_reconstruction_figure(self.figures_dir, self.step, x,
+                                       _host_f32(out))
+            return
+        preds = {p: _host_f32(v)
+                 for p, v in out.get("l2_predictions", {}).items()}
+        targets = None
+        if isinstance(batch, dict) and self.l2_products:
+            targets = {p: avg_pool_4x_nan(torch.from_numpy(
+                _host_f32(batch[p][:8]))).numpy()
+                for p in self.l2_products if p in batch}
         save_reconstruction_figure(self.figures_dir, self.step, x,
-                                   recon.float().cpu().numpy())
+                                   _host_f32(out["reconstruction"]),
+                                   l2_targets=targets, l2_preds=preds)
 
     # ----------------------------------------------------------------- loop
 
@@ -154,7 +188,7 @@ class Trainer:
             self.state.ema = {}  # the first step seeds every metric
         while self.step < n_steps:
             batch = next(train_iter)
-            bsz = batch.shape[0]
+            bsz = batch_size(batch)
             # no host sync per step: the device queue throttles the loop
             self.state, _ = self.train_step(self.state,
                                             to_device(batch, self.device))
@@ -166,6 +200,10 @@ class Trainer:
             if self.step % self.plot_every == 0:
                 update_summary_plots(self.summary_dir, self.train_metrics,
                                      self.val_metrics)
+                if self.l2_products:
+                    plot_per_product_losses(self.summary_dir,
+                                            self.train_metrics,
+                                            self.l2_products)
             if val_iter_factory is not None and self.step % self.val_every == 0:
                 vm = self.validate(val_iter_factory())
                 if vm:

@@ -12,12 +12,12 @@ is absent.
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import shutil
 from pathlib import Path
 from typing import Any, Dict, Iterable, Union
-
 
 
 def load_config(config_path: Union[str, Path]) -> Dict[str, Any]:
@@ -92,3 +92,9 @@ def save_yaml(obj: Any, path: Union[str, Path]) -> None:
 
     with open(path, "w") as f:
         yaml.dump(obj, f)
+
+
+def save_json_yaml(obj: Any, path: Union[str, Path]) -> None:
+    """A YAML file written as JSON: YAML readers read it, and no YAML
+    writer is needed (the card's machine has none)."""
+    Path(path).write_text(json.dumps(obj, indent=2) + "\n")

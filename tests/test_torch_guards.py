@@ -3,6 +3,7 @@ package (nor yaml, matplotlib or msgpack, which the card's machine lacks)
 at load, its entry points default to CUDA and raise without it, and its
 CUDA wrappers refuse what the kernels do not take."""
 
+import json
 import pkgutil
 import subprocess
 import sys
@@ -36,7 +37,8 @@ def test_port_imports_no_jax():
                  "data.loader", "data.native", "data.tiles",
                  "data.synthetic", "cli.train_vae", "infer.graphs",
                  "infer.serving", "infer.export_lm", "ops.launches",
-                 "cli.export_lm", "cli.serve_lm"):
+                 "cli.export_lm", "cli.serve_lm", "data.device_buffer",
+                 "models.vae_l2", "cli.train_vae_l2", "train.png"):
         assert f"tempo_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -154,4 +156,36 @@ def test_vae_training_entry_points_default_to_cuda_and_raise_without_it(
         "training: {n_steps: 2}\n")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(str(cfg))
+    assert not (tmp_path / "run").exists()
+
+
+def test_l2_training_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    from tempo_tpu_torch.cli.train_vae_l2 import main, run
+    from tempo_tpu_torch.data.device_buffer import DeviceTileBuffer
+    from tempo_tpu_torch.data.synthetic import make_tile_shards
+    from tempo_tpu_torch.models.vae_l2 import VAEWithL2Head, build_vae_l2
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VAEWithL2Head(VAEConfig(**TINY), (16, 16))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_vae_l2(TINY, (16, 16))
+    VAEWithL2Head(VAEConfig(**TINY), (16, 16), device="cpu")
+    tiles = make_tile_shards(tmp_path / "tiles" / "train", n_files=1,
+                             l2_products=["NO2"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceTileBuffer(tiles, batch_size=2, slots=1)
+    DeviceTileBuffer(tiles, batch_size=2, slots=1, device="cpu")
+    cfg = {"output_dir": str(tmp_path / "run"),
+           "data": {"data_dir": str(tmp_path / "tiles"), "batch_size": 2,
+                    "loader": "device", "buffer_slots": 1},
+           "model": dict(TINY, shape=[8, 16, 16]),
+           "l2": {"components": ["NO2"], "mlp_hidden": [16, 16]},
+           "training": {"n_steps": 2}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run(cfg)
+    (tmp_path / "cfg.yaml").write_text(json.dumps(cfg))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(str(tmp_path / "cfg.yaml"))
     assert not (tmp_path / "run").exists()

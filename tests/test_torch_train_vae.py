@@ -3,7 +3,8 @@ mirroring the train_vae cases of tests/test_e2e.py on tile shards from
 make_tile_shards: it learns and writes checkpoints, figures, summary
 plots, metrics.json and training_info.yaml; --debug reduces as JAX's does;
 resume_from (auto and explicit), save_schedule: sqrt and grad_accum work;
-the unported options raise."""
+the unported options raise (the device loader and the NO2 probe run:
+tests/test_torch_train_vae_l2.py)."""
 
 from __future__ import annotations
 
@@ -156,8 +157,8 @@ def test_sqrt_schedule_and_grad_accum(tmp_path, tiles_dir):
      "tensor"),
     (lambda c: c.update(parallel={"fsdp": True}), NotImplementedError,
      "fsdp"),
-    (lambda c: c["data"].update(loader="device"), NotImplementedError,
-     "device"),
+    (lambda c: c["data"].update(loader="device", partition="process"),
+     NotImplementedError, "partition"),
     (lambda c: c["data"].update(loader="disk"), ValueError, "loader"),
     (lambda c: c["training"].update(checkpoint_format="sharded"),
      NotImplementedError, "sharded"),
@@ -169,12 +170,10 @@ def test_sqrt_schedule_and_grad_accum(tmp_path, tiles_dir):
      "metrics_jsonl"),
     (lambda c: c["training"].update(profile_steps=[2, 4]),
      NotImplementedError, "profile_steps"),
-    (lambda c: c["model"].update(no2_mlp_hidden=[8], no2_weight=0.1),
-     NotImplementedError, "NO2"),
 ], ids=["no_model", "no_train_dir", "missing_train_dir", "missing_val_dir",
         "distributed", "tensor", "fsdp", "device_loader", "unknown_loader",
         "sharded", "async", "unknown_format", "metrics_jsonl",
-        "profile_steps", "no2_probe"])
+        "profile_steps"])
 def test_validate_config_refuses(tmp_path, tiles_dir, mutate, error, match):
     cfg = _cfg(tmp_path / "run", tiles_dir)
     mutate(cfg)
