@@ -128,6 +128,34 @@ Phases, each fatal on failure:
       loss (each product's loss, the loss and pixel MSE rel 1e-2, each
       head gradient rel L2 5e-2, the VAE's gradients by 5c's rule) and
       fp32 at batch 2 under the L2 loss (1e-4 each).
+  then the VAE evaluation and analysis path (the flagship in bf16, the
+  weights 5b and 6c trained), K1a, K1b and K2 forward:
+  7a. cli/evaluate_reconstruction.run with configs/demo/flagship_eval.yaml's
+      values (batch 16, 32 tiles) and pk_err over 5b's checkpoints (steps
+      15 and 30) and an fp16 shard of 32 flagship tiles: the JSON and both
+      figures written, every metric finite, each checkpoint's mse and
+      pk_err within 1e-2 of the same sweep through the plain versions; the
+      K1/K2 launches of a batch of 16;
+  7b. load_params of 5b's and 6c's checkpoints (and the L2 one's vae.*
+      into the base VAE): the posterior mean of 16 tiles bit for bit the
+      live weights' (cuDNN deterministic); a .msgpack refused naming M11;
+  7c. one structured_granule [131, 2048, 1028] through encode_granules'
+      encode_granule with decode_roundtrip: the device normalize within
+      1e-4 of numpy's and no farther from float64 than numpy's (+1e-5);
+      with the granule's own statistics, the latter; the latent within rel
+      L2 5e-2 of the plain path; mse/mae/psnr finite and, reduced on the
+      card in float64, within 1e-9 of numpy's; normalize ms on the card,
+      encode and decode s, reconstruct_raw's and numpy's normalize's host
+      wall; the K1/K2 launches of a granule's encode+decode;
+  7d. fit_pca on 256 pixels drawn as extract_pca draws them from 7c's crop
+      (explained variance within 1e-4 of numpy's eigh), the PCA-RGB figure
+      of the granule and its reconstruction written by train/png.py;
+  7e. probe_analysis' probe_granule over 4 structured granules [128, 512,
+      1028] encoded by 6c's checkpoint, then a linear probe a product with
+      flagship_probe.yaml's values: each best validation loss below its
+      first epoch's, every R^2 finite;
+  and K1a/K1b/K2 against their plain versions at every shape of 7a, 7c and
+  7e.
 Prints the card's name and power limit first, each phase's seconds, each
 redesigned kernel's time against its time before the redesign
 (KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
@@ -267,6 +295,58 @@ FLAGSHIP_L2 = {
     "training": {"n_steps": 300, "save_every": 300, "val_every": 100000,
                  "log_every": 50, "plot_every": 100000},
 }
+# The analysis path (phase 7). 7a runs cli/evaluate_reconstruction.run with
+# configs/demo/flagship_eval.yaml's values (batch 16, 32 validation tiles,
+# mse, mae, psnr) and pk_err, over 5b's two checkpoints (steps 15 and 30)
+# and one fp16 shard of 32 flagship tiles; each checkpoint's mse and pk_err
+# within ANALYSIS_SWEEP_REL of the same sweep through the plain versions
+# (bf16 through ~30 layers, as MODEL_BF16_REL_L2, on a mean of 32 tiles).
+ANALYSIS_EVAL = {
+    "output_dir": "eval_reconstruction", "seed": 42,
+    "data": {"max_val_samples": 32},
+    "model": {"training_config_path": "config.yaml"},
+    "evaluation": {"batch_size": 16, "evaluate_all": True,
+                   "metrics": ["mse", "mae", "psnr", "pk_err"]},
+    "plotting": {"plot_metrics": True, "dpi": 150},
+}
+ANALYSIS_SWEEP_REL = 1e-2
+# 7c: one structured granule at the full TEMPO shape (cropped to 128 x
+# 2048), normalized with the per-channel statistics a stats file would
+# hold for it. The device normalize within ANALYSIS_NORM_ATOL of numpy's
+# (z in [-10, 10]; an ulp of the fp32 log over a channel's std), and no
+# farther (max abs) from a float64 normalize than numpy's fp32 one is, plus
+# ANALYSIS_NORM_F64_SLACK; with the granule's own statistics, the latter
+# (numpy's fp32 sums over 268,288 pixels stray further); the metrics
+# reduced on the card in float64 within ANALYSIS_METRICS_REL of numpy's
+# float64 (another summation order over 270M elements).
+ANALYSIS_GRANULE = (131, 2048, 1028)
+ANALYSIS_NORM_ATOL, ANALYSIS_NORM_F64_SLACK = 1e-4, 1e-5
+ANALYSIS_METRICS_REL = 1e-9
+# 7d: configs/analysis/extract_pca_components.yaml's sampling (256 pixels,
+# seed 42, 3 components); the explained variance within ANALYSIS_PCA_REL
+# of numpy's eigen-decomposition of the samples' covariance (two float64
+# factorizations).
+ANALYSIS_PCA = {"pixels_per_file": 256, "seed": 42, "n_components": 3}
+ANALYSIS_PCA_REL = 1e-4
+# 7e: configs/demo/flagship_probe.yaml's values over 4 structured granules
+# of 512 tracks (2048 cut to 512 for the phase's time; PERF.md section 4).
+ANALYSIS_PROBE = {
+    "seed": 42,
+    "probe": {"n_pixels_per_file": 500, "test_split": 0.2, "max_epochs": 40,
+              "learning_rate": 0.001, "weight_decay": 0.01,
+              "batch_size": 256},
+    "components": {
+        "NO2": {"field": "vertical_column_troposphere", "scale": 1.0e15,
+                "norm_type": "asinh"},
+        "O3TOT": {"field": "column_amount_o3", "scale": 1.0,
+                  "norm_type": "zscore"},
+        "HCHO": {"field": "vertical_column", "scale": 1.0e16,
+                 "norm_type": "asinh"},
+        "CLDO4": {"field": "cloud_fraction", "scale": 1.0,
+                  "norm_type": "logit"}},
+    "visualization": {"n_examples": 100},
+}
+ANALYSIS_PROBE_GRANULES, ANALYSIS_PROBE_SHAPE = 4, (128, 512, 1028)
 # The head's GroupNorm shape on the L2 path, held in phase 2 (batch 64 of
 # 16x16 latents, 512 channels, bf16, eps 1e-5).
 K1_HEAD = ((64, 16, 16, 512), 1e-5)
@@ -1906,14 +1986,16 @@ def train_path(dev, gen, rows: dict) -> dict:
             "k5_edges": {e[0]: e[1]["ok"] for e in edges}}
 
 
-def vae_train_path(dev, rows: dict, keep: Path) -> dict:
+def vae_train_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     """The flagship VAE training path: (a) train steps at batch 64 through
     K1a, K1b and K2, counted, timed and profiled, and one step with remat;
     (2''') the K1/K2 Functions' backward at every shape the step records;
     (b) the Trainer over a TileLoader, a checkpoint reloaded bit for bit
-    (and copied to ``keep``/vae.pt, where phase 6 warm-starts from it);
-    (c) one step against the plain path. Adds each kernel's launches a
-    train step to its row; returns the metrics."""
+    (the last copied to ``keep``/vae.pt, where phase 6 warm-starts from
+    it; both, at steps 15 and 30, to ``keep``/vae_run/checkpoints, which
+    phase 7 sweeps; ``live``["vae"] the trained weights at step 30); (c)
+    one step against the plain path. Adds each kernel's launches a train
+    step to its row; returns the metrics."""
     import shutil
     import tempfile
 
@@ -2130,7 +2212,7 @@ def vae_train_path(dev, rows: dict, keep: Path) -> dict:
             model, tx, state = fresh()
             out = Path(tmp) / "run"
             trainer = Trainer(vae_loss_fn(model), tx, state, out,
-                              save_every=VAE_TRAINER_STEPS,
+                              save_every=VAE_TRAINER_STEPS // 2,
                               val_every=VAE_TRAINER_STEPS, log_every=10,
                               plot_every=VAE_TRAINER_STEPS + 1, device=dev,
                               verbose=False)
@@ -2142,6 +2224,10 @@ def vae_train_path(dev, rows: dict, keep: Path) -> dict:
                      f"metrics.json")
             history = json.loads((out / "metrics.json").read_text())
             shutil.copy(ckpt, keep / "vae.pt")
+            shutil.copytree(out / "checkpoints",
+                            keep / "vae_run" / "checkpoints")
+            live["vae"] = {k: v.detach().clone() for k, v in
+                           trainer.state.model.state_dict().items()}
             _, tx2, state2 = fresh(seed=SEED + 99)
             trainer2 = Trainer(vae_loss_fn(state2.model), tx2, state2, out,
                                device=dev, verbose=False)
@@ -2281,16 +2367,20 @@ def bits(t):
     return t.contiguous().view(ints[t.element_size()])
 
 
-def vae_l2_path(dev, rows: dict, warm_ckpt: Path) -> dict:
+def vae_l2_path(dev, rows: dict, warm_ckpt: Path, keep: Path,
+                live_weights: dict) -> dict:
     """The L2-supervised VAE training path: (6a) train steps at batch 64
     on a DeviceTileBuffer's batches through K1a, K1b and K2, counted,
     timed and profiled; (2''') GroupNormActFn's backward at the head's
     shapes; (6b) the buffer's batches against the CPU buffer's, bit for
     bit; (6c) the train_vae_l2 CLI from a dict, once a loader, its VAE
     warm-started from ``warm_ckpt``, and its checkpoint reloaded bit for
-    bit; (6d) one step against the plain path. Adds each kernel's launches
-    an L2 step to its row; returns the metrics."""
+    bit (copied to ``keep``/l2, and its weights to
+    ``live_weights``["l2"], for phase 7); (6d) one step against the plain
+    path. Adds each kernel's launches an L2 step to its row; returns the
+    metrics."""
     import copy
+    import shutil
     import tempfile
 
     import numpy as np
@@ -2532,6 +2622,10 @@ def vae_l2_path(dev, rows: dict, warm_ckpt: Path) -> dict:
         again = Trainer(vae_l2_loss_fn(model2, weights), live.tx, state2,
                         tmp / "resume", device=dev, verbose=False)
         again.load_checkpoint(live_ckpt)
+        (keep / "l2").mkdir()
+        shutil.copy(live_ckpt, keep / "l2" / live_ckpt.name)
+        live_weights["l2"] = {k: v.detach().clone() for k, v in
+                              live.state.model.state_dict().items()}
         saved = (torch.backends.cudnn.deterministic,
                  torch.backends.cudnn.benchmark)
         torch.backends.cudnn.deterministic = True
@@ -2635,6 +2729,469 @@ def vae_l2_path(dev, rows: dict, warm_ckpt: Path) -> dict:
             "step_vs_plain": step_errs, "seconds": seconds}
 
 
+def hold_kernels(dev, gen, calls: dict) -> list:
+    """K1a, K1b and K2 against their plain versions at every distinct shape
+    in ``calls`` (phase 2's tolerances, random inputs on the card)."""
+    import torch
+
+    from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
+
+    out = []
+    with torch.inference_mode():
+        for shape, groups, eps in sorted({k for k, _ in calls["K1a"]},
+                                         key=str):
+            x = randn(gen, *shape, dtype=torch.bfloat16)
+            err, ok = max_err(cuda_gn.gn_stats(x, groups, eps),
+                              cuda_gn.gn_stats_plain(x, groups, eps),
+                              STATS_TOL)
+            out.append({"kernel": "K1a", "x": list(shape), "eps": eps,
+                        "max_abs_err": err, "ok": ok})
+        for shape, act in sorted({k for k, _ in calls["K1b"]}, key=str):
+            x = randn(gen, *shape, dtype=torch.bfloat16)
+            c = shape[-1]
+            scale, bias = 1 + randn(gen, c, scale=0.1), randn(gen, c,
+                                                              scale=0.1)
+            st = cuda_gn.gn_stats_plain(x, 8, 1e-6)
+            err, ok = max_err(cuda_gn.gn_apply(x, st, scale, bias, act),
+                              cuda_gn.gn_apply_plain(x, st, scale, bias, act),
+                              BF16_TOL)
+            out.append({"kernel": "K1b", "x": list(shape), "act": act,
+                        "max_abs_err": err, "ok": ok})
+        for shape, f, groups, eps, act in sorted(
+                {k for k, _ in calls["K2"]}, key=str):
+            c = shape[-1]
+            x = randn(gen, *shape, dtype=torch.bfloat16)
+            scale, bias = 1 + randn(gen, c, scale=0.1), randn(gen, c,
+                                                              scale=0.1)
+            weight = torch.empty((f, c, 3, 3), device=dev).uniform_(
+                -(9 * c) ** -0.5, (9 * c) ** -0.5, generator=gen)
+            cb = randn(gen, f, scale=0.01)
+            packed = cuda_gn_conv.pack_conv3x3_weight(weight, torch.bfloat16)
+            err, ok = max_err(
+                cuda_gn_conv.gn_act_conv3x3(x, scale, bias, weight, cb,
+                                            groups, eps, act, packed),
+                cuda_gn_conv.gn_act_conv3x3_plain(x, scale, bias, weight, cb,
+                                                  groups, eps, act),
+                BF16_TOL)
+            out.append({"kernel": "K2", "x": list(shape), "f": f,
+                        "config": cuda_gn_conv.choose_config(*shape, f),
+                        "max_abs_err": err, "ok": ok})
+            del x
+    return out
+
+
+def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
+    """The VAE evaluation and analysis path on the flagship (phase 7):
+    (a) cli/evaluate_reconstruction.run over 5b's two checkpoints and a
+    shard of 32 flagship tiles, against the same sweep through the plain
+    versions; (b) load_params of 5b's and 6c's checkpoints against the live
+    weights, bit for bit, and a .msgpack refused; (c) one structured
+    granule [131, 2048, 1028] through encode_granules' per-granule
+    function: the device normalize against numpy's and float64, the latent
+    against the plain path, the metrics on the card against numpy's; (d)
+    PCA-RGB of that granule and its reconstruction from pixels drawn as
+    extract_pca draws them; (e) probe_analysis' per-granule function over
+    4 structured granules [128, 512, 1028] encoded by 6c's checkpoint, and
+    a linear probe a product. K1a, K1b and K2 held against their plain
+    versions at every shape the sweep and the granules give them; their
+    launches in a sweep batch and in a granule's encode+decode added to
+    their rows."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.analysis.pca import fit_pca
+    from tempo_tpu_torch.cli import (analyze_reconstruction, encode_granules,
+                                     evaluate_reconstruction, extract_pca,
+                                     probe_analysis)
+    from tempo_tpu_torch.data.normalize import normalize_radiance
+    from tempo_tpu_torch.data.synthetic import (make_tile_shards,
+                                                structured_granule,
+                                                with_fill_values)
+    from tempo_tpu_torch.infer.granule_codec import GranuleCodec
+    from tempo_tpu_torch.infer.sweep import (batch_metrics, compute_metrics,
+                                             evaluate_checkpoints)
+    from tempo_tpu_torch.analysis.spectrum import pk_op
+    from tempo_tpu_torch.models.vae import VAEConfig, build_vae
+    from tempo_tpu_torch.models.vae_l2 import build_vae_l2
+    from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
+    from tempo_tpu_torch.train.checkpoint import list_checkpoints, load_params
+    from tempo_tpu_torch.train.png import PNG_SIGNATURE
+    from tempo_tpu_torch.utils.config import save_json_yaml
+
+    card = smi_line()
+    seconds = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    counters = {"K1a": (cuda_gn.LAUNCHES, "gn_stats"),
+                "K1b": (cuda_gn.LAUNCHES, "gn_apply"),
+                "K2": (cuda_gn_conv.LAUNCHES, "gn_act_conv3x3")}
+    calls = {"K1a": [], "K1b": [], "K2": []}
+
+    def zero():
+        torch.cuda.synchronize()
+        for table, key in counters.values():
+            table[key] = 0
+
+    def launched():
+        torch.cuda.synchronize()
+        return {k: table[key] for k, (table, key) in counters.items()}
+
+    def is_png(path: Path) -> bool:
+        return path.exists() and path.read_bytes()[:8] == PNG_SIGNATURE
+
+    # ---------------------------------------------- (a) the sweep, the CLI
+    t_phase = time.perf_counter()
+    exp_dir = keep / "vae_run"
+    save_json_yaml({"model": VAE_MODEL}, exp_dir / "config.yaml")
+    vcfg = VAEConfig.from_dict(VAE_MODEL)
+    val_dir = make_tile_shards(keep / "val", n_files=1,
+                               tiles_per_file=ANALYSIS_EVAL["data"][
+                                   "max_val_samples"], tile=vcfg.input_size,
+                               n_spectral=vcfg.in_channels, seed=SEED + 7,
+                               dtype=np.float16)
+    cfg = dict(ANALYSIS_EVAL, exp_dir=str(exp_dir),
+               data=dict(ANALYSIS_EVAL["data"], val_dir=str(val_dir)))
+    ckpts = list_checkpoints(exp_dir / "checkpoints")
+    evaluation = cfg["evaluation"]
+    n_val, batch = cfg["data"]["max_val_samples"], evaluation["batch_size"]
+    n_batches = len(ckpts) * -(-n_val // batch)
+    zero()
+    t0 = time.perf_counter()
+    results = evaluate_reconstruction.run(cfg, device=dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_launches = {k: n / n_batches for k, n in launched().items()}
+    out = exp_dir / cfg["output_dir"]
+    written = {name: p.exists() if name.endswith(".json") else is_png(p)
+               for name, p in (
+                   ("reconstruction_metrics.json",
+                    out / "results" / "reconstruction_metrics.json"),
+                   ("metrics_vs_step.png",
+                    out / "figures" / "metrics_vs_step.png"),
+                   ("best_metrics_summary.png",
+                    out / "figures" / "best_metrics_summary.png"))}
+    # the same sweep through the plain versions, and the shapes of a batch
+    model, _ = build_vae(VAE_MODEL, device=dev, seed=SEED)
+    tiles = evaluate_reconstruction.load_val_tiles(val_dir, n_val)
+    with plain_kernels():
+        plain = evaluate_checkpoints(model, exp_dir, tiles, batch,
+                                     evaluation["metrics"], verbose=False,
+                                     pattern=evaluate_reconstruction
+                                     .DEFAULT_PATTERN)
+    with torch.inference_mode(), recording(calls, "sweep"):
+        batch_metrics(model, torch.from_numpy(tiles[:batch]).to(dev),
+                      torch.Generator(device=dev).manual_seed(0),
+                      pk_op(vcfg.input_size, 2, dev))
+    sweep_rel = [{k: abs(r[k] - p[k]) / abs(p[k]) for k in ("mse", "pk_err")}
+                 for r, p in zip(results, plain)]
+    finite = all(math.isfinite(r[k]) for r in results
+                 for k in evaluation["metrics"])
+    print(f"[analysis] 7a evaluate_reconstruction.run, {len(ckpts)} "
+          f"checkpoints of 5b x {n_val} flagship tiles at batch {batch}: "
+          f"{sweep_s:.2f} s host wall ({len(ckpts) * n_val / sweep_s:.1f} "
+          f"patches/s, loads and figures included) on {card}; results "
+          f"{json.dumps(results)}; vs the plain path, rel "
+          f"{json.dumps(sweep_rel)} (tol {ANALYSIS_SWEEP_REL}); written "
+          f"{written}; launches a sweep batch {sweep_launches}", flush=True)
+    if not all(written.values()) or not finite or len(results) != 2:
+        fail(f"the sweep did not write its files or its metrics are not "
+             f"finite: {written} {results}")
+    if not all(v <= ANALYSIS_SWEEP_REL for r in sweep_rel for v in r.values()):
+        fail("the sweep's mse or pk_err disagrees with the plain path's")
+    seconds["7a"] = time.perf_counter() - t_phase
+
+    # ------------------------------------------------------ (b) the loader
+    t_phase = time.perf_counter()
+    x = torch.from_numpy(tiles[:batch]).to(dev)
+    l2_ckpt = next((keep / "l2").glob("ckpt_step=*.pt"))
+
+    def posterior_mean(m):
+        with torch.inference_mode():
+            return m.encode(x).mean
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        loaded = load_params(ckpts[-1], model)
+        got = posterior_mean(loaded)
+        twin, _ = build_vae(VAE_MODEL, device=dev, seed=SEED + 1)
+        twin.load_state_dict(live["vae"])
+        same_vae = torch.equal(got, posterior_mean(twin))
+        l2_model, _ = build_vae_l2(FLAGSHIP_L2["model"], VAE_L2_HIDDEN,
+                                   device=dev, seed=SEED + 2)
+        load_params(l2_ckpt, l2_model)
+        l2_twin, _ = build_vae_l2(FLAGSHIP_L2["model"], VAE_L2_HIDDEN,
+                                  device=dev, seed=SEED + 3)
+        l2_twin.load_state_dict(live["l2"])
+        same_l2 = torch.equal(posterior_mean(l2_model.vae),
+                              posterior_mean(l2_twin.vae))
+        nested, _ = build_vae(VAE_MODEL, device=dev, seed=SEED + 4)
+        load_params(l2_ckpt, nested)  # the L2 checkpoint's vae.*
+        same_nested = torch.equal(posterior_mean(nested),
+                                  posterior_mean(l2_twin.vae))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+    (keep / "ckpt_step=000001.msgpack").write_bytes(b"")
+    try:
+        load_params(keep / "ckpt_step=000001.msgpack", twin)
+        refused = "not refused"
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"[analysis] 7b load_params, posterior mean of {batch} tiles bit "
+          f"for bit the live weights': 5b's checkpoint {same_vae}, 6c's L2 "
+          f"checkpoint {same_l2}, its vae.* into the base VAE "
+          f"{same_nested}; a .msgpack: {refused}", flush=True)
+    if not (same_vae and same_l2 and same_nested and "M11" in refused):
+        fail("load_params did not give the live weights, or took a .msgpack")
+    del twin, l2_model, l2_twin, x, loaded
+    seconds["7b"] = time.perf_counter() - t_phase
+
+    # -------------------- (c) a granule through encode_granules, normalize
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    rad, _ = structured_granule(np.random.default_rng(SEED),
+                                *ANALYSIS_GRANULE)
+    make_s = time.perf_counter() - t0
+
+    def f64_normalize(raw64, spectra):
+        """The normalize in float64 on the card; the granule's own
+        statistics when ``spectra`` is None."""
+        log64 = torch.clamp(raw64, min=1.0).log_()
+        if spectra is None:
+            std64, mean64 = torch.std_mean(log64, dim=(0, 1), correction=0)
+        else:
+            mean64, std64 = (torch.as_tensor(a, device=dev).double()
+                             for a in spectra)
+        return log64.sub_(mean64).div_(std64 + 1e-8).clamp_(-10, 10)
+
+    def distances(z_dev, z_host, spectra):
+        """Max abs distances: device to numpy, and each to float64."""
+        z_host = torch.from_numpy(z_host).to(dev)
+        z64 = f64_normalize(raw_dev.double(), spectra)
+        return {"max_abs_vs_numpy": float((z_dev - z_host).abs().max()),
+                "numpy_vs_f64": float((z_host.double() - z64).abs().max()),
+                "device_vs_f64": float((z_dev.double() - z64).abs().max())}
+
+    with torch.inference_mode():
+        raw_dev = torch.from_numpy(rad).to(dev)
+        # the statistics a stats file holds for this granule (as
+        # encode_granules reads them from data.tiles_path)
+        log64 = torch.clamp(raw_dev.double(), min=1.0).log_()
+        std64, mean64 = torch.std_mean(log64, dim=(0, 1), correction=0)
+        spectra = (mean64.float().cpu().numpy(), std64.float().cpu().numpy())
+        del log64
+        t0 = time.perf_counter()
+        z_np = normalize_radiance(rad, *spectra)
+        numpy_s = time.perf_counter() - t0
+        normalize_ms = time_ms(lambda: normalize_radiance(raw_dev, *spectra),
+                               iters=5, warmup=1)
+        norm = distances(normalize_radiance(raw_dev, *spectra), z_np,
+                         spectra)
+        del z_np
+        # with the granule's own statistics (encode_granules without
+        # data.tiles_path): numpy sums each channel's 268,288 fp32 values
+        # one row after another (an outer-axis reduction), so its z is
+        # held to float64, the device's no farther from it
+        t0 = time.perf_counter()
+        z_np = normalize_radiance(rad)
+        numpy_own_s = time.perf_counter() - t0
+        norm_own = distances(normalize_radiance(raw_dev), z_np, None)
+        del z_np, raw_dev
+        codec = GranuleCodec(model, *spectra, multiple=vcfg.input_size,
+                             seed=42, device=dev)  # 5b's step-30 VAE
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gt = codec.normalize_tensor(rad)
+        torch.cuda.synchronize()
+        normalize_wall_s = time.perf_counter() - t0
+        h, w = gt.shape[:2]
+    norm_ok = (norm["max_abs_vs_numpy"] <= ANALYSIS_NORM_ATOL
+               and norm["device_vs_f64"]
+               <= norm["numpy_vs_f64"] + ANALYSIS_NORM_F64_SLACK
+               and norm_own["device_vs_f64"]
+               <= norm_own["numpy_vs_f64"] + ANALYSIS_NORM_F64_SLACK)
+    zero()
+    latent, entry = encode_granules.encode_granule(codec, rad, True)
+    granule_launches = launched()
+    with torch.inference_mode(), recording(calls, "granule"):
+        latent_t = codec.encode(gt)
+        recon = codec.decode_tensor(latent_t)
+    with torch.inference_mode(), plain_kernels():
+        lat_plain = codec.encode(gt)
+    lat_rel = rel_l2(latent_t, lat_plain)
+    gt_host, recon_host = gt.cpu().numpy(), recon.float().cpu().numpy()
+    t0 = time.perf_counter()
+    host_metrics = compute_metrics(gt_host, recon_host, ["mse", "mae",
+                                                         "psnr"])
+    host_metrics_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        dev_metrics = compute_metrics(gt, recon, ["mse", "mae", "psnr"])
+    dev_metrics_s = time.perf_counter() - t0
+    metrics_rel = max(abs(dev_metrics[k] - host_metrics[k])
+                      / abs(host_metrics[k]) for k in host_metrics)
+    t0 = time.perf_counter()
+    codec.reconstruct_raw(rad, sample_posterior=False)
+    torch.cuda.synchronize()
+    raw_wall_s = time.perf_counter() - t0
+    del lat_plain, latent_t
+    granule = dict(entry, make_s=make_s, numpy_normalize_s=numpy_s,
+                   numpy_normalize_own_stats_s=numpy_own_s,
+                   normalize_ms=normalize_ms,
+                   normalize_tensor_wall_s=normalize_wall_s,
+                   reconstruct_raw_s=raw_wall_s, normalize=norm,
+                   normalize_own_stats=norm_own,
+                   latent_rel_l2_vs_plain=lat_rel,
+                   host_metrics=host_metrics, host_metrics_s=host_metrics_s,
+                   device_metrics_s=dev_metrics_s,
+                   device_vs_host_metrics_rel=metrics_rel,
+                   launches=granule_launches)
+    print(f"[analysis] 7c a structured granule {list(ANALYSIS_GRANULE)} "
+          f"(made in {make_s:.1f} s on the host) through encode_granule "
+          f"with decode_roundtrip, the VAE of 5b's last checkpoint: "
+          f"{json.dumps(granule)} (normalize: {ANALYSIS_NORM_ATOL} of "
+          f"numpy and no farther from float64 + {ANALYSIS_NORM_F64_SLACK}; "
+          f"latent rel L2 {MODEL_BF16_REL_L2}; metrics on the card vs "
+          f"numpy rel {ANALYSIS_METRICS_REL}) on {card}", flush=True)
+    if not norm_ok:
+        fail(f"the device normalize breaks its rule: {norm} {norm_own}")
+    f = vcfg.spatial_factor
+    if not (lat_rel <= MODEL_BF16_REL_L2 and latent.shape == (
+            h // f, w // f, vcfg.embed_dim) and np_all_finite(latent)):
+        fail(f"the granule's latent disagrees with the plain path or is "
+             f"not finite: rel L2 {lat_rel}, shape {latent.shape}")
+    if not (all(math.isfinite(entry[k]) for k in ("mse", "mae", "psnr"))
+            and metrics_rel <= ANALYSIS_METRICS_REL):
+        fail(f"the granule's metrics are not finite or not numpy's: "
+             f"{entry} {host_metrics}")
+    seconds["7c"] = time.perf_counter() - t_phase
+
+    # --------------------------------------------------------- (d) PCA-RGB
+    t_phase = time.perf_counter()
+    samples = extract_pca.sample_pixels(
+        gt, ANALYSIS_PCA["pixels_per_file"],
+        np.random.default_rng(ANALYSIS_PCA["seed"]))
+    fit = fit_pca(samples, ANALYSIS_PCA["n_components"])
+    evals = np.linalg.eigvalsh(np.cov(samples.astype(np.float64),
+                                      rowvar=False))[::-1][:3]
+    pca_rel = float(np.max(np.abs(fit.explained_variance - evals) / evals))
+    t0 = time.perf_counter()
+    figure = analyze_reconstruction.reconstruction_figure(
+        keep / "pca", "granule", gt_host, recon_host, "pca_rgb", fit)
+    figure_s = time.perf_counter() - t0
+    print(f"[analysis] 7d PCA of {samples.shape[0]} pixels drawn as "
+          f"extract_pca draws them: explained variance "
+          f"{fit.explained_variance.tolist()} (ratio "
+          f"{fit.explained_variance_ratio.tolist()}), vs numpy's eigh rel "
+          f"{pca_rel:.3e} (tol {ANALYSIS_PCA_REL}); PCA-RGB figure of the "
+          f"granule and its reconstruction {figure.name}: {figure_s:.2f} s, "
+          f"a PNG {is_png(figure)}", flush=True)
+    if not (pca_rel <= ANALYSIS_PCA_REL and is_png(figure)):
+        fail("the PCA disagrees with numpy's eigen-decomposition, or the "
+             "PCA-RGB figure was not written")
+    del gt, recon, gt_host, recon_host, rad, codec
+    torch.cuda.empty_cache()
+    seconds["7d"] = time.perf_counter() - t_phase
+
+    # ----------------------------------------------------------- (e) probes
+    t_phase = time.perf_counter()
+    probe_cfg = ANALYSIS_PROBE
+    components = probe_cfg["components"]
+    base, base_cfg = build_vae(VAE_MODEL, device=dev, seed=SEED + 5)
+    load_params(l2_ckpt, base)
+    codec = GranuleCodec(base, multiple=base_cfg.input_size,
+                         seed=probe_cfg["seed"], device=dev)
+    rng = np.random.default_rng(probe_cfg["seed"])
+    make = np.random.default_rng(SEED + 11)
+    all_latents = {c: [] for c in components}
+    all_targets = {c: [] for c in components}
+    raw_samples = {c: None for c in components}
+    make_s = encode_s = 0.0
+    for i in range(ANALYSIS_PROBE_GRANULES):
+        t0 = time.perf_counter()
+        rad, fields = structured_granule(make, *ANALYSIS_PROBE_SHAPE)
+        # as the L2 files read back: 5% fill values -> NaN, over the scale
+        fields = {c: np.where(with_fill_values(make, fields[c], 0.05)
+                              < -1e29, np.nan, fields[c])
+                  / np.float32(components[c]["scale"]) for c in components}
+        make_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if i == 0:
+                stack.enter_context(recording(calls, "probe_granule"))
+            data = probe_analysis.probe_granule(
+                codec, rad, fields, components, base_cfg.spatial_factor,
+                probe_cfg["probe"]["n_pixels_per_file"], rng)
+        encode_s += time.perf_counter() - t0
+        for c, d in data.items():
+            all_latents[c].append(d["latents"])
+            all_targets[c].append(d["targets"])
+            if raw_samples[c] is None:
+                raw_samples[c] = d["raw"]
+    out = keep / "probes"
+    for sub in ("figures", "results", "models", "data_stats"):
+        (out / sub).mkdir(parents=True)
+    t0 = time.perf_counter()
+    probe_analysis.save_data_stat_figures(out / "data_stats", components,
+                                          all_targets, all_latents,
+                                          raw_samples)
+    probes = probe_analysis.fit_probes(out, probe_cfg, all_latents,
+                                       all_targets, probe_cfg["seed"], dev)
+    probes_s = time.perf_counter() - t0
+    curves = {c: np.load(out / "results" / f"training_curves_{c}.npz")[
+        "val_losses"] for c in components}
+    learned = {c: bool(v.min() < v[0]) for c, v in curves.items()}
+    r2 = {c: probes[c]["r2_score"] for c in components if c in probes}
+    print(f"[analysis] 7e probe_granule over {ANALYSIS_PROBE_GRANULES} "
+          f"structured granules {list(ANALYSIS_PROBE_SHAPE)} encoded by 6c's "
+          f"checkpoint ({make_s:.1f} s to make them on the host, "
+          f"{encode_s:.2f} s to encode and sample), then a linear probe a "
+          f"product ({probes_s:.2f} s, figures included): R^2 "
+          f"{json.dumps(r2)}; the best validation loss below the first "
+          f"epoch's: {learned}; results {json.dumps(probes)}", flush=True)
+    if not (len(r2) == len(components) and all(learned.values())
+            and all(math.isfinite(v) for v in r2.values())):
+        fail(f"a probe did not learn or its R^2 is not finite: {r2} "
+             f"{learned}")
+    del base, codec
+    seconds["7e"] = time.perf_counter() - t_phase
+
+    # ------------- K1a, K1b, K2 against plain at the path's shapes; rows
+    t_phase = time.perf_counter()
+    held = hold_kernels(dev, gen, calls)
+    for r in held:
+        print(f"[kernels] 7 {json.dumps(r)}", flush=True)
+    if not held or not all(r["ok"] for r in held):
+        fail("a kernel disagrees with its plain version at a shape of the "
+             "analysis path")
+    for name in counters:
+        rows[name]["analysis_launches"] = {
+            "sweep_batch16": sweep_launches[name],
+            "granule_encode_decode": granule_launches[name]}
+        rows[name]["max_abs_err"] = max(
+            [rows[name]["max_abs_err"]]
+            + [r["max_abs_err"] for r in held if r["kernel"] == name])
+        if not (sweep_launches[name] and granule_launches[name]):
+            fail(f"{name} was not launched on the analysis path")
+    seconds["7 kernels"] = time.perf_counter() - t_phase
+    print(f"[time] analysis phases, s: {json.dumps(seconds)}", flush=True)
+    return {"card": card, "sweep": {"results": results, "plain": plain,
+                                    "rel_vs_plain": sweep_rel,
+                                    "seconds": sweep_s,
+                                    "patches_per_s": len(ckpts) * n_val
+                                    / sweep_s,
+                                    "launches_per_batch": sweep_launches},
+            "loader_bitwise": {"vae": same_vae, "l2": same_l2,
+                               "nested": same_nested},
+            "granule": granule, "pca": {"explained_variance":
+                                        fit.explained_variance.tolist(),
+                                        "rel_vs_eigh": pca_rel},
+            "probes": probes, "kernels_held": len(held),
+            "seconds": seconds}
+
+
 class Timed:
     """A loader, with the host's wait on each batch summed."""
 
@@ -2720,6 +3277,7 @@ def main() -> int:
         fail("no CUDA device: this script measures the port on a GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
+        from tempo_tpu_torch.data.normalize import normalize_radiance
         from tempo_tpu_torch.infer.granule_codec import GranuleCodec
         from tempo_tpu_torch.models.vae import build_vae
         from tempo_tpu_torch.ops import (_build, cuda_decode, cuda_gn,
@@ -3197,6 +3755,9 @@ def main() -> int:
         t0 = time.perf_counter()
         codec.reconstruct_raw(raw, sample_posterior=False)
         t_granule = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        normalize_radiance(raw)  # the host normalize the codec replaced
+        t_numpy_normalize = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats()
         t_granule_fwd = time_ms(granule_forward, iters=3, warmup=0)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3204,7 +3765,9 @@ def main() -> int:
               f"({8e3 / t_enc:.1f} patches/s), encode+decode "
               f"{t_encdec:.2f} ms ({8e3 / t_encdec:.1f} patches/s)", flush=True)
         print(f"[main] granule [131,2048,1028]: reconstruct_raw "
-              f"{t_granule * 1e3:.1f} ms host wall (incl. host normalize); "
+              f"{t_granule * 1e3:.1f} ms host wall (incl. the copy to the "
+              f"card and its normalize there; numpy's normalize of the "
+              f"same array {t_numpy_normalize * 1e3:.1f} ms); "
               f"reconstruct of the normalized crop {t_granule_fwd:.1f} ms "
               f"device (incl. copies); peak device memory {peak_gb:.1f} GB",
               flush=True)
@@ -3270,14 +3833,21 @@ def main() -> int:
     # ---------------------------------------------- the VAE training path
     t_phase = time.perf_counter()
     keep = tempfile.TemporaryDirectory()
+    live = {}  # the trained weights of 5b and 6c, for phase 7's loader
     try:
-        vae_train = vae_train_path(dev, rows, Path(keep.name))
+        vae_train = vae_train_path(dev, rows, Path(keep.name), live)
         seconds["vae_train"] = time.perf_counter() - t_phase
 
         # ---------------------------------- the L2-supervised training path
         t_phase = time.perf_counter()
-        vae_l2 = vae_l2_path(dev, rows, Path(keep.name) / "vae.pt")
+        vae_l2 = vae_l2_path(dev, rows, Path(keep.name) / "vae.pt",
+                             Path(keep.name), live)
         seconds["vae_l2"] = time.perf_counter() - t_phase
+
+        # ------------------------------------ 7. the VAE analysis path
+        t_phase = time.perf_counter()
+        analysis = analysis_path(dev, rows, Path(keep.name), live)
+        seconds["analysis"] = time.perf_counter() - t_phase
     finally:
         keep.cleanup()
     print(f"[time] phases, s: {json.dumps(seconds)}", flush=True)
@@ -3291,7 +3861,9 @@ def main() -> int:
         "granule_reconstruct_ms": t_granule_fwd, "peak_device_gb": peak_gb,
         "recon_rel_l2_bf16": err_bf16, "recon_rel_l2_granule": err_granule,
         "recon_rel_l2_f32": err_f32, "lm": lm, "train": train,
-        "vae_train": vae_train, "vae_l2": vae_l2, "seconds": seconds}}))
+        "vae_train": vae_train, "vae_l2": vae_l2, "analysis": analysis,
+        "granule_numpy_normalize_s": t_numpy_normalize,
+        "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

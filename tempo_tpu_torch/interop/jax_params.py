@@ -15,13 +15,14 @@ its own copy of the layout conversions, inverted:
 
 ``l2_state_dict_from_jax`` does it for the L2-supervised VAE (the inverse
 of ``l2_params_from_torch_state_dict``), ``gpt_state_dict_from_jax`` does the same for the GPT (the inverse of
-tempo_tpu/interop/gpt_ckpt.py). The tree comes as nested dicts of numpy arrays (``{"params": ...}`` or the
+tempo_tpu/interop/gpt_ckpt.py), ``probe_state_dict_from_jax`` for the
+probes of tempo_tpu/analysis/probes.py. The tree comes as nested dicts of numpy arrays (``{"params": ...}`` or the
 bare tree).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -185,5 +186,18 @@ def gpt_state_dict_from_jax(params: Mapping[str, Any],
         norm("transformer.ln_f", tree["ln_f"])
     if not config.tie_emb:
         out["lm_head.weight"] = np.transpose(tree["lm_head"]["kernel"], (1, 0))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in out.items()}
+
+
+def probe_state_dict_from_jax(params: Sequence[Mapping[str, Any]]
+                              ) -> Dict[str, torch.Tensor]:
+    """A JAX probe's [{kernel [in, out], bias [out]}] -> the state_dict of
+    the port's analysis/probes.py ``Probe`` (``layers.{i}`` nn.Linear
+    weights [out, in])."""
+    out: Dict[str, np.ndarray] = {}
+    for i, layer in enumerate(params):
+        out[f"layers.{i}.weight"] = np.transpose(layer["kernel"], (1, 0))
+        out[f"layers.{i}.bias"] = layer["bias"]
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in out.items()}

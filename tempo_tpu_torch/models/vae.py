@@ -78,6 +78,12 @@ class VAEConfig:
         return self.shape[1]
 
     @property
+    def spatial_factor(self) -> int:
+        """The encoder's downsampling: the latent grid is the input's over
+        this factor."""
+        return 2 ** (len(self.chs) - 1)
+
+    @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 

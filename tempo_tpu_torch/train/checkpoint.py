@@ -6,7 +6,9 @@ Checkpoints are <output_dir>/checkpoints/ckpt_step=NNNNNN.pt (the same
 used here) holding the step, the model's and the optimizer's state dicts,
 the generator's state, the EMA and the metric histories, written through a
 temporary file and an atomic rename so a preempted save never leaves a
-torn checkpoint. The sharded and asynchronous formats are not ported.
+torn checkpoint. ``load_params`` restores only the model's parameters,
+for inference and analysis. The sharded and asynchronous formats are not
+ported.
 """
 
 from __future__ import annotations
@@ -71,8 +73,42 @@ def load_checkpoint(path: Union[str, Path], state: TrainState
             json.loads(raw["val_metrics"]))
 
 
+def load_params(path: Union[str, Path], model: torch.nn.Module
+                ) -> torch.nn.Module:
+    """Load only the model's parameters from ``path`` into ``model`` (in
+    place, strict) and return it; counterpart of
+    tempo_tpu/train/checkpoint.py ``load_params``.
+
+    Takes the port's checkpoints (``model`` of save_checkpoint's payload,
+    from train_vae or train_vae_l2) and reference torch checkpoints (a bare
+    state dict, or the trainer schema's ``model_state_dict``): the port's
+    parameter names are the reference's. A model without an L2 head takes
+    the ``vae.*`` half of an L2-supervised checkpoint."""
+    path = Path(path)
+    if path.is_dir():
+        raise NotImplementedError(
+            f"{path}: sharded checkpoint directories wait for the sharded "
+            f"checkpoint format (ROADMAP Queue 1, M13), which is not ported")
+    if path.suffix == ".msgpack":
+        raise NotImplementedError(
+            f"{path}: the JAX package's .msgpack checkpoints need the "
+            f"checkpoint bridge (ROADMAP Queue 1, M11), which is not ported; "
+            f"give a .pt checkpoint")
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in raw and isinstance(raw["model"], dict):
+        raw = raw["model"]
+    state_dict = raw.get("model_state_dict", raw)
+    if not any(k.startswith("vae.") for k in model.state_dict()):
+        nested = {k[4:]: v for k, v in state_dict.items()
+                  if k.startswith("vae.")}
+        state_dict = nested or state_dict
+    model.load_state_dict(state_dict)
+    return model
+
+
 def list_checkpoints(ckpt_dir: Union[str, Path]) -> List[Path]:
-    """Every checkpoint in a directory, sorted by step."""
+    """Every checkpoint in a directory (the port's and reference ``.pt``
+    files alike), sorted by step."""
     return sorted(Path(ckpt_dir).glob(f"{CKPT_PREFIX}*{CKPT_SUFFIX}"),
                   key=checkpoint_step)
 

@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from tempo_tpu_torch.train import png
+from tempo_tpu_torch.utils.figures import pyplot
 
 LOG_SCALE_FROM = 100  # steps >= this switch the summary curves to log-log
 
@@ -39,25 +40,12 @@ def _history_view(history: List[Dict], key: str, log_scale: bool):
     return [p[0] for p in pairs], [p[1] for p in pairs]
 
 
-def _pyplot():
-    """matplotlib.pyplot on the Agg backend; None where matplotlib is
-    absent."""
-    try:
-        import matplotlib
-    except ImportError:
-        return None
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    return plt
-
-
 def update_summary_plots(summary_dir: Union[str, Path],
                          train_history: List[Dict],
                          val_history: List[Dict]) -> None:
     if len(train_history) < 2:
         return
-    plt = _pyplot()
+    plt = pyplot()
     summary_dir = Path(summary_dir)
     summary_dir.mkdir(parents=True, exist_ok=True)
     log_scale = sum(m["step"] >= LOG_SCALE_FROM for m in train_history) >= 2
@@ -105,7 +93,7 @@ def plot_per_product_losses(summary_dir: Union[str, Path],
     if not any(steps for steps, _ in series.values()):
         return
     Path(summary_dir).mkdir(parents=True, exist_ok=True)
-    plt = _pyplot()
+    plt = pyplot()
     if plt is None:
         png.write_png(Path(summary_dir) / "l2_losses.png",
                       png.curves(series, log_scale))
@@ -163,7 +151,7 @@ def save_reconstruction_figure(figures_dir: Union[str, Path], step: int,
     per_sample_mse = np.mean((batch_hwc - recon_hwc) ** 2, axis=(1, 2, 3))
     mid_y, mid_x = batch_hwc.shape[1] // 2, batch_hwc.shape[2] // 2
     path = Path(figures_dir) / f"reconstructions_step_{step:06d}.png"
-    plt = _pyplot()
+    plt = pyplot()
     if plt is None:
         return png.write_png(path, png.grid([_png_row(
             batch_hwc[i], recon_hwc[i], rgb_channels, (mid_y, mid_x),

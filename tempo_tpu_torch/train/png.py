@@ -1,8 +1,8 @@
 """Plain PNG figures from numpy, for where matplotlib is absent (the
-GPU machine has none): curves drawn as polylines on a white canvas, and
-grids of image panels. No labels or text; train/plots.py uses them only
-when ``import matplotlib`` fails, so that a training run writes every
-artifact on such a host."""
+GPU machine has none): curves drawn as polylines on a white canvas, bars,
+and grids of image panels. No labels or text; train/plots.py and
+utils/figures.py use them only when ``import matplotlib`` fails, so that a
+training or analysis run writes every artifact on such a host."""
 
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ VIRIDIS = np.array([[68, 1, 84], [59, 82, 139], [33, 145, 140],
 CURVE_SIZE = (360, 600)   # (height, width) of a curve panel
 PANEL = 128               # side of an image panel
 GUTTER = 4
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def write_png(path: Union[str, Path], rgb: np.ndarray) -> Path:
@@ -36,7 +37,7 @@ def write_png(path: Union[str, Path], rgb: np.ndarray) -> Path:
 
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+    path.write_bytes(PNG_SIGNATURE
                      + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0,
                                                   0, 0))
                      + chunk(b"IDAT", zlib.compress(raw, 6))
@@ -81,6 +82,33 @@ def curves(series: Dict[str, Tuple[Sequence[float], Sequence[float]]],
         for dy in (0, 1):
             img[np.clip(cy + dy, 0, h - 1), np.clip(cx, 0, w - 1)] = \
                 COLORS[k % len(COLORS)]
+    return img
+
+
+def bars(values: Sequence[float],
+         size: Tuple[int, int] = CURVE_SIZE) -> np.ndarray:
+    """[H, W, 3] uint8: one column a value, from the lower of 0 and the
+    least value up to each value (non-finite values draw nothing)."""
+    h, w = size
+    img = np.full((h, w, 3), 255, dtype=np.uint8)
+    img[[0, -1], :] = 0  # frame
+    img[:, [0, -1]] = 0
+    v = np.asarray(values, np.float64)
+    finite = v[np.isfinite(v)]
+    if finite.size == 0:
+        return img
+    lo, hi = min(finite.min(), 0.0), max(finite.max(), 0.0)
+    span = max(hi - lo, 1e-12)
+    step = (w - 8) / len(v)
+    y0 = h - 5 - int(round((0.0 - lo) / span * (h - 9)))
+    for i, x in enumerate(v):
+        if not np.isfinite(x):
+            continue
+        y1 = h - 5 - int(round((x - lo) / span * (h - 9)))
+        a, b = sorted((y0, y1))
+        left = 4 + int(i * step + 0.1 * step)
+        right = max(left + 1, 4 + int((i + 1) * step - 0.1 * step))
+        img[a:b + 1, left:right] = COLORS[0]
     return img
 
 

@@ -7,7 +7,8 @@ output directory for reproducibility.
 
 Copy of tempo_tpu/utils/config.py for the port; ``yaml`` is imported inside
 the functions that read or write YAML, so the package imports where PyYAML
-is absent.
+is absent. There ``load_config`` reads JSON, which is YAML too (the port
+writes the configs and infos of its runs as JSON).
 """
 
 from __future__ import annotations
@@ -24,10 +25,13 @@ def load_config(config_path: Union[str, Path]) -> Dict[str, Any]:
     config_path = Path(config_path)
     if not config_path.exists():
         raise ValueError(f"FATAL: config file doesn't exist: {config_path}")
-    import yaml
-
-    with open(config_path, "r") as f:
-        config = yaml.safe_load(f)
+    text = config_path.read_text()
+    try:
+        import yaml
+    except ImportError:
+        config = json.loads(text)
+    else:
+        config = yaml.safe_load(text)
     if not isinstance(config, dict):
         raise ValueError(f"FATAL: config must be a mapping: {config_path}")
     return _expand_env(config)

@@ -1,6 +1,6 @@
 """Guards of the PyTorch/CUDA port: it imports nothing of JAX or of the JAX
-package (nor yaml, matplotlib or msgpack, which the card's machine lacks)
-at load, its entry points default to CUDA and raise without it, and its
+package (nor yaml, matplotlib, msgpack, h5py or netCDF4, which the card's
+machine lacks) at load, its entry points default to CUDA and raise without it, and its
 CUDA wrappers refuse what the kernels do not take."""
 
 import json
@@ -29,7 +29,7 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     """Importing every module of the port loads neither jax, flax, optax,
-    yaml, matplotlib, msgpack nor any tempo_tpu module."""
+    yaml, matplotlib, msgpack, h5py, netCDF4 nor any tempo_tpu module."""
     mods = _port_modules()
     for name in ("ops.cuda_gn_conv", "infer.paged", "ops.flash_attention",
                  "train.trainer", "train.checkpoint", "train.plots",
@@ -38,7 +38,13 @@ def test_port_imports_no_jax():
                  "data.synthetic", "cli.train_vae", "infer.graphs",
                  "infer.serving", "infer.export_lm", "ops.launches",
                  "cli.export_lm", "cli.serve_lm", "data.device_buffer",
-                 "models.vae_l2", "cli.train_vae_l2", "train.png"):
+                 "models.vae_l2", "cli.train_vae_l2", "train.png",
+                 "data.granule", "data.normalize", "infer.granule_codec",
+                 "analysis.spectrum", "infer.sweep", "utils.figures",
+                 "cli.evaluate_reconstruction", "analysis.pca",
+                 "cli.extract_pca", "cli.encode_granules",
+                 "cli.analyze_reconstruction", "analysis.probes",
+                 "cli.probe_analysis"):
         assert f"tempo_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -47,12 +53,31 @@ def test_port_imports_no_jax():
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tempo_tpu', 'yaml', "
-        "'matplotlib', 'msgpack'))\n"
+        "'matplotlib', 'msgpack', 'h5py', 'netCDF4'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_chip_smoke_imports_nothing_the_card_lacks():
+    """Every import statement of chip_smoke.py, those inside its functions
+    included, names none of the packages the card's machine lacks."""
+    import ast
+    from pathlib import Path
+
+    tree = ast.parse((Path(__file__).parents[1] / "chip_smoke.py")
+                     .read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert "tempo_tpu_torch" in names
+    assert not names & {"jax", "jaxlib", "flax", "optax", "tempo_tpu", "yaml",
+                        "matplotlib", "msgpack", "h5py", "netCDF4"}
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
@@ -189,3 +214,40 @@ def test_l2_training_entry_points_default_to_cuda_and_raise_without_it(
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(str(tmp_path / "cfg.yaml"))
     assert not (tmp_path / "run").exists()
+
+
+def test_analysis_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    """The analysis path: its library entry points and every analysis
+    CLI's ``run`` raise before they write anything."""
+    import numpy as np
+
+    from tempo_tpu_torch.analysis.probes import init_probe_params, train_probe
+    from tempo_tpu_torch.analysis.spectrum import pk_op
+    from tempo_tpu_torch.cli import (analyze_reconstruction, encode_granules,
+                                     evaluate_reconstruction, extract_pca,
+                                     probe_analysis)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pk_op(16, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_probe_params(4, ())
+    x = np.zeros((8, 4), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_probe(x, x[:, 0], x, x[:, 0], {"max_epochs": 1})
+    out = tmp_path / "out"
+    for cli, cfg in (
+            (evaluate_reconstruction, {"exp_dir": str(tmp_path),
+                                       "output_dir": "eval"}),
+            (extract_pca, {"output_dir": str(out), "input_dir": "x",
+                           "normalization": {}, "sampling": {}, "pca": {}}),
+            (encode_granules, {"output_dir": str(out), "model": {},
+                               "nc_files": ["x.nc"]}),
+            (analyze_reconstruction, {"output_dir": str(out), "data": {},
+                                      "model": {}}),
+            (probe_analysis, {"output_dir": str(out), "data": {},
+                              "model": {}, "probe": {}, "components": {}})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.run(cfg)
+        assert not out.exists() and not (tmp_path / "eval").exists()
