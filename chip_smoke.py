@@ -156,6 +156,22 @@ Phases, each fatal on failure:
       first epoch's, every R^2 finite;
   and K1a/K1b/K2 against their plain versions at every shape of 7a, 7c and
   7e.
+  then the export and data-preparation path:
+  8a. infer/export_codec.py's export_codec of the flagship codec with 5b's
+      weights (bf16, tile 64x64, 1028 channels), on the card and on the
+      CPU, each loaded with load_exported (device None) in a fresh process
+      that imports no model code for it; encode and decode at batches 1,
+      8 and 16 within rel L2 1e-3 of the eager model (bitwise printed);
+      one exported encode+decode at batch 8 launches K1a/K1b/K2 as often
+      as the eager one; export and load s, artifact bytes, encode and
+      encode+decode ms at batch 8 by CUDA events and host wall beside the
+      eager model's;
+  8b. on 7c's granule [131, 2048, 1028] and its four products with fill
+      values: compute_stats' float64 statistics on the card within rel
+      1e-6 of numpy's; prepare_tiles' tile_granule on the card against its
+      numpy path with one seeded Generator at prepare_tiles_with_l2.yaml's
+      values (64 tiles of 64x64): tiles within 1e-4, L2 tiles bitwise, and
+      the draws' positions and flags identical; each timed against numpy.
 Prints the card's name and power limit first, each phase's seconds, each
 redesigned kernel's time against its time before the redesign
 (KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
@@ -347,6 +363,38 @@ ANALYSIS_PROBE = {
     "visualization": {"n_examples": 100},
 }
 ANALYSIS_PROBE_GRANULES, ANALYSIS_PROBE_SHAPE = 4, (128, 512, 1028)
+# The export and data-preparation path (phase 8). 8a exports the flagship
+# codec with 5b's weights on the card and on the CPU, loads each in a fresh
+# process and runs it at EXPORT_BATCHES against the eager model: the same
+# ops on the same inputs, so bitwise is expected; EXPORT_REL_L2 leaves room
+# for a cuDNN algorithm picked anew in another process.
+EXPORT_BATCHES = (1, 8, 16)
+EXPORT_REL_L2 = 1e-3
+EXPORT_ROUNDS = 3
+# 8a also exports a tiny codec (tests/test_torch_export_codec.py's config,
+# in bf16) on the card and loads it on the CPU: the CPU kernels are the
+# plain versions the CPU's eager model runs, so within EXPORT_CPU_ATOL of it.
+EXPORT_TINY = dict(shape=[8, 16, 16], chs=[12, 8, 8], z_channels=4,
+                   embed_dim=4, n_attention_heads=2, norm_groups=4,
+                   compute_dtype="bfloat16")
+EXPORT_TINY_TILE, EXPORT_TINY_BATCHES, EXPORT_CPU_ATOL = 16, (2, 5), 1e-6
+# 8b: configs/data_preparation/prepare_tiles_with_l2.yaml's values, on 7c's
+# granule [131, 2048, 1028] and its four products with 5% fill values. The
+# device statistics within PREP_STATS_REL of numpy's float64 (the log in
+# fp32 on each side); the device tiles within ANALYSIS_NORM_ATOL of
+# numpy's (the device normalize's tolerance, 7c); positions, flags and L2
+# tiles exact.
+PREP_TILES = {
+    "processing": {"band": "band_290_490_nm", "tile_size": [64, 64],
+                   "tiles_per_file": 64, "n_spectral": 1028,
+                   "min_radiance": 1.0, "clip_min": -10, "clip_max": 10},
+    "l2": {"components": ["NO2", "O3TOT", "HCHO", "CLDO4"],
+           "scales": {"NO2": 1.0e15, "O3TOT": 1.0, "HCHO": 1.0e16,
+                      "CLDO4": 1.0},
+           "norm_types": {"NO2": "asinh", "O3TOT": "zscore",
+                          "HCHO": "asinh", "CLDO4": "logit"}},
+}
+PREP_STATS_REL = 1e-6
 # The head's GroupNorm shape on the L2 path, held in phase 2 (batch 64 of
 # 16x16 latents, 512 channels, bf16, eps 1e-5).
 K1_HEAD = ((64, 16, 16, 512), 1e-5)
@@ -2951,9 +2999,10 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     # -------------------- (c) a granule through encode_granules, normalize
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    rad, _ = structured_granule(np.random.default_rng(SEED),
-                                *ANALYSIS_GRANULE)
+    rad, fields = structured_granule(np.random.default_rng(SEED),
+                                     *ANALYSIS_GRANULE)
     make_s = time.perf_counter() - t0
+    live["granule"] = (rad, fields)  # phase 8b prepares it
 
     def f64_normalize(raw64, spectra):
         """The normalize in float64 on the card; the granule's own
@@ -3190,6 +3239,356 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
                                         "rel_vs_eigh": pca_rel},
             "probes": probes, "kernels_held": len(held),
             "seconds": seconds}
+
+
+def host_ms(fn, iters: int = 5, warmup: int = 1) -> float:
+    """Median host wall of one call, ms, the card synchronised on both
+    sides (the time a caller waits, dispatch included)."""
+    for _ in range(warmup):
+        fn()
+    walls = []
+    for _ in range(iters):
+        walls.append(timed(fn)[1] * 1e3)
+    return statistics.median(walls)
+
+
+def launches_of(fn) -> dict:
+    """K1a/K1b/K2 launches of one call of ``fn``."""
+    import torch
+
+    from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
+
+    counters = {"K1a": (cuda_gn.LAUNCHES, "gn_stats"),
+                "K1b": (cuda_gn.LAUNCHES, "gn_apply"),
+                "K2": (cuda_gn_conv.LAUNCHES, "gn_act_conv3x3")}
+    torch.cuda.synchronize()
+    for table, key in counters.values():
+        table[key] = 0
+    fn()
+    torch.cuda.synchronize()
+    return {k: table[key] for k, (table, key) in counters.items()}
+
+
+def exported_child(spec_path: str) -> None:
+    """Phase 8a's fresh process: load each artifact directory with
+    load_exported (device None), note whether model code was imported, run
+    encode at EXPORT_BATCHES; then build the eager model from the
+    checkpoint and hold each artifact's encode and decode against it at
+    every batch (the decode of the eager latent), count one encode+decode's
+    launches at batch 8 and time it and the encode (CUDA events and host
+    wall) beside the eager model's (under inference_mode, as the loaded
+    functions run), in EXPORT_ROUNDS rotated rounds. Writes the result as
+    JSON to the spec's ``out``."""
+    import torch
+
+    from tempo_tpu_torch.infer.export_codec import load_exported
+
+    spec = json.loads(Path(spec_path).read_text())
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    xs = {b: randn(gen, b, *spec["tile"]) for b in EXPORT_BATCHES}
+    loaded, z_exp, result = {}, {}, {}
+    for name, path in spec["artifacts"].items():
+        (enc, dec, _), load_s = timed(lambda: load_exported(path))
+        loaded[name] = (enc, dec)
+        z_exp[name] = {b: enc(xs[b]) for b in EXPORT_BATCHES}
+        result[name] = {"load_s": load_s}
+    result["model_code_imported"] = sorted(
+        m for m in sys.modules
+        if m.startswith(("tempo_tpu_torch.models", "tempo_tpu_torch.nn"))
+        or m.split(".")[0] in ("jax", "jaxlib", "flax", "tempo_tpu"))
+
+    from tempo_tpu_torch.models.vae import build_vae
+    from tempo_tpu_torch.train.checkpoint import load_params
+
+    model, _ = build_vae(spec["model"], device=dev, seed=SEED + 12)
+    load_params(spec["checkpoint"], model)
+    model.eval()
+
+    @torch.inference_mode()
+    def eager_encode(x):
+        return model.encode(x).mean
+
+    @torch.inference_mode()
+    def eager_decode(z):
+        return model.decode(z)
+
+    z_eager = {b: eager_encode(xs[b]) for b in EXPORT_BATCHES}
+    r_eager = {b: eager_decode(z_eager[b]) for b in EXPORT_BATCHES}
+    fns = dict(loaded, eager=(eager_encode, eager_decode))
+    result["eager"] = {}
+    for name, (enc, dec) in loaded.items():
+        per_batch = {}
+        for b in EXPORT_BATCHES:
+            rec = dec(z_eager[b])
+            per_batch[b] = {
+                "encode_rel_l2": rel_l2(z_exp[name][b], z_eager[b]),
+                "decode_rel_l2": rel_l2(rec, r_eager[b]),
+                "bitwise": bitwise((z_exp[name][b], rec),
+                                   (z_eager[b], r_eager[b]))}
+        result[name]["batches"] = per_batch
+    # the times: EXPORT_ROUNDS rounds, each timing every program in a
+    # rotated order (host-clock numbers drift within a process)
+    names = list(fns)
+    times = {name: {} for name in names}
+    for r in range(EXPORT_ROUNDS):
+        for name in names[r % len(names):] + names[:r % len(names)]:
+            enc, dec = fns[name]
+            for key, fn in (("encode", lambda: enc(xs[8])),
+                            ("encode_decode", lambda: dec(enc(xs[8])))):
+                times[name].setdefault(f"{key}_ms_b8", []).append(
+                    time_ms(fn, iters=10, warmup=2))
+                times[name].setdefault(f"{key}_host_ms_b8", []).append(
+                    host_ms(fn, iters=10))
+    for name, (enc, dec) in fns.items():
+        result[name]["launches_b8"] = launches_of(lambda: dec(enc(xs[8])))
+        for key, runs in times[name].items():
+            result[name][key] = statistics.median(runs)
+            result[name][f"{key}_rounds"] = runs
+    Path(spec["out"]).write_text(json.dumps(result))
+
+
+def exported_on_card_run_on_cpu(dev, keep: Path) -> dict:
+    """8a's other direction: a tiny codec (EXPORT_TINY) exported on the
+    card, loaded with load_exported(device="cpu") and held against the
+    CPU's eager model of the same weights at EXPORT_TINY_BATCHES, within
+    EXPORT_CPU_ATOL (max abs)."""
+    import torch
+
+    from tempo_tpu_torch.infer.export_codec import export_codec, load_exported
+    from tempo_tpu_torch.models.vae import build_vae
+
+    card_model, cfg = build_vae(EXPORT_TINY, device=dev, seed=SEED + 14)
+    nudge_zero_init(card_model,
+                    torch.Generator(device=dev).manual_seed(SEED + 14))
+    cpu_model, _ = build_vae(EXPORT_TINY, device="cpu", seed=SEED + 14)
+    cpu_model.load_state_dict(card_model.state_dict())
+    path = export_codec(card_model.eval(), keep / "codec_tiny_cuda",
+                        tile_hw=(EXPORT_TINY_TILE, EXPORT_TINY_TILE))
+    encode, decode, _ = load_exported(path, device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 15)
+    out = {}
+    for b in EXPORT_TINY_BATCHES:
+        x = torch.randn((b, EXPORT_TINY_TILE, EXPORT_TINY_TILE,
+                         cfg.in_channels), generator=gen)
+        with torch.inference_mode():
+            z_want = cpu_model.eval().encode(x).mean
+            rec_want = cpu_model.decode(z_want)
+        z, rec = encode(x), decode(z_want)
+        out[b] = {"device": str(z.device),
+                  "encode_max_abs": float((z - z_want).abs().max()),
+                  "decode_max_abs": float((rec.float()
+                                           - rec_want.float()).abs().max()),
+                  "bitwise": bitwise((z, rec), (z_want, rec_want))}
+    return out
+
+
+def export_path(dev, rows: dict, keep: Path, ckpt: Path) -> dict:
+    """Phase 8a: the flagship codec with ``ckpt``'s weights (5b's) exported
+    by infer/export_codec.py on the card and on the CPU, each loaded and
+    run in a fresh process (exported_child); the gates: no model code
+    imported by the loads, every output within EXPORT_REL_L2 of the eager
+    model at every batch, and one exported encode+decode at batch 8
+    launching K1a/K1b/K2 as often as the eager one, and not zero times.
+    K1a/K1b/K2 are held against their plain versions at every shape the
+    eager codec gives them at EXPORT_BATCHES (the exported programs run
+    the same ops at the same shapes), and a codec exported on the card
+    runs on the CPU (exported_on_card_run_on_cpu). The launches go into
+    the kernels' rows."""
+    import torch
+
+    from tempo_tpu_torch.infer.export_codec import export_codec
+    from tempo_tpu_torch.models.vae import build_vae
+    from tempo_tpu_torch.train.checkpoint import load_params
+
+    card = smi_line()
+    out = {"card": card}
+    artifacts = {}
+    for where in ("cuda", "cpu"):
+        model, cfg = build_vae(VAE_MODEL, device=where, seed=SEED + 12)
+        load_params(ckpt, model)
+        model.eval()
+        if where == "cuda":
+            # the kernels at the shapes of 8a's batches, against plain
+            calls = {"K1a": [], "K1b": [], "K2": []}
+            gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+            with torch.inference_mode(), recording(calls, "export"):
+                for b in EXPORT_BATCHES:
+                    x = randn(gen, b, cfg.input_size, cfg.input_size,
+                              cfg.in_channels)
+                    model.decode(model.encode(x).mean)
+            held = hold_kernels(dev, gen, calls)
+            for r in held:
+                print(f"[kernels] 8a {json.dumps(r)}", flush=True)
+            if not held or not all(r["ok"] for r in held):
+                fail("a kernel disagrees with its plain version at a shape "
+                     "of the export path")
+            for name in ("K1a", "K1b", "K2"):
+                rows[name]["max_abs_err"] = max(
+                    [rows[name]["max_abs_err"]]
+                    + [r["max_abs_err"] for r in held if r["kernel"] == name])
+            out["kernels_held"] = len(held)
+        path = keep / f"codec_{where}"
+        _, export_s = timed(lambda: export_codec(
+            model, path, tile_hw=(cfg.input_size, cfg.input_size)))
+        artifacts[f"exported_on_{where}"] = str(path)
+        out[f"exported_on_{where}"] = {
+            "export_s": export_s,
+            "bytes": {p.name: p.stat().st_size for p in path.iterdir()}}
+        del model
+    spec = {"artifacts": artifacts, "checkpoint": str(ckpt),
+            "model": VAE_MODEL, "seed": SEED + 13, "out": str(keep /
+                                                             "child.json"),
+            "tile": [cfg.input_size, cfg.input_size, cfg.in_channels]}
+    (keep / "child_spec.json").write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.exported_child(sys.argv[1])",
+         str(keep / "child_spec.json")],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    out["child_s"] = time.perf_counter() - t0
+    if child.returncode:
+        fail(f"the exported codec's process failed:\n{child.stdout[-4000:]}"
+             f"\n{child.stderr[-8000:]}")
+    res = json.loads((keep / "child.json").read_text())
+    for name in artifacts:
+        out[name].update(res[name])
+    out["eager"] = res["eager"]
+    out["model_code_imported"] = res["model_code_imported"]
+    print(f"[export] 8a the flagship codec (5b's weights, bf16, tile 64x64, "
+          f"1028 channels) exported on the card and on the CPU, loaded with "
+          f"device None in a fresh process: {json.dumps(out)} (gates: rel "
+          f"L2 {EXPORT_REL_L2}, launches equal the eager model's, no model "
+          f"code imported by the loads) on {card}", flush=True)
+    eager_n = res["eager"]["launches_b8"]
+    on_cpu = exported_on_card_run_on_cpu(dev, keep)
+    out["exported_on_cuda_run_on_cpu"] = on_cpu
+    print(f"[export] 8a a tiny codec ({json.dumps(EXPORT_TINY)}, tile "
+          f"{EXPORT_TINY_TILE}) exported on the card, loaded on the CPU, "
+          f"against the CPU's eager model: {json.dumps(on_cpu)} (gate: max "
+          f"abs {EXPORT_CPU_ATOL})", flush=True)
+    for b, r in on_cpu.items():
+        if not (r["device"] == "cpu" and r["encode_max_abs"]
+                <= EXPORT_CPU_ATOL and r["decode_max_abs"] <= EXPORT_CPU_ATOL):
+            fail(f"the codec exported on the card and loaded on the CPU "
+                 f"disagrees with the CPU's eager model at batch {b}: {r}")
+    if res["model_code_imported"]:
+        fail(f"loading the artifacts imported {res['model_code_imported']}")
+    for name in artifacts:
+        r = res[name]
+        worst = max(max(v["encode_rel_l2"], v["decode_rel_l2"])
+                    for v in r["batches"].values())
+        if not worst <= EXPORT_REL_L2:
+            fail(f"{name}: the exported codec is {worst} from the eager "
+                 f"model (rel L2)")
+        if r["launches_b8"] != eager_n or not all(eager_n.values()):
+            fail(f"{name}: launches {r['launches_b8']}, eager {eager_n}")
+    for k in eager_n:
+        rows[k]["export_launches"] = {
+            "exported_encode_decode_b8": res["exported_on_cuda"][
+                "launches_b8"][k],
+            "exported_on_cpu_encode_decode_b8": res["exported_on_cpu"][
+                "launches_b8"][k]}
+    return out
+
+
+def data_prep_path(dev, rad, fields) -> dict:
+    """Phase 8b on a granule [131, 2048, 1028] and its products: (i)
+    cli/compute_stats.py's per-granule float64 statistics on the card
+    against numpy's (count, sum, sumsq), written out here as the JAX CLI
+    computes them; (ii) cli/prepare_tiles.py's per-granule work
+    (``tile_granule``, what ``process_granule`` runs after reading the
+    files) on a device tensor against its numpy path with the same seeded
+    Generator, at PREP_TILES; (iii) the tile draws of both paths: positions
+    and flags identical, tiles bitwise from the same normalized granule."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.cli.compute_stats import log_radiance_sums, spectra
+    from tempo_tpu_torch.cli.prepare_tiles import tile_granule
+    from tempo_tpu_torch.data.normalize import normalize_l2, normalize_radiance
+    from tempo_tpu_torch.data.synthetic import with_fill_values
+    from tempo_tpu_torch.data.tiles import extract_tiles_with_positions
+
+    card = smi_line()
+    params = PREP_TILES["processing"]
+    l2 = PREP_TILES["l2"]
+    out = {"card": card, "granule": list(rad.shape)}
+
+    # (i) the statistics
+    (n, s, sq), dev_s = timed(lambda: log_radiance_sums(
+        torch.from_numpy(rad).to(dev), params["min_radiance"]))
+    t0 = time.perf_counter()
+    log_rad = np.log(np.clip(rad, params["min_radiance"], None)).astype(
+        np.float64)
+    flat = log_rad.reshape(-1, log_rad.shape[-1])
+    count = flat.shape[0]
+    total, total_sq = flat.sum(axis=0), (flat ** 2).sum(axis=0)
+    numpy_s = time.perf_counter() - t0
+    del log_rad, flat
+    mean, std = spectra(n, s.cpu().numpy(), sq.cpu().numpy())
+    mean_np, std_np = spectra(count, total, total_sq)
+    stats_rel = max(float(np.max(np.abs(mean - mean_np) / np.abs(mean_np))),
+                    float(np.max(np.abs(std - std_np) / np.abs(std_np))))
+    out["stats"] = {"device_s": dev_s, "numpy_s": numpy_s,
+                    "count_equal": n == count, "rel": stats_rel}
+
+    # (ii) tile_granule on the card against its numpy path
+    make = np.random.default_rng(SEED + 14)
+    l2_fields = {c: np.where(with_fill_values(make, fields[c], 0.05) < -1e29,
+                             np.nan, fields[c]) / np.float32(l2["scales"][c])
+                 for c in l2["components"]}
+    l2_stats = {c: normalize_l2(v[~np.isnan(v)], l2["norm_types"][c])[1]
+                for c, v in l2_fields.items()}
+    cfg = {"processing": params, "l2": l2}
+    res_dev, dev_s = timed(lambda: tile_granule(
+        torch.from_numpy(rad).to(dev), l2_fields, cfg, mean, std, l2_stats,
+        np.random.default_rng(SEED)))
+    t0 = time.perf_counter()
+    res_np = tile_granule(rad, l2_fields, cfg, mean, std, l2_stats,
+                          np.random.default_rng(SEED))
+    numpy_s = time.perf_counter() - t0
+    tiles_err = float(np.max(np.abs(res_dev["spectral"] -
+                                    res_np["spectral"])))
+    l2_same = {c: bool(np.array_equal(res_dev[f"l2_{c}"], res_np[f"l2_{c}"],
+                                      equal_nan=True))
+               for c in l2["components"]}
+    out["tiles"] = {"device_s": dev_s, "numpy_s": numpy_s,
+                    "shape": list(res_dev["spectral"].shape),
+                    "max_abs_vs_numpy": tiles_err, "l2_bitwise": l2_same}
+    del res_dev, res_np
+
+    # (iii) the draws, on one normalized granule
+    z = normalize_radiance(torch.from_numpy(rad).to(dev), mean, std,
+                           params["min_radiance"], params["clip_min"],
+                           params["clip_max"])
+    t_dev, pos_dev = extract_tiles_with_positions(
+        z, params["tile_size"], params["tiles_per_file"],
+        np.random.default_rng(SEED + 15))
+    t_np, pos_np = extract_tiles_with_positions(
+        z.cpu().numpy(), params["tile_size"], params["tiles_per_file"],
+        np.random.default_rng(SEED + 15))
+    same_pos = [p.to_dict() for p in pos_dev] == [p.to_dict() for p in pos_np]
+    same_tiles = bool(np.array_equal(t_dev.cpu().numpy(), t_np))
+    out["draws"] = {"positions_equal": same_pos, "tiles_bitwise": same_tiles,
+                    "rotations": sorted({p.rotation for p in pos_dev})}
+    del z, t_dev, t_np
+    print(f"[prep] 8b compute_stats' statistics and prepare_tiles' "
+          f"tile_granule on a granule {list(rad.shape)} with its "
+          f"{len(l2_fields)} products (prepare_tiles_with_l2.yaml's values: "
+          f"{params['tiles_per_file']} tiles of {params['tile_size']}), the "
+          f"card against numpy: {json.dumps(out)} (gates: statistics rel "
+          f"{PREP_STATS_REL}, tiles {ANALYSIS_NORM_ATOL} abs, L2 tiles, "
+          f"positions and flags exact) on {card}", flush=True)
+    if not (out["stats"]["count_equal"] and stats_rel <= PREP_STATS_REL):
+        fail(f"the device statistics are not numpy's: {out['stats']}")
+    if not (tiles_err <= ANALYSIS_NORM_ATOL and all(l2_same.values())):
+        fail(f"the device tiles are not numpy's: {out['tiles']}")
+    if not (same_pos and same_tiles):
+        fail(f"the device draws are not numpy's: {out['draws']}")
+    return out
 
 
 class Timed:
@@ -3848,6 +4247,15 @@ def main() -> int:
         t_phase = time.perf_counter()
         analysis = analysis_path(dev, rows, Path(keep.name), live)
         seconds["analysis"] = time.perf_counter() - t_phase
+
+        # ------------------ 8. the export and data-preparation path
+        t_phase = time.perf_counter()
+        export = export_path(dev, rows, Path(keep.name),
+                             Path(keep.name) / "vae.pt")
+        seconds["export"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        prep = data_prep_path(dev, *live.pop("granule"))
+        seconds["prep"] = time.perf_counter() - t_phase
     finally:
         keep.cleanup()
     print(f"[time] phases, s: {json.dumps(seconds)}", flush=True)
@@ -3862,6 +4270,7 @@ def main() -> int:
         "recon_rel_l2_bf16": err_bf16, "recon_rel_l2_granule": err_granule,
         "recon_rel_l2_f32": err_f32, "lm": lm, "train": train,
         "vae_train": vae_train, "vae_l2": vae_l2, "analysis": analysis,
+        "export": export, "prep": prep,
         "granule_numpy_normalize_s": t_numpy_normalize,
         "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,10 @@ copy).
 Per granule, ``n_tiles`` random (overlapping) tile positions; each tile
 gets an independent random horizontal flip, vertical flip and k*90-degree
 rotation; L2 product windows are cut at the SAME positions and pushed
-through the SAME augmentation.
+through the SAME augmentation. ``extract_tiles_with_positions`` also takes
+a tensor: it draws from the numpy Generator exactly as for an array and
+cuts, flips and rotates on the tensor's device (``prepare_tiles`` does so
+on the card); L2 windows stay host numpy.
 
 Shard format: .npy files (float32 or float16 [N, H, W, C], already NHWC,
 so the loader never permutes). The loader also accepts .pt shards for
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,10 +39,19 @@ class TilePosition:
                 "flip_v": self.flip_v, "rotation": self.rotation}
 
 
-def apply_augmentation(tile: np.ndarray, flip_h: bool, flip_v: bool,
-                       rotation: int) -> np.ndarray:
+def apply_augmentation(tile: Union[np.ndarray, torch.Tensor], flip_h: bool,
+                       flip_v: bool, rotation: int):
     """tile: [H, W, ...]; flips/rotations act on the two leading (spatial)
-    axes, matching torch.flip(dims=[0]/[1]) and torch.rot90(dims=[0,1])."""
+    axes, matching torch.flip(dims=[0]/[1]) and torch.rot90(dims=[0,1]),
+    which a tensor takes."""
+    if isinstance(tile, torch.Tensor):
+        if flip_h:
+            tile = torch.flip(tile, dims=(0,))
+        if flip_v:
+            tile = torch.flip(tile, dims=(1,))
+        if rotation > 0:
+            tile = torch.rot90(tile, rotation, dims=(0, 1))
+        return tile
     if flip_h:
         tile = np.flip(tile, axis=0)
     if flip_v:
@@ -50,13 +62,15 @@ def apply_augmentation(tile: np.ndarray, flip_h: bool, flip_v: bool,
 
 
 def extract_tiles_with_positions(
-    z_rad: np.ndarray,
+    z_rad: Union[np.ndarray, torch.Tensor],
     tile_size: Sequence[int],
     n_tiles: int,
     rng: Optional[np.random.Generator] = None,
-) -> Tuple[Optional[np.ndarray], Optional[List[TilePosition]]]:
+) -> Tuple[Optional[Union[np.ndarray, torch.Tensor]],
+           Optional[List[TilePosition]]]:
     """z_rad: [mirror, track, spectral]. Returns ([N, th, tw, C], positions)
-    or (None, None) when the granule is smaller than a tile."""
+    or (None, None) when the granule is smaller than a tile; the tiles are
+    a tensor on z_rad's device for a tensor."""
     rng = rng or np.random.default_rng()
     n_mirror, n_track = z_rad.shape[:2]
     tile_mirror, tile_track = tile_size
@@ -72,11 +86,14 @@ def extract_tiles_with_positions(
         flip_v = bool(rng.random() > 0.5)
         rotation = int(rng.integers(0, 4))
 
-        tile = z_rad[i:i + tile_mirror, j:j + tile_track].copy()
-        tile = apply_augmentation(tile, flip_h, flip_v, rotation)
-        tiles.append(np.ascontiguousarray(tile))
+        tile = apply_augmentation(
+            z_rad[i:i + tile_mirror, j:j + tile_track], flip_h, flip_v,
+            rotation)
+        tiles.append(tile)
         positions.append(TilePosition(i, j, flip_h, flip_v, rotation))
 
+    if isinstance(z_rad, torch.Tensor):
+        return torch.stack(tiles), positions
     return np.stack(tiles), positions
 
 

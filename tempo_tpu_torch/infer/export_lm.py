@@ -8,7 +8,9 @@ host) and ``meta.json`` (the JAX package's meta keys, the whole
 A deliberate difference: the JAX artifacts are StableHLO programs with the
 weights baked in, so a serving host needs no model code; the port's loaders
 rebuild the ``Transformer`` from ``meta.json`` and load the weights into it.
-``torch.export`` of the programs, custom kernels included, waits (ROADMAP).
+``torch.export`` of the programs waits for K3, K4 and K5 to be registered
+as ``torch.library`` ops, as K1 and K2 are for infer/export_codec.py
+(ROADMAP Queue 1, M12).
 
 The loaders (``load_exported_*``, ``zero_cache``, ``greedy_decode_exported``)
 keep the JAX contracts: the same calls, arguments and returns, with

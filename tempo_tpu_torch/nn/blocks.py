@@ -19,8 +19,9 @@ JAX modules cast to their ``dtype``.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 from torch import nn
@@ -34,7 +35,10 @@ _ACT_MODULES = {"gelu": nn.GELU, "relu": nn.ReLU, "silu": nn.SiLU}
 
 class Conv2d(nn.Conv2d):
     """kxk SAME conv over NHWC; weight OIHW. ``zero_init`` marks the
-    zero-initialized output convs. Caches its weight in K2's layout."""
+    zero-initialized output convs. Caches its weight in K2's layout; the
+    ``export_packed`` buffer holds that layout only inside
+    ``packed_for_export`` (None otherwise, and then not in the state
+    dict)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  zero_init: bool = False,
@@ -43,6 +47,7 @@ class Conv2d(nn.Conv2d):
         self.zero_init = zero_init
         self.compute_dtype = compute_dtype
         self._packed: Optional[tuple] = None
+        self.register_buffer("export_packed", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d_nhwc(x.to(self.compute_dtype), self.weight, self.bias,
@@ -112,14 +117,56 @@ class GroupNorm(nn.GroupNorm):
                               self.eps)
 
 
+def _convs_after_norm(model: nn.Module) -> Iterator[Conv2d]:
+    """The 3x3 convs that ``norm_act_conv`` reaches: the last module of
+    each Sequential led by a GroupNorm (a ResNetBlock's two halves) and
+    each ``conv_out`` behind a ``norm_out`` (the encoder's and decoder's)."""
+    for m in model.modules():
+        if isinstance(m, nn.Sequential) and isinstance(m[0], GroupNorm):
+            conv = m[-1]
+        elif isinstance(getattr(m, "norm_out", None), GroupNorm):
+            conv = m.conv_out
+        else:
+            continue
+        if isinstance(conv, Conv2d) and conv.kernel_size == (3, 3):
+            yield conv
+
+
+@contextlib.contextmanager
+def packed_for_export(model: nn.Module) -> Iterator[nn.Module]:
+    """Inside the block, every 3x3 ``Conv2d`` of ``model`` that a K2 call
+    reads holds its weight in K2's layout (in its compute type) in its
+    ``export_packed`` buffer, so a program traced there (torch.export)
+    keeps the packed weights as buffers, packed once, instead of packing
+    at every call."""
+    convs = list(_convs_after_norm(model))
+    for m in convs:
+        m.export_packed = cuda_gn_conv.pack_conv3x3_weight(m.weight,
+                                                           m.compute_dtype)
+    try:
+        yield model
+    finally:
+        for m in convs:
+            m.export_packed = None
+
+
 def norm_act_conv(norm: GroupNorm, act: str, conv: Conv2d,
                   x: torch.Tensor) -> torch.Tensor:
-    """conv(act(norm(x))): one K2 call for a 3x3 conv, else K1 then conv."""
+    """conv(act(norm(x))): one K2 call for a 3x3 conv, else K1 then conv.
+    The packed weight is the ``export_packed`` buffer where it is set,
+    else the module's cache for a CUDA tensor. A trace (torch.export,
+    torch.compile) reads pointers and version counts only as they were at
+    tracing, so it must run inside ``packed_for_export``."""
     x = x.to(conv.compute_dtype)
     if conv.kernel_size != (3, 3):
         return conv(group_norm_act(x, norm.num_groups, norm.weight,
                                    norm.bias, norm.eps, act_name=act))
-    packed = conv.packed_weight(x.dtype) if x.is_cuda else None
+    packed = conv.export_packed
+    if packed is None and torch.compiler.is_compiling():
+        raise RuntimeError("trace the model inside nn.blocks."
+                           "packed_for_export, which packs K2's weights once")
+    if packed is None and x.is_cuda:
+        packed = conv.packed_weight(x.dtype)
     return cuda_gn_conv.gn_act_conv3x3(
         x, norm.weight, norm.bias, conv.weight, conv.bias, norm.num_groups,
         norm.eps, act, packed=packed)

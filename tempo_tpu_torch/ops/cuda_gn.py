@@ -9,11 +9,16 @@ blocks from (HW, C, dtype) alone, each block writes its per-group partial
 sums, and the last block of a sample to arrive (a per-sample counter, kept
 per stream at zero between calls) folds them in block order.
 
-Each wrapper takes the plain PyTorch version beside it for a tensor on the
-CPU, and for a CUDA tensor launches its kernel or raises. Each counts its
-launches in ``LAUNCHES``. The raw launchers ``gn_stats`` and ``gn_apply``
-have no backward: with grad mode on and an input that requires grad, their
-CUDA path raises NotImplementedError. ``fused_group_norm_act`` builds a
+K1a and K1b are the ``torch.library`` ops ``tempo::gn_stats`` and
+``tempo::gn_apply``: their CPU kernel is the plain PyTorch version beside
+it, their CUDA kernel launches the hand-written kernel or raises, and
+their fake gives the output's shape and type from the inputs' alone, so
+``torch.export`` traces them with a symbolic batch. Everything that reads
+a concrete value (pointers, the stream, the split) stays inside the CUDA
+kernel. The wrappers ``gn_stats`` and ``gn_apply`` call the ops; the CUDA
+kernels count their launches in ``LAUNCHES``. The ops have no backward:
+with grad mode on and an input that requires grad, their kernels raise
+NotImplementedError on either device. ``fused_group_norm_act`` builds a
 graph through ``GroupNormActFn``, whose forward is K1a then K1b and whose
 backward recomputes the plain GroupNorm + act and takes its
 vector-Jacobian product (tempo_tpu/ops/pallas_gn.py ``_fwd``/``_bwd``).
@@ -21,6 +26,7 @@ vector-Jacobian product (tempo_tpu/ops/pallas_gn.py ``_fwd``/``_bwd``).
 
 from __future__ import annotations
 
+import sys
 from typing import Optional
 
 import torch
@@ -165,6 +171,14 @@ def stats_vectorized(c: int, dtype: torch.dtype, ptr: int) -> bool:
     return c % vec == 0 and (THREADS * vec) % c == 0 and ptr % 16 == 0
 
 
+def count_launch(module: str, kernel: str) -> None:
+    """Add one to ``kernel``'s count in the ``LAUNCHES`` of ``module`` as it
+    stands in sys.modules now: the dispatcher keeps the kernels of the
+    module's first import, and they count in the table callers read after
+    a re-import."""
+    sys.modules[module].LAUNCHES[kernel] += 1
+
+
 def _counters(device: torch.device, stream: int, numel: int) -> torch.Tensor:
     """K1a's per-sample arrival counters for calls on ``stream``: zeroed
     once, left at zero by every call."""
@@ -175,11 +189,9 @@ def _counters(device: torch.device, stream: int, numel: int) -> torch.Tensor:
     return cnt
 
 
-def gn_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-6
-             ) -> torch.Tensor:
-    """K1a: x [B, ..., C] -> [B, 2, C] fp32 per-channel (mean, rstd)."""
-    if x.device.type == "cpu":
-        return gn_stats_plain(x, num_groups, eps)
+def _gn_stats_cuda(x: torch.Tensor, num_groups: int, eps: float
+                   ) -> torch.Tensor:
+    """tempo::gn_stats's CUDA kernel: one launch of K1a."""
     check_cuda_input(x, "x")
     refuse_grad(x)
     b, c = x.shape[0], x.shape[-1]
@@ -200,16 +212,28 @@ def gn_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-6
         DTYPE_CODES[x.dtype], b, hw, c, num_groups, blocks, rows,
         int(stats_vectorized(c, x.dtype, x.data_ptr())), float(eps), stream)
     _build.check(err, "tempo_gn_stats")
-    LAUNCHES["gn_stats"] += 1
+    count_launch(__name__, "gn_stats")
     return stats
 
 
-def gn_apply(x: torch.Tensor, stats: torch.Tensor,
-             scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
-             act: Optional[str] = None) -> torch.Tensor:
-    """K1b: act((x - mean) * rstd * scale + bias), out in x's type."""
-    if x.device.type == "cpu":
-        return gn_apply_plain(x, stats, scale, bias, act)
+def _gn_stats_cpu(x: torch.Tensor, num_groups: int, eps: float
+                  ) -> torch.Tensor:
+    """tempo::gn_stats's CPU kernel: the plain version, refusing a graph as
+    the CUDA kernel does."""
+    refuse_grad(x)
+    return gn_stats_plain(x, num_groups, eps)
+
+
+def _gn_stats_fake(x: torch.Tensor, num_groups: int, eps: float
+                   ) -> torch.Tensor:
+    return x.new_empty((x.shape[0], 2, x.shape[-1]),
+                       dtype=accumulation_dtype(x))
+
+
+def _gn_apply_cuda(x: torch.Tensor, stats: torch.Tensor,
+                   scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+                   act: Optional[str]) -> torch.Tensor:
+    """tempo::gn_apply's CUDA kernel: one launch of K1b."""
     check_cuda_input(x, "x")
     refuse_grad(x, scale, bias)
     b, c = x.shape[0], x.shape[-1]
@@ -235,8 +259,60 @@ def gn_apply(x: torch.Tensor, stats: torch.Tensor,
         ACT_CODES[act], int(vectorized),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "tempo_gn_apply")
-    LAUNCHES["gn_apply"] += 1
+    count_launch(__name__, "gn_apply")
     return out
+
+
+def _gn_apply_cpu(x, stats, scale, bias, act):
+    """tempo::gn_apply's CPU kernel: the plain version, refusing a graph as
+    the CUDA kernel does."""
+    refuse_grad(x, scale, bias)
+    return gn_apply_plain(x, stats, scale, bias, act)
+
+
+def _gn_apply_fake(x, stats, scale, bias, act):
+    return torch.empty_like(x)
+
+
+# ----------------------------------------------------------------- the ops
+
+# One library fragment of the ``tempo`` namespace for the port's ops; a
+# module executed again (importlib.reload) keeps the one it made.
+LIBRARY = globals().get("LIBRARY") or torch.library.Library("tempo",
+                                                            "FRAGMENT")
+
+
+def register(name: str, schema: str, cpu, cuda, fake) -> None:
+    """Define the op ``tempo::<name>`` with its CPU, CUDA and fake kernels,
+    once a process: where it is defined already, nothing is registered."""
+    if hasattr(torch.ops.tempo, name):
+        return
+    LIBRARY.define(schema)
+    LIBRARY.impl(name, cpu, "CPU")
+    LIBRARY.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"tempo::{name}", fake, lib=LIBRARY)
+
+
+register("gn_stats", "gn_stats(Tensor x, int num_groups, float eps) -> Tensor",
+         _gn_stats_cpu, _gn_stats_cuda, _gn_stats_fake)
+register("gn_apply", "gn_apply(Tensor x, Tensor stats, Tensor? scale, "
+         "Tensor? bias, str? act) -> Tensor",
+         _gn_apply_cpu, _gn_apply_cuda, _gn_apply_fake)
+
+
+def gn_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """K1a: x [B, ..., C] -> [B, 2, C] fp32 per-channel (mean, rstd),
+    through ``tempo::gn_stats``."""
+    return torch.ops.tempo.gn_stats(x, num_groups, eps)
+
+
+def gn_apply(x: torch.Tensor, stats: torch.Tensor,
+             scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+             act: Optional[str] = None) -> torch.Tensor:
+    """K1b: act((x - mean) * rstd * scale + bias), out in x's type,
+    through ``tempo::gn_apply``."""
+    return torch.ops.tempo.gn_apply(x, stats, scale, bias, act)
 
 
 class GroupNormActFn(torch.autograd.Function):

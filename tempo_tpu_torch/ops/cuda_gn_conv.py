@@ -6,12 +6,20 @@ the H100 and how it is laid out. The GroupNorm statistics come from K1a
 (ops/cuda_gn.py ``gn_stats``): ``gn_act_conv3x3`` launches K1a, then K2
 through ``conv3x3_from_stats``, which launches K2 alone.
 
-Each wrapper takes its plain version beside it for a tensor on the CPU, and
-for a CUDA tensor launches the kernel or raises. ``choose_config`` picks the
-bf16 kernel's tile configuration per call (``CONFIGS``, the table of the
-.cu source). It counts its launches in ``LAUNCHES``. ``conv3x3_from_stats``
-alone has no backward (its CUDA path raises NotImplementedError when a
-graph is being built); ``gn_act_conv3x3`` builds a graph through
+K2 is the ``torch.library`` op ``tempo::gn_conv3x3``
+(``conv3x3_from_stats`` calls it): its CPU kernel is the plain version
+beside it, its CUDA kernel launches the hand-written kernel or raises, and
+its fake gives [B, H, W, F] in x's type, B symbolic under
+``torch.export``. Everything that reads a concrete value stays inside the
+CUDA kernel: ``choose_config``'s pick of the bf16 kernel's tile
+configuration from the batch (``CONFIGS``, the table of the .cu source),
+the 16-byte alignment copies, the fp32 affine vectors, the split's
+workspace, and the packing of the weight when no packed weight is given.
+It counts its launches in ``LAUNCHES``. The forward of ``gn_act_conv3x3``
+is K1a then K2 on every device, so a program exported on the CPU launches
+the kernels when it is loaded on the card. The op has no backward (its
+kernels raise NotImplementedError when a graph is being built);
+``gn_act_conv3x3`` builds a graph through
 ``GnActConv3x3Fn``, whose forward is K1a then K2 and whose backward
 recomputes the plain chain (GroupNorm + act in fp32, cast to x's type, the
 3x3 conv on cuDNN) and takes its vector-Jacobian product, the gradient
@@ -112,11 +120,8 @@ def conv3x3_from_stats_plain(x: torch.Tensor, stats: torch.Tensor,
 
 def _gn_act_conv3x3(x, scale, bias, weight, conv_bias, num_groups, eps, act,
                     packed):
-    """The forward: the plain chain on the CPU, else K1a then K2."""
-    if x.device.type == "cpu":
-        return gn_act_conv3x3_plain(x, scale, bias, weight, conv_bias,
-                                    num_groups, eps, act)
-    cuda_gn.check_cuda_input(x, "x")
+    """The forward: K1a then K2 (their plain versions on the CPU, which
+    together are the plain chain bit for bit)."""
     return conv3x3_from_stats(x, cuda_gn.gn_stats(x, num_groups, eps), scale,
                               bias, weight, conv_bias, act, packed)
 
@@ -166,17 +171,13 @@ def gn_act_conv3x3(x: torch.Tensor, scale: Optional[torch.Tensor],
                            act, packed)
 
 
-def conv3x3_from_stats(x: torch.Tensor, stats: torch.Tensor,
-                       scale: Optional[torch.Tensor],
-                       bias: Optional[torch.Tensor], weight: torch.Tensor,
-                       conv_bias: Optional[torch.Tensor],
-                       act: Optional[str] = "gelu",
-                       packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K2 alone: GroupNorm apply + act from K1a's [B, 2, C] ``stats``, then
-    the 3x3 conv, in one kernel launch."""
-    if x.device.type == "cpu":
-        return conv3x3_from_stats_plain(x, stats, scale, bias, weight,
-                                        conv_bias, act)
+def _gn_conv3x3_cuda(x: torch.Tensor, stats: torch.Tensor,
+                     scale: Optional[torch.Tensor],
+                     bias: Optional[torch.Tensor], weight: torch.Tensor,
+                     conv_bias: Optional[torch.Tensor], act: Optional[str],
+                     packed: Optional[torch.Tensor]) -> torch.Tensor:
+    """tempo::gn_conv3x3's CUDA kernel: one launch of K2 (and of its split
+    reduction)."""
     cuda_gn.check_cuda_input(x, "x")
     cuda_gn.refuse_grad(x, scale, bias, weight, conv_bias)
     if x.ndim != 4:
@@ -221,5 +222,36 @@ def conv3x3_from_stats(x: torch.Tensor, stats: torch.Tensor,
         -1 if config is None else CONFIGS[config][0], split,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "tempo_gn_conv3x3")
-    LAUNCHES["gn_act_conv3x3"] += 1
+    cuda_gn.count_launch(__name__, "gn_act_conv3x3")
     return out
+
+
+def _gn_conv3x3_cpu(x, stats, scale, bias, weight, conv_bias, act, packed):
+    """tempo::gn_conv3x3's CPU kernel: the plain version, refusing a graph
+    as the CUDA kernel does."""
+    cuda_gn.refuse_grad(x, scale, bias, weight, conv_bias)
+    return conv3x3_from_stats_plain(x, stats, scale, bias, weight, conv_bias,
+                                    act)
+
+
+def _gn_conv3x3_fake(x, stats, scale, bias, weight, conv_bias, act, packed):
+    return x.new_empty((*x.shape[:-1], weight.shape[0]))
+
+
+cuda_gn.register(
+    "gn_conv3x3", "gn_conv3x3(Tensor x, Tensor stats, Tensor? scale, "
+    "Tensor? bias, Tensor weight, Tensor? conv_bias, str? act, "
+    "Tensor? packed) -> Tensor",
+    _gn_conv3x3_cpu, _gn_conv3x3_cuda, _gn_conv3x3_fake)
+
+
+def conv3x3_from_stats(x: torch.Tensor, stats: torch.Tensor,
+                       scale: Optional[torch.Tensor],
+                       bias: Optional[torch.Tensor], weight: torch.Tensor,
+                       conv_bias: Optional[torch.Tensor],
+                       act: Optional[str] = "gelu",
+                       packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2 alone: GroupNorm apply + act from K1a's [B, 2, C] ``stats``, then
+    the 3x3 conv, in one kernel launch, through ``tempo::gn_conv3x3``."""
+    return torch.ops.tempo.gn_conv3x3(x, stats, scale, bias, weight,
+                                      conv_bias, act, packed)

@@ -44,7 +44,9 @@ def test_port_imports_no_jax():
                  "cli.evaluate_reconstruction", "analysis.pca",
                  "cli.extract_pca", "cli.encode_granules",
                  "cli.analyze_reconstruction", "analysis.probes",
-                 "cli.probe_analysis"):
+                 "cli.probe_analysis", "infer.export_codec",
+                 "cli.export_codec", "cli.compute_stats",
+                 "cli.prepare_tiles", "cli.download"):
         assert f"tempo_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -251,3 +253,28 @@ def test_analysis_entry_points_default_to_cuda_and_raise_without_it(
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.run(cfg)
         assert not out.exists() and not (tmp_path / "eval").exists()
+
+
+def test_export_and_data_prep_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    """load_exported and the export and data-preparation CLIs' ``run``
+    raise before they write anything."""
+    from tempo_tpu_torch.cli import compute_stats, export_codec, prepare_tiles
+    from tempo_tpu_torch.infer.export_codec import load_exported
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_exported(tmp_path)
+    out = tmp_path / "out"
+    for cli, cfg in (
+            (export_codec, {"output_dir": str(out),
+                            "model": {"checkpoint_path": "c.pt",
+                                      "training_config_path": "t.yaml"}}),
+            (compute_stats, {"output_dir": str(out),
+                             "input_dir": str(tmp_path)}),
+            (prepare_tiles, {"output_dir": str(out),
+                             "input_dir": str(tmp_path),
+                             "processing": {}})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.run(cfg)
+        assert not out.exists()
