@@ -57,7 +57,7 @@ Phases, each fatal on failure:
       through cli/serve_lm.py's build_server and _serve_batch with a dict
       config, bucketed, continuous (8 slots, k_decode 16) and paged (65
       and 33 pages): tokens/s, dispatches, bursts, preemptions, the device
-      busy share under torch.profiler over the first 16 requests and the
+      busy share under torch.profiler over the first 4 requests and the
       decode kernels it lists against the launch count; the paged
       completions equal 3b's eager server's on both pools; (iii)
       _serve_http on 127.0.0.1, port 0: /healthz gives the meta, one POST
@@ -118,7 +118,7 @@ Phases, each fatal on failure:
   6b. 12 batches of the buffer on the card, swapping every 3, bit for bit
       those of the same buffer on the CPU (spectral and every product);
   6c. cli/train_vae_l2.py ``run`` with configs/demo/flagship_train_l2.yaml's
-      values (FLAGSHIP_L2) for 20 steps, once with the device buffer and
+      values (FLAGSHIP_L2) for 10 steps, once with the device buffer and
       once with the TileLoader, the VAE warm-started from 5b's checkpoint:
       checkpoint, summary/l2_losses.png (drawn by train/png.py: the card's
       machine has no matplotlib), the figure and metrics.json written;
@@ -150,7 +150,7 @@ Phases, each fatal on failure:
   7d. fit_pca on 256 pixels drawn as extract_pca draws them from 7c's crop
       (explained variance within 1e-4 of numpy's eigh), the PCA-RGB figure
       of the granule and its reconstruction written by train/png.py;
-  7e. probe_analysis' probe_granule over 4 structured granules [128, 512,
+  7e. probe_analysis' probe_granule over 2 structured granules [128, 512,
       1028] encoded by 6c's checkpoint, then a linear probe a product with
       flagship_probe.yaml's values: each best validation loss below its
       first epoch's, every R^2 finite;
@@ -172,6 +172,26 @@ Phases, each fatal on failure:
       numpy path with one seeded Generator at prepare_tiles_with_l2.yaml's
       values (64 tiles of 64x64): tiles within 1e-4, L2 tiles bitwise, and
       the draws' positions and flags identical; each timed against numpy.
+  then speculation and the online server, from exported GPT-2-small (bf16,
+  3d's weights) with a self-draft and a distinct draft of DistilGPT2's
+  shape (6 layers, weights from SEED + 1), k_draft 4; K3 in the draft's
+  captured steps, K4 in the paged pools:
+  9a. serve_lm's continuous + draft and paged + draft (8 slots, 65 pages)
+      over the 64 requests and scheduler: speculative over the first 8, each
+      beside the same scheduler target-only: tokens/s, accept_rate, rounds,
+      target passes, K3/K4 launches, greedy agreement with target-only and
+      the reference's top-two logit gap at each first difference (reported:
+      bf16 near-ties);
+  9b. the same in fp32 (the target and the distinct draft exported in
+      fp32) over 8 greedy and 4 sampled requests of 32 new tokens: every
+      greedy stream equal to target-only's but at a near-tie (a top-two gap
+      within F32_TOL), each exception printed;
+  9c. OnlineLMServer over the continuous pool, the paged pool (K4 counted)
+      and the continuous pool with the distinct draft: 16 requests from 4
+      threads at staggered times, each response bitwise the batch mode's;
+      one request cancelled mid-flight, a flagged prefix of its stream;
+      _serve_http with online: two concurrent POST /v1/completions equal
+      batch mode.
 Prints the card's name and power limit first, each phase's seconds, each
 redesigned kernel's time against its time before the redesign
 (KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
@@ -286,13 +306,14 @@ VAE_BF16_ACC = 1.25
 # (~270 MB each), a swap every 5 batches. 6b compares 12 batches of a
 # buffer swapping every 3 (three swaps) with the CPU buffer's. 6c runs the
 # CLI with FLAGSHIP_L2 (the yaml's values; the card's machine has no yaml)
-# for 20 steps, logging every 5 and plotting every 10 so that the curves
-# are drawn, and saving at the last step. 6d's fp32 check keeps the three
+# for 10 steps (20 until phase 9 came; PERF.md section 4), logging every 5
+# and plotting every 10 so that the curves are drawn, and saving at the
+# last step. 6d's fp32 check keeps the three
 # levels (the head reads a latent 4x smaller than the tile, as the pooled
 # targets are) at batch 2.
 VAE_L2_HIDDEN = (512, 512)
 VAE_L2_SHARDS, VAE_L2_TILES, VAE_L2_SLOTS, VAE_L2_SWAP = 4, 32, 2, 5
-VAE_L2_EQ_SWAP, VAE_L2_EQ_BATCHES, VAE_L2_CLI_STEPS = 3, 12, 20
+VAE_L2_EQ_SWAP, VAE_L2_EQ_BATCHES, VAE_L2_CLI_STEPS = 3, 12, 10
 FLAGSHIP_L2 = {
     "seed": 42,
     "data": {"batch_size": 64, "loader": "device", "buffer_slots": 2,
@@ -344,8 +365,9 @@ ANALYSIS_METRICS_REL = 1e-9
 # factorizations).
 ANALYSIS_PCA = {"pixels_per_file": 256, "seed": 42, "n_components": 3}
 ANALYSIS_PCA_REL = 1e-4
-# 7e: configs/demo/flagship_probe.yaml's values over 4 structured granules
-# of 512 tracks (2048 cut to 512 for the phase's time; PERF.md section 4).
+# 7e: configs/demo/flagship_probe.yaml's values over 2 structured granules
+# of 512 tracks (2048 cut to 512 for the phase's time, and 4 granules to 2
+# for phase 9's; PERF.md section 4).
 ANALYSIS_PROBE = {
     "seed": 42,
     "probe": {"n_pixels_per_file": 500, "test_split": 0.2, "max_epochs": 40,
@@ -362,7 +384,7 @@ ANALYSIS_PROBE = {
                   "norm_type": "logit"}},
     "visualization": {"n_examples": 100},
 }
-ANALYSIS_PROBE_GRANULES, ANALYSIS_PROBE_SHAPE = 4, (128, 512, 1028)
+ANALYSIS_PROBE_GRANULES, ANALYSIS_PROBE_SHAPE = 2, (128, 512, 1028)
 # The export and data-preparation path (phase 8). 8a exports the flagship
 # codec with 5b's weights on the card and on the CPU, loads each in a fresh
 # process and runs it at EXPORT_BATCHES against the eager model: the same
@@ -422,9 +444,24 @@ LM_REQUESTS, LM_SLOTS, LM_K, LM_PAGE, LM_CHUNK = 64, 8, 16, 128, 128
 # the tight run takes 33, the largest pool that preempts: for greedy
 # requests without eos the schedule depends only on lengths and budgets.
 LM_POOLS = {"roomy": 65, "tight": 33}
+# Phase 9: speculation over GPT-2-small exported (3d's model: SPEC_TARGET
+# overrides nothing) with a self-draft and a distinct draft of DistilGPT2's
+# published shape (6 layers of GPT-2-small's widths; weights from SEED + 1),
+# k_draft SPEC_K. 9a times the 64 requests (continuous and paged pools) and
+# the first SPEC_BATCH1 (the batch-1 scheduler) in bf16; 9b holds SPEC_F32
+# (greedy, sampled) requests cut to SPEC_F32_NEW new tokens in fp32; 9c
+# serves ONLINE_REQS requests from ONLINE_THREADS threads and cancels an
+# ONLINE_CANCEL_NEW-token request after ONLINE_CANCEL_AFTER rounds.
+SPEC_TARGET: dict = {}
+SPEC_DRAFT = {"n_layer": 6}
+SPEC_K, SPEC_BATCH1, SPEC_F32, SPEC_F32_NEW = 4, 8, (8, 4), 32
+SPEC_ROUNDS = 10  # 9a's round breakdown: rounds timed each way
+ONLINE_REQS, ONLINE_THREADS = 16, 4
+ONLINE_CANCEL_NEW, ONLINE_CANCEL_AFTER = 256, 4
 # 3d profiles each scheduler over the first requests of the mix (prompts
-# 32-256), not all 64: the profiler's record of a whole run takes minutes.
-LM_PROFILED = 8
+# 32-128), not all 64: the profiler's record of a whole run takes minutes
+# (8 requests until phase 9 came, ~40 s of 3d; PERF.md section 4).
+LM_PROFILED = 4
 
 
 def fail(msg: str) -> None:
@@ -1456,7 +1493,7 @@ def exported_serving(dev, model, reqs, eager_tokens: dict) -> dict:
                     q["n_tokens"] for q in reqs]:
                 fail(f"3d {name}: wrong token counts")
             tokens[name] = [r["tokens"] for r in done]
-            # the device busy share over 8 requests, and the decode kernels
+            # the device busy share over a few requests, and the decode kernels
             # the profiler lists inside the replays
             few = reqs[:LM_PROFILED]
             _, t_few = timed(lambda: srv.serve_requests(few, 64))
@@ -1571,6 +1608,481 @@ def http_check(srv, cfg: dict, tmp: Path, two: list) -> dict:
         fail("3d: /v1/completions differs from batch mode")
     return {"healthz_meta": True, "completions_equal_batch": True,
             "usage": got["usage"]}
+
+
+def spec_exports(dev, tmp: Path) -> dict:
+    """Phase 9's artifact directories: GPT-2-small (SPEC_TARGET, weights
+    from SEED, 3d's model) and the distinct draft (SPEC_DRAFT, DistilGPT2's
+    shape, weights from SEED + 1), each exported by export_lm in bf16 and
+    in fp32. Returns {(model, dtype): directory}."""
+    import dataclasses
+
+    import torch
+
+    from tempo_tpu_torch.infer import export_lm
+    from tempo_tpu_torch.nn.transformer import Transformer, TransformerConfig
+
+    arts = {}
+    for name, shape, seed in (("target", SPEC_TARGET, SEED),
+                              ("draft", SPEC_DRAFT, SEED + 1)):
+        cfg = TransformerConfig(compute_dtype="bfloat16", **shape)
+        model = Transformer(cfg, device=dev, seed=seed)
+        state = model.state_dict()
+        for dtype in ("bfloat16", "float32"):
+            arts[name, dtype] = export_lm.export_lm(
+                state, dataclasses.replace(cfg, compute_dtype=dtype),
+                tmp / f"{name}_{dtype}", max_seq=LM_CACHE, decode_chunk=LM_K,
+                page_size=LM_PAGE)
+        del model, state
+    torch.cuda.empty_cache()
+    return arts
+
+
+def spec_configs(art: Path, draft, pool: str) -> dict:
+    """serve_lm's dict config of one phase-9 scheduler over ``art``: with
+    ``draft`` (a directory) the speculative form, without it the same
+    scheduler target-only (per token; batch 1 for ``speculative``)."""
+    base = {"artifacts": str(art), "prefill_chunk": LM_CHUNK}
+    if pool == "speculative":
+        return dict(base, **({"scheduler": "speculative",
+                              "draft_artifacts": str(draft),
+                              "k_draft": SPEC_K} if draft else
+                             {"scheduler": "continuous", "slots": 1}))
+    cfg = dict(base, scheduler=pool, slots=LM_SLOTS)
+    if pool == "paged":
+        cfg["n_pages"] = LM_POOLS["roomy"]
+    if draft:
+        cfg.update(draft_artifacts=str(draft), k_draft=SPEC_K)
+    return cfg
+
+
+def top2_gap(art: Path, prompt: list, prefix: list, dev) -> tuple:
+    """(gap, top): the target's two largest logits' gap after ``prompt +
+    prefix`` (one prefill of the exported target) and the largest: at a
+    stream's first differing position, how near a tie the reference's
+    draw was."""
+    import torch
+
+    from tempo_tpu_torch.infer import export_lm
+
+    prefill, _, _ = export_lm.load_exported_lm(art, dev)
+    with torch.no_grad():
+        logits, _ = prefill([list(prompt) + list(prefix)])
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1]), float(top[0])
+
+
+def agreement(got: list, want: list, reqs: list, art: Path, dev,
+              gaps: dict) -> dict:
+    """How far ``got``'s streams agree with the reference ``want``: the
+    share equal, and for each that differs its first differing position
+    with the reference's top-two logit gap there (and the top logit).
+    ``gaps`` keeps the gaps computed, for the runs that share a
+    reference."""
+    diffs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            d = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                     min(len(g), len(w)))
+            key = (str(art), tuple(reqs[i]["tokens"]), tuple(w[:d]))
+            if key not in gaps:
+                gaps[key] = top2_gap(art, reqs[i]["tokens"], w[:d], dev)
+            gap, top = gaps[key]
+            diffs.append({"request": i, "position": d, "gap": gap,
+                          "top": top})
+    return {"equal_share": (len(got) - len(diffs)) / len(got),
+            "first_differences": diffs}
+
+
+def spec_run(cfg: dict, reqs: list, dev, warm: list) -> dict:
+    """build_server(cfg) on ``dev``, a warm-up over ``warm`` (cut to two
+    rounds) that captures its graphs, then one counted run over ``reqs``:
+    the responses, the
+    scheduler's statistics, tokens/s by host wall, and the K3/K4 launches
+    of the run."""
+    import torch
+
+    from tempo_tpu_torch.cli.serve_lm import build_server
+    from tempo_tpu_torch.ops import cuda_decode
+
+    srv = build_server(cfg, dev)
+    srv.serve_requests([dict(r, n_tokens=2 * SPEC_K + 2) for r in warm],
+                       default_new_tokens=64)
+    torch.cuda.synchronize()
+    for key in cuda_decode.LAUNCHES:
+        cuda_decode.LAUNCHES[key] = 0
+    resp, dt = timed(lambda: srv.serve_requests(reqs, default_new_tokens=64))
+    launches = {"K3": cuda_decode.LAUNCHES["decode_attention"],
+                "K4": cuda_decode.LAUNCHES["paged_decode_attention"]}
+    n = sum(r["n_generated"] for r in resp)
+    if [r["n_generated"] for r in resp] != [q["n_tokens"] for q in reqs]:
+        fail(f"9: {cfg['scheduler']} returned wrong token counts")
+    st = dict(srv.last_stats)
+    return {"tokens": [r["tokens"] for r in resp], "resp": resp,
+            "stats": {k: st.get(k) for k in (
+                "accept_rate", "rounds", "target_passes", "drafted",
+                "accepted", "decode_steps", "prefills", "preemptions")},
+            "tokens_per_sec": n / dt, "seconds": dt, "launches": launches}
+
+
+def round_breakdown(dev, art: Path, draft: Path, reqs: list) -> dict:
+    """Where a speculative round of the continuous pool goes: a SpecLMEngine
+    (8 slots full, k_draft SPEC_K) runs SPEC_ROUNDS rounds as served (host
+    wall a round), then as many with each device call of the round timed
+    alone (a sync before and after it): the draft's eager extend_rows, its
+    k - 1 captured decode_rows, the target's eager verify; the rest (the
+    draws, the host sync, the commit) by subtraction. Also the device busy
+    share of the served rounds under torch.profiler."""
+    import torch
+
+    from tempo_tpu_torch.infer.serving import ContinuousLMServer, SpecLMEngine
+
+    rounds = SPEC_ROUNDS
+    srv = ContinuousLMServer(art, n_slots=LM_SLOTS, prefill_chunk=LM_CHUNK,
+                             draft_dir=draft, k_draft=SPEC_K, device=dev)
+    eng = SpecLMEngine(srv)
+    for r in reqs[:LM_SLOTS]:
+        eng.submit(dict(r, n_tokens=3 * (SPEC_K + 1) * rounds + 2))
+    eng.step()  # admission, and the captures of the first round
+    torch.cuda.synchronize()
+    _, served = timed(lambda: [eng.step() for _ in range(rounds)])
+    prof = device_profile(lambda: [eng.step() for _ in range(rounds)],
+                          cpu=False)
+    parts = {"draft_extend_eager": 0.0, "draft_steps_captured": 0.0,
+             "target_verify_eager": 0.0}
+
+    def alone(part, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            parts[part] += time.perf_counter() - t0
+            return out
+        return call
+
+    srv.d_extend_rows = alone("draft_extend_eager", srv.d_extend_rows)
+    srv.d_decode_rows = alone("draft_steps_captured", srv.d_decode_rows)
+    srv.t_extend_rows = alone("target_verify_eager", srv.t_extend_rows)
+    _, split = timed(lambda: [eng.step() for _ in range(rounds)])
+    ms = {k: 1e3 * v / rounds for k, v in parts.items()}
+    ms["draws_sync_commit"] = 1e3 * split / rounds - sum(ms.values())
+    return {"round_ms_served": 1e3 * served / rounds,
+            "round_ms_split": 1e3 * split / rounds, "parts_ms": ms,
+            "busy_share": (None if prof is None else
+                           prof["device_ms"] / (1e3 * served)),
+            "accept_rate": round(eng.accepted / eng.drafted, 4)}
+
+
+def online_check(dev, art: Path, draft: Path, reqs: list, tmp: Path,
+                 card: str) -> dict:
+    """9c: OnlineLMServer over the continuous pool (fused, k LM_K), the
+    paged pool (fused) and the continuous pool with ``draft``; ONLINE_REQS
+    requests submitted from ONLINE_THREADS threads at staggered times, each
+    response bitwise the same server's batch-mode one; one long request
+    cancelled mid-flight on the speculative pool (a prefix of its
+    batch-mode stream, flagged); cli/serve_lm.py's _serve_http with
+    ``online`` answering two concurrent POST /v1/completions as batch mode
+    does. Nothing here touches CUDA while an online server runs, but its
+    scheduler thread. Returns the metrics."""
+    import threading
+
+    import torch
+
+    from tempo_tpu_torch.cli.serve_lm import build_server
+    from tempo_tpu_torch.ops import cuda_decode
+
+    fused = {"slots": LM_SLOTS, "k_decode": LM_K, "prefill_chunk": LM_CHUNK}
+    pools = {
+        "continuous": {"scheduler": "continuous", **fused},
+        "paged": {"scheduler": "paged", "n_pages": LM_POOLS["roomy"],
+                  **fused},
+        "continuous_draft": {"scheduler": "continuous", "slots": LM_SLOTS,
+                             "prefill_chunk": LM_CHUNK,
+                             "draft_artifacts": str(draft),
+                             "k_draft": SPEC_K},
+    }
+    few = [dict(r, logprobs=True) if i % 4 == 3 else dict(r)
+           for i, r in enumerate(reqs[:ONLINE_REQS])]
+    long = {"tokens": reqs[0]["tokens"], "n_tokens": ONLINE_CANCEL_NEW}
+    out = {}
+    for name, extra in pools.items():
+        cfg = {"artifacts": str(art), **extra}
+        batch_reqs = few + ([long] if name == "continuous_draft" else [])
+        srv = build_server(cfg, dev)
+        srv.serve_requests(batch_reqs[:2])  # captures the graphs
+        want = srv.serve_requests(batch_reqs)
+        torch.cuda.synchronize()
+        del srv
+        for key in cuda_decode.LAUNCHES:
+            cuda_decode.LAUNCHES[key] = 0
+        online = build_server(dict(cfg, online=True), dev)
+        got, cancel = [None] * len(few), {}
+        t0 = time.perf_counter()
+        try:
+            if name == "continuous_draft":
+                ticket = online.submit(long)
+
+            def client(c):
+                tickets = {}
+                time.sleep(0.05 * c)  # staggered arrivals
+                for i in range(c, len(few), ONLINE_THREADS):
+                    tickets[i] = online.submit(few[i])
+                    time.sleep(0.02)
+                for i, t in tickets.items():
+                    got[i] = online.result(t, timeout=300)
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(ONLINE_THREADS)]
+            for th in threads:
+                th.start()
+            if name == "continuous_draft":
+                deadline = time.monotonic() + 120
+                while online.stats()["rounds"] < ONLINE_CANCEL_AFTER:
+                    if time.monotonic() > deadline:
+                        fail("9c: the online speculative pool made no "
+                             "rounds")
+                    time.sleep(0.002)
+                cancel["cancelled"] = online.cancel(ticket)
+                cancel["resp"] = online.result(ticket, timeout=300)
+            for th in threads:
+                th.join(300)
+            if name == "continuous":
+                http = online_http(online, cfg, tmp, few[:2], want[:2])
+            stats = online.stats()
+        finally:
+            online.close(300)
+        wall = time.perf_counter() - t0
+        launches = {"K3": cuda_decode.LAUNCHES["decode_attention"],
+                    "K4": cuda_decode.LAUNCHES["paged_decode_attention"]}
+        # tokens and logprobs (a response's slot depends on arrival)
+        same = [g is not None and g["tokens"] == w["tokens"]
+                and g.get("logprobs") == w.get("logprobs")
+                for g, w in zip(got, want)]
+        out[name] = {"bitwise_equal": all(same), "equal_share":
+                     sum(same) / len(same), "wall_s": wall,
+                     "launches": launches, "stats": stats}
+        if name == "continuous_draft":
+            r, ref = cancel["resp"], want[-1]["tokens"]
+            out[name]["cancel"] = {
+                "cancel_returned": cancel["cancelled"],
+                "flagged": bool(r.get("cancelled")),
+                "n_tokens": len(r["tokens"]), "of": len(ref),
+                "prefix": r["tokens"] == ref[:len(r["tokens"])]}
+        print(f"[9c] online {name}: {json.dumps(out[name])} on {card} "
+              f"(responses compared whole, tokens and logprobs, with the "
+              f"same server's batch mode; wall: the {len(few)} requests "
+              f"from {ONLINE_THREADS} threads)", flush=True)
+        if not all(same):
+            fail(f"9c: online {name} responses differ from batch mode")
+        if name == "paged" and launches["K4"] == 0:
+            fail("9c: the online paged pool launched no K4")
+    c = out["continuous_draft"]["cancel"]
+    if not (c["cancel_returned"] and c["flagged"] and c["prefix"]
+            and c["n_tokens"] < c["of"]):
+        fail(f"9c: the mid-flight cancellation did not return a flagged "
+             f"prefix: {c}")
+    out["http"] = http
+    return out
+
+
+def online_http(online, cfg: dict, tmp: Path, two: list, want: list) -> dict:
+    """9c: _serve_http with online over the running OnlineLMServer, two
+    concurrent POST /v1/completions (one prompt each), each equal to the
+    batch-mode response of its request."""
+    import threading
+    import urllib.request
+
+    from tempo_tpu_torch.cli.serve_lm import _serve_http
+
+    out_dir = tmp / "http_online"
+    out_dir.mkdir()
+    th = threading.Thread(target=_serve_http, args=(online, {
+        **cfg, "host": "127.0.0.1", "port": 0, "max_requests": 2}, out_dir,
+        64), kwargs={"online": True}, daemon=True)
+    th.start()
+    info = out_dir / "serving_info.yaml"
+    deadline = time.monotonic() + 60
+    while not (info.exists() and info.read_text().strip()):
+        if time.monotonic() > deadline:
+            fail("9c: the online HTTP server did not start")
+        time.sleep(0.02)
+    base = f"http://127.0.0.1:{json.loads(info.read_text())['port']}"
+    got = [None, None]
+
+    def post(i):
+        body = json.dumps({"prompt": two[i]["tokens"],
+                           "max_tokens": two[i]["n_tokens"]}).encode()
+        req = urllib.request.Request(f"{base}/v1/completions", data=body,
+                                     headers={"Content-Type":
+                                              "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            got[i] = json.loads(r.read())["choices"][0]["tokens"]
+
+    posts = [threading.Thread(target=post, args=(i,)) for i in (0, 1)]
+    for p in posts:
+        p.start()
+    for p in posts:
+        p.join(120)
+    th.join(60)
+    if th.is_alive():
+        fail("9c: the online HTTP server did not stop after two requests")
+    equal = got == [w["tokens"] for w in want]
+    print(f"[9c] HTTP online on 127.0.0.1: two concurrent POST "
+          f"/v1/completions equal batch mode: {equal}", flush=True)
+    if not equal:
+        fail("9c: online /v1/completions differ from batch mode")
+    return {"completions_equal_batch": equal}
+
+
+def speculative_path(dev, rows: dict, fused: dict) -> dict:
+    """Phase 9: speculation and the online server from exported
+    GPT-2-small. 9a bf16: continuous + draft and paged + draft over the 64
+    requests, the batch-1 speculative scheduler over the first
+    SPEC_BATCH1, each with the self-draft and the distinct draft beside the
+    same scheduler target-only: tokens/s, accept_rate, rounds, target
+    passes, K3/K4 launches, greedy agreement with target-only (reported);
+    9b fp32: the same with the target and the distinct draft in fp32 over
+    SPEC_F32 requests, every greedy stream equal to target-only's but at a
+    near-tie; 9c the online servers. ``fused`` is 3d's serve_lm
+    statistics (k 16, the same run), printed beside. Adds the launches to
+    the K3/K4 rows; returns the metrics."""
+    import tempfile
+
+    from tempo_tpu_torch.infer import export_lm
+    from tempo_tpu_torch.nn.transformer import TransformerConfig
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+
+    reqs = lm_workload(TransformerConfig(**SPEC_TARGET).in_size)
+    result, seconds = {"card": card}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        arts = spec_exports(dev, tmp)
+        # loaded once for the phase: every server and prefill below shares
+        # these models (and their graphs) instead of loading them anew
+        loaded = [export_lm.load_exported_lm(a, dev) for a in arts.values()]
+        seconds["export"] = time.perf_counter() - t0
+        launches, gaps = {}, {}
+
+        # ------------------------------------------------ 9a, bf16, timed
+        t0 = time.perf_counter()
+        target = arts["target", "bfloat16"]
+        drafts = {"self": target, "distinct": arts["draft", "bfloat16"]}
+        runs = {}
+        for pool in ("continuous", "paged", "speculative"):
+            work = reqs if pool != "speculative" else reqs[:SPEC_BATCH1]
+            ref = spec_run(spec_configs(target, None, pool), work, dev,
+                           work[:2])
+            runs[pool, "none"] = ref
+            launches[pool] = ref["launches"]
+            for dname, ddir in drafts.items():
+                run = spec_run(spec_configs(target, ddir, pool), work, dev,
+                               work[:2])
+                run["agreement"] = agreement(run["tokens"], ref["tokens"],
+                                             work, target, dev, gaps)
+                runs[pool, dname] = run
+                launches[f"{pool}+{dname}"] = run["launches"]
+                if run["launches"]["K3"] == 0:
+                    fail(f"9a: {pool} with the {dname} draft launched no K3")
+            for dname in ("none", "self", "distinct"):
+                run = runs[pool, dname]
+                line = {"tokens_per_sec": run["tokens_per_sec"],
+                        "seconds": run["seconds"], **run["stats"],
+                        "launches": run["launches"]}
+                if dname != "none":
+                    line["greedy_agreement"] = run["agreement"]
+                print(f"[9a] {pool} draft={dname} bf16: {json.dumps(line)} "
+                      f"on {card} (host wall of the counted run after a "
+                      f"2-request warm-up; draft none: the same scheduler "
+                      f"target-only, per token"
+                      + (", batch 1" if pool == "speculative" else "")
+                      + "; agreement reported, not a gate: bf16 verify "
+                      "(t = k + 1) and decode (K3/K4, t = 1) may round a "
+                      "near-tie apart)", flush=True)
+        for dname, ddir in drafts.items():
+            result[f"round_{dname}"] = br = round_breakdown(dev, target,
+                                                           ddir, reqs)
+            print(f"[9a] a round of continuous + the {dname} draft, 8 slots "
+                  f"full: {json.dumps(br)} on {card} (host wall a round, "
+                  f"served and with each device call timed alone between "
+                  f"syncs; busy_share: device kernel time under "
+                  f"torch.profiler over the served rounds' wall)",
+                  flush=True)
+        print(f"[9a] beside: 3d's fused servers (k {LM_K}, the same run): "
+              f"{json.dumps({k: fused[k]['tokens_per_sec'] for k in fused})}"
+              f" tokens/s", flush=True)
+        result["bf16"] = {f"{p}+{d}": {
+            "tokens_per_sec": r["tokens_per_sec"], "seconds": r["seconds"],
+            **r["stats"], "launches": r["launches"],
+            **({"agreement": r["agreement"]} if d != "none" else {})}
+            for (p, d), r in runs.items()}
+        del runs
+        seconds["9a"] = time.perf_counter() - t0
+
+        # ------------------------------------------------- 9b, fp32 gate
+        t0 = time.perf_counter()
+        n_greedy, n_sampled = SPEC_F32
+        f32_reqs = ([dict(r, n_tokens=SPEC_F32_NEW)
+                     for r in reqs[:n_greedy]]
+                    + [dict(r, n_tokens=SPEC_F32_NEW, temperature=0.8,
+                            top_k=50, seed=i)
+                       for i, r in enumerate(
+                           reqs[n_greedy:n_greedy + n_sampled])])
+        target = arts["target", "float32"]
+        drafts = {"self": target, "distinct": arts["draft", "float32"]}
+        gate, f32 = True, {}
+        for pool in ("continuous", "paged", "speculative"):
+            ref = spec_run(spec_configs(target, None, pool), f32_reqs, dev,
+                           f32_reqs[:2])
+            for dname, ddir in drafts.items():
+                run = spec_run(spec_configs(target, ddir, pool), f32_reqs,
+                               dev, f32_reqs[:2])
+                greedy = agreement(run["tokens"][:n_greedy],
+                                   ref["tokens"][:n_greedy], f32_reqs,
+                                   target, dev, gaps)
+                sampled_equal = (run["tokens"][n_greedy:]
+                                 == ref["tokens"][n_greedy:])
+                ties = [d for d in greedy["first_differences"]
+                        if d["gap"] <= F32_TOL["atol"]
+                        + F32_TOL["rtol"] * abs(d["top"])]
+                ok = len(ties) == len(greedy["first_differences"])
+                gate &= ok
+                f32[f"{pool}+{dname}"] = {
+                    "greedy": greedy, "sampled_equal": sampled_equal,
+                    "accept_rate": run["stats"]["accept_rate"],
+                    "rounds": run["stats"]["rounds"], "ok": ok}
+                print(f"[9b] {pool} draft={dname} fp32: greedy streams "
+                      f"equal to target-only {greedy['equal_share']:.3f} "
+                      f"(first differences, each with the reference's "
+                      f"top-two gap: {json.dumps(greedy['first_differences'])}"
+                      f"; allowed at a gap <= {F32_TOL}); sampled streams "
+                      f"equal: {sampled_equal}; accept_rate "
+                      f"{run['stats']['accept_rate']}; ok {ok}", flush=True)
+        result["f32"] = f32
+        seconds["9b"] = time.perf_counter() - t0
+        if not gate:
+            fail("9b: an fp32 speculative greedy stream differs from "
+                 "target-only away from a near-tie")
+
+        # ---------------------------------------------------- 9c, online
+        t0 = time.perf_counter()
+        result["online"] = online_check(dev, arts["target", "bfloat16"],
+                                        arts["draft", "bfloat16"], reqs, tmp,
+                                        card)
+        launches["online_paged"] = result["online"]["paged"]["launches"]
+        seconds["9c"] = time.perf_counter() - t0
+        del loaded
+    for name in ("K3", "K4"):
+        rows[name]["launches_phase9"] = {k: v[name]
+                                         for k, v in launches.items()}
+    seconds["9"] = time.perf_counter() - t_phase
+    result["seconds"] = seconds
+    print(f"[9] K3/K4 launches by run: {json.dumps(launches)}; "
+          f"[time] 9: {json.dumps(seconds)}", flush=True)
+    return result
 
 
 def lm_row(name: str, replaces: str, library: str) -> dict:
@@ -2839,7 +3351,7 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     against the plain path, the metrics on the card against numpy's; (d)
     PCA-RGB of that granule and its reconstruction from pixels drawn as
     extract_pca draws them; (e) probe_analysis' per-granule function over
-    4 structured granules [128, 512, 1028] encoded by 6c's checkpoint, and
+    2 structured granules [128, 512, 1028] encoded by 6c's checkpoint, and
     a linear probe a product. K1a, K1b and K2 held against their plain
     versions at every shape the sweep and the granules give them; their
     launches in a sweep batch and in a granule's encode+decode added to
@@ -4209,8 +4721,12 @@ def main() -> int:
         "K4", "tempo_tpu/ops/pallas_decode.py:94",
         "none: no single PyTorch call reads K/V through a block table")
     lm = lm_path(dev, gen, rows)
-
     seconds["lm_serving"] = time.perf_counter() - t_phase
+
+    # -------------------------- 9. speculation and the online server
+    t_phase = time.perf_counter()
+    spec = speculative_path(dev, rows, lm["exported"]["serve"])
+    seconds["spec_online"] = time.perf_counter() - t_phase
 
     # ---------------------------------------------- the GPT training path
     t_phase = time.perf_counter()
@@ -4270,7 +4786,7 @@ def main() -> int:
         "recon_rel_l2_bf16": err_bf16, "recon_rel_l2_granule": err_granule,
         "recon_rel_l2_f32": err_f32, "lm": lm, "train": train,
         "vae_train": vae_train, "vae_l2": vae_l2, "analysis": analysis,
-        "export": export, "prep": prep,
+        "export": export, "prep": prep, "spec": spec,
         "granule_numpy_normalize_s": t_numpy_normalize,
         "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {

@@ -15,10 +15,17 @@ Schedulers (infer/serving.py, infer/paged.py):
 - ``scheduler: paged``: PagedLMServer, continuous batching over a paged KV
   cache of ``n_pages`` pages (0: every slot's whole window) with
   preemption; needs an export with ``page_size`` > 0.
+- ``scheduler: speculative``: SpeculativeLMServer, one request at a time:
+  the draft (``draft_artifacts``, a second export sharing the vocabulary)
+  proposes ``k_draft`` tokens (default 4), the target verifies them in one
+  pass.
 
-``prefill_chunk`` > 0 prefills long prompts in chunks through ``extend``
-under every scheduler. On the card every fixed-shape decode call replays a
-CUDA graph (infer/graphs.py).
+``draft_artifacts`` + ``k_draft`` > 0 also compose speculation into the
+continuous and paged pools (every slot drafts and verifies at its own
+position; an alternative to ``k_decode``). Every speculative output equals
+target-only decode's, greedy and sampled. ``prefill_chunk`` > 0 prefills
+long prompts in chunks through ``extend`` under every scheduler. On the
+card every fixed-shape decode call replays a CUDA graph (infer/graphs.py).
 
 Modes:
 
@@ -34,25 +41,31 @@ Modes:
   ``top_p``, ``stop``, ``logprobs``, ``seed``, ``n``: n samples fan out
   over seeds seed..seed+n-1; ``stop`` and ``logprobs`` need the
   continuous or paged scheduler, the bucketed one answers them with 400).
-  ``max_requests`` > 0 exits after that many POSTs.
+  ``max_requests`` > 0 exits after that many POSTs. With ``online: true``
+  (continuous or paged, with or without a draft) the endpoint is a
+  ThreadingHTTPServer over an OnlineLMServer: concurrent POSTs join one
+  running device batch; without it, one request at a time.
 
 ``serving_info.yaml`` is written as JSON (which YAML readers read), so the
 serving functions run where PyYAML is absent, as on the card's machine:
 there ``build_server`` and ``_serve_batch`` / ``_serve_http`` are driven
 with a dict config (chip_smoke.py). Only ``main`` reads YAML.
 
-Not ported yet (NotImplementedError): ``online: true`` (OnlineLMServer),
-``scheduler: speculative`` and ``draft_artifacts`` / ``k_draft``
-speculation (ROADMAP M12), and ``beam_width`` requests (M11).
+Not ported yet (NotImplementedError): ``beam_width`` requests (M11).
 
 Config:
   output_dir: <logs/completions dir>
   artifacts: <exported lm dir (the lm/ dir cli/export_lm.py writes)>
   mode: batch | http
-  scheduler: bucketed | continuous | paged
+  scheduler: bucketed | continuous | paged | speculative
   slots: 8                          # continuous / paged: batch rows
   k_decode: 0                       # continuous / paged: fused K-token calls
+  draft_artifacts: <exported draft lm dir>  # speculation (speculative, or
+                                    #   continuous / paged with k_draft > 0)
+  k_draft: 4                        # speculation: draft block size
   n_pages: 0                        # paged: pool pages (0: every window)
+  online: false                     # http + continuous / paged:
+                                    #   OnlineLMServer (threaded endpoint)
   prefill_chunk: 0                  # >0: chunked prefill (every scheduler)
   requests: <jsonl path>            # batch mode
   host: 127.0.0.1                   # http mode
@@ -65,7 +78,9 @@ from __future__ import annotations
 
 import json
 import time
-from http.server import BaseHTTPRequestHandler, HTTPServer
+import threading
+from http.server import (BaseHTTPRequestHandler, HTTPServer,
+                         ThreadingHTTPServer)
 from pathlib import Path
 from typing import Any, Dict, Union
 
@@ -77,47 +92,68 @@ from tempo_tpu_torch.utils.config import (copy_config, load_config,
 from tempo_tpu_torch.utils.dirs import init_directory
 
 
+def _draft(config: Dict[str, Any], required: bool = False):
+    """The draft artifact directory a config names (None without one, or
+    with k_draft 0 where the draft is optional)."""
+    if required:
+        require_keys(config, ["draft_artifacts"])
+    elif not (config.get("draft_artifacts")
+              and int(config.get("k_draft", 0)) > 0):
+        return None
+    draft = Path(config["draft_artifacts"])
+    if not (draft / "meta.json").exists():
+        raise ValueError(f"FATAL: no exported draft artifacts at {draft}")
+    return draft
+
+
 def build_server(config: Dict[str, Any],
                  device: Union[str, torch.device, None] = None):
     """The server a config asks for, over ``config['artifacts']`` on
-    ``device`` (None: CUDA)."""
+    ``device`` (None: CUDA). ``online: true`` gives an OnlineLMServer,
+    whose scheduler thread runs until ``close()``."""
     artifacts = Path(config["artifacts"])
     if not (artifacts / "meta.json").exists():
         raise ValueError(f"FATAL: no exported artifacts at {artifacts} "
                          "(expected meta.json + weights.pt from "
                          "cli/export_lm.py)")
     scheduler = str(config.get("scheduler", "bucketed"))
-    if config.get("online"):
-        raise NotImplementedError(
-            "online: true (OnlineLMServer) is not ported yet (ROADMAP M12)")
-    if (scheduler == "speculative" or config.get("draft_artifacts")
-            or int(config.get("k_draft", 0))):
-        raise NotImplementedError(
-            "speculation (scheduler: speculative, draft_artifacts, k_draft) "
-            "is not ported yet (ROADMAP M12)")
     chunk = int(config.get("prefill_chunk", 0)) or None
+    pool = {"n_slots": int(config.get("slots", 8)), "prefill_chunk": chunk,
+            "k_decode": int(config.get("k_decode", 0)),
+            "draft_dir": _draft(config),
+            "k_draft": int(config.get("k_draft", 0)), "device": device}
+    if config.get("online"):
+        if scheduler not in ("continuous", "paged"):
+            raise ValueError("FATAL: online: true is the open-world mode of "
+                             "the continuous and paged schedulers")
+        from tempo_tpu_torch.infer.serving import OnlineLMServer
+
+        return OnlineLMServer(
+            artifacts, scheduler=scheduler,
+            n_pages=int(config.get("n_pages", 0)),
+            default_new_tokens=int(config.get("default_n_tokens", 64)),
+            **pool)
     if scheduler == "continuous":
         from tempo_tpu_torch.infer.serving import ContinuousLMServer
 
-        return ContinuousLMServer(artifacts,
-                                  n_slots=int(config.get("slots", 8)),
-                                  prefill_chunk=chunk,
-                                  k_decode=int(config.get("k_decode", 0)),
-                                  device=device)
+        return ContinuousLMServer(artifacts, **pool)
     if scheduler == "paged":
         from tempo_tpu_torch.infer.paged import PagedLMServer
 
-        return PagedLMServer(artifacts,
-                             n_slots=int(config.get("slots", 8)),
-                             n_pages=int(config.get("n_pages", 0)),
-                             k_decode=int(config.get("k_decode", 0)),
-                             prefill_chunk=chunk, device=device)
+        return PagedLMServer(artifacts, n_pages=int(config.get("n_pages", 0)),
+                             **pool)
+    if scheduler == "speculative":
+        from tempo_tpu_torch.infer.serving import SpeculativeLMServer
+
+        return SpeculativeLMServer(artifacts, _draft(config, required=True),
+                                   k_draft=int(config.get("k_draft", 4)),
+                                   prefill_chunk=chunk, device=device)
     if scheduler == "bucketed":
         from tempo_tpu_torch.infer.serving import LMServer
 
         return LMServer(artifacts, prefill_chunk=chunk, device=device)
     raise ValueError(f"FATAL: unknown scheduler {scheduler!r} "
-                     "(bucketed | continuous | paged)")
+                     "(bucketed | continuous | paged | speculative)")
 
 
 def _serve_batch(server, config: dict, output_dir: Path,
@@ -209,13 +245,16 @@ def _openai_response(reqs: list, responses: list,
 
 
 def _serve_http(server, config: dict, output_dir: Path,
-                default_n: int) -> None:
-    """One request at a time (the decode calls are not thread-safe):
-    GET /healthz, POST /generate, POST /v1/completions."""
+                default_n: int, online: bool = False) -> None:
+    """GET /healthz, POST /generate, POST /v1/completions. One request at a
+    time (the decode calls are not thread-safe), or with ``online`` (an
+    OnlineLMServer) one thread a connection, all submitting into the
+    server's one running batch."""
     host = str(config.get("host", "127.0.0.1"))
     port = int(config.get("port", 8900))
     max_requests = int(config.get("max_requests", 0))
     counter = {"posts": 0}
+    count_lock = threading.Lock()
 
     class Handler(BaseHTTPRequestHandler):
         server_version = "tempo_tpu-lm"
@@ -257,20 +296,27 @@ def _serve_http(server, config: dict, output_dir: Path,
                                else responses[0])
             except Exception as exc:  # serving endpoint: report, don't die
                 self._send(400, {"error": f"{type(exc).__name__}: {exc}"})
-            counter["posts"] += 1
+            with count_lock:
+                counter["posts"] += 1
 
         def log_message(self, fmt, *args):
             print(f"[http] {fmt % args}")
 
-    httpd = HTTPServer((host, port), Handler)
+    httpd = (ThreadingHTTPServer if online else HTTPServer)((host, port),
+                                                          Handler)
     bound = httpd.server_address
     print(f"Serving on http://{bound[0]}:{bound[1]} "
-          f"(POST /generate, POST /v1/completions, GET /healthz)"
+          f"(POST /generate, POST /v1/completions, GET /healthz"
+          + (", online continuous batching)" if online else ")")
           + (f", exiting after {max_requests} requests" if max_requests
              else ""))
     save_json_yaml({"host": bound[0], "port": int(bound[1]),
                  "artifacts": str(config["artifacts"])},
                 Path(output_dir) / "serving_info.yaml")
+    if online and max_requests:
+        # handler threads count asynchronously: a poll timeout keeps the
+        # accept loop from waiting for a connection after the last POST
+        httpd.timeout = 0.2
     try:
         if max_requests:
             while counter["posts"] < max_requests:
@@ -291,20 +337,27 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
         raise ValueError(f"FATAL: unknown mode {mode!r} (batch | http)")
     if mode == "batch":
         require_keys(config, ["requests"])
+    online = bool(config.get("online", False))
     server = build_server(config, device)
-    output_dir = init_directory(Path(config["output_dir"]),
-                                overwrite=overwrite)
-    copy_config(config_path, output_dir)
-    print(f"Loaded artifacts: vocab {server.vocab}, window {server.window}, "
-          f"scheduler {config.get('scheduler', 'bucketed')}, device "
-          f"{server.meta['device']}")
-    default_n = int(config.get("default_n_tokens", 64))
-    if debug:
-        default_n = min(default_n, 8)
-    if mode == "batch":
-        _serve_batch(server, config, output_dir, default_n)
-    else:
-        _serve_http(server, config, output_dir, default_n)
+    try:
+        output_dir = init_directory(Path(config["output_dir"]),
+                                    overwrite=overwrite)
+        copy_config(config_path, output_dir)
+        print(f"Loaded artifacts: vocab {server.vocab}, window "
+              f"{server.window}, scheduler "
+              f"{config.get('scheduler', 'bucketed')}"
+              f"{' (online)' if online else ''}, device "
+              f"{server.meta['device']}")
+        default_n = int(config.get("default_n_tokens", 64))
+        if debug:
+            default_n = min(default_n, 8)
+        if mode == "batch":
+            _serve_batch(server, config, output_dir, default_n)
+        else:
+            _serve_http(server, config, output_dir, default_n, online=online)
+    finally:
+        if online:
+            server.close()
     print("\nDone!")
 
 

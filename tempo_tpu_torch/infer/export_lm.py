@@ -501,8 +501,8 @@ def load_exported_paged_k(out_dir: Union[str, Path], device: Device = None):
 def load_exported_speculative(out_dir: Union[str, Path],
                               device: Device = None):
     """(prefill, extend, meta): block extend into an existing cache, for
-    chunked prefill and the prefix cache (the speculative servers are not
-    ported yet)."""
+    the target's verify pass of infer/serving.py's SpeculativeLMServer,
+    chunked prefill and the prefix cache."""
     s = _load(out_dir, device)
     return s.prefill, s.extend, s.meta
 

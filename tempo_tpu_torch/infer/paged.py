@@ -17,7 +17,13 @@ loaders of infer/export_lm.py) or on a live surface (``surface=``,
 captured as CUDA graphs on the card. The server owns its pools and one
 static block table per row count, updated in place from the scheduler's
 host table before each call, so a captured call sees the same tensors at
-every replay. Speculation (``draft_dir`` / ``k_draft``) is not ported yet.
+every replay.
+
+Speculation composes (``draft_dir`` + ``k_draft``): a draft model with a
+dense [n_slots] cache proposes k tokens a row and the paged target verifies
+every row's block through ``extend_paged`` at the row's position
+(serving.draft_and_verify); the pages the block writes (positions pos ..
+pos + k) are reserved before the round, preempting if they must.
 
 Two scheduler faults of the JAX package are not carried over: a
 cancelled pending request leaves no trace in ``preempted_tickets``, and a
@@ -35,8 +41,12 @@ import torch
 
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.infer import export_lm, serving
-from tempo_tpu_torch.infer.serving import (_TicketEngine, check_stops,
-                                            parse_stops, token_logprob)
+from tempo_tpu_torch.infer.serving import (_commit, _DraftPool,
+                                            _first_token, _logprob_rows,
+                                            _slot_state, _TicketEngine,
+                                            accepted_commit, check_stops,
+                                            draft_and_verify, parse_stops,
+                                            spec_stats, token_logprob)
 
 TRASH_PAGE = 0
 
@@ -91,7 +101,7 @@ class PagePool:
                 self._free.append(p)
 
 
-class PagedLMServer:
+class PagedLMServer(_DraftPool):
     """Continuous batching over a paged KV cache with preemption.
 
     ``artifacts_dir`` is an export with ``page_size`` > 0, loaded on
@@ -101,16 +111,19 @@ class PagedLMServer:
     sizes the pool (usable pages = n_pages - 1; default: no
     oversubscription). ``k_decode`` > 0 dispatches fused k-token chunks
     (pages pre-reserved); ``prefill_chunk`` ingests long prompts through
-    extend_paged in fixed chunks."""
+    extend_paged in fixed chunks; ``draft_dir`` + ``k_draft`` > 0 (instead
+    of ``k_decode``) runs speculative rounds, every request's page budget
+    holding the k_draft positions a verify block may write past it."""
 
     def __init__(self, artifacts_dir=None, n_slots: int = 8,
                  n_pages: int = 0, k_decode: int = 0, draft_dir=None,
                  k_draft: int = 0, prefill_chunk: Optional[int] = None,
                  surface: Optional[Dict[str, Any]] = None,
                  device: Union[str, torch.device, None] = None):
-        if draft_dir is not None or k_draft:
-            raise NotImplementedError(
-                "speculation (draft_dir / k_draft) is not ported yet")
+        if int(k_decode) > 0 and int(k_draft) > 0:
+            raise ValueError(
+                "k_decode (fused chunks) and k_draft (speculative "
+                "draft/verify) are alternative decode loops: pick one")
         if (artifacts_dir is None) == (surface is None):
             raise ValueError("pass artifacts_dir or surface="
                              "live_paged_surface(model, ...), one of them")
@@ -158,6 +171,7 @@ class PagedLMServer:
         self._tables: Dict[int, torch.Tensor] = {}  # rows -> block table
         self.prefill_chunk = (int(prefill_chunk)
                               if prefill_chunk else None)
+        self._load_draft(draft_dir, k_draft, device)
 
     def _validate(self, requests: Sequence[Dict[str, Any]],
                   default_new_tokens: int) -> None:
@@ -167,14 +181,17 @@ class PagedLMServer:
             pfx = list(req.get("prefix") or ())
             t = len(req["tokens"]) + len(pfx)
             n = int(req.get("n_tokens", default_new_tokens))
-            if t + n > self.window:
+            slack = self._draft_slack()
+            if t + n + slack > self.window:
                 raise ValueError(
-                    f"request {i}: prompt {t} + {n} new tokens exceeds the "
-                    f"serving window {self.window}")
-            if _pages_for(t + n, self.page) > self.pool.n_usable:
+                    f"request {i}: prompt {t} + {n} new tokens "
+                    + (f"+ {slack} draft slack " if slack else "")
+                    + f"exceeds the serving window {self.window}")
+            need = _pages_for(t + n + slack, self.page)
+            if need > self.pool.n_usable:
                 raise ValueError(
-                    f"request {i}: needs {_pages_for(t + n, self.page)} "
-                    f"pages but the pool holds {self.pool.n_usable}")
+                    f"request {i}: needs {need} pages but the pool holds "
+                    f"{self.pool.n_usable}")
             toks = np.asarray(pfx + list(req["tokens"]), np.int64)
             if toks.size and (toks.min() < 0 or toks.max() >= self.vocab):
                 raise ValueError(
@@ -335,8 +352,9 @@ def _artifact_surface(artifacts_dir, k_decode: int,
 class PagedLMEngine(_TicketEngine):
     """Stepper form of the paged continuous-batching loop: submit /
     has_work / step / finished / cancel. One step() = one admission sweep
-    + one decode quantum (a fused k-token burst when the surface allows
-    it, a per-token dispatch otherwise). Not thread-safe."""
+    + one decode quantum (a speculative round with a draft, a fused
+    k-token burst when the surface allows it, a per-token dispatch
+    otherwise). Not thread-safe."""
 
     def __init__(self, server: PagedLMServer,
                  default_new_tokens: int = 64):
@@ -349,6 +367,9 @@ class PagedLMEngine(_TicketEngine):
         self.table = np.zeros((b, server.mp), np.int32)
         self.pages_of: List[List[int]] = [[] for _ in range(b)]
         self.shared_of: List[List[int]] = [[] for _ in range(b)]
+        # the draft's dense cache (speculation): rows admitted whole
+        self.d_cache = (server.draft_slot_cache()
+                        if server.draft is not None else None)
         self.pending: List[tuple] = []  # FIFO of (ticket, req, n_tokens)
         self.finished: Dict[int, Dict[str, Any]] = {}
         self._ticket = 0
@@ -361,6 +382,7 @@ class PagedLMEngine(_TicketEngine):
         self.decode_bursts = 0  # host syncs on the fused path
         self.prefills = 0
         self.preemptions = 0
+        self.rounds = self.drafted = self.accepted = 0
         self.peak_pages = 0
         self.auto_tickets: set = set()  # requests with a detected head
         self._auto_cache: tuple = ((), {})
@@ -368,7 +390,7 @@ class PagedLMEngine(_TicketEngine):
 
     def stats(self) -> Dict[str, Any]:
         s = self.s
-        return {
+        out = {
             "decode_steps": self.decode_steps,
             "decode_bursts": self.decode_bursts,
             "prefills": self.prefills,
@@ -380,6 +402,9 @@ class PagedLMEngine(_TicketEngine):
                                        s._prefix_pages.values()),
             "n_pages": s.pool.n_usable,
         }
+        if s.draft is not None:
+            out.update(spec_stats(self, s.k_draft))
+        return out
 
     # ---------------------------------------------- page bookkeeping
     def _forget(self, ticket: int) -> None:
@@ -412,21 +437,8 @@ class PagedLMEngine(_TicketEngine):
         return False
 
     def _finalize(self, s: int) -> None:
-        st = self.slots[s]
-        assert st is not None
-        resp = {
-            "tokens": st["out"],
-            "n_prompt": st["n_prompt"],
-            "n_generated": len(st["out"]),
-            "slot": s,
-            "stopped_early": st["eos_hit"],
-        }
-        if st["lps"] is not None:
-            resp["logprobs"] = st["lps"][:len(st["out"])]
-        if st.get("cancelled"):
-            resp["cancelled"] = True
-        self.finished[st["ticket"]] = resp
-        self._forget(st["ticket"])
+        self._respond(s)
+        self._forget(self.slots[s]["ticket"])
         self._release(s)
 
     def _preempt_one(self, exclude: int) -> bool:
@@ -510,7 +522,7 @@ class PagedLMEngine(_TicketEngine):
                 total = len(pfx) + len(body)
                 if ticket in self.preempted_tickets:
                     # full-lifetime need (see preempted_tickets above)
-                    life = total + n_tokens
+                    life = total + n_tokens + srv._draft_slack()
                     private = max(_pages_for(life, srv.page) - n_full, 1)
                 else:
                     private = max(_pages_for(total, srv.page) - n_full, 1)
@@ -539,37 +551,25 @@ class PagedLMEngine(_TicketEngine):
                                     np.int64)
                 logits = srv._ingest_row(self.table, s, ingest,
                                          n_full * srv.page)
+                if srv.draft is not None:
+                    # the draft sees the full context (prefix + prompt) in
+                    # its own dense cache
+                    _, d_row = srv.d_prefill(np.asarray(
+                        list(pfx) + body, np.int64).reshape(1, -1))
+                    srv.d_admit(self.d_cache, d_row, s)
+                    del d_row
                 self.prefills += 1
-                st = {
-                    "ticket": ticket,
-                    "request": nxt,
-                    "n_tokens": n_tokens,
-                    "serial": self.admit_serial,
-                    "n_prompt": len(nxt["tokens"]),
-                    "out": [],
-                    "remaining": n_tokens,
-                    "temperature": float(nxt.get("temperature", 0.0)),
-                    "top_k": nxt.get("top_k"),
-                    "top_p": nxt.get("top_p"),
-                    "eos": nxt.get("eos"),
-                    "eos_hit": False,
-                    "stops": parse_stops(nxt, srv.vocab),
-                    "lps": [] if nxt.get("logprobs") else None,
-                    # the request's seed keys its canonical stream
-                    "key": int(nxt.get("seed", 0)),
-                }
+                st = _slot_state(ticket, nxt, n_tokens, len(nxt["tokens"]),
+                                 srv.vocab)
+                st.update(request=nxt, n_tokens=n_tokens,
+                          serial=self.admit_serial)
                 self.admit_serial += 1
                 self.slots[s] = st
                 self.pos[s] = total  # prefix + prompt (abs decode pos)
-                tok = serving.device_sample(
-                    logits[:, -1], [st["key"]], [total - 1],
-                    [st["temperature"]], [int(st["top_k"] or 0)],
-                    [1.0 if st["top_p"] is None else float(st["top_p"])])
-                if st["lps"] is not None:
-                    st["lps"].append(token_logprob(
-                        logits[0, -1].float().cpu().numpy(),
-                        int(tok[0, 0])))
-                self._push(s, st, tok)
+                tok = _first_token(st, logits[:, -1], total - 1)
+                # the speculative rounds' bookkeeping
+                st.update(last=tok, lag=[tok], n_committed=total + 1)
+                self._push(s, st, np.asarray([[tok]]))
 
     # ------------------------------------------------------ decoding
     def step(self) -> None:
@@ -589,6 +589,9 @@ class PagedLMEngine(_TicketEngine):
                         "scheduler stalled with free slots")
             return
 
+        if srv.draft is not None:
+            self._spec_round()
+            return
         k = srv.k_decode
         active = [s for s in range(b) if slots[s] is not None]
         if (srv.decode_paged_k is not None
@@ -674,3 +677,42 @@ class PagedLMEngine(_TicketEngine):
             return chunk, lps
 
         self._run_burst(active, k, chains, dispatch)
+
+    def _spec_round(self) -> None:
+        """A speculative round over the paged cache: the pages of positions
+        pos .. pos + k_draft of every row are reserved first (preempting
+        if they must), then serving.draft_and_verify with the target's
+        verify through ``extend_paged`` at per-row positions (rejected
+        drafts' KV is masked, then overwritten), then each row commits its
+        accepted drafts and the next canonical draw."""
+        srv = self.s
+        slots, pos, k = self.slots, self.pos, srv.k_draft
+        for s in range(srv.n_slots):
+            for j in range(int(pos[s]) // srv.page,
+                           (int(pos[s]) + k) // srv.page + 1):
+                if slots[s] is None:
+                    break  # parked, or preempted by an earlier reservation
+                self._ensure_page(s, j)
+        active = [s for s in range(srv.n_slots) if slots[s] is not None]
+        if not active:
+            return  # everyone preempted: re-admission at the next step
+        self.peak_pages = max(
+            self.peak_pages, srv.pool.n_usable - srv.pool.n_free)
+        cache = srv._cache(self.table)  # the table holds still this round
+        drafts, draws, t_logits = draft_and_verify(
+            srv, slots, active, self.d_cache,
+            lambda block, p: srv.extend_paged(block, cache, p))
+        self.drafted += k * len(active)
+        self.decode_steps += 1
+        self.rounds += 1
+        lp = _logprob_rows(slots, active, t_logits)
+        for s in active:
+            st = slots[s]
+            j, commit = accepted_commit(drafts[s], draws[s], k)
+            self.accepted += j
+            st["lag"] = commit[min(j, k - 1):]
+            pos[s] += _commit(st, commit, None if lp is None else lp.get(s))
+            if st["remaining"] <= 0:
+                self._finalize(s)
+            else:
+                self.toks[s, 0] = st["last"]

@@ -4,26 +4,31 @@ Counterpart of tempo_tpu/infer/serving.py: ``chunked_prefill``, the
 bucketed ``LMServer`` (same-length requests batched into one prefill and
 decode chain, the prefix cache), ``ContinuousLMServer`` over its stepper
 ``LMEngine`` (a pool of slots, each at its own position, refilled
-mid-flight; fused k-token chunks with drain chaining), and the host-side
-policy they share with the paged server (infer/paged.py): support
-truncation, stop sequences, raw-model logprobs, the canonical sampled
-stream ``device_sample`` and the ticket plumbing of ``_TicketEngine``. The
-numpy helpers are copies of the JAX package's (that module imports JAX at
-load).
+mid-flight; fused k-token chunks with drain chaining), speculation
+(``SpeculativeLMServer`` at batch 1, and ``SpecLMEngine``, the draft/verify
+stepper of ``ContinuousLMServer(draft_dir=..., k_draft=...)``), the online
+front ``OnlineLMServer``, and the host-side policy they share with the
+paged server (infer/paged.py): support truncation, stop sequences,
+raw-model logprobs, the canonical sampled stream ``device_sample``, the
+speculative draws ``spec_draw_block`` and the ticket plumbing of
+``_TicketEngine``. The numpy helpers (``policy_probs`` and
+``speculative_accept`` among them) are copies of the JAX package's (that
+module imports JAX at load).
 
 On CUDA the decode calls replay CUDA graphs whose outputs are static
 tensors overwritten by the next replay of the same call: every scheduler
-here reads or copies a call's outputs before it makes the next one. Each
-server or engine owns its caches for its lifetime (the graphs write them
-in place) and copies prefilled rows into them.
+here reads or copies a call's outputs before it makes the next one (a
+speculative round draws from each draft step's logits on the device, in
+stream order, before the next step replays). Each server or engine owns
+its caches for its lifetime (the graphs write them in place) and copies
+prefilled rows into them.
 
-Not ported yet: beam search (``LMServer.beam_batch``, M11), speculation
-(``SpecLMEngine``, ``SpeculativeLMServer``, ``draft_dir`` / ``k_draft``) and
-``OnlineLMServer`` (ROADMAP, M12).
+Not ported yet: beam search (``LMServer.beam_batch``, M11).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Union
@@ -35,6 +40,7 @@ from tempo_tpu_torch.infer import export_lm
 from tempo_tpu_torch.infer.export_lm import (load_exported_continuous,
                                               load_exported_decode_k,
                                               load_exported_decode_k_sample,
+                                              load_exported_extend_rows,
                                               load_exported_lm,
                                               load_exported_speculative,
                                               zero_cache)
@@ -143,6 +149,200 @@ def device_sample(logits, keys, pos, temperature, top_k,
     return out.cpu().numpy()[:, None].astype(np.int64)
 
 
+def _policy_vectors(slots, rows: Sequence[int], m: int, dev):
+    """The sampling policy of ``rows`` (slot indices), each repeated m times,
+    as [len(rows) * m] tensors on ``dev``: (seeds, temperature, top_k,
+    top_p)."""
+    def vec(vals, dtype):
+        return torch.as_tensor(np.repeat(np.asarray(vals), m)).to(
+            device=dev, dtype=dtype)
+
+    return (vec([slots[s]["key"] for s in rows], torch.int64),
+            vec([slots[s]["temperature"] for s in rows], torch.float32),
+            vec([int(slots[s]["top_k"] or 0) for s in rows], torch.int64),
+            vec([1.0 if slots[s]["top_p"] is None else float(slots[s]["top_p"])
+                 for s in rows], torch.float32))
+
+
+def _spec_draws(slots: Sequence[Optional[Dict[str, Any]]], logits,
+                offset: int = 0) -> torch.Tensor:
+    """``spec_draw_block`` left on the logits' device: [b, m] int64. Greedy
+    rows take the first-max argmax of the fp32 logits; sampled rows ride
+    one ``export_lm.sample_rows`` call over all their (row, position)
+    pairs. Rows of parked slots hold a draw that nothing reads."""
+    x = torch.as_tensor(logits)
+    b, m = x.shape[0], x.shape[1]
+    drawn = torch.argmax(x.float(), dim=-1)
+    sampled = [s for s in range(b) if slots[s] is not None
+               and slots[s]["temperature"] > 0.0]
+    if sampled:
+        n = len(sampled)
+        idx = torch.as_tensor(sampled, device=x.device)
+        pos = np.concatenate([slots[s]["n_committed"] - 1 + offset
+                              + np.arange(m) for s in sampled])
+        seeds, temp, topk, topp = _policy_vectors(slots, sampled, m,
+                                                  x.device)
+        out = export_lm.sample_rows(
+            x[idx].reshape(n * m, -1), seeds,
+            torch.as_tensor(pos).to(x.device), temp, topk, topp)
+        drawn[idx] = out.view(n, m)
+    return drawn
+
+
+def spec_draw_block(slots: Sequence[Optional[Dict[str, Any]]], logits_bmv,
+                    offset: int = 0) -> np.ndarray:
+    """Canonical-stream draws for every active slot over m consecutive
+    emitted positions: logits [b, m, V] (a tensor stays where it is), where
+    slot s's column i sits at absolute fed-position n_committed[s] - 1 +
+    offset + i. Greedy slots take the argmax (the first max on ties, as
+    the host argmax); sampled slots draw ``device_sample``'s stream keyed
+    by their integer seed. The draft proposes and the target verifies
+    through this one schedule, so accepted chains are exactly the canonical
+    stream's. Returns [b, m] int64 on the host (0 for parked slots)."""
+    drawn = _spec_draws(slots, logits_bmv, offset).cpu().numpy()
+    for s, st in enumerate(slots):
+        if st is None:
+            drawn[s] = 0
+    return drawn
+
+
+def policy_probs(logits_row: np.ndarray, temperature: float,
+                 top_k: Optional[int],
+                 top_p: Optional[float] = None) -> np.ndarray:
+    """The serving sampling policy as an explicit probability vector [V]:
+    temperature scaling, then top-k / top-p support truncation (the support
+    ``export_lm.truncate_support_rows`` keeps on the device). The
+    distribution every canonical-stream draw follows, and the one the
+    rejection-sampling reference ``speculative_accept`` preserves."""
+    logits = np.asarray(logits_row, np.float64).reshape(-1)
+    assert temperature > 0.0, "policy_probs is the sampled path"
+    logits = _truncate_support(logits / float(temperature), top_k, top_p)
+    logits -= logits.max()
+    probs = np.exp(logits)
+    return probs / probs.sum()
+
+
+def speculative_accept(p: np.ndarray, q: np.ndarray, draft_tok: int,
+                       u: float) -> tuple:
+    """One rejection-sampling step of classical (Leviathan) speculative
+    decoding: the draft token was sampled from q; accept it with
+    probability min(1, p/q), otherwise resample from the residual
+    max(p - q, 0), normalized. Marginalized over draft_tok ~ q the emitted
+    token is exactly ~ p.
+
+    The schedulers do not draw this path: they accept a draft iff it
+    equals the canonical stream's draw at its position, which makes every
+    stream equal to target-only decode. Kept as the distribution-
+    correctness reference.
+
+    Returns (accepted, residual): the normalized distribution to resample
+    from on rejection (p itself when the residual is 0), None on accept."""
+    p = np.asarray(p, np.float64)
+    q = np.asarray(q, np.float64)
+    pd, qd = float(p[draft_tok]), float(q[draft_tok])
+    if qd <= 0.0:
+        # the draft could never propose this token under q: a hard reject
+        accept = False
+    else:
+        accept = u < min(1.0, pd / qd)
+    if accept:
+        return True, None
+    residual = np.maximum(p - q, 0.0)
+    s = residual.sum()
+    return False, (residual / s if s > 0.0 else p)
+
+
+def _slot_state(ticket: int, req: Dict[str, Any], n_tokens: int,
+                n_prompt: int, vocab: int) -> Dict[str, Any]:
+    """A slot's host state for an admitted request."""
+    return {
+        "ticket": ticket,
+        "n_prompt": n_prompt,
+        "out": [],
+        "remaining": n_tokens,
+        "temperature": float(req.get("temperature", 0.0)),
+        "top_k": req.get("top_k"),
+        "top_p": req.get("top_p"),
+        "eos": req.get("eos"),
+        "eos_hit": False,
+        "stops": parse_stops(req, vocab),
+        # raw-model logprobs of the emitted tokens
+        "lps": [] if req.get("logprobs") else None,
+        # the request's seed keys its canonical stream
+        "key": int(req.get("seed", 0)),
+    }
+
+
+def _first_token(st: Dict[str, Any], logits, pos: int) -> int:
+    """The first token of an admitted slot, drawn from its prompt's last
+    logits [1, V] at fed-position ``pos``; its logprob is recorded."""
+    tok = int(device_sample(
+        logits, [st["key"]], [pos], [st["temperature"]],
+        [int(st["top_k"] or 0)],
+        [1.0 if st["top_p"] is None else float(st["top_p"])])[0, 0])
+    if st["lps"] is not None:
+        st["lps"].append(token_logprob(logits[0].float().cpu().numpy(),
+                                       tok))
+    return tok
+
+
+def draft_and_verify(srv, slots: Sequence[Optional[Dict[str, Any]]],
+                     active: Sequence[int], d_cache, verify):
+    """One batched draft/verify round, shared by SpecLMEngine and the paged
+    engine: the draft ingests each row's lag (the committed tokens its
+    cache has not seen: at most [d_k, correction]) through one
+    ``d_extend_rows`` of width 2 and proposes k tokens (the first from the
+    lag's last logits, the rest from k - 1 captured ``d_decode_rows``);
+    then ``verify(block [b, k + 1], pos [b])`` scores every row's [last
+    committed, d_1..d_k] at the row's position in one target pass. Every
+    draw is made on the device right after the call whose logits it reads
+    (a captured call's logits are overwritten by its next replay); drafts
+    and draws reach the host together once. Parked rows ride on token 0 /
+    position 0 of the lag and on their draws after it, all of which
+    ``admit`` overwrites before the row is used. Returns (drafts [b, k],
+    draws [b, k + 1]) on the host and the verify logits [b, k + 1, V]."""
+    b, k, dev = srv.n_slots, srv.k_draft, srv.device
+    width = 2  # the longest lag: [d_k, correction] after a full accept
+    block_d = np.zeros((b, width), np.int64)
+    pos_d = np.zeros(b, np.int64)
+    last_lag = np.zeros(b, np.int64)
+    committed = np.zeros(b, np.int64)  # 0 marks a parked row
+    last = np.zeros((b, 1), np.int64)
+    for s in active:
+        st = slots[s]
+        lag = st["lag"]
+        assert 1 <= len(lag) <= width, lag
+        block_d[s] = lag + [lag[-1]] * (width - len(lag))
+        pos_d[s] = st["n_committed"] - len(lag)
+        last_lag[s] = len(lag) - 1
+        committed[s] = st["n_committed"]
+        last[s, 0] = st["last"]
+    d_logits, _ = srv.d_extend_rows(block_d, d_cache, pos_d)
+    prop = d_logits[torch.arange(b, device=dev),
+                    torch.as_tensor(last_lag).to(dev)]
+    drafts = [_spec_draws(slots, prop[:, None], offset=0)]
+    for i in range(1, k):
+        step_pos = np.where(committed > 0, committed + i - 1, 0)
+        logits, _ = srv.d_decode_rows(drafts[-1], d_cache, step_pos)
+        drafts.append(_spec_draws(slots, logits[:, -1:], offset=i))
+    drafts = torch.cat(drafts, 1)
+    block_t = torch.cat([torch.as_tensor(last).to(dev), drafts], 1)
+    t_logits, _ = verify(block_t, np.where(committed > 0, committed - 1, 0))
+    both = torch.cat([drafts, _spec_draws(slots, t_logits)], 1).cpu().numpy()
+    return both[:, :k], both[:, k:], t_logits
+
+
+def accepted_commit(drafts_row: np.ndarray, draws_row: np.ndarray,
+                    k: int) -> tuple:
+    """(j, tokens to commit) for one row: the longest draft prefix equal to
+    the canonical draws, then the next draw (the correction, or the bonus
+    token after a full accept)."""
+    j = 0
+    while j < k and int(drafts_row[j]) == int(draws_row[j]):
+        j += 1
+    return j, [int(d) for d in drafts_row[:j]] + [int(draws_row[j])]
+
+
 class _TicketEngine:
     """Ticket plumbing shared by the decode engines: validated submission
     (zero-budget requests finish at once), work detection, cancellation
@@ -195,6 +395,24 @@ class _TicketEngine:
                 self._finalize(s)
                 return True
         return False
+
+    def _respond(self, s: int) -> None:
+        """Record slot s's response under its ticket in ``finished``."""
+        st = self.slots[s]
+        assert st is not None
+        resp = {
+            "tokens": st["out"],
+            "n_prompt": st["n_prompt"],
+            "n_generated": len(st["out"]),
+            "slot": s,
+            "stopped_early": st["eos_hit"],
+        }
+        if st["lps"] is not None:
+            # stop-sequence trimming shortened `out`; keep lps in step
+            resp["logprobs"] = st["lps"][:len(st["out"])]
+        if st.get("cancelled"):
+            resp["cancelled"] = True
+        self.finished[st["ticket"]] = resp
 
     def _chain_gate(self, active, k: int, window: int,
                     cap: int = 4) -> int:
@@ -506,21 +724,7 @@ class LMEngine(_TicketEngine):
         self.prefills = 0
 
     def _finalize(self, s: int) -> None:
-        st = self.slots[s]
-        assert st is not None
-        resp = {
-            "tokens": st["out"],
-            "n_prompt": st["n_prompt"],
-            "n_generated": len(st["out"]),
-            "slot": s,
-            "stopped_early": st["eos_hit"],
-        }
-        if st["lps"] is not None:
-            # stop-sequence trimming shortened `out`; keep lps in step
-            resp["logprobs"] = st["lps"][:len(st["out"])]
-        if st.get("cancelled"):
-            resp["cancelled"] = True
-        self.finished[st["ticket"]] = resp
+        self._respond(s)
         self.slots[s] = None
         self.pos[s] = 0
         self.toks[s, 0] = 0
@@ -549,32 +753,12 @@ class LMEngine(_TicketEngine):
             self.s.admit(self.cache, row_cache, s)
             del row_cache
             self.prefills += 1
-            st = {
-                "ticket": ticket,
-                "n_prompt": prompt.shape[1],
-                "out": [],
-                "remaining": n_tokens,
-                "temperature": float(req.get("temperature", 0.0)),
-                "top_k": req.get("top_k"),
-                "top_p": req.get("top_p"),
-                "eos": req.get("eos"),
-                "eos_hit": False,
-                "stops": parse_stops(req, self.s.vocab),
-                # raw-model logprobs; they ride the fused chunks
-                "lps": [] if req.get("logprobs") else None,
-                # the request's seed keys its canonical stream
-                "key": int(req.get("seed", 0)),
-            }
+            st = _slot_state(ticket, req, n_tokens, prompt.shape[1],
+                             self.s.vocab)
             self.slots[s] = st
             self.pos[s] = prompt.shape[1]
-            tok = device_sample(
-                logits[:, -1], [st["key"]], [prompt.shape[1] - 1],
-                [st["temperature"]], [int(st["top_k"] or 0)],
-                [1.0 if st["top_p"] is None else float(st["top_p"])])
-            if st["lps"] is not None:
-                st["lps"].append(token_logprob(
-                    logits[0, -1].float().cpu().numpy(), int(tok[0, 0])))
-            self._push(s, st, tok)
+            tok = _first_token(st, logits[:, -1], prompt.shape[1] - 1)
+            self._push(s, st, np.asarray([[tok]]))
 
     def step(self) -> None:
         """One admission sweep + (if anything is active) one decode
@@ -636,7 +820,182 @@ class LMEngine(_TicketEngine):
             self._push(s, st, drawn[s:s + 1])
 
 
-class ContinuousLMServer:
+class SpecLMEngine(_TicketEngine):
+    """Stepper form of speculation over the continuous pool: the same
+    submit / has_work / step / finished / cancel surface as LMEngine, so
+    OnlineLMServer drives draft/verify pools as it drives plain ones. One
+    step() = one admission sweep + one draft/verify round
+    (``draft_and_verify``): one draft ``extend_rows`` of width 2 over each
+    row's lag, k - 1 captured draft ``decode_rows``, one eager target
+    ``extend_rows`` of width k + 1 at each row's own position; then each
+    row accepts the longest draft prefix equal to the canonical draws and
+    commits the next draw, so every request's output is target-only
+    decode's under the same seed and prompt.
+
+    'stop' sequences and 'logprobs' compose (the verify pass holds every
+    committed token's target logits). Admission prefills the target and
+    the draft at batch 1 and copies the row into both slot caches (the
+    server's, which the captured calls are bound to), replacing a parked
+    row's whole cache. Not thread-safe."""
+
+    def __init__(self, server: "ContinuousLMServer",
+                 default_new_tokens: int = 64):
+        assert server.draft is not None and server.k_draft > 0
+        self.s = server
+        self.default_new_tokens = int(default_new_tokens)
+        self.slots: List[Optional[Dict[str, Any]]] = [None] * server.n_slots
+        self.cache = server.slot_cache()
+        self.d_cache = server.draft_slot_cache()
+        self.pending: List[tuple] = []  # FIFO of (ticket, req, n_tokens)
+        self.finished: Dict[int, Dict[str, Any]] = {}
+        self._ticket = 0
+        self.rounds = 0
+        self.prefills = 0
+        self.drafted = 0
+        self.accepted = 0
+
+    @property
+    def decode_steps(self) -> int:
+        """LMEngine's name for the decode dispatches: the rounds."""
+        return self.rounds
+
+    def _finalize(self, s: int) -> None:
+        self._respond(s)
+        self.slots[s] = None
+
+    def _admit(self) -> None:
+        srv = self.s
+        for s in range(srv.n_slots):
+            while self.slots[s] is None and self.pending:
+                ticket, req, n_tokens = self.pending.pop(0)
+                prompt = np.asarray(req["tokens"], np.int64).reshape(1, -1)
+                logits, row_cache = srv._prefill(prompt)
+                srv.admit(self.cache, row_cache, s)
+                _, d_row = srv.d_prefill(prompt)
+                srv.d_admit(self.d_cache, d_row, s)
+                del row_cache, d_row
+                self.prefills += 1
+                st = _slot_state(ticket, req, n_tokens, prompt.shape[1],
+                                 srv.vocab)
+                self.slots[s] = st
+                tok = _first_token(st, logits[:, -1], prompt.shape[1] - 1)
+                # committed-token bookkeeping of the rounds: the absolute
+                # count, the last token, the tokens the draft has not seen
+                st.update(n_committed=prompt.shape[1], lag=[tok])
+                _commit(st, [tok])
+                if st["remaining"] <= 0:
+                    self._finalize(s)
+
+    def step(self) -> None:
+        """One admission sweep + (if anything is active) one draft/verify
+        round."""
+        self._admit()
+        srv, slots = self.s, self.slots
+        active = [s for s in range(srv.n_slots) if slots[s] is not None]
+        if not active:
+            return
+        cache = self.cache
+        drafts, draws, t_logits = draft_and_verify(
+            srv, slots, active, self.d_cache,
+            lambda block, pos: srv.t_extend_rows(block, cache, pos))
+        self.drafted += srv.k_draft * len(active)
+        self.rounds += 1
+        lp = _logprob_rows(slots, active, t_logits)
+        for s in active:
+            st = slots[s]
+            j, commit = accepted_commit(drafts[s], draws[s], srv.k_draft)
+            self.accepted += j
+            # d_1..d_min(j, k-1) are in the draft cache already (they were
+            # fed to propose the next); the rest is the next round's lag
+            st["lag"] = commit[min(j, srv.k_draft - 1):]
+            _commit(st, commit, None if lp is None else lp.get(s))
+            if st["remaining"] <= 0:
+                self._finalize(s)
+
+
+def _logprob_rows(slots, active, t_logits) -> Optional[Dict[int, np.ndarray]]:
+    """{slot: its verify logits [k + 1, V] on the host} for the active
+    slots that asked for logprobs (fetched together), or None."""
+    rows = [s for s in active if slots[s]["lps"] is not None]
+    if not rows:
+        return None
+    got = t_logits[rows].float().cpu().numpy()
+    return dict(zip(rows, got))
+
+
+def _commit(st: Dict[str, Any], toks: Sequence[int],
+            logits: Optional[np.ndarray] = None) -> int:
+    """Append ``toks`` to a speculative slot's output, one at a time, with
+    their logprobs from ``logits`` rows (when the slot asked); stop at an
+    eos, a stop sequence or the budget. Returns how many were taken."""
+    n = 0
+    for i, tok in enumerate(toks):
+        if logits is not None:
+            st["lps"].append(token_logprob(logits[i], tok))
+        st["out"].append(tok)
+        st["remaining"] -= 1
+        st["last"] = tok
+        st["n_committed"] += 1
+        n += 1
+        if st["eos"] is not None and tok == st["eos"]:
+            st["eos_hit"] = True
+            st["remaining"] = 0
+        check_stops(st)
+        if st["remaining"] <= 0:
+            break
+    return n
+
+
+class _DraftPool:
+    """The draft model of a batched speculative pool (ContinuousLMServer,
+    PagedLMServer): its continuous-batching calls and one dense [n_slots]
+    draft cache, made once (the captured ``d_decode_rows`` is bound to
+    it). Needs ``n_slots``, ``vocab``, ``window`` and ``device``."""
+
+    draft = None
+    k_draft = 0
+    _d_slots = None
+
+    def _load_draft(self, draft_dir, k_draft: int, device: Device) -> None:
+        self.k_draft = int(k_draft)
+        if draft_dir is None or self.k_draft <= 0:
+            return
+        (self.d_prefill, self.d_decode_rows, self.d_admit,
+         self.d_meta) = load_exported_continuous(draft_dir, device)
+        self.d_extend_rows = load_exported_extend_rows(draft_dir, device)
+        if int(self.d_meta["vocab_size"]) != self.vocab:
+            raise ValueError(
+                f"draft vocab {self.d_meta['vocab_size']} != target vocab "
+                f"{self.vocab}: speculative decoding needs a shared token "
+                "space")
+        self.window = min(self.window, int(
+            self.d_meta.get("max_seq", self.d_meta["block_size"])))
+        self.draft = draft_dir
+
+    def draft_slot_cache(self):
+        """The draft's [n_slots] cache, made once; ``d_admit`` replaces a
+        row whole."""
+        if self._d_slots is None:
+            self._d_slots = zero_cache(self.d_meta, self.n_slots,
+                                       self.device)
+        return self._d_slots
+
+    def _draft_slack(self) -> int:
+        """Positions a verify block may write past the last committed
+        token: rejected drafts' KV, masked but written, so the window (and
+        the page budget) must hold them."""
+        return self.k_draft if self.draft is not None else 0
+
+
+def spec_stats(eng, k_draft: int) -> Dict[str, Any]:
+    """A speculative engine's round statistics (the JAX package's keys)."""
+    return {"rounds": eng.rounds, "drafted": eng.drafted,
+            "accepted": eng.accepted, "k_draft": k_draft,
+            "accept_rate": (round(eng.accepted / eng.drafted, 4)
+                            if eng.drafted else None)}
+
+
+class ContinuousLMServer(_DraftPool):
     """Continuous batching over the exported per-row-position calls.
 
     A fixed pool of ``n_slots`` rows decodes in lockstep, each at its own
@@ -647,18 +1006,24 @@ class ContinuousLMServer:
     ``generate_batch``, greedy and sampled (rows are independent; the
     sampled stream is a function of seed, prompt and position).
     ``k_decode`` > 0 advances every slot k tokens a dispatch through the
-    fused ``decode_k_rows`` / ``decode_k_sample``. Speculation
-    (``draft_dir`` / ``k_draft``) is not ported yet."""
+    fused ``decode_k_rows`` / ``decode_k_sample``.
+
+    Speculation composes (``draft_dir`` + ``k_draft`` > 0, an alternative
+    to ``k_decode``): every slot runs the draft/verify rounds of a
+    SpecLMEngine in one device batch, each row verified at its own position
+    through ``extend_rows``; acceptance is against the canonical stream, so
+    greedy and sampled outputs stay the target-only ones. The window is the
+    smaller of the two models'."""
 
     def __init__(self, artifacts_dir: Union[str, Path], n_slots: int = 8,
                  prefill_chunk: Optional[int] = None,
                  draft_dir: Optional[Union[str, Path]] = None,
                  k_draft: int = 0, k_decode: int = 0,
                  device: Device = None):
-        if draft_dir is not None or k_draft:
-            raise NotImplementedError(
-                "speculation (draft_dir / k_draft) is not ported yet "
-                "(ROADMAP M12)")
+        if int(k_decode) > 0 and int(k_draft) > 0:
+            raise ValueError(
+                "k_decode (fused chunks) and k_draft (speculative "
+                "draft/verify) are alternative decode loops: pick one")
         (self.prefill, self.decode_rows, self.admit,
          self.meta) = load_exported_continuous(artifacts_dir, device)
         self.device = torch.device(self.meta["device"])
@@ -683,6 +1048,10 @@ class ContinuousLMServer:
             _, self.extend, _ = load_exported_speculative(artifacts_dir,
                                                           device)
         self._slots = None
+        self._load_draft(draft_dir, k_draft, device)
+        if self.draft is not None:
+            self.t_extend_rows = load_exported_extend_rows(artifacts_dir,
+                                                           device)
 
     def slot_cache(self):
         """The [n_slots] cache the engines decode in, made once: the
@@ -706,10 +1075,12 @@ class ContinuousLMServer:
                 raise ValueError(f"request {i}: missing 'tokens'")
             t = len(req["tokens"])
             n = int(req.get("n_tokens", default_new_tokens))
-            if t + n > self.window:
+            slack = self._draft_slack()
+            if t + n + slack > self.window:
                 raise ValueError(
-                    f"request {i}: prompt {t} + {n} new tokens exceeds the "
-                    f"exported serving window {self.window}")
+                    f"request {i}: prompt {t} + {n} new tokens "
+                    + (f"+ {slack} draft slack " if slack else "")
+                    + f"exceeds the exported serving window {self.window}")
             toks = np.asarray(req["tokens"], np.int64)
             if toks.size and (toks.min() < 0 or toks.max() >= self.vocab):
                 raise ValueError(
@@ -724,19 +1095,24 @@ class ContinuousLMServer:
         """requests: dicts with 'tokens' and optional 'n_tokens',
         'temperature', 'top_k', 'top_p', 'seed', 'eos' (kept in the
         output), 'stop' (token sequences, excluded from the output) and
-        'logprobs'. Submit-all + drain over an LMEngine; every request is
-        validated before any device work. Responses keep request order."""
+        'logprobs'. Submit-all + drain over an LMEngine (a SpecLMEngine
+        with a draft); every request is validated before any device work.
+        Responses keep request order."""
         t_start = time.perf_counter()
-        eng = LMEngine(self, default_new_tokens)
+        spec = self.draft is not None
+        eng = (SpecLMEngine if spec else LMEngine)(self, default_new_tokens)
         tickets = [eng.submit(req) for req in requests]
         while eng.has_work():
             eng.step()
         dt = time.perf_counter() - t_start
         responses = [eng.finished[t] for t in tickets]
         n_generated = sum(r["n_generated"] for r in responses)
+        steps = (dict(spec_stats(eng, self.k_draft),
+                      target_passes=eng.rounds + eng.prefills) if spec else
+                 {"decode_steps": eng.decode_steps,
+                  "decode_bursts": eng.decode_bursts})
         self.last_stats = {
-            "decode_steps": eng.decode_steps,
-            "decode_bursts": eng.decode_bursts,
+            **steps,
             "prefills": eng.prefills,
             "n_requests": len(requests),
             "n_slots": self.n_slots,
@@ -750,3 +1126,439 @@ class ContinuousLMServer:
                        default_new_tokens: int = 64) -> List[Dict[str, Any]]:
         """Scheduler-agnostic alias: hosts call either name."""
         return self.serve(requests, default_new_tokens)
+
+
+class SpeculativeLMServer:
+    """Speculative decoding over two exported artifact sets, one request at
+    a time: the draft (``load_exported_lm``: prefill, captured decode_step)
+    proposes ``k_draft`` tokens, the target (``load_exported_speculative``:
+    prefill, eager extend) verifies the block [last, d_1..d_k] in one pass,
+    so the target runs about 1/(j + 1) passes a committed token, j the
+    round's accepted count.
+
+    A draft token is accepted iff it equals the canonical-stream draw on the
+    target's logits at its absolute position (greedy: the argmax), and a
+    rejection emits that draw: the output is exactly target-only decode's
+    under the same seed and prompt, on every scheduler. The draft proposes
+    through the same key schedule, so close distributions accept often.
+
+    Rejected drafts leave KV at positions past the committed ones, hidden
+    by the absolute-position mask until the next round's block overwrites
+    them; rollback costs nothing. The draft's batch-1 cache belongs to the
+    server (its captured decode_step is bound to it) and each request's
+    draft prefill is copied into it. The target prompt may be chunked
+    through ``chunked_prefill``; the draft prefills in one shot."""
+
+    def __init__(self, target_dir: Union[str, Path],
+                 draft_dir: Union[str, Path], k_draft: int = 4,
+                 prefill_chunk: Optional[int] = None,
+                 device: Device = None):
+        (self.t_prefill, self.t_extend,
+         self.meta) = load_exported_speculative(target_dir, device)
+        self.d_prefill, self.d_decode, self.d_meta = load_exported_lm(
+            draft_dir, device)
+        self.device = torch.device(self.meta["device"])
+        self.prefill_chunk = prefill_chunk
+        if int(self.d_meta["vocab_size"]) != int(self.meta["vocab_size"]):
+            raise ValueError(
+                f"draft vocab {self.d_meta['vocab_size']} != target vocab "
+                f"{self.meta['vocab_size']}: speculative decoding needs a "
+                "shared token space")
+        if int(k_draft) < 1:
+            raise ValueError(f"k_draft must be >= 1, got {k_draft}")
+        self.k_draft = int(k_draft)
+        self.window = min(
+            int(self.meta.get("max_seq", self.meta["block_size"])),
+            int(self.d_meta.get("max_seq", self.d_meta["block_size"])))
+        self.vocab = int(self.meta["vocab_size"])
+        self.last_stats: Dict[str, Any] = {}
+        self._d_cache = None
+
+    def _draft_cache(self, row):
+        """The server's batch-1 draft cache with ``row`` copied into it."""
+        if self._d_cache is None:
+            self._d_cache = zero_cache(self.d_meta, 1, self.device)
+        for (ck, cv), (rk, rv) in zip(self._d_cache, row):
+            ck.copy_(rk)
+            cv.copy_(rv)
+        return self._d_cache
+
+    def _draw(self, logits, seed: int, pos0: int, temperature: float,
+              top_k: Optional[int], top_p: Optional[float]):
+        """Canonical-stream draws for a contiguous block: logits [m, V] at
+        absolute fed-positions pos0..pos0+m-1 -> [m] int64 on their device.
+        Greedy takes the first-max argmax."""
+        x = logits.float()
+        if temperature <= 0.0:
+            return torch.argmax(x, dim=-1)
+        m = x.shape[0]
+        st = {"key": int(seed), "temperature": float(temperature),
+              "top_k": top_k, "top_p": top_p}
+        seeds, temp, topk, topp = _policy_vectors([st], [0], m, x.device)
+        pos = torch.arange(pos0, pos0 + m, dtype=torch.int64,
+                           device=x.device)
+        return export_lm.sample_rows(x, seeds, pos, temp, topk, topp)
+
+    def _generate(self, prompt: Sequence[int], n_tokens: int,
+                  temperature: float, top_k: Optional[int], seed: int,
+                  top_p: Optional[float] = None, eos: Optional[int] = None,
+                  stops: Sequence[tuple] = (),
+                  want_lps: bool = False) -> tuple:
+        t = len(prompt)
+        prompt_arr = np.asarray(prompt, np.int64).reshape(1, -1)
+        c = self.prefill_chunk
+        if c is not None and t > c:
+            tg_logits, tg_cache = chunked_prefill(
+                self.t_extend, self.meta, prompt_arr, c, self.device)
+        else:
+            tg_logits, tg_cache = self.t_prefill(prompt_arr)
+        _, d_row = self.d_prefill(prompt_arr)
+        dr_cache = self._draft_cache(d_row)
+        del d_row
+        # the slot schedulers' bookkeeping (_commit: eos, stops, logprobs)
+        st = {"out": [], "remaining": n_tokens, "eos": eos, "eos_hit": False,
+              "stops": list(stops), "lps": [] if want_lps else None,
+              "n_committed": t}
+        first = self._draw(tg_logits[0, -1:], seed, t - 1, temperature,
+                           top_k, top_p)
+        _commit(st, [int(first[0])],
+                tg_logits[0, -1:].float().cpu().numpy() if want_lps else None)
+        dr_done = t  # the draft cache holds positions 0..dr_done-1
+        rounds = drafted = accepted = 0
+
+        while st["remaining"] > 0:
+            n_committed = st["n_committed"]
+            k = min(self.k_draft, st["remaining"])
+            # the draft ingests the committed tokens it has not seen (the
+            # correction, and d_k after a full accept), then proposes k;
+            # each draw reads the logits of the replay just made, before
+            # the next replay overwrites them
+            for pos in range(dr_done, n_committed):
+                dr_logits, _ = self.d_decode([[st["out"][pos - t]]],
+                                             dr_cache, pos)
+            dr_done = n_committed
+            drafts = []
+            for i in range(k):
+                d = self._draw(dr_logits[:, -1], seed, n_committed - 1 + i,
+                               temperature, top_k, top_p)
+                drafts.append(d)
+                if i < k - 1:
+                    dr_logits, _ = self.d_decode(d.view(1, 1), dr_cache,
+                                                 dr_done + i)
+            drafted += k
+            # one target pass over [last, d_1..d_k], then the canonical
+            # draws at all k + 1 positions
+            drafts = torch.cat(drafts)
+            block = torch.cat([torch.tensor([st["last"]],
+                                            device=drafts.device),
+                               drafts]).view(1, -1)
+            tg_logits, _ = self.t_extend(block, tg_cache, n_committed - 1)
+            draws = self._draw(tg_logits[0], seed, n_committed - 1,
+                               temperature, top_k, top_p)
+            both = torch.cat([drafts, draws]).cpu().numpy()
+            j, commit = accepted_commit(both[:k], both[k:], k)
+            accepted += j
+            _commit(st, commit, tg_logits[0, :len(commit)].float().cpu()
+                    .numpy() if want_lps else None)
+            # drafts past d_{k-1} were never fed to the draft cache
+            dr_done = n_committed + min(j, k - 1)
+            rounds += 1
+
+        stats = {"rounds": rounds, "drafted": drafted, "accepted": accepted,
+                 "target_passes": rounds + 1}
+        out = st["out"]
+        return (out[:n_tokens], stats, st["eos_hit"],
+                None if st["lps"] is None else st["lps"][:len(out)])
+
+    def serve_requests(self, requests: Sequence[Dict[str, Any]],
+                       default_new_tokens: int = 64) -> List[Dict[str, Any]]:
+        """requests: dicts with 'tokens' and optional 'n_tokens',
+        'temperature', 'top_k', 'top_p', 'seed', 'eos' (kept), 'stop'
+        (excluded) and 'logprobs'. Served one at a time (the batched form
+        is ContinuousLMServer(draft_dir=...)); responses in order. Each
+        request is checked when its turn comes, as in the JAX package."""
+        responses: List[Dict[str, Any]] = []
+        totals = {"rounds": 0, "drafted": 0, "accepted": 0,
+                  "target_passes": 0, "n_generated": 0}
+        t_start = time.perf_counter()
+        for i, req in enumerate(requests):
+            if "tokens" not in req:
+                raise ValueError(f"request {i}: missing 'tokens'")
+            toks = np.asarray(req["tokens"], np.int64)
+            n = int(req.get("n_tokens", default_new_tokens))
+            # no draft slack: the batch-1 round shrinks its depth to the
+            # budget left, so the verify block never writes past t + n - 1
+            if len(req["tokens"]) + n > self.window:
+                raise ValueError(
+                    f"request {i}: prompt {len(req['tokens'])} + {n} new "
+                    f"tokens exceeds the serving window {self.window} "
+                    "(min of target and draft windows)")
+            if toks.size and (toks.min() < 0 or toks.max() >= self.vocab):
+                raise ValueError(
+                    f"request {i}: token ids outside [0, {self.vocab})")
+            try:
+                stops = parse_stops(req, self.vocab)
+            except ValueError as exc:
+                raise ValueError(f"request {i}: {exc}") from None
+            if n <= 0:
+                responses.append({"tokens": [], "n_prompt": len(req["tokens"]),
+                                  "n_generated": 0, "rounds": 0,
+                                  "stopped_early": False,
+                                  "accept_rate": None})
+                continue
+            out, stats, eos_hit, lps = self._generate(
+                req["tokens"], n, float(req.get("temperature", 0.0)),
+                req.get("top_k"), int(req.get("seed", 0)),
+                top_p=req.get("top_p"), eos=req.get("eos"), stops=stops,
+                want_lps=bool(req.get("logprobs")))
+            resp = {
+                "tokens": out,
+                "n_prompt": len(req["tokens"]),
+                "n_generated": len(out),
+                "rounds": stats["rounds"],
+                "stopped_early": eos_hit,
+                "accept_rate": (round(stats["accepted"] / stats["drafted"], 4)
+                                if stats["drafted"] else None),
+            }
+            if lps is not None:
+                resp["logprobs"] = lps
+            responses.append(resp)
+            for key in stats:
+                totals[key] += stats[key]
+            totals["n_generated"] += len(out)
+        dt = time.perf_counter() - t_start
+        self.last_stats = {
+            **totals,
+            "n_requests": len(requests),
+            "k_draft": self.k_draft,
+            "accept_rate": (round(totals["accepted"] / totals["drafted"], 4)
+                            if totals["drafted"] else None),
+            "tokens_per_target_pass": (
+                round(totals["n_generated"] / totals["target_passes"], 3)
+                if totals["target_passes"] else None),
+            "seconds": round(dt, 4),
+            "tokens_per_sec": (round(totals["n_generated"] / dt, 2)
+                               if dt > 0 else 0.0),
+        }
+        return responses
+
+    def serve(self, requests: Sequence[Dict[str, Any]],
+              default_new_tokens: int = 64) -> List[Dict[str, Any]]:
+        """Scheduler-agnostic alias: hosts call either name."""
+        return self.serve_requests(requests, default_new_tokens)
+
+
+class OnlineLMServer:
+    """Online continuous batching: a thread-safe front over one engine
+    (LMEngine, SpecLMEngine with a draft, or ``scheduler="paged"``'s
+    PagedLMEngine over ``n_pages``). Callers submit from any thread at any
+    time; one scheduler thread drives the engine, so requests of different
+    callers join one running device batch between steps. Each response
+    equals the request's solo decode (rows are independent).
+
+    Callers never touch the engine or the device: ``submit`` validates on
+    the host and puts the request in an inbox, ``cancel`` takes it out of
+    the inbox or leaves a cancellation for the scheduler, ``result`` waits
+    for the response. The scheduler drains the inbox and the cancellations
+    under the lock, then steps the engine outside it, so a caller waits at
+    most one step for the lock, and every CUDA call (captures included)
+    is made on the scheduler thread. A scheduler thread that raises makes
+    every later ``submit``, ``cancel`` and ``result`` raise.
+    ``default_new_tokens`` is fixed at construction (validation depends on
+    it)."""
+
+    def __init__(self, artifacts_dir: Union[str, Path], n_slots: int = 8,
+                 prefill_chunk: Optional[int] = None, k_decode: int = 0,
+                 draft_dir: Optional[Union[str, Path]] = None,
+                 k_draft: int = 0, default_new_tokens: int = 64,
+                 scheduler: str = "continuous", n_pages: int = 0,
+                 device: Device = None):
+        if scheduler == "paged":
+            from tempo_tpu_torch.infer.paged import (PagedLMEngine,
+                                                     PagedLMServer)
+
+            self._server = PagedLMServer(
+                artifacts_dir, n_slots=n_slots, n_pages=n_pages,
+                k_decode=k_decode, draft_dir=draft_dir, k_draft=k_draft,
+                prefill_chunk=prefill_chunk, device=device)
+            engine_cls = PagedLMEngine
+        elif scheduler == "continuous":
+            self._server = ContinuousLMServer(
+                artifacts_dir, n_slots=n_slots, prefill_chunk=prefill_chunk,
+                k_decode=k_decode, draft_dir=draft_dir, k_draft=k_draft,
+                device=device)
+            engine_cls = (SpecLMEngine if self._server.draft is not None
+                          else LMEngine)
+        else:
+            raise ValueError(f"unknown scheduler {scheduler!r} (continuous "
+                             "| paged)")
+        self.meta = self._server.meta
+        self.vocab = self._server.vocab
+        self.window = self._server.window
+        self.default_new_tokens = int(default_new_tokens)
+        self._engine = engine_cls(self._server, self.default_new_tokens)
+        self._cond = threading.Condition()
+        self._inbox: List[tuple] = []  # (ticket, request), FIFO
+        self._cancels: Dict[int, Optional[bool]] = {}  # None: not applied
+        self._done: Dict[int, Dict[str, Any]] = {}
+        self._next_ticket = 0
+        self._closing = False
+        self._error: Optional[BaseException] = None
+        self._stats = self._snapshot()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="lm-engine")
+        self._thread.start()
+
+    def _snapshot(self) -> Dict[str, Any]:
+        e = self._engine
+        out = {"decode_steps": e.decode_steps, "prefills": e.prefills,
+               "pending": len(e.pending),
+               "active": sum(st is not None for st in e.slots),
+               "n_slots": self._server.n_slots}
+        if self._server.draft is not None:
+            out.update(spec_stats(e, self._server.k_draft))
+        return out
+
+    def _idle(self) -> bool:
+        return not (self._inbox or None in self._cancels.values()
+                    or self._engine.has_work())
+
+    def _run(self) -> None:
+        eng = self._engine
+        to_engine: Dict[int, int] = {}  # ticket -> the engine's ticket
+        to_online: Dict[int, int] = {}
+        while True:
+            with self._cond:
+                while self._idle() and not self._closing:
+                    self._cond.wait()
+                if self._closing and self._idle():
+                    return
+                inbox, self._inbox = self._inbox, []
+                cancels = [t for t, r in self._cancels.items() if r is None]
+            try:
+                for ticket, req in inbox:
+                    et = eng.submit(req)
+                    to_engine[ticket], to_online[et] = et, ticket
+                applied = {t: t in to_engine and eng.cancel(to_engine[t])
+                           for t in cancels}
+                if eng.has_work():
+                    eng.step()
+            except BaseException as exc:  # noqa: BLE001 — a dead scheduler
+                # must fail its callers, not leave them waiting
+                with self._cond:
+                    self._error = exc
+                    self._closing = True
+                    self._cond.notify_all()
+                if not isinstance(exc, Exception):
+                    raise  # an interrupt or an exit propagates
+                return
+            with self._cond:
+                for et in list(eng.finished):
+                    ticket = to_online.pop(et)
+                    del to_engine[ticket]
+                    self._done[ticket] = eng.finished.pop(et)
+                self._cancels.update(applied)
+                self._stats = self._snapshot()
+                self._cond.notify_all()
+
+    def _check_alive(self) -> None:
+        if self._error is not None:
+            raise RuntimeError("server scheduler died") from self._error
+        if self._closing:
+            raise RuntimeError("server is closed")
+
+    def submit(self, req: Dict[str, Any]) -> int:
+        """Validate (on the host) and enqueue; returns a ticket for
+        ``result``. Raises if the server is closed or its scheduler died."""
+        with self._cond:
+            self._check_alive()
+        self._server._validate([req], self.default_new_tokens)
+        with self._cond:
+            self._check_alive()
+            ticket = self._next_ticket
+            self._next_ticket += 1
+            self._inbox.append((ticket, req))
+            self._cond.notify_all()
+            return ticket
+
+    def cancel(self, ticket: int) -> bool:
+        """Cancel a submitted request: one still queued never runs, an
+        active one finalizes with the tokens generated so far; its response
+        then carries ``cancelled: true``. Returns False if the ticket had
+        already finished (its response untouched). Waits for the
+        scheduler's next turn at most."""
+        with self._cond:
+            if ticket in self._done:
+                return False
+            for i, (t, req) in enumerate(self._inbox):
+                if t == ticket:
+                    del self._inbox[i]
+                    self._done[t] = {
+                        "tokens": [], "n_prompt": len(req["tokens"]),
+                        "n_generated": 0, "slot": -1,
+                        "stopped_early": False, "cancelled": True}
+                    self._cond.notify_all()
+                    return True
+            if not 0 <= ticket < self._next_ticket:
+                return False
+            if self._error is not None:
+                raise RuntimeError("server scheduler died") from self._error
+            self._cancels.setdefault(ticket, None)
+            self._cond.notify_all()
+            self._cond.wait_for(
+                lambda: self._cancels.get(ticket, False) is not None
+                or self._error is not None)
+            done = self._cancels.pop(ticket, False)
+            if done is None:
+                raise RuntimeError("server scheduler died") from self._error
+            return done
+
+    def result(self, ticket: int,
+               timeout: Optional[float] = None) -> Dict[str, Any]:
+        """Block until the ticket finishes; pops and returns its response.
+        Raises TimeoutError after ``timeout`` seconds, and RuntimeError if
+        the scheduler died before the ticket finished."""
+        with self._cond:
+            ok = self._cond.wait_for(
+                lambda: ticket in self._done or self._error is not None,
+                timeout=timeout)
+            if not ok:
+                raise TimeoutError(f"ticket {ticket} not finished within "
+                                   f"{timeout}s")
+            if ticket not in self._done:
+                raise RuntimeError(
+                    f"server scheduler died before ticket {ticket} "
+                    "finished") from self._error
+            return self._done.pop(ticket)
+
+    def generate(self, req: Dict[str, Any],
+                 timeout: Optional[float] = None) -> Dict[str, Any]:
+        return self.result(self.submit(req), timeout=timeout)
+
+    def serve_requests(self, requests: Sequence[Dict[str, Any]],
+                       default_new_tokens: int = 64) -> List[Dict[str, Any]]:
+        """Batch-mode compatibility: submit all, collect in order (the
+        construction-time default_new_tokens governs, not this one)."""
+        tickets = [self.submit(r) for r in requests]
+        return [self.result(t) for t in tickets]
+
+    serve = serve_requests
+
+    def stats(self) -> Dict[str, Any]:
+        """The engine's cumulative counters after its last step, with the
+        requests still in the inbox counted as pending."""
+        with self._cond:
+            return dict(self._stats,
+                        pending=self._stats["pending"] + len(self._inbox))
+
+    @property
+    def last_stats(self) -> Dict[str, Any]:
+        """Hosts read ``last_stats``; here it is cumulative, not a call's."""
+        return self.stats()
+
+    def close(self, timeout: Optional[float] = None) -> None:
+        """Finish the work submitted, then stop the scheduler thread."""
+        with self._cond:
+            self._closing = True
+            self._cond.notify_all()
+        self._thread.join(timeout)

@@ -278,3 +278,38 @@ def test_export_and_data_prep_entry_points_default_to_cuda_and_raise_without_it(
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.run(cfg)
         assert not out.exists()
+
+
+def test_speculative_and_online_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    """The speculative servers, the online front and serve_lm's new modes
+    resolve device None to CUDA and raise without it; the CPU works when
+    asked for."""
+    from tempo_tpu_torch.cli.serve_lm import build_server
+    from tempo_tpu_torch.infer.export_lm import export_lm
+    from tempo_tpu_torch.infer.paged import PagedLMServer
+    from tempo_tpu_torch.infer.serving import (ContinuousLMServer,
+                                               OnlineLMServer,
+                                               SpeculativeLMServer)
+    from tempo_tpu_torch.nn.transformer import Transformer, TransformerConfig
+
+    cfg = TransformerConfig(in_size=31, block_size=32, n_layer=1, n_head=2,
+                            n_embd=32)
+    art = export_lm(Transformer(cfg, device="cpu", seed=0).state_dict(), cfg,
+                    tmp_path / "lm", page_size=8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = {"draft_dir": art, "k_draft": 2}
+    for make in (lambda **d: SpeculativeLMServer(art, art, **d),
+                 lambda **d: ContinuousLMServer(art, **spec, **d),
+                 lambda **d: PagedLMServer(art, **spec, **d),
+                 lambda **d: OnlineLMServer(art, **spec, **d),
+                 lambda **d: OnlineLMServer(art, scheduler="paged", **d)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        srv = make(device="cpu")
+        if isinstance(srv, OnlineLMServer):
+            srv.close()
+    for config in ({"scheduler": "speculative", "draft_artifacts": str(art)},
+                   {"scheduler": "continuous", "online": True}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_server({"artifacts": str(art), **config})

@@ -264,15 +264,24 @@ def test_page_pool_invariants():
         pool.free([TRASH_PAGE])
 
 
-def test_requests_that_cannot_fit_are_refused(lm):
+def test_requests_that_cannot_fit_are_refused(lm, tmp_path):
     with pytest.raises(ValueError, match="pages"):
         PagedLMServer(surface=lm["surface"], n_slots=1, n_pages=3,
                       device="cpu").serve([{"tokens": [1] * 10,
                                             "n_tokens": 20}])
     with pytest.raises(ValueError, match="window"):
         _server(lm).serve([{"tokens": [1] * 20, "n_tokens": 20}])
-    with pytest.raises(NotImplementedError, match="speculation"):
-        _server(lm, k_draft=3)
+    # with a draft, the k_draft positions a verify block writes past the
+    # request must fit the window and the pool too
+    draft = export_lm.export_lm(lm["model"].state_dict(), lm["model"].config,
+                                tmp_path / "draft")
+    with pytest.raises(ValueError, match="draft slack"):
+        _server(lm, draft_dir=draft, k_draft=3).serve(
+            [{"tokens": [1] * 10, "n_tokens": 20}])
+    with pytest.raises(ValueError, match="pages"):
+        PagedLMServer(surface=lm["surface"], n_slots=1, n_pages=4,
+                      draft_dir=draft, k_draft=3, device="cpu").serve(
+            [{"tokens": [1] * 10, "n_tokens": 14}])
 
 
 def test_cancelled_pending_request_leaves_preempted_tickets(lm):

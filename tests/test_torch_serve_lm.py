@@ -380,14 +380,11 @@ def test_unported_options_raise(lm, tmp_path):
         psrv.LMServer(lm["pdir"], device="cpu").serve_requests(
             [{"tokens": [1, 2], "beam_width": 2}])
     base = {"artifacts": str(lm["pdir"])}
-    for extra in ({"online": True, "scheduler": "continuous"},
-                  {"scheduler": "speculative"},
-                  {"scheduler": "continuous",
-                   "draft_artifacts": str(lm["pdir"]), "k_draft": 2}):
-        with pytest.raises(NotImplementedError, match="M12"):
-            pserve.build_server({**base, **extra}, "cpu")
-    with pytest.raises(NotImplementedError, match="speculation"):
-        psrv.ContinuousLMServer(lm["pdir"], k_draft=2, device="cpu")
+    # speculation and the online server are ported; online stays the mode
+    # of the slot pools, as in the JAX CLI
+    with pytest.raises(ValueError, match="online"):
+        pserve.build_server({**base, "online": True, "scheduler": "bucketed"},
+                            "cpu")
     with pytest.raises(ValueError, match="unknown scheduler"):
         pserve.build_server({**base, "scheduler": "beam"}, "cpu")
     with pytest.raises(NotImplementedError, match="int8"):
