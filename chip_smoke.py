@@ -48,8 +48,11 @@ Phases, each fatal on failure:
       cache's end), each call timed with its bound and
       library call; each row of a batch bitwise the same alone and inside
       the batch (K4: another pool, another page order);
-  3d. exported serving: GPT-2-small written by export_lm and loaded with
-      device None; (i) decode_step, decode_rows, decode_k (K 16),
+  3d. exported serving: GPT-2-small's torch.export programs, written by
+      export_lm in a background process started with the run (LM_EXPORTS:
+      every LM artifact of 3d, 9 and 10 is exported so, the CPU work beside
+      phases 1-3), loaded with device None; (i) decode_step, decode_rows,
+      decode_k (K 16),
       decode_paged and decode_paged_k replayed against their eager calls
       at the capture's and another position and table, outputs and caches
       bitwise, 12 x K decode launches a replay, each replay timed by CUDA
@@ -173,7 +176,7 @@ Phases, each fatal on failure:
       values (64 tiles of 64x64): tiles within 1e-4, L2 tiles bitwise, and
       the draws' positions and flags identical; each timed against numpy.
   then speculation and the online server, from exported GPT-2-small (bf16,
-  3d's weights) with a self-draft and a distinct draft of DistilGPT2's
+  3d's artifact) with a self-draft and a distinct draft of DistilGPT2's
   shape (6 layers, weights from SEED + 1), k_draft 4; K3 in the draft's
   captured steps, K4 in the paged pools:
   9a. serve_lm's continuous + draft and paged + draft (8 slots, 65 pages)
@@ -192,6 +195,23 @@ Phases, each fatal on failure:
       one request cancelled mid-flight, a flagged prefix of its stream;
       _serve_http with online: two concurrent POST /v1/completions equal
       batch mode.
+  then the exported serving programs (GPT-2-small, bf16, max_seq 1024,
+  page 128, decode_chunk 16), exported on the card and on the CPU:
+  10. each program's export seconds, the directory's bytes beside the
+      weights' (weights.pt <= 1.1x); a fresh process loads every loader
+      with device None (first and second load s, memory_allocated across
+      them <= 1.1x the weights' bytes), decodes greedily equal to generate
+      and imports no tempo_tpu_torch.nn module; each of the 14 programs,
+      from both artifacts, bitwise the live model's call at batches 1 and 8
+      and two positions, outputs and caches; one captured decode_k replay
+      (b=8, K=16), exported and live: CUDA-event ms, torch.profiler's
+      kernels, the captured graph's nodes (the program's 2K fewer: it
+      gathers bf16 embedding tables where the live step casts the gathered
+      fp32 rows), cache addresses kept; the host ms of the eager calls a
+      server makes a request (prefill, extend, extend_paged at 128 tokens,
+      admit_paged), exported and live; serve_lm continuous and paged over
+      the programs beside a live surface: tokens/s, greedy tokens equal,
+      K3/K4 launches equal.
 Prints the card's name and power limit first, each phase's seconds, each
 redesigned kernel's time against its time before the redesign
 (KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
@@ -201,9 +221,11 @@ result, when there is no CUDA device or the package is not beside it.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -454,10 +476,30 @@ LM_POOLS = {"roomy": 65, "tight": 33}
 # ONLINE_CANCEL_NEW-token request after ONLINE_CANCEL_AFTER rounds.
 SPEC_TARGET: dict = {}
 SPEC_DRAFT = {"n_layer": 6}
-SPEC_K, SPEC_BATCH1, SPEC_F32, SPEC_F32_NEW = 4, 8, (8, 4), 32
+SPEC_K, SPEC_BATCH1, SPEC_F32, SPEC_F32_NEW = 4, 8, (4, 2), 32
 SPEC_ROUNDS = 10  # 9a's round breakdown: rounds timed each way
 ONLINE_REQS, ONLINE_THREADS = 16, 4
 ONLINE_CANCEL_NEW, ONLINE_CANCEL_AFTER = 256, 4
+# The LM artifacts (infer/export_lm.py's torch.export programs), each
+# exported once by a background process started with the run (its CPU work
+# overlaps phases 1-3) and shared by 3d, 9 and 10: name -> (model overrides,
+# weight seed, compute dtype, the device that traces, decode_chunk,
+# page_size). The fp32 target serves only 9b's schedulers, which read no
+# fused program; the drafts serve only dense draft calls.
+LM_EXPORTS = {
+    "target_bf16": (SPEC_TARGET, SEED, "bfloat16", "cuda", LM_K, LM_PAGE),
+    "target_bf16_cpu": (SPEC_TARGET, SEED, "bfloat16", "cpu", LM_K,
+                        LM_PAGE),
+    "target_fp32": (SPEC_TARGET, SEED, "float32", "cuda", 0, LM_PAGE),
+    "draft_bf16": (SPEC_DRAFT, SEED + 1, "bfloat16", "cuda", 0, 0),
+    "draft_fp32": (SPEC_DRAFT, SEED + 1, "float32", "cuda", 0, 0),
+}
+# Phase 10: each exported program against the live model's call at two
+# batches and two positions; a fresh process's loads and greedy decode of
+# PROGRAMS_NEW tokens after an [8, LM_PROMPT] prompt.
+# Positions: caches prefilled to PROGRAMS_POS, rows PROGRAMS_POS // 30
+# apart; a row cache of PROGRAMS_POS // 6.
+PROGRAMS_BATCHES, PROGRAMS_NEW, PROGRAMS_POS = (1, 8), 32, 300
 # 3d profiles each scheduler over the first requests of the mix (prompts
 # 32-128), not all 64: the profiler's record of a whole run takes minutes
 # (8 requests until phase 9 came, ~40 s of 3d; PERF.md section 4).
@@ -931,7 +973,7 @@ def decode_batch_independence(dev, gen, split: int) -> list:
     return out
 
 
-def lm_path(dev, gen, rows: dict) -> dict:
+def lm_path(dev, gen, rows: dict, exports: "LMExports") -> dict:
     """The GPT-2-small serving path: (a) generate through K3, (b) the paged
     server through K4 on a roomy and a tight pool, both counted; K3/K4
     against their plain versions at every recorded call and at edge cases,
@@ -1272,7 +1314,7 @@ def lm_path(dev, gen, rows: dict) -> dict:
     # ------------------------------- (c) logits against the plain path
     seconds["2'"] = time.perf_counter() - t_part
     t_part = time.perf_counter()
-    exported = exported_serving(dev, model, reqs, eager_tokens)
+    exported = exported_serving(dev, model, reqs, eager_tokens, exports)
     t_part = time.perf_counter()
 
     errs = {}
@@ -1337,7 +1379,7 @@ def bitwise(a, b) -> bool:
 
 def replay_checks(surface, eager, n_layer: int) -> list:
     """3d(i): each captured call of a loaded surface against the same call
-    run eagerly (``eager``: the same model, nothing captured), from the
+    run eagerly (``eager``: the same programs, nothing captured), from the
     same caches and inputs: first at the capture's position (and table),
     then at another; the outputs and the caches afterwards compared bit
     for bit, and the K3/K4 launches of one more replay counted. Returns
@@ -1348,7 +1390,7 @@ def replay_checks(surface, eager, n_layer: int) -> list:
     from tempo_tpu_torch.ops import cuda_decode
 
     dev = surface.device
-    vocab = surface.cfg.in_size
+    vocab = int(surface.meta["vocab_size"])
     rng = np.random.default_rng(SEED + 2)
     k = surface.k
     with torch.no_grad():
@@ -1414,13 +1456,15 @@ def replay_checks(surface, eager, n_layer: int) -> list:
     return out
 
 
-def exported_serving(dev, model, reqs, eager_tokens: dict) -> dict:
-    """3d: GPT-2-small exported and loaded (device None: CUDA); (i) every
-    captured call bitwise its eager call; (ii) the 64 requests through
-    cli/serve_lm.py's functions with a dict config under each scheduler,
-    the paged server's greedy completions equal to 3b's eager server's;
-    (iii) one POST /v1/completions over loopback equal to batch mode.
-    Returns the metrics."""
+def exported_serving(dev, model, reqs, eager_tokens: dict,
+                     exports: "LMExports") -> dict:
+    """3d: GPT-2-small's programs (exported on the card by a background
+    process, ``exports``) loaded with device None; (i) every captured call
+    bitwise its eager call; (ii) the 64 requests through cli/serve_lm.py's
+    functions with a dict config under each scheduler, the paged server's
+    greedy completions equal to 3b's eager server's; (iii) one POST
+    /v1/completions over loopback equal to batch mode. The loaded surface
+    stays held for phases 9 and 10 (``HELD``). Returns the metrics."""
     import tempfile
 
     from tempo_tpu_torch.cli.serve_lm import _serve_batch, build_server
@@ -1429,17 +1473,16 @@ def exported_serving(dev, model, reqs, eager_tokens: dict) -> dict:
 
     result = {}
     t_phase = time.perf_counter()
+    art, result["export_wait_s"] = timed(
+        lambda: exports.path("target_bf16"))
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        art = export_lm.export_lm(model.state_dict(), model.config,
-                                  tmp / "lm", max_seq=LM_CACHE,
-                                  decode_chunk=LM_K, page_size=LM_PAGE)
         prefill, _, meta = export_lm.load_exported_lm(art)
-        result["export_load_s"] = time.perf_counter() - t0
+        result["load_s"] = time.perf_counter() - t0
         surface = prefill.__self__
-        eager = export_lm._Surface(surface.model, surface.meta,
-                                   captured=False)
+        HELD.append(surface)
+        eager = surface.uncaptured()
 
         # ---------------------------------- (i) replay equals eager
         t_i = time.perf_counter()
@@ -1608,34 +1651,6 @@ def http_check(srv, cfg: dict, tmp: Path, two: list) -> dict:
         fail("3d: /v1/completions differs from batch mode")
     return {"healthz_meta": True, "completions_equal_batch": True,
             "usage": got["usage"]}
-
-
-def spec_exports(dev, tmp: Path) -> dict:
-    """Phase 9's artifact directories: GPT-2-small (SPEC_TARGET, weights
-    from SEED, 3d's model) and the distinct draft (SPEC_DRAFT, DistilGPT2's
-    shape, weights from SEED + 1), each exported by export_lm in bf16 and
-    in fp32. Returns {(model, dtype): directory}."""
-    import dataclasses
-
-    import torch
-
-    from tempo_tpu_torch.infer import export_lm
-    from tempo_tpu_torch.nn.transformer import Transformer, TransformerConfig
-
-    arts = {}
-    for name, shape, seed in (("target", SPEC_TARGET, SEED),
-                              ("draft", SPEC_DRAFT, SEED + 1)):
-        cfg = TransformerConfig(compute_dtype="bfloat16", **shape)
-        model = Transformer(cfg, device=dev, seed=seed)
-        state = model.state_dict()
-        for dtype in ("bfloat16", "float32"):
-            arts[name, dtype] = export_lm.export_lm(
-                state, dataclasses.replace(cfg, compute_dtype=dtype),
-                tmp / f"{name}_{dtype}", max_seq=LM_CACHE, decode_chunk=LM_K,
-                page_size=LM_PAGE)
-        del model, state
-    torch.cuda.empty_cache()
-    return arts
 
 
 def spec_configs(art: Path, draft, pool: str) -> dict:
@@ -1935,7 +1950,8 @@ def online_http(online, cfg: dict, tmp: Path, two: list, want: list) -> dict:
     return {"completions_equal_batch": equal}
 
 
-def speculative_path(dev, rows: dict, fused: dict) -> dict:
+def speculative_path(dev, rows: dict, fused: dict, exports: "LMExports",
+                     after_9a=lambda: None) -> dict:
     """Phase 9: speculation and the online server from exported
     GPT-2-small. 9a bf16: continuous + draft and paged + draft over the 64
     requests, the batch-1 speculative scheduler over the first
@@ -1960,11 +1976,15 @@ def speculative_path(dev, rows: dict, fused: dict) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        arts = spec_exports(dev, tmp)
+        arts = {(model, dtype): exports.path(f"{model}_{short}")
+                for model in ("target", "draft")
+                for dtype, short in (("bfloat16", "bf16"),
+                                     ("float32", "fp32"))}
+        seconds["export_wait"] = time.perf_counter() - t0
         # loaded once for the phase: every server and prefill below shares
-        # these models (and their graphs) instead of loading them anew
+        # these surfaces (and their graphs) instead of loading them anew
         loaded = [export_lm.load_exported_lm(a, dev) for a in arts.values()]
-        seconds["export"] = time.perf_counter() - t0
+        seconds["load"] = time.perf_counter() - t0 - seconds["export_wait"]
         launches, gaps = {}, {}
 
         # ------------------------------------------------ 9a, bf16, timed
@@ -2021,6 +2041,7 @@ def speculative_path(dev, rows: dict, fused: dict) -> dict:
             for (p, d), r in runs.items()}
         del runs
         seconds["9a"] = time.perf_counter() - t0
+        after_9a()  # what may run beside 9b and 9c: gates, not timings
 
         # ------------------------------------------------- 9b, fp32 gate
         t0 = time.perf_counter()
@@ -2083,6 +2104,609 @@ def speculative_path(dev, rows: dict, fused: dict) -> dict:
     print(f"[9] K3/K4 launches by run: {json.dumps(launches)}; "
           f"[time] 9: {json.dumps(seconds)}", flush=True)
     return result
+
+
+HELD: list = []  # loaded LM surfaces kept for later phases (export_lm
+# shares a load of a directory only while something holds it)
+EXPORT_TIMEOUT = 900  # s a background export may take, counted from its start
+
+
+class LMExports:
+    """The background processes that export LM_EXPORTS (``export_child``),
+    one each, all started at once; ``path(name)`` waits for one and returns
+    its directory (failing the run if it failed). A process still running
+    when the run ends is killed."""
+
+    def __init__(self, root: Path):
+        self.root, self.procs, self.results = root, {}, {}
+        self.t0 = time.perf_counter()
+        for name, (shape, seed, dtype, where, chunk, page) in \
+                LM_EXPORTS.items():
+            spec = {"shape": shape, "seed": seed, "dtype": dtype,
+                    "device": where, "decode_chunk": chunk,
+                    "page_size": page, "max_seq": LM_CACHE,
+                    "out": str(root / name),
+                    "result": str(root / f"{name}.json")}
+            (root / f"{name}_spec.json").write_text(json.dumps(spec))
+            env = dict(os.environ, OMP_NUM_THREADS="1")
+            if where == "cpu":
+                env["CUDA_VISIBLE_DEVICES"] = ""  # traced without a card
+            log = open(root / f"{name}.log", "w")
+            self.procs[name] = (subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "chip_smoke.export_child(sys.argv[1])",
+                 str(root / f"{name}_spec.json")],
+                cwd=Path(__file__).resolve().parent, stdout=log,
+                stderr=subprocess.STDOUT, env=env), log)
+        atexit.register(self.stop)
+
+    def path(self, name: str) -> Path:
+        if name not in self.results:
+            proc, log = self.procs[name]
+            left = EXPORT_TIMEOUT - (time.perf_counter() - self.t0)
+            try:
+                rc = proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                self.stop()
+                fail(f"the export of {name} took over {EXPORT_TIMEOUT} s")
+            log.close()
+            if rc:
+                tail = (self.root / f"{name}.log").read_text()[-6000:]
+                fail(f"the export of {name} failed (rc {rc}):\n{tail}")
+            res = json.loads((self.root / f"{name}.json").read_text())
+            res["waited_until_s"] = time.perf_counter() - self.t0
+            self.results[name] = res
+            print(f"[export] {name} {json.dumps(LM_EXPORTS[name])}: "
+                  f"{json.dumps(res)} (a background process since the "
+                  f"run's start, beside the phases that ran meanwhile)",
+                  flush=True)
+        return self.root / name
+
+    def stop(self) -> None:
+        for proc, log in self.procs.values():
+            stop_process(proc)
+            log.close()
+
+
+def stop_process(proc: subprocess.Popen) -> None:
+    """Kill ``proc`` if it still runs (a failed run leaves none behind)."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def export_child(spec_path: str) -> None:
+    """One LM_EXPORTS entry, in a process of its own (LMExports): the model
+    built from its seed on the device that traces, then export_lm; writes
+    the seconds (build, export) to the spec's ``result``."""
+    import torch
+
+    torch.set_num_threads(1)
+    from tempo_tpu_torch.infer.export_lm import export_lm
+    from tempo_tpu_torch.nn.transformer import Transformer, TransformerConfig
+
+    spec = json.loads(Path(spec_path).read_text())
+    t0 = time.perf_counter()
+    cfg = TransformerConfig(compute_dtype=spec["dtype"], **spec["shape"])
+    model = Transformer(cfg, device=spec["device"], seed=spec["seed"])
+    t1 = time.perf_counter()
+    export_lm(model.state_dict(), cfg, spec["out"], max_seq=spec["max_seq"],
+              decode_chunk=spec["decode_chunk"],
+              page_size=spec["page_size"])
+    Path(spec["result"]).write_text(json.dumps({
+        "traced_on": spec["device"], "build_s": t1 - t0,
+        "export_s": time.perf_counter() - t1}))
+
+
+def clone_cache(cache):
+    """A copy of a cache; a paged one keeps one table for all layers."""
+    if len(cache[0]) == 2:
+        return tuple((ck.clone(), cv.clone()) for ck, cv in cache)
+    tab = cache[0][2].clone()
+    return tuple((pk.clone(), pv.clone(), tab) for pk, pv, _ in cache)
+
+
+def program_bases(live, b: int) -> dict:
+    """Phase 10's starting state at batch b, through the live surface: a
+    dense cache prefilled to PROGRAMS_POS positions, a pool of the roomy
+    page count holding the same rows through a shuffled table, and a
+    batch-1 row cache of PROGRAMS_POS // 6 positions."""
+    import numpy as np
+    import torch
+
+    dev = live.device
+    vocab = int(live.meta["vocab_size"])
+    rng = np.random.default_rng(SEED + 20 + b)
+    mp = LM_CACHE // LM_PAGE
+    n_pages = LM_POOLS["roomy"]
+    with torch.no_grad():
+        _, dense = live.prefill(rng.integers(0, vocab, (b, PROGRAMS_POS)))
+        _, row = live.prefill(rng.integers(0, vocab,
+                                           (1, PROGRAMS_POS // 6)))
+        table = (1 + torch.randperm(n_pages - 1, device=dev))[:b * mp]
+        table = table.reshape(b, mp).to(torch.int32)
+        shape = (n_pages, LM_PAGE) + tuple(dense[0][0].shape[2:])
+        paged = tuple((torch.zeros(shape, dtype=dense[0][0].dtype,
+                                   device=dev),
+                       torch.zeros(shape, dtype=dense[0][0].dtype,
+                                   device=dev), table) for _ in dense)
+        for r in range(b):
+            live.admit_paged(paged, tuple((ck[r:r + 1], cv[r:r + 1])
+                                          for ck, cv in dense), table[r])
+    return {"dense": dense, "paged": paged, "row": row,
+            "rows_pos": PROGRAMS_POS - PROGRAMS_POS // 30 * np.arange(b)}
+
+
+def run_program(surface, name: str, i: int, b: int, base: dict):
+    """One call of program ``name`` through ``surface`` (nothing captured)
+    at batch b and the i-th (0 or 1) of two positions, from copies of the
+    base caches: (outputs, the cache afterwards). Inputs depend on (name,
+    i, b) alone, so two surfaces get the same ones."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 30 + 2 * b + i)
+    vocab = int(surface.meta["vocab_size"])
+    tok = rng.integers(0, vocab, (b, 1))
+    block = rng.integers(0, vocab, (b, 5))
+    if name == "prefill":
+        return surface.prefill(rng.integers(0, vocab,
+                                            (b, (7, PROGRAMS_POS)[i])))
+    if name == "admit":
+        return surface.admit(clone_cache(base["dense"]), base["row"],
+                             (0, b - 1)[i])
+    if name == "admit_paged":
+        cache = clone_cache(base["paged"])
+        return surface.admit_paged(cache, base["row"],
+                                   cache[0][2][(0, b - 1)[i]])
+    paged = "paged" in name
+    cache = clone_cache(base["paged"] if paged else base["dense"])
+    rows = paged or name in ("decode_rows", "extend_rows", "decode_k_rows",
+                             "decode_k_sample")
+    pos = (base["rows_pos"] if rows else PROGRAMS_POS) + i * LM_K
+    call = getattr(surface, "extend" if name.startswith("extend") else name)
+    args = (block if name.startswith("extend") else tok, cache, pos)
+    if name.endswith("_sample"):
+        args += (np.arange(b) * 7 + i, np.where(np.arange(b) % 2, 0.0, 0.8),
+                 np.full(b, 50), np.full(b, 0.9))
+    return call(*args)
+
+
+class ProgramsChildren:
+    """Phase 10's two processes (``programs_child``: a fresh process's
+    loads and greedy decode of the card's artifact; ``programs_check_child``:
+    the CPU's artifact held against the live model), started together
+    once both artifacts exist; ``results()`` waits for them. Their loads
+    are host work, so they run beside 9b and 9c (gates, not timings)."""
+
+    def __init__(self, exports: LMExports, dev):
+        import numpy as np
+
+        from tempo_tpu_torch.nn.transformer import TransformerConfig
+
+        self.tmp = tempfile.TemporaryDirectory()
+        vocab = TransformerConfig(**SPEC_TARGET).in_size
+        self.prompt = np.random.default_rng(SEED + 40).integers(
+            0, vocab, (LM_BATCH, LM_PROMPT))
+        self.procs = {}
+        for child, name in (("programs_child", "target_bf16"),
+                            ("programs_check_child", "target_bf16_cpu")):
+            tmp = Path(self.tmp.name)
+            spec = {"dir": str(exports.path(name)),
+                    "prompt": self.prompt.tolist(), "new": PROGRAMS_NEW,
+                    "device": dev.type, "out": str(tmp / f"{child}.json"),
+                    # what the check reads of this script's settings
+                    "settings": {k: globals()[k] for k in (
+                        "SPEC_TARGET", "LM_CACHE", "LM_K", "LM_PAGE",
+                        "LM_POOLS", "PROGRAMS_BATCHES", "PROGRAMS_POS")}}
+            (tmp / f"{child}_spec.json").write_text(json.dumps(spec))
+            log = open(tmp / f"{child}.log", "w")
+            proc = subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 f"chip_smoke.{child}(sys.argv[1])",
+                 str(tmp / f"{child}_spec.json")],
+                cwd=Path(__file__).resolve().parent, stdout=log,
+                stderr=subprocess.STDOUT)
+            atexit.register(stop_process, proc)
+            self.procs[child] = (proc, log, spec["out"])
+
+    def results(self) -> dict:
+        out = {}
+        for child, (proc, log, path) in self.procs.items():
+            try:
+                rc = proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                stop_process(proc)
+                fail(f"10: {child} took over 600 s")
+            log.close()
+            if rc:
+                fail(f"10: {child} failed (rc {rc}):\n"
+                     f"{Path(log.name).read_text()[-6000:]}")
+            out[child] = json.loads(Path(path).read_text())
+        self.tmp.cleanup()
+        return out
+
+
+def programs_bitwise(live, surface) -> dict:
+    """{program: whether ``surface``'s call (nothing captured) equals
+    ``live``'s bitwise, outputs and caches, at every batch of
+    PROGRAMS_BATCHES and both positions}."""
+    import torch
+
+    from tempo_tpu_torch.infer import export_lm
+
+    same = {}
+    with torch.no_grad():
+        for b in PROGRAMS_BATCHES:
+            base = program_bases(live, b)
+            for name in export_lm.program_names(live.meta):
+                for i in (0, 1):
+                    ok = bitwise(run_program(surface, name, i, b, base),
+                                 run_program(live, name, i, b, base))
+                    same[name] = same.get(name, True) and ok
+            del base
+    return same
+
+
+def programs_check_child(spec_path: str) -> None:
+    """Phase 10's check of one artifact in a process of its own: every
+    program loaded on the card, each held bitwise against the live model's
+    call (``programs_bitwise``). Writes the load seconds and the result to
+    the spec's ``out``."""
+    import torch
+
+    from tempo_tpu_torch.infer import export_lm
+    from tempo_tpu_torch.nn.transformer import Transformer, TransformerConfig
+
+    spec = json.loads(Path(spec_path).read_text())
+    globals().update(spec["settings"])
+    dev = torch.device(spec["device"])
+    model = Transformer(TransformerConfig(compute_dtype="bfloat16",
+                                          **SPEC_TARGET), device=dev,
+                        seed=SEED)
+    live = export_lm._live_surface(model, LM_CACHE, LM_K, LM_PAGE, dev,
+                                   captured=False)
+    t0 = time.perf_counter()
+    loaded = export_lm._load(spec["dir"], dev,
+                             *export_lm.program_names(live.meta))
+    load_s = time.perf_counter() - t0
+    Path(spec["out"]).write_text(json.dumps({
+        "load_all_s": load_s,
+        "bitwise": programs_bitwise(live, loaded.uncaptured())}))
+
+
+def programs_child(spec_path: str) -> None:
+    """Phase 10's fresh process: every loader of one artifact directory
+    with device None, timed, with torch.cuda.memory_allocated around it;
+    the same loaders again (a second load shares the first's surface);
+    then greedy_decode_exported. Writes the seconds, the bytes, the tokens
+    and the tempo_tpu_torch.nn modules imported to the spec's ``out``."""
+    import torch
+
+    from tempo_tpu_torch.infer import export_lm as e
+
+    spec = json.loads(Path(spec_path).read_text())
+    d = spec["dir"]
+    on_card = spec["device"] == "cuda"  # "cpu" only in a CPU rehearsal
+    device = None if on_card else "cpu"
+    if on_card:
+        torch.zeros(1, device="cuda")  # the context, before the baseline
+        torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated if on_card else (lambda: 0)
+    loaders = (e.load_exported_lm, e.load_exported_continuous,
+               e.load_exported_extend_rows, e.load_exported_decode_k,
+               e.load_exported_decode_k_sample, e.load_exported_paged,
+               e.load_exported_extend_paged, e.load_exported_paged_k,
+               e.load_exported_speculative)
+    before = allocated()
+    t0 = time.perf_counter()
+    held = [load(d, device) for load in loaders]
+    first_s = time.perf_counter() - t0
+    after = allocated()
+    t0 = time.perf_counter()
+    held += [load(d, device) for load in loaders]
+    second_s = time.perf_counter() - t0
+    t0 = time.perf_counter()  # the tokens come back to the host: synced
+    tokens = e.greedy_decode_exported(d, spec["prompt"], spec["new"], device)
+    decode_s = time.perf_counter() - t0
+    Path(spec["out"]).write_text(json.dumps({
+        "first_load_s": first_s, "second_load_s": second_s,
+        "allocated_before": before, "allocated_after": after,
+        "decode_s": decode_s, "tokens": tokens.tolist(),
+        "nn_modules": sorted(m for m in sys.modules
+                             if m.startswith("tempo_tpu_torch.nn"))}))
+    del held
+
+
+def live_artifacts(model, root: Path, dev):
+    """A directory that cli/serve_lm.py's build_server takes for artifacts
+    but that serves a live model: its meta.json, and the live surface put
+    first in export_lm's table of loaded surfaces (which a load consults
+    before reading the directory). Returns (directory, surface): the
+    caller holds the surface for as long as the directory is used."""
+    from tempo_tpu_torch.infer import export_lm
+
+    surface = export_lm._live_surface(model, LM_CACHE, LM_K, LM_PAGE, dev)
+    path = root / "live"
+    path.mkdir()
+    (path / "meta.json").write_text(json.dumps(surface.meta))
+    export_lm._LOADED[(str(path.resolve()), str(dev))] = surface
+    return path, surface
+
+
+def replay_profile(surface, cache, tok, pos) -> dict:
+    """One captured decode_k replay (captured first) of ``surface`` at
+    ``cache``: its device ms by CUDA events and by torch.profiler, the
+    device kernels the profiler lists in one replay, and whether the
+    cache's tensors kept their addresses."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ptrs = [t.data_ptr() for layer in cache for t in layer]
+    surface.decode_k(tok, cache, pos)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: surface.decode_k(tok, cache, pos), iters=5,
+                 warmup=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        surface.decode_k(tok, cache, pos)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in events if "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    return {"ms": ms, "profiled_device_ms": sum(
+        e.time_range.elapsed_us() for e in events) / 1e3,
+        "kernels": len(kernels),
+        "device_events": len(events),
+        "addresses_kept": ptrs == [t.data_ptr() for layer in cache
+                                   for t in layer]}
+
+
+def programs_path(dev, rows: dict, exports: LMExports,
+                  children: "ProgramsChildren") -> dict:
+    """Phase 10: GPT-2-small's serving programs (bf16, max_seq LM_CACHE,
+    page LM_PAGE, decode_chunk LM_K), exported on the card and on the CPU
+    by background processes. (a) export seconds by program, the directory's
+    bytes beside the weights'; (b) a fresh process's first and second load,
+    its device memory across the loads and its greedy decode, which must
+    import no model code and equal generate's; (c) each program, through
+    both artifacts, bitwise the live model's call (the same bodies over
+    nn/transformer.py) at PROGRAMS_BATCHES and two positions, outputs and
+    caches, the CPU's artifact in a process of its own (b and that half of
+    c run in ``children``, started after 9a's timed runs: loading is host
+    work); (d) one captured decode_k replay (b=8, K=LM_K), exported and
+    live: device ms, kernels, cache addresses; (e) serve_lm's continuous
+    and paged schedulers over the programs beside the same over a live
+    surface: tokens/s, the same greedy tokens and K3/K4 launches. Every
+    gate is checked after all is printed."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.cli.serve_lm import _serve_batch, build_server
+    from tempo_tpu_torch.infer import export_lm
+    from tempo_tpu_torch.nn.transformer import (Transformer,
+                                                TransformerConfig, generate)
+    from tempo_tpu_torch.ops import cuda_decode
+
+    card = smi_line()
+    out, bad, seconds = {"card": card}, [], {}
+    t_phase = time.perf_counter()
+    arts = {"card": exports.path("target_bf16"),
+            "cpu": exports.path("target_bf16_cpu")}
+    seconds["export_wait"] = time.perf_counter() - t_phase
+
+    # ----------------------------------------- (a) seconds and bytes
+    for where, art in arts.items():
+        meta = json.loads((art / "meta.json").read_text())
+        files = {p.name: p.stat().st_size for p in art.iterdir()}
+        weights = torch.load(art / "weights.pt", map_location="cpu",
+                             weights_only=True)
+        w_bytes = sum(w.numel() * w.element_size() for w in weights.values())
+        del weights
+        r = out[f"exported_on_{where}"] = {
+            "programs": len(meta["programs"]),
+            "export_s": meta["export_seconds"],
+            "export_s_total": sum(meta["export_seconds"].values()),
+            "process": exports.results[
+                "target_bf16" if where == "card" else "target_bf16_cpu"],
+            "weights_bytes": w_bytes, "weights_pt_bytes": files["weights.pt"],
+            "programs_bytes": sum(v for k, v in files.items()
+                                  if k.endswith(".pt2")),
+            "dir_bytes": sum(files.values())}
+        print(f"[10] exported on the {where}: {json.dumps(r)} (export_s: "
+              f"each program's trace and save in its background process) "
+              f"on {card}", flush=True)
+        if len(meta["programs"]) != 14:
+            bad.append(f"{where}: {len(meta['programs'])} programs, want 14")
+        if not r["weights_pt_bytes"] <= 1.1 * w_bytes:
+            bad.append(f"{where}: weights.pt {r['weights_pt_bytes']} bytes "
+                       f"for {w_bytes} of weights")
+    seconds["a"] = time.perf_counter() - t_phase
+
+    # -------- (b), (c): the two processes started after 9a, and this
+    # process's own check
+    t0 = time.perf_counter()
+    cfg = TransformerConfig(compute_dtype="bfloat16", **SPEC_TARGET)
+    model = Transformer(cfg, device=dev, seed=SEED)
+    want = generate(model, children.prompt, PROGRAMS_NEW, temperature=0.0,
+                    cache_dtype=torch.bfloat16, cache_len=LM_CACHE).cpu()
+
+    # (c) in this process: the card's artifact, every program loaded
+    live = export_lm._live_surface(model, LM_CACHE, LM_K, LM_PAGE, dev,
+                                   captured=False)
+    tl = time.perf_counter()
+    captured = export_lm._load(arts["card"], dev,
+                               *export_lm.program_names(live.meta))
+    out["exported_on_card"]["load_rest_s"] = time.perf_counter() - tl
+    HELD.append(captured)
+    same = {"card": programs_bitwise(live, captured.uncaptured())}
+
+    results = children.results()
+    res = results["programs_child"]
+    w_bytes = out["exported_on_card"]["weights_bytes"]
+    res["allocated_rise"] = res["allocated_after"] - res["allocated_before"]
+    res["allocated_rise_over_weights"] = res["allocated_rise"] / w_bytes
+    res["tokens_equal_generate"] = res.pop("tokens") == want.tolist()
+    out["fresh_process"] = res
+    print(f"[10] a fresh process: every loader of the card's artifact "
+          f"(device None), then again, then greedy_decode_exported of "
+          f"{PROGRAMS_NEW} tokens after [{LM_BATCH}, {LM_PROMPT}]: "
+          f"{json.dumps(res)} (gates: no tempo_tpu_torch.nn module, memory "
+          f"rise <= 1.1x the weights' {w_bytes} bytes, tokens equal "
+          f"generate's; beside another process's check of the CPU's "
+          f"artifact and this one's of the card's) on {card}", flush=True)
+    if res["nn_modules"]:
+        bad.append(f"loading imported {res['nn_modules']}")
+    if not res["allocated_rise"] <= 1.1 * w_bytes:
+        bad.append(f"loading took {res['allocated_rise']} bytes of device "
+                   f"memory for {w_bytes} of weights")
+    if not res["tokens_equal_generate"]:
+        bad.append("the fresh process's greedy decode differs from "
+                   "generate's")
+    check = results["programs_check_child"]
+    out["exported_on_cpu"]["load_all_s"] = check["load_all_s"]
+    same["cpu"] = check["bitwise"]
+    out["bitwise"] = same
+    print(f"[10] each program (nothing captured) bitwise the live model's "
+          f"call, outputs and caches, at batches {PROGRAMS_BATCHES} and two "
+          f"positions each (the CPU's artifact checked in a process of its "
+          f"own): {json.dumps(same)}", flush=True)
+    for where, by_name in same.items():
+        bad += [f"{name} exported on the {where}: not bitwise the live "
+                f"call at every batch and position"
+                for name, ok in by_name.items() if not ok]
+    seconds["b_c"] = time.perf_counter() - t0
+
+    # ----------------------- (d) one captured decode_k replay, b = 8
+    t0 = time.perf_counter()
+    base = program_bases(live, LM_BATCH)
+    tok = torch.from_numpy(np.random.default_rng(SEED + 41).integers(
+        0, cfg.in_size, (LM_BATCH, 1))).to(dev)
+    live_captured = export_lm._live_surface(model, LM_CACHE, LM_K, LM_PAGE,
+                                            dev)
+    pos = torch.tensor(PROGRAMS_POS, dtype=torch.int32, device=dev)
+    replay = {}
+    for name, s in (("exported", captured), ("live", live_captured)):
+        cache = clone_cache(base["dense"])
+        replay[name] = replay_profile(s, cache, tok, pos)
+        eager = s.uncaptured()
+        replay[name]["graph_nodes"] = len(graph_nodes(
+            lambda: eager.decode_k(tok, cache, pos)))
+        del cache
+    del base
+    replay["nodes_fewer_by"] = (replay["live"]["graph_nodes"]
+                                - replay["exported"]["graph_nodes"])
+    out["decode_k_replay"] = replay
+    print(f"[10] one captured decode_k replay, b={LM_BATCH}, K={LM_K}, "
+          f"exported (on the card) and live: {json.dumps(replay)} (ms: CUDA "
+          f"events, cold L2; kernels: what torch.profiler lists of one "
+          f"replay, which has varied by up to 36 between runs of one graph; "
+          f"graph_nodes: the nodes of the graph the call captures, the "
+          f"gate) on {card}", flush=True)
+    for name, r in replay.items():
+        if isinstance(r, dict) and not r["addresses_kept"]:
+            bad.append(f"the {name} replay moved a cache tensor")
+    if replay["nodes_fewer_by"] != 2 * LM_K:
+        bad.append(f"the exported decode_k graph holds "
+                   f"{replay['exported']['graph_nodes']} nodes, the live one "
+                   f"{replay['live']['graph_nodes']}: want {2 * LM_K} fewer "
+                   f"(the live step casts the fp32 wte and wpe rows it "
+                   f"gathers; the program gathers bf16 tables)")
+    seconds["d"] = time.perf_counter() - t0
+
+    # ------ the eager calls of a request: host ms, exported and live
+    t0 = time.perf_counter()
+    base = program_bases(live, 1)
+    rng = np.random.default_rng(SEED + 42)
+    block = rng.integers(0, cfg.in_size, (1, LM_CHUNK))
+    pages = base["paged"][0][2][0]
+    calls = {
+        "prefill": lambda s: s.prefill(block),
+        "extend": lambda s: s.extend(block, dense, PROGRAMS_POS),
+        "extend_paged": lambda s: s.extend(block, paged,
+                                           base["rows_pos"][:1]),
+        "admit_paged": lambda s: s.admit_paged(paged, base["row"], pages)}
+    eager_ms = {}
+    with torch.no_grad():
+        dense, paged = base["dense"], base["paged"]
+        for r in range(3):  # rounds alternate which surface goes first
+            order = [("exported", captured.uncaptured()), ("live", live)]
+            for src, s in order[::1 - 2 * (r % 2)]:
+                for name, call in calls.items():
+                    eager_ms.setdefault(name, {}).setdefault(
+                        src, []).append(host_ms(lambda: call(s), iters=5))
+    del base, dense, paged
+    out["eager_host_ms"] = {n: {src: statistics.median(v)
+                                for src, v in d.items()}
+                            for n, d in eager_ms.items()}
+    print(f"[10] the eager calls of a request at b=1, {LM_CHUNK} tokens, "
+          f"host ms (median of 3 alternating rounds of host_ms's median "
+          f"of 5): {json.dumps(out['eager_host_ms'])} on {card}", flush=True)
+    seconds["eager"] = time.perf_counter() - t0
+
+    # ------------- (e) serve_lm over the programs and over a live surface
+    t0 = time.perf_counter()
+    reqs = lm_workload(cfg.in_size)
+    serve = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        live_dir, live_serving = live_artifacts(model, tmp, dev)
+        req_path = tmp / "requests.jsonl"
+        req_path.write_text("".join(json.dumps(r) + "\n" for r in reqs))
+        for sched, extra in (("continuous", {}),
+                             ("paged", {"n_pages": LM_POOLS["roomy"]})):
+            for src, art in (("programs", arts["card"]),
+                             ("live", live_dir)):
+                cfg_ = {"artifacts": str(art), "requests": str(req_path),
+                        "scheduler": sched, "slots": LM_SLOTS,
+                        "k_decode": LM_K, "prefill_chunk": LM_CHUNK, **extra}
+                srv = build_server(cfg_)
+                srv.serve_requests(reqs[:2], default_new_tokens=64)
+                torch.cuda.synchronize()
+                for key in cuda_decode.LAUNCHES:
+                    cuda_decode.LAUNCHES[key] = 0
+                run_dir = tmp / f"{sched}_{src}"
+                run_dir.mkdir()
+                _serve_batch(srv, cfg_, run_dir, 64)
+                torch.cuda.synchronize()
+                info = json.loads((run_dir / "serving_info.yaml").read_text())
+                done = [json.loads(line) for line in (
+                    run_dir / "completions.jsonl").read_text().splitlines()]
+                serve[sched, src] = {
+                    "tokens_per_sec": info["tokens_per_sec"],
+                    "elapsed_s": info["elapsed_s"],
+                    "K3": cuda_decode.LAUNCHES["decode_attention"],
+                    "K4": cuda_decode.LAUNCHES["paged_decode_attention"],
+                    "tokens": [r["tokens"] for r in done]}
+                del srv
+        del live_serving
+    for sched in ("continuous", "paged"):
+        p, lv = serve[sched, "programs"], serve[sched, "live"]
+        line = {k: {s: serve[sched, s][k] for s in ("programs", "live")}
+                for k in ("tokens_per_sec", "elapsed_s", "K3", "K4")}
+        line["tokens_equal"] = p["tokens"] == lv["tokens"]
+        out[f"serve_{sched}"] = line
+        print(f"[10] serve_lm {sched} ({LM_SLOTS} slots, k {LM_K}), the 64 "
+              f"requests over the programs and over a live surface: "
+              f"{json.dumps(line)} (host wall of _serve_batch after a "
+              f"2-request warm-up that captures the graphs) on {card}",
+              flush=True)
+        if not line["tokens_equal"]:
+            bad.append(f"serve_lm {sched}: the programs' greedy tokens "
+                       f"differ from the live surface's")
+        if (p["K3"], p["K4"]) != (lv["K3"], lv["K4"]) or not (
+                p["K3"] + p["K4"]):
+            bad.append(f"serve_lm {sched}: K3/K4 launches "
+                       f"{(p['K3'], p['K4'])} over the programs, "
+                       f"{(lv['K3'], lv['K4'])} over the live surface")
+    for name, key in (("K3", "continuous"), ("K4", "paged")):
+        rows[name]["launches_phase10"] = serve[key, "programs"][name]
+    seconds["e"] = time.perf_counter() - t0
+    seconds["10"] = time.perf_counter() - t_phase
+    out["seconds"] = seconds
+    print(f"[time] 10: {json.dumps(seconds)}", flush=True)
+    if bad:
+        fail("10: " + "; ".join(bad))
+    return out
 
 
 def lm_row(name: str, replaces: str, library: str) -> dict:
@@ -4198,6 +4822,10 @@ def main() -> int:
         fail(f"the tempo_tpu_torch package is not beside this script: {e}")
 
     print(smi_line(), flush=True)
+    # the LM artifacts, exported by background processes while phases 1-3
+    # run (3d, 9 and 10 wait for them)
+    lm_root = tempfile.TemporaryDirectory()
+    exports = LMExports(Path(lm_root.name))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -4720,13 +5348,25 @@ def main() -> int:
     rows["K4"] = lm_row(
         "K4", "tempo_tpu/ops/pallas_decode.py:94",
         "none: no single PyTorch call reads K/V through a block table")
-    lm = lm_path(dev, gen, rows)
+    lm = lm_path(dev, gen, rows, exports)
     seconds["lm_serving"] = time.perf_counter() - t_phase
 
     # -------------------------- 9. speculation and the online server
     t_phase = time.perf_counter()
-    spec = speculative_path(dev, rows, lm["exported"]["serve"])
+    children = []
+    spec = speculative_path(
+        dev, rows, lm["exported"]["serve"], exports,
+        after_9a=lambda: children.append(ProgramsChildren(exports, dev)))
     seconds["spec_online"] = time.perf_counter() - t_phase
+
+    # ------------------------------- 10. the exported serving programs
+    t_phase = time.perf_counter()
+    programs = programs_path(dev, rows, exports, children[0])
+    seconds["programs"] = time.perf_counter() - t_phase
+    HELD.clear()
+    exports.stop()
+    lm_root.cleanup()
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------- the GPT training path
     t_phase = time.perf_counter()
@@ -4786,7 +5426,7 @@ def main() -> int:
         "recon_rel_l2_bf16": err_bf16, "recon_rel_l2_granule": err_granule,
         "recon_rel_l2_f32": err_f32, "lm": lm, "train": train,
         "vae_train": vae_train, "vae_l2": vae_l2, "analysis": analysis,
-        "export": export, "prep": prep, "spec": spec,
+        "export": export, "prep": prep, "spec": spec, "programs": programs,
         "granule_numpy_normalize_s": t_numpy_normalize,
         "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,11 @@ model's config from the run's copied config.yaml the way train_gpt does
 (``build_transformer_config``; the vocabulary from ``model.in_size`` or the
 run's training_info.yaml), loads a checkpoint (the latest by default, a
 ``ckpt_step=*.pt`` file) and writes ``<output_dir>/lm/`` through
-infer/export_lm.py ``export_lm`` (weights.pt and meta.json). It then checks
-that greedy decoding through the loaded artifacts equals ``generate`` of
-the live model, on ``device`` (None: CUDA), and writes export_info.yaml.
+infer/export_lm.py ``export_lm``: the ``torch.export`` programs (traced on
+the CPU; one artifact serves the CPU and the card), weights.pt and
+meta.json. It then checks that greedy decoding through the loaded programs
+equals ``generate`` of the live model, on ``device`` (None: CUDA), and
+writes export_info.yaml.
 
 Not ported (NotImplementedError): ``quantize: int8`` (weight-only int8,
 nn/quant.py, M11) and pipeline-parallel stage stacks.
@@ -28,6 +30,7 @@ Config:
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Union
 
@@ -102,7 +105,9 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
                     max_seq=int(max_seq) if max_seq else None,
                     decode_chunk=int(config.get("decode_chunk", 8)),
                     page_size=int(config.get("page_size", 0)))
-    print(f"Exported weights.pt + meta.json to {out}")
+    meta = json.loads((out / "meta.json").read_text())
+    print(f"Exported {len(meta['programs'])} torch.export programs + "
+          f"weights.pt + meta.json to {out}")
 
     # the artifacts' greedy decode must equal the live model's
     model = Transformer(tconfig, device=device)

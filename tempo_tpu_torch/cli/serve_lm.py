@@ -114,8 +114,8 @@ def build_server(config: Dict[str, Any],
     artifacts = Path(config["artifacts"])
     if not (artifacts / "meta.json").exists():
         raise ValueError(f"FATAL: no exported artifacts at {artifacts} "
-                         "(expected meta.json + weights.pt from "
-                         "cli/export_lm.py)")
+                         "(expected the programs, weights.pt and "
+                         "meta.json that cli/export_lm.py writes)")
     scheduler = str(config.get("scheduler", "bucketed"))
     chunk = int(config.get("prefill_chunk", 0)) or None
     pool = {"n_slots": int(config.get("slots", 8)), "prefill_chunk": chunk,

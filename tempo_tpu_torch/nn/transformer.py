@@ -16,14 +16,17 @@ Counterpart of tempo_tpu/nn/transformer.py with the same math:
   (ops/flash_attention.py) where ``_flash_ok`` picks it, GQA's K/V repeated
   per group first, and otherwise runs the plain masked attention (the XLA
   path); every cache call with t > 1 runs the plain masked attention; a
-  t == 1 cache call goes through K3 (ops/cuda_decode.py decode_attention)
-  on a dense cache and K4 (paged_decode_attention) on a paged one, whatever
+  t == 1 cache call goes through K3 (ops/cuda_decode.py decode_attention,
+  the op ``tempo::decode_attention``) on a dense cache and K4
+  (``tempo::paged_decode_attention``) on a paged one, whatever
   ``decode_attn`` says: all its values compute the same function.
 - ``remat`` recomputes each block in the backward (torch.utils.checkpoint),
   as nn.remat does.
 
 Parameters stay fp32 and are cast to ``compute_dtype`` at use, as flax's
-``dtype`` does; the cast is cached until the parameter changes. Names
+``dtype`` does; the cast is cached until the parameter changes.
+``serving_copy`` holds each parameter in the type its use reads instead,
+for the programs of infer/export_lm.py, which must not cast. Names
 follow the reference toolkit's torch GPT (``transformer.h.{i}.attn.c_attn``
 ...), so tempo_tpu/interop/gpt_ckpt.py reads ``state_dict()`` as it is.
 
@@ -143,15 +146,27 @@ def _refuse_setup_in_capture(device: torch.device, what: str) -> None:
                            f"capture: make a warm-up call first")
 
 
+def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype``: ``x`` itself where it is already, so that a
+    traced program holds no node for a cast that does nothing."""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
 def cast_param(owner: nn.Module, p: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:
     """``p`` in ``dtype``, cached on ``owner`` until ``p`` changes (in
     place, or moved) or another type is asked for. Not cached where a
     graph is being built, nor for a parameter made under
     torch.inference_mode() (no version count). A cast missing from the
-    cache inside a CUDA graph capture raises."""
+    cache inside a CUDA graph capture raises, and so does any cast under
+    torch.export (export ``serving_copy``)."""
     if p.dtype == dtype:
         return p
+    if torch.compiler.is_exporting():
+        raise RuntimeError(
+            "a parameter's cast inside torch.export would run at every call "
+            "of the program: export a serving_copy, whose parameters are in "
+            "the types their uses read")
     if (torch.is_grad_enabled() and p.requires_grad) or p.is_inference():
         return p.to(dtype)
     cache = owner.__dict__.setdefault("_cast_cache", {})
@@ -176,7 +191,7 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         b = None if self.bias is None else cast_param(self, self.bias, dt)
-        return F.linear(x.to(dt), cast_param(self, self.weight, dt), b)
+        return F.linear(cast(x, dt), cast_param(self, self.weight, dt), b)
 
 
 class LayerNorm(nn.Module):
@@ -189,9 +204,9 @@ class LayerNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.layer_norm(x.float(), x.shape[-1:], self.weight, self.bias,
-                         1e-5)
-        return h.to(self.dtype)
+        h = F.layer_norm(cast(x, torch.float32), x.shape[-1:], self.weight,
+                         self.bias, 1e-5)
+        return cast(h, self.dtype)
 
 
 def rope_cache(seq_len: int, head_dim: int, base: float = 10_000.0,
@@ -209,14 +224,14 @@ def apply_rope(x: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
     """Rotate adjacent feature pairs of x [B, T, n, hd] by cache
     [T, hd//2, 2] or, per row, [B, T, hd//2, 2]; fp32, cast back."""
     b, t, n, d = x.shape
-    xs = x.float().reshape(b, t, n, d // 2, 2)
+    xs = cast(x, torch.float32).reshape(b, t, n, d // 2, 2)
     if cache.ndim == 4:
         cos, sin = cache[:, :, None, :, 0], cache[:, :, None, :, 1]
     else:
         cos, sin = cache[None, :, None, :, 0], cache[None, :, None, :, 1]
     out = torch.stack([xs[..., 0] * cos - xs[..., 1] * sin,
                        xs[..., 1] * cos + xs[..., 0] * sin], dim=-1)
-    return out.reshape(b, t, n, d).to(x.dtype)
+    return cast(out.reshape(b, t, n, d), x.dtype)
 
 
 def _token_positions(input_pos: Optional[torch.Tensor], b: int, t: int,
@@ -296,18 +311,18 @@ class SelfAttention(nn.Module):
                 ck, cv = cache
                 if input_pos.ndim == 1:
                     rows = torch.arange(b, device=x.device)[:, None]
-                    ck[rows, tok_pos] = k.to(ck.dtype)
-                    cv[rows, tok_pos] = v.to(cv.dtype)
+                    ck[rows, tok_pos] = cast(k, ck.dtype)
+                    cv[rows, tok_pos] = cast(v, cv.dtype)
                 else:
-                    ck.index_copy_(1, tok_pos[0], k.to(ck.dtype))
-                    cv.index_copy_(1, tok_pos[0], v.to(cv.dtype))
+                    ck.index_copy_(1, tok_pos[0], cast(k, ck.dtype))
+                    cv.index_copy_(1, tok_pos[0], cast(v, cv.dtype))
                 new_cache = (ck, cv)
                 if t == 1:
                     y = cuda_decode.decode_attention(q.contiguous(), ck, cv,
                                                      input_pos)
                 else:
                     y = cuda_decode.masked_attention(q, ck, cv, tok_pos)
-        y = y.to(cfg.dtype).reshape(b, t, c)
+        y = cast(y, cfg.dtype).reshape(b, t, c)
         return self.c_proj(y), new_cache
 
     def _paged(self, q, k, v, cache, input_pos, tok_pos):
@@ -322,9 +337,9 @@ class SelfAttention(nn.Module):
         page_ids = table.long().gather(1, tok_pos // pg)
         flat = (page_ids * pg + tok_pos % pg).reshape(-1)
         pk.view(n_pages * pg, kv, hd).index_copy_(
-            0, flat, k.to(pk.dtype).reshape(b * t, kv, hd))
+            0, flat, cast(k, pk.dtype).reshape(b * t, kv, hd))
         pv.view(n_pages * pg, kv, hd).index_copy_(
-            0, flat, v.to(pv.dtype).reshape(b * t, kv, hd))
+            0, flat, cast(v, pv.dtype).reshape(b * t, kv, hd))
         if t == 1:
             y = cuda_decode.paged_decode_attention(q.contiguous(), pk, pv,
                                                    table, input_pos)
@@ -386,6 +401,8 @@ def _as_positions(input_pos, device: torch.device) -> Optional[torch.Tensor]:
         raise NotImplementedError(
             "per-token [b, t] positions (zigzag context parallelism) are "
             "not ported")
+    if p.device == device and p.dtype == torch.int32:
+        return p
     return p.to(device=device, dtype=torch.int32)
 
 
@@ -450,19 +467,19 @@ class Transformer(nn.Module):
                                       "ported yet")
         wte = self.transformer["wte"].weight
         dev = wte.device
-        x = torch.as_tensor(x, device=dev).long()
+        x = cast(torch.as_tensor(x, device=dev), torch.int64)
         b, t = x.shape
         if t > cfg.block_size:
             raise ValueError(f"sequence length {t} > block size "
                              f"{cfg.block_size}")
         input_pos = _as_positions(input_pos, dev)
-        h = F.embedding(x, wte).to(cfg.dtype)
+        h = cast(F.embedding(x, wte), cfg.dtype)
         if cfg.pos_embed:
             pos = _token_positions(input_pos, b, t, dev)
             if pos is None:
                 pos = torch.arange(t, device=dev)[None]
             wpe = self.transformer["wpe"].weight
-            h = h + F.embedding(pos, wpe).to(cfg.dtype)
+            h = h + cast(F.embedding(pos, wpe), cfg.dtype)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         new_caches = []
         for i, block in enumerate(self.transformer["h"]):
@@ -482,6 +499,25 @@ class Transformer(nn.Module):
         if cache is not None:
             return out, tuple(new_caches)
         return out
+
+
+def serving_copy(state_dict, config: TransformerConfig) -> Transformer:
+    """A model over ``state_dict`` (on its tensors' device, grad off) whose
+    parameters are each in the type its use reads, so that no call casts
+    a weight (what infer/export_lm.py traces): the Linear weights and
+    biases and the embedding tables in ``compute_dtype``, the LayerNorms'
+    in fp32. The tied token table is read twice, gathered by the embedding
+    (then cast to compute_dtype) and cast whole for the head; one copy in
+    compute_dtype serves both bit for bit, since a cast is elementwise and
+    the gather of the cast table is the cast of the gather. The same holds
+    for ``wpe``. The state dict must fit the config (strict load)."""
+    model = Transformer(config, device="meta")
+    model.load_state_dict({k: v.detach() for k, v in state_dict.items()},
+                          assign=True)
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Embedding)):
+            m.to(config.dtype)
+    return model.requires_grad_(False)
 
 
 def init_cache(config: TransformerConfig, batch_size: int,

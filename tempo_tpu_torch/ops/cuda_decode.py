@@ -21,10 +21,20 @@ an int32 buffer this module keeps per device and stream (zero between
 calls). A row's result depends on its own position, q and cache alone,
 bit for bit.
 
-Each wrapper takes the plain PyTorch version beside it for a tensor on the
-CPU, and for a CUDA tensor launches its kernel or raises. Each counts its
-launches in ``LAUNCHES`` (ops/launches.py: a call recorded into a CUDA
-graph counts at each replay of the graph).
+K3 and K4 are the ``torch.library`` ops ``tempo::decode_attention`` and
+``tempo::paged_decode_attention`` (registered as ops/cuda_gn.py registers
+K1): their CPU kernel is the plain PyTorch version beside it, their CUDA
+kernel launches the hand-written kernel or raises, and their fake gives
+the output's shape and type, so ``torch.export`` carries them into the
+serving programs of infer/export_lm.py and one program runs them on
+whichever device it is loaded on. Everything that reads a concrete value
+(pointers, the stream, the scratch, the counters, the capture rules)
+stays inside the CUDA kernel. The wrappers ``decode_attention`` and
+``paged_decode_attention`` keep the shape guards, turn a host ``pos``
+into a tensor and call the ops. The CUDA kernels count their launches in
+``LAUNCHES`` (ops/launches.py: a call recorded into a CUDA graph counts
+at each replay of the graph). The ops have no backward: with grad on and
+an input that requires grad they raise NotImplementedError.
 
 Capture (infer/graphs.py). The kernel reads the positions and the table
 from device memory, and its grid comes from the cache's capacity, so one
@@ -39,12 +49,14 @@ from __future__ import annotations
 
 import functools
 import math
+import sys
 from typing import Optional, Union
 
 import torch
 
 from tempo_tpu_torch.ops import _build, launches
-from tempo_tpu_torch.ops.cuda_gn import DTYPE_CODES, check_cuda_input, refuse_grad
+from tempo_tpu_torch.ops.cuda_gn import (DTYPE_CODES, check_cuda_input,
+                                         refuse_grad, register)
 
 HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernels are built for
 MAX_GROUP = 8                   # most q heads per kv head the kernels take
@@ -62,6 +74,12 @@ def pos_rows(pos: Pos, b: int, device: torch.device) -> torch.Tensor:
     return p.expand(b)
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32, itself where it is already (no node in a traced
+    program)."""
+    return x if x.dtype == torch.float32 else x.float()
+
+
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_idx: Optional[torch.Tensor]) -> torch.Tensor:
     """The cache-branch math of nn/transformer.py (transformer.py:424-453):
@@ -71,14 +89,14 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, t, n, hd = q.shape
     kv = k.shape[2]
     g = n // kv
-    qg = q.reshape(b, t, kv, g, hd).float()
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    qg = _f32(q.reshape(b, t, kv, g, hd))
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, _f32(k)) / math.sqrt(hd)
     if q_idx is not None:
         kv_idx = torch.arange(k.shape[1], device=q.device)
         mask = kv_idx[None, None, :] <= q_idx[:, :, None]       # [b|1, t, s]
         scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
     weights = torch.softmax(scores, dim=-1)
-    y = torch.einsum("bkgqs,bskh->bqkgh", weights, v.float())
+    y = torch.einsum("bkgqs,bskh->bqkgh", weights, _f32(v))
     return y.reshape(b, t, n, hd)
 
 
@@ -101,6 +119,10 @@ def decode_attention_plain(q: torch.Tensor, ck: torch.Tensor,
     """softmax(q.K^T/sqrt(hd)).V over kv_idx <= pos; q [b, 1, n, hd], ck/cv
     [b, S, kv, hd] -> [b, 1, n, hd] in q's type."""
     _check_dense(q, ck, cv, block_k)
+    return _dense_plain(q, ck, cv, pos)
+
+
+def _dense_plain(q, ck, cv, pos):
     q_idx = pos_rows(pos, q.shape[0], q.device)[:, None]
     return masked_attention(q, ck, cv, q_idx).to(q.dtype)
 
@@ -198,11 +220,10 @@ def _launch(q, k, v, pos, table, cap, page, max_pages, name):
                          f"{MAX_GROUP}")
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError(f"{name}: k and v must be 16-byte aligned")
-    if torch.cuda.is_current_stream_capturing() and not (
-            isinstance(pos, torch.Tensor) and pos.device == q.device):
+    if torch.cuda.is_current_stream_capturing() and pos.device != q.device:
         raise ValueError(f"{name}: while a CUDA graph is captured, pos must "
                          f"be a tensor on {q.device}")
-    p = torch.as_tensor(pos, device=q.device).to(torch.int32).reshape(-1)
+    p = pos.to(device=q.device, dtype=torch.int32).reshape(-1)
     if p.numel() not in (1, b):
         raise ValueError(f"{name}: pos must be one position or [b={b}], got "
                          f"{p.numel()}")
@@ -224,31 +245,81 @@ def _launch(q, k, v, pos, table, cap, page, max_pages, name):
         scratch.data_ptr(), counters.data_ptr(), DTYPE_CODES[k.dtype],
         DTYPE_CODES[q.dtype], b, n, kv, hd, cap, page, max_pages, stream)
     _build.check(err, "tempo_decode_attention")
-    launches.count(LAUNCHES, name)
+    launches.count(sys.modules[__name__].LAUNCHES, name)
     return out
+
+
+def _decode_cuda(q, k, v, pos):
+    """tempo::decode_attention's CUDA kernel: one launch of K3."""
+    _check_shapes(q, k, v, "decode_attention")
+    return _launch(q, k, v, pos, None, k.shape[1], 0, 0, "decode_attention")
+
+
+def _decode_cpu(q, k, v, pos):
+    """tempo::decode_attention's CPU kernel: the plain version, refusing a
+    graph as the CUDA kernel does."""
+    refuse_grad(q, k, v)
+    _check_shapes(q, k, v, "decode_attention")
+    return _dense_plain(q, k, v, pos)
+
+
+def _paged_cuda(q, pk, pv, table, pos):
+    """tempo::paged_decode_attention's CUDA kernel: one launch of K4."""
+    _check_paged(q, pk, pv, table)
+    mp, pg = table.shape[1], pk.shape[1]
+    return _launch(q, pk, pv, pos, table, mp * pg, pg, mp,
+                   "paged_decode_attention")
+
+
+def _paged_cpu(q, pk, pv, table, pos):
+    """tempo::paged_decode_attention's CPU kernel: the plain version,
+    refusing a graph as the CUDA kernel does."""
+    refuse_grad(q, pk, pv)
+    return paged_decode_attention_plain(q, pk, pv, table, pos)
+
+
+def _attention_fake(q, *_):
+    return torch.empty_like(q)
+
+
+register("decode_attention", "decode_attention(Tensor q, Tensor k, Tensor v, "
+         "Tensor pos) -> Tensor", _decode_cpu, _decode_cuda, _attention_fake)
+register("paged_decode_attention", "paged_decode_attention(Tensor q, "
+         "Tensor pk, Tensor pv, Tensor table, Tensor pos) -> Tensor",
+         _paged_cpu, _paged_cuda, _attention_fake)
+
+
+def _device_pos(pos: Pos, q: torch.Tensor, name: str) -> torch.Tensor:
+    """The op's pos: a tensor as given, a host int as an int32 tensor on
+    q's device (made here, before the op: inside a capture that copy is
+    illegal, and the CUDA kernel refuses it). Also the device check the
+    kernels' dispatch would otherwise skip."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: q must be a CUDA or CPU tensor, got "
+                         f"{q.device}")
+    if isinstance(pos, torch.Tensor):
+        return pos
+    return torch.tensor(pos, dtype=torch.int32, device=q.device)
 
 
 def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                      pos: Pos, block_k: int = 256) -> torch.Tensor:
     """K3: softmax(q.K^T/sqrt(hd)).V over the dense cache prefix
     kv_idx <= pos. q [b, 1, n, hd]; ck/cv [b, S, kv, hd]; pos int or
-    tensor, scalar or [b]. Returns [b, 1, n, hd] in q's type. ``block_k``
-    is the TPU kernel's tile; it only keeps the same shape guard here."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, ck, cv, pos, block_k)
+    tensor, scalar or [b]. Returns [b, 1, n, hd] in q's type, through
+    ``tempo::decode_attention``. ``block_k`` is the TPU kernel's tile; it
+    only keeps the same shape guard here."""
     _check_dense(q, ck, cv, block_k)
-    return _launch(q, ck, cv, pos, None, ck.shape[1], 0, 0,
-                   "decode_attention")
+    return torch.ops.tempo.decode_attention(
+        q, ck, cv, _device_pos(pos, q, "decode_attention"))
 
 
 def paged_decode_attention(q: torch.Tensor, pk: torch.Tensor,
                            pv: torch.Tensor, table: torch.Tensor,
                            pos: Pos) -> torch.Tensor:
     """K4: the same over pools pk/pv [P, page, kv, hd] through the block
-    table [b, max_pages] (int32); only the row's live pages are read."""
-    if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, pk, pv, table, pos)
+    table [b, max_pages] (int32), through ``tempo::paged_decode_attention``;
+    only the row's live pages are read."""
     _check_paged(q, pk, pv, table)
-    mp, pg = table.shape[1], pk.shape[1]
-    return _launch(q, pk, pv, pos, table, mp * pg, pg, mp,
-                   "paged_decode_attention")
+    return torch.ops.tempo.paged_decode_attention(
+        q, pk, pv, table, _device_pos(pos, q, "paged_decode_attention"))

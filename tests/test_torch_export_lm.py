@@ -74,10 +74,16 @@ def test_export_writes_the_jax_meta_and_the_config(lm):
     for key, value in jmeta.items():
         if key not in ("format", "platforms"):
             assert pmeta[key] == value, key
-    assert pmeta["format"] == "torch state_dict"
+    assert pmeta["format"] == "torch.export"
+    assert pmeta["devices"] == ["cpu", "cuda"]
+    # one program for each of JAX's, under its name
+    jax_programs = {p.stem for p in lm["jdir"].glob("*.stablehlo")}
+    assert set(pmeta["programs"]) == jax_programs and len(jax_programs) == 14
+    assert {p.stem for p in lm["pdir"].glob("*.pt2")} == jax_programs
+    assert set(pmeta["export_seconds"]) == jax_programs
     assert pt.TransformerConfig(**pmeta["config"]) == lm["pcfg"]
     weights = torch.load(lm["pdir"] / "weights.pt", weights_only=True)
-    assert set(weights) == set(lm["state"])
+    assert set(weights) == set(lm["state"]) == set(pmeta["weights"])
     # a state dict that does not fit the config is refused before writing
     bad = dict(lm["state"])
     bad.pop("transformer.ln_f.weight")
@@ -354,3 +360,299 @@ def test_lazy_setup_refused_inside_a_capture(monkeypatch):
     model.__dict__.pop("_cast_cache")
     with pytest.raises(RuntimeError, match="cast"), torch.no_grad():
         pt.cast_param(model, model.transformer["wte"].weight, torch.bfloat16)
+
+
+# ------------------------------------------------- each program against JAX
+
+def _jax_program(lm, name):
+    from jax import export as jexport
+
+    return jax.jit(jexport.deserialize(
+        (lm["jdir"] / f"{name}.stablehlo").read_bytes()).call)
+
+
+def _port_program(lm, name):
+    """The port's loaded call of program ``name``, through its loader."""
+    d = lm["pdir"]
+    return {
+        "prefill": lambda: pexp.load_exported_lm(d, "cpu")[0],
+        "decode_step": lambda: pexp.load_exported_lm(d, "cpu")[1],
+        "decode_rows": lambda: pexp.load_exported_continuous(d, "cpu")[1],
+        "admit": lambda: pexp.load_exported_continuous(d, "cpu")[2],
+        "extend": lambda: pexp.load_exported_speculative(d, "cpu")[1],
+        "extend_rows": lambda: pexp.load_exported_extend_rows(d, "cpu"),
+        "decode_k": lambda: pexp.load_exported_decode_k(d, "cpu")[0],
+        "decode_k_rows": lambda: pexp.load_exported_decode_k(d, "cpu")[1],
+        "decode_k_sample":
+            lambda: pexp.load_exported_decode_k_sample(d, "cpu")[0],
+        "decode_paged": lambda: pexp.load_exported_paged(d, "cpu")[1],
+        "admit_paged": lambda: pexp.load_exported_paged(d, "cpu")[2],
+        "extend_paged": lambda: pexp.load_exported_extend_paged(d, "cpu"),
+        "decode_paged_k": lambda: pexp.load_exported_paged_k(d, "cpu")[0],
+        "decode_paged_k_sample":
+            lambda: pexp.load_exported_paged_k(d, "cpu")[1],
+    }[name]()
+
+
+def _close_tree(got, want):
+    """Tensors (or nested tuples of them) of the port against JAX's arrays
+    at TOL; integer outputs exactly."""
+    if isinstance(got, torch.Tensor):
+        want = np.asarray(want)
+        if want.dtype.kind in "iu":
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            np.testing.assert_allclose(_np(got), want.astype(np.float32),
+                                       **TOL)
+        return
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _close_tree(g, w)
+
+
+def _state(lm, b: int, rows: bool, paged: bool):
+    """Both packages' caches with b rows prefilled through their own
+    prefill and admit programs: prompts of one length (scalar position 6)
+    or of lengths 6, 3, 9 (per-row positions); paged into a pool of
+    4b + 3 pages (the programs were traced with 3) through a shuffled
+    table. Returns (jax cache, port cache, tok [b, 1], pos)."""
+    rng = np.random.default_rng(10 + b)
+    lens = [6, 3, 9][:b] if rows else [6] * b
+    jpre, ppre = _jax_program(lm, "prefill"), _port_program(lm, "prefill")
+    meta = json.loads((lm["pdir"] / "meta.json").read_text())
+    if paged:
+        n_pages = 4 * b + 3
+        table = (1 + rng.permutation(n_pages - 1)[:4 * b]).reshape(b, 4)
+        table = table.astype(np.int32)
+        jc = tuple((pk, pv, jnp.asarray(table)) for pk, pv, _ in
+                   jt.init_paged_cache(lm["jcfg"], b, n_pages, PAGE,
+                                       window=32))
+        ptab = torch.from_numpy(table)
+        pc = tuple((pk, pv, ptab) for pk, pv, _ in pt.init_paged_cache(
+            lm["pcfg"], b, n_pages, PAGE, window=32, device="cpu"))
+        jadm, padm = (_jax_program(lm, "admit_paged"),
+                      _port_program(lm, "admit_paged"))
+        where = [table[r] for r in range(b)]
+    else:
+        jc = jexp.zero_cache(meta, b)
+        pc = pexp.zero_cache(meta, b, "cpu")
+        jadm, padm = _jax_program(lm, "admit"), _port_program(lm, "admit")
+        where = [np.int32(r) for r in range(b)]
+    toks = []
+    for r, n in enumerate(lens):
+        prompt = rng.integers(0, 31, (1, n))
+        jl, jrow = jpre(jnp.asarray(prompt, jnp.int32))
+        _, prow = ppre(prompt)
+        jc = jadm(jc, jrow, jnp.asarray(where[r]))
+        pc = padm(pc, prow, where[r])
+        toks.append(int(np.argmax(np.asarray(jl)[0, -1])))
+    pos = np.asarray(lens, np.int32) if rows else np.int32(6)
+    return jc, pc, np.asarray(toks)[:, None], pos
+
+
+@pytest.mark.parametrize("name", pexp.program_names(
+    {"decode_chunk": CHUNK, "page_size": PAGE}))
+def test_each_program_matches_jax(lm, name):
+    """Each loaded program against JAX's deserialized StableHLO program of
+    the same name at batches 1 and 3: outputs and the caches afterwards at
+    TOL, tokens exactly; prefill at t = 1 and t = max_seq; the paged
+    programs over a pool of another page count than the traced one; the
+    sampled programs with temperature-0 rows (the only draws both packages
+    make the same)."""
+    jfn, pfn = _jax_program(lm, name), _port_program(lm, name)
+    for b in (1, 3):
+        if name == "prefill":
+            for t in (1, 32):
+                prompt = np.random.default_rng(t + b).integers(0, 31, (b, t))
+                _close_tree(pfn(prompt), jfn(jnp.asarray(prompt, jnp.int32)))
+            continue
+        paged = "paged" in name
+        rows = paged or name.endswith(("_rows", "_sample"))
+        if name in ("admit", "admit_paged"):
+            jc, pc, _, _ = _state(lm, b, rows, paged)
+            prompt = np.random.default_rng(b).integers(0, 31, (1, 7))
+            _, jrow = _jax_program(lm, "prefill")(jnp.asarray(prompt,
+                                                              jnp.int32))
+            _, prow = _port_program(lm, "prefill")(prompt)
+            if paged:
+                where = np.asarray(jc[0][2])[b - 1][::-1].copy()
+            else:
+                where = np.int32(b - 1)
+            _close_tree(pfn(pc, prow, where), jfn(jc, jrow,
+                                                 jnp.asarray(where)))
+            continue
+        jc, pc, tok, pos = _state(lm, b, rows, paged)
+        if name.startswith("extend"):
+            tok = np.random.default_rng(b).integers(0, 31, (b, 3))
+        args_j = [jnp.asarray(tok, jnp.int32), jc, jnp.asarray(pos)]
+        args_p = [tok, pc, pos]
+        if name.endswith("_sample"):
+            args_j += [jnp.zeros((b, 2), jnp.uint32), jnp.zeros(b),
+                       jnp.zeros(b, jnp.int32), jnp.ones(b)]
+            args_p += [np.arange(b), np.zeros(b), np.zeros(b, np.int64),
+                       np.ones(b)]
+        _close_tree(pfn(*args_p), jfn(*args_j))
+
+
+def test_programs_by_export_options(lm):
+    """6 programs always, 3 more with decode_chunk > 0, 3 more with
+    page_size > 0, 2 more with both (the JAX package's set)."""
+    names = {(c, p): pexp.program_names({"decode_chunk": c, "page_size": p})
+             for c in (0, 4) for p in (0, 8)}
+    assert [len(names[k]) for k in ((0, 0), (4, 0), (0, 8), (4, 8))] == [
+        6, 9, 9, 14]
+    assert set(names[0, 0]) == set(pexp.PROGRAMS)
+    assert set(names[4, 8]) == set(
+        pexp.PROGRAMS + pexp.CHUNK_PROGRAMS + pexp.PAGED_PROGRAMS
+        + pexp.PAGED_CHUNK_PROGRAMS)
+    meta = json.loads((lm["pdir"] / "meta.json").read_text())
+    assert tuple(meta["programs"]) == names[CHUNK, PAGE]
+
+
+def _graph_of(path):
+    return torch.export.load(path).graph
+
+
+def test_programs_hold_the_ops_and_no_weights(lm):
+    """Every program holds no weight (the weights are its first input, read
+    from weights.pt once); the single-token programs reach K3/K4 through
+    the ops, once a layer, with no plain-attention einsum; the block
+    programs (t > 1) keep the masked einsum, as the JAX model does."""
+    n_layer = lm["pcfg"].n_layer
+    for path in sorted(lm["pdir"].glob("*.pt2")):
+        program = torch.export.load(path)
+        assert not program.state_dict and not program.constants, path.stem
+        assert program.example_inputs is None, path.stem
+        targets = [str(n.target) for n in program.graph.nodes
+                   if n.op == "call_function"]
+        dense = targets.count("tempo.decode_attention.default")
+        paged = targets.count("tempo.paged_decode_attention.default")
+        einsum = targets.count("aten.einsum.default")
+        name = path.stem
+        if name.startswith("decode_paged"):
+            assert (dense, paged, einsum) == (0, n_layer, 0), name
+        elif name.startswith("decode"):
+            assert (dense, paged, einsum) == (n_layer, 0, 0), name
+        elif name.startswith(("extend", "prefill")):
+            assert (dense, paged, einsum) == (0, 0, 2 * n_layer), name
+
+
+def test_weights_are_held_once(lm):
+    """weights.pt holds each weight once, as trained in fp32 here, in the
+    programs' order; the directory is the weights' bytes plus weightless
+    programs; every loader of the directory shares one copy."""
+    meta = json.loads((lm["pdir"] / "meta.json").read_text())
+    weights = torch.load(lm["pdir"] / "weights.pt", weights_only=True)
+    assert list(weights) == meta["weights"]
+    for k, w in weights.items():
+        assert torch.equal(w, lm["state"][k].float()), k
+    nbytes = sum(w.numel() * w.element_size() for w in weights.values())
+    assert (lm["pdir"] / "weights.pt").stat().st_size <= 1.1 * nbytes + 4096
+    s = pexp._load(lm["pdir"], "cpu")
+    for name in meta["programs"]:
+        fn = s.program(name)
+        bound = fn.args[0]
+        want = () if name in ("admit", "admit_paged") else s.program.weights
+        assert bound is want or bound == want == (), name
+
+
+def test_bf16_programs_hold_no_cast_of_a_weight(lm):
+    """A bf16 serving copy traced: no weight input feeds a cast (the
+    Linear weights and the embedding tables are bf16 already, the
+    LayerNorms' fp32 as their use reads them), and the bf16 program
+    equals the live bf16 model bitwise on the CPU."""
+    cfg = dataclasses.replace(lm["pcfg"], compute_dtype="bfloat16")
+    model = pt.serving_copy(lm["state"], cfg)
+    meta = pexp._meta(cfg, 32, CHUNK, PAGE, pexp.FORMAT)
+    casts = {"aten.to.dtype", "aten._to_copy.default", "aten.to.dtype_layout"}
+    n_weights = len(list(model.named_parameters()))
+    for name in ("decode_step", "extend_rows"):
+        program = pexp.trace_program(name, model, meta)
+        weights = {s.arg.name for s in program.graph_signature.input_specs
+                   if s.arg.name.startswith("weights")}
+        assert len(weights) == n_weights
+        for node in program.graph.nodes:
+            if node.op == "placeholder" and node.name in weights:
+                users = {str(u.target) for u in node.users}
+                assert not users & casts, (node, users)
+    live = pt.Transformer(cfg, device="cpu")
+    live.load_state_dict(lm["state"])
+    step = pexp.trace_program("decode_rows", model, meta).module()
+    ws = tuple(p for _, p in model.named_parameters())
+    tok = torch.tensor([[3], [7]])
+    pos = torch.tensor([4, 9], dtype=torch.int32)
+    c1 = pt.init_cache(cfg, 2, torch.bfloat16, cache_len=32, device="cpu")
+    c2 = tuple((a.clone(), b.clone()) for a, b in c1)
+    with torch.no_grad():
+        got = step(ws, tok, c1, pos)
+        want = live(tok, cache=c2, input_pos=pos)[0]
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for x, y in zip(c1, c2)
+               for a, b in zip(x, y))
+
+
+def test_loading_needs_no_model_code(lm):
+    """A fresh process loads every loader of the directory and decodes
+    greedily; no tempo_tpu_torch.nn module is imported, and the tokens
+    equal JAX's greedy decode over its own artifacts."""
+    import subprocess
+    import sys
+
+    prompt = [[3, 1, 4, 1, 5], [9, 2, 6, 5, 3]]
+    code = (
+        "import json, sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from tempo_tpu_torch.infer import export_lm as e\n"
+        f"d = {str(lm['pdir'])!r}\n"
+        "for load in (e.load_exported_lm, e.load_exported_continuous,\n"
+        "             e.load_exported_extend_rows, e.load_exported_decode_k,\n"
+        "             e.load_exported_decode_k_sample,\n"
+        "             e.load_exported_paged, e.load_exported_extend_paged,\n"
+        "             e.load_exported_paged_k, e.load_exported_speculative):\n"
+        "    load(d, 'cpu')\n"
+        f"out = e.greedy_decode_exported(d, {prompt!r}, 6, device='cpu')\n"
+        "nn = sorted(m for m in sys.modules\n"
+        "            if m.startswith('tempo_tpu_torch.nn'))\n"
+        "print(json.dumps({'tokens': out.tolist(), 'nn': nn}))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert got["nn"] == []
+    want = jexp.greedy_decode_exported(lm["jdir"], jnp.asarray(prompt), 6)
+    np.testing.assert_array_equal(np.asarray(got["tokens"]), want)
+
+
+def test_a_state_dict_directory_raises(lm, tmp_path):
+    """The earlier artifact format (a state dict and a config) is refused
+    with a clear error; the loader never rebuilds a model."""
+    meta = json.loads((lm["pdir"] / "meta.json").read_text())
+    meta["format"] = "torch state_dict"
+    (tmp_path / "meta.json").write_text(json.dumps(meta))
+    torch.save(lm["state"], tmp_path / "weights.pt")
+    with pytest.raises(ValueError, match="export it again"):
+        pexp.load_exported_lm(tmp_path, "cpu")
+
+
+def test_loaded_calls_check_their_inputs(lm):
+    """The loaded programs skip torch.export's per-call input checks; the
+    surface checks what a program takes instead: a prompt within the
+    window, the cache's layers, shapes, type and block table."""
+    pre, dec, meta = pexp.load_exported_lm(lm["pdir"], "cpu")
+    ext = pexp.load_exported_extend_paged(lm["pdir"], "cpu")
+    with pytest.raises(ValueError, match="prefill"):
+        pre(np.zeros((1, 33), np.int64))
+    short = dict(meta, max_seq=16)
+    with pytest.raises(ValueError, match="cache tensors"):
+        dec([[1]], pexp.zero_cache(short, 1, "cpu"), 3)
+    with pytest.raises(ValueError, match="cache layers"):
+        dec([[1]], pexp.zero_cache(meta, 1, "cpu")[:1], 3)
+    with pytest.raises(ValueError, match="cache tensors"):
+        dec([[1], [2]], pexp.zero_cache(meta, 1, "cpu"), 3)
+    base = pt.init_paged_cache(lm["pcfg"], 2, 9, PAGE, window=32,
+                               device="cpu")
+    wrong = tuple((pk, pv, t.long()) for pk, pv, t in base)
+    with pytest.raises(ValueError, match="block table"):
+        ext(np.zeros((2, 3), np.int64), wrong, np.asarray([1, 2]))
+    logits, _ = ext(np.zeros((2, 3), np.int64), base, np.asarray([1, 2]))
+    assert logits.shape == (2, 3, 31)

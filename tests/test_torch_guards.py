@@ -313,3 +313,43 @@ def test_speculative_and_online_entry_points_default_to_cuda_and_raise_without_i
                    {"scheduler": "continuous", "online": True}):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build_server({"artifacts": str(art), **config})
+
+
+def test_lm_loaders_import_no_model_code():
+    """Importing infer/export_lm.py, whose loaders serve the exported
+    programs, imports no model code (tempo_tpu_torch.nn)."""
+    code = (
+        "import sys\n"
+        "import tempo_tpu_torch.infer.export_lm\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.startswith('tempo_tpu_torch.nn')))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_lm_loaders_default_to_cuda_and_raise_without_it(monkeypatch,
+                                                        tmp_path):
+    """Every loader of infer/export_lm.py, zero_cache and
+    greedy_decode_exported resolve device None to CUDA and raise without
+    it, before they read the directory."""
+    from tempo_tpu_torch.infer import export_lm as e
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    meta = {"max_seq": 8, "n_kv_head": 2, "n_head": 2, "n_embd": 16,
+            "compute_dtype": "float32", "n_layer": 1}
+    for call in (lambda: e.load_exported_lm(tmp_path),
+                 lambda: e.load_exported_continuous(tmp_path),
+                 lambda: e.load_exported_extend_rows(tmp_path),
+                 lambda: e.load_exported_decode_k(tmp_path),
+                 lambda: e.load_exported_decode_k_sample(tmp_path),
+                 lambda: e.load_exported_paged(tmp_path),
+                 lambda: e.load_exported_extend_paged(tmp_path),
+                 lambda: e.load_exported_paged_k(tmp_path),
+                 lambda: e.load_exported_speculative(tmp_path),
+                 lambda: e.greedy_decode_exported(tmp_path, [[1]], 2),
+                 lambda: e.zero_cache(meta, 2)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert e.zero_cache(meta, 2, "cpu")[0][0].shape == (2, 8, 2, 8)
