@@ -212,6 +212,31 @@ Phases, each fatal on failure:
       admit_paged), exported and live; serve_lm continuous and paged over
       the programs beside a live surface: tokens/s, greedy tokens equal,
       K3/K4 launches equal.
+  then the diffusion path (configs/training/train_diffusion_latent.yaml's
+  and train_flow_latent.yaml's values, the flagship VAE in bf16 from seeded
+  weights saved as .pt and frozen, the CUNet [128, 192] in fp32 over its
+  16x16x32 latent at batch 64), K1a, K1b and K2 at new shapes and in fp32:
+  11a. cli/train_diffusion.run, latent VDM, over 4 fp16 shards of 16
+      flagship tiles: 10 steps, a validation, a checkpoint, the panel of 8
+      samples over 250 ancestral steps decoded by the VAE; every loss
+      finite; one more step from the reloaded checkpoint bit for bit the
+      live state's; the K1a/K1b/K2 launches of one step (counters set to 0
+      before, read after) equal one VAE encode's plus one CUNet forward's;
+      step ms and samples/s by CUDA events, the sampler's seconds, the
+      device's busy share over one profiled step (null where the profile
+      misses one of the step's counted K1a/K1b/K2 launches);
+  11b. the same for latent SFM (euler), and its flow integrated with lm;
+  11c. pixel-space VDM, 3 steps at batch 8 on the 64x64x1028 tiles (K2's
+      conv_out 64x64x128 -> 1028 in fp32), its panel at 50 steps;
+  11d. cli/sample_diffusion.run over 11a's run: 16 samples, 250 steps,
+      DDIM (eta 0) and ancestral;
+  11e. the CUNet forward (latent batch 64, pixel batch 8, and a volumetric
+      dim=3 one, K1 on NDHWC; fp32) through the kernels against the plain
+      path; each recorded K1a/K1b/K2 call (bf16 encode, fp32 CUNet) against
+      its plain version, timed beside its bound, plain version and library
+      calls, as phase 2 holds its own (hold_recorded); one VDM
+      loss and its gradients with fixed draws, kernels against plain (the
+      bf16 latents, the loss from the same latents, the whole).
 Prints the card's name and power limit first, each phase's seconds, each
 redesigned kernel's time against its time before the redesign
 (KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
@@ -504,6 +529,73 @@ PROGRAMS_BATCHES, PROGRAMS_NEW, PROGRAMS_POS = (1, 8), 32, 300
 # 32-128), not all 64: the profiler's record of a whole run takes minutes
 # (8 requests until phase 9 came, ~40 s of 3d; PERF.md section 4).
 LM_PROFILED = 4
+# Phase 11: the diffusion path with configs/training/
+# train_diffusion_latent.yaml's values (DIFF_LATENT; the card's machine has
+# no yaml) and train_flow_latent.yaml's (DIFF_FLOW, family sfm), and
+# configs/analysis/sample_diffusion.yaml's (DIFF_SAMPLE): the flagship VAE
+# (DIFF_VAE, bf16) from seeded weights saved as the port's .pt (the yamls
+# name a .msgpack, which the port refuses: M11), frozen; the CUNet chs
+# [128, 192], t_embedding_dim 128, over its 16x16x32 latent at batch 64;
+# DIFF_SHARDS fp16 shards of DIFF_TILES flagship tiles (make_tile_shards)
+# for train and validation. Cuts (PERF.md section 4): 10 steps of 100,000,
+# the validation and the plots at step 10 and the log every 5 steps (the
+# yamls: val_every 100, plot_every 50, log_every 10; the summary plots need
+# two logged points); 11c, pixel space, 3 steps at batch 8 (logged each
+# step) and its panel at 50 sampler steps of 250. DIFF_TIMED steps timed by
+# CUDA events, one step profiled after a lead of an idle card inside the
+# session (DIFF_PROFILE_LEADS_S).
+DIFF_VAE = {"shape": [1028, 64, 64], "embed_dim": 32, "chs": [512, 256, 128],
+            "mid_attn": True, "num_res_blocks": 1, "z_channels": 32,
+            "double_z": True, "n_attention_heads": 4, "norm_groups": 8,
+            "compute_dtype": "bfloat16"}
+DIFF_LATENT = {
+    "seed": 42,
+    "data": {"batch_size": 64, "loader_threads": 2, "min_buffer_size": 500,
+             "val_min_buffer_size": 100},
+    "latent": {"vae_model": DIFF_VAE, "scale": 1.0},
+    "score_model": {"chs": [128, 192], "norm_groups": 8,
+                    "n_attention_heads": 4, "t_embedding_dim": 128,
+                    "dropout_prob": 0.0},
+    "diffusion": {"noise_schedule": "fixed_linear", "gamma_min": -13.3,
+                  "gamma_max": 5.0, "antithetic_time_sampling": True,
+                  "data_noise": 0.001},
+    "optimizer": {"lr": 0.0001, "betas": [0.9, 0.95], "weight_decay": 0.05},
+    "training": {"n_steps": 10, "save_every": 5000, "val_every": 10,
+                 "log_every": 5, "plot_every": 10},
+    "sampling": {"n_samples": 8, "n_steps": 250},
+}
+DIFF_FLOW = dict({k: v for k, v in DIFF_LATENT.items() if k != "diffusion"},
+                 family="sfm", sampling={"n_samples": 8, "n_steps": 250,
+                                         "method": "euler"})
+DIFF_PIXEL = dict({k: v for k, v in DIFF_LATENT.items() if k != "latent"},
+                  data=dict(DIFF_LATENT["data"], batch_size=8),
+                  training={"n_steps": 3, "save_every": 5000, "val_every": 3,
+                            "log_every": 1, "plot_every": 3},
+                  sampling={"n_samples": 8, "n_steps": 50})
+DIFF_SAMPLE = {"n_samples": 16, "n_steps": 250, "seed": 0}
+DIFF_SHARDS, DIFF_TILES, DIFF_TIMED = 4, 16, 5
+# After ~10 minutes of earlier phases, the profiler drops the records of the
+# first device work of a session: a latent step's first ~27 kernels (its
+# encode's) with the step started at once, its first ~16 with the step
+# started 0.2 s into the session; a fresh process lists them all. A drift
+# of the device's timestamps against the session's clock would do that. The
+# step is profiled after each lead in turn until its profile lists every
+# K1a/K1b/K2 launch that the counters gave a step; only such a profile
+# gives a busy share.
+DIFF_PROFILE_LEADS_S = (0.5, 2.0, 5.0)
+# 11e's volumetric CUNet (dim=3, no mid attention): K1 on NDHWC, then the
+# 3x3x3 conv, at DIFF_VOLUME_BATCH volumes of this shape.
+DIFF_VOLUME_SHAPE, DIFF_VOLUME_BATCH = (8, 16, 16, 32), 4
+DIFF_TILE = (64, 64, 1028)        # the flagship tile, as DIFF_VAE's shape
+DIFF_LATENT_SHAPE = (16, 16, 32)  # its latent: 4x smaller, embed_dim 32
+# 11e, one VDM loss and its gradients through the kernels against the plain
+# path (fixed posterior noise, times and noises; the CUNet's zero-init convs
+# re-drawn, 8 flagship tiles): the latents come from the bf16 encode, ~20
+# layers each rounding activations to bf16, so they agree to
+# MODEL_BF16_REL_L2; from the same latents the fp32 CUNet differs in sum
+# order only (STEP_F32_TOL); the whole loss carries the latents'
+# difference through an fp32 network and a smooth loss, STEP_BF16_TOL.
+DIFF_LOSS_BATCH = 8
 
 
 def fail(msg: str) -> None:
@@ -661,24 +753,26 @@ def plain_kernels():
 
 @contextlib.contextmanager
 def recording(calls: dict, run: str):
-    """Record the argument shapes of every kernel call the path makes, each
-    tagged with the run (tile batch or granule) that made it."""
+    """Record the argument shapes and type of every kernel call the path
+    makes, each tagged with the run (tile batch, granule, ...) that made
+    it."""
     from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
 
     saved = (cuda_gn.gn_stats, cuda_gn.gn_apply, cuda_gn_conv.gn_act_conv3x3)
 
     def stats(x, num_groups, eps=1e-6):
-        calls["K1a"].append(((tuple(x.shape), num_groups, eps), run))
+        calls["K1a"].append(((tuple(x.shape), str(x.dtype)[6:], num_groups,
+                              eps), run))
         return saved[0](x, num_groups, eps)
 
     def apply(x, st, scale, bias, act=None):
-        calls["K1b"].append(((tuple(x.shape), act), run))
+        calls["K1b"].append(((tuple(x.shape), str(x.dtype)[6:], act), run))
         return saved[1](x, st, scale, bias, act)
 
     def conv(x, scale, bias, weight, conv_bias, num_groups, eps=1e-6,
              act="gelu", packed=None):
-        calls["K2"].append(((tuple(x.shape), weight.shape[0], num_groups, eps,
-                             act), run))
+        calls["K2"].append(((tuple(x.shape), str(x.dtype)[6:],
+                             weight.shape[0], num_groups, eps, act), run))
         return saved[2](x, scale, bias, weight, conv_bias, num_groups, eps,
                         act, packed)
 
@@ -2835,6 +2929,10 @@ LM_STEP_KINDS = {"k5": ("tempo::flash",),
 # plain recompute of GN+act+conv in the backward and the strided convs:
 # "fprop" forward, "dgrad" data gradient and the transposed conv's forward,
 # "wgrad" weight gradient); cuBLAS for the 1x1 convs and attention.
+# The port's K1a, K1b and K2 device kernels (K2's bf16 and fp32 paths), by
+# name: a profile lists each launch as one record.
+PROFILED_KERNELS = ("gn_stats_kernel", "gn_apply_kernel", "conv_bf16",
+                    "conv_f32")
 VAE_STEP_KINDS = {"K1a": ("gn_stats_kernel",),
                   "K1b": ("gn_apply_kernel",),
                   "K2": ("tempo::gn_conv", "conv_bf16", "reduce_splits",
@@ -2860,9 +2958,10 @@ def step_breakdown(fn, kinds: dict = LM_STEP_KINDS,
     """Device kernel time of one ``fn()`` (a train step) by torch.profiler,
     summed by kind of kernel from the kernels' full names (user annotation
     ranges such as the optimizer's step are left out: their kernels are
-    counted themselves), with the counts of device kernels and host
-    operators and the host operators of most self time; None where the
-    profiler gives no device time."""
+    counted themselves), with the counts of device kernels, of the
+    PROFILED_KERNELS records (``listed``) and of host operators, and the
+    host operators of most self time; None where the profiler gives no
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2873,6 +2972,7 @@ def step_breakdown(fn, kinds: dict = LM_STEP_KINDS,
             fn()
             torch.cuda.synchronize()
         per, kernels, host_ops, host = {}, 0, 0, {}
+        listed = dict.fromkeys(PROFILED_KERNELS, 0)
         for e in prof.key_averages():
             if getattr(e, "is_user_annotation", False) or "#" in e.key:
                 continue
@@ -2885,6 +2985,9 @@ def step_breakdown(fn, kinds: dict = LM_STEP_KINDS,
             if us > 0:
                 per[e.key] = per.get(e.key, 0.0) + us / 1e3
                 kernels += e.count
+                for name in listed:
+                    if name in e.key:
+                        listed[name] += e.count
     except Exception as exc:  # measurement only: the run's checks stand
         print(f"[{label}] torch.profiler failed: {exc!r}", flush=True)
         return None
@@ -2904,7 +3007,8 @@ def step_breakdown(fn, kinds: dict = LM_STEP_KINDS,
     return {"device_ms": sum(per.values()),
             "by_kind_ms": {k: round(v, 3) for k, v in out.items()},
             "top": [[k[:100], round(v, 3)] for k, v in ranked],
-            "device_kernels": kernels, "host_ops": host_ops,
+            "device_kernels": kernels, "listed": listed,
+            "host_ops": host_ops,
             "host_self_ms_top": [[k[:60], round(v, 3)]
                                  for k, v in host_ranked]}
 
@@ -3346,11 +3450,11 @@ def vae_train_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     saved_det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        for shape, act in sorted({k for k, _ in calls["K1b"]}, key=str):
+        for shape, _, act in sorted({k for k, _ in calls["K1b"]}, key=str):
             fn_bwd[f"K1 {list(shape)} {act}"] = check_k1_bwd(
                 gen, shape, groups, eps, act)
-        for shape, f, grp, ep, act in sorted({k for k, _ in calls["K2"]},
-                                             key=str):
+        for shape, _, f, grp, ep, act in sorted(
+                {k for k, _ in calls["K2"]}, key=str):
             b, hh, ww, cc = shape
             bound = (9 * cc) ** -0.5
             weight = (2 * torch.rand((f, cc, 3, 3), generator=gen,
@@ -3706,13 +3810,13 @@ def vae_l2_path(dev, rows: dict, warm_ckpt: Path, keep: Path,
         del model, tx, state, step
         torch.cuda.empty_cache()
         gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-        head = sorted({k for k, _ in calls["K1a"] if k[2] == K1_HEAD[1]},
+        head = sorted({k for k, _ in calls["K1a"] if k[3] == K1_HEAD[1]},
                       key=str)
         fn_bwd = {}
         saved_det = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
-            for shape, groups, eps in head:
+            for shape, _, groups, eps in head:
                 fn_bwd[f"K1 {list(shape)} gelu eps {eps}"] = check_k1_bwd(
                     gen, shape, groups, eps, "gelu")
         finally:
@@ -3913,52 +4017,220 @@ def vae_l2_path(dev, rows: dict, warm_ckpt: Path, keep: Path,
             "step_vs_plain": step_errs, "seconds": seconds}
 
 
+def dtype_tol(dtype) -> dict:
+    import torch
+
+    return BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+
+
+def k2_config(x, f: int) -> tuple:
+    """K2's (configuration, split) for a call: the bf16 kernel's tiles, or
+    its one fp32 path."""
+    import torch
+
+    from tempo_tpu_torch.ops import cuda_gn_conv
+
+    if x.dtype == torch.bfloat16:
+        return cuda_gn_conv.choose_config(*x.shape, f)
+    return "conv_f32", 1
+
+
+def count_calls(recorded: list, runs: tuple = ()) -> dict:
+    """``recording``'s (key, run) list as {key: {run: calls}}, with each of
+    ``runs`` present."""
+    out = {}
+    for key, run in recorded:
+        n = out.setdefault(key, dict.fromkeys(runs, 0))
+        n[run] = n.get(run, 0) + 1
+    return out
+
+
+def hold_recorded(dev, gen, counted: dict, add) -> bool:
+    """K1a, K1b and K2 against their plain versions at every (shape, type)
+    of ``counted`` ({kernel: count_calls(...)}), random inputs on the card,
+    each call timed alone (cold L2) beside its bound (bytes, or operations
+    at the card's peak for the type), its plain version and its library
+    call. Tolerances: K1a STATS_TOL; K1b and K2 BF16_TOL or F32_TOL by
+    type.
+
+    - K1a: also bitwise the same on a repeat and for each sample alone;
+      beside it a device copy of half of x (as many bytes moved).
+    - K1b: from given statistics, and whole (K1a + K1b); the library
+      GroupNorm computes the statistics too, so compare it with
+      ``k1_whole_ms``.
+    - K2: the whole wrapper (K1a, then K2) against the plain chain; ``ms``
+      times the K2 launch alone from given statistics, beside the plain
+      version of that step and cuDNN's conv of the activated input
+      (``library_conv_ms``); the library chain F.group_norm + act +
+      F.conv2d computes the statistics too, so compare it with
+      ``whole_ms``.
+
+    Each shape goes to ``add(kernel, shape_info, calls_by_run, err, ok, ms,
+    plain_ms, bound_ms, bound_by, library_ms, extra)``; returns whether
+    every check held."""
+    import torch
+    import torch.nn.functional as F
+
+    from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
+    from tempo_tpu_torch.ops.norms import ACTIVATIONS
+
+    def act_fn(act):
+        return ACTIVATIONS[act] if act else (lambda t: t)
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    def affine(c):
+        return 1 + randn(gen, c, scale=0.1), randn(gen, c, scale=0.1)
+
+    ok_all = True
+    with torch.inference_mode():
+        for (shape, dt, groups, eps), n in counted["K1a"].items():
+            b, c = shape[0], shape[-1]
+            x = randn(gen, *shape, dtype=getattr(torch, dt))
+            got = cuda_gn.gn_stats(x, groups, eps)
+            err, ok = max_err(got, cuda_gn.gn_stats_plain(x, groups, eps),
+                              STATS_TOL)
+            repeat = torch.equal(got, cuda_gn.gn_stats(x, groups, eps))
+            alone = all(torch.equal(got[i:i + 1], cuda_gn.gn_stats(
+                x[i:i + 1], groups, eps)) for i in range(b))
+            ok = ok and repeat and alone
+            half = x.view(-1)[: x.numel() // 2]
+            dst = torch.empty_like(half)
+            xg = x.view(b, -1, groups, c // groups)
+            nbytes = x.numel() * x.element_size() + got.numel() * 4
+            add("K1a", {"x": list(shape), "dtype": dt,
+                        "split": cuda_gn.choose_stats_split(
+                            x.numel() // (b * c), c, x.dtype)}, n, err, ok,
+                time_ms(lambda: cuda_gn.gn_stats(x, groups, eps)),
+                time_ms(lambda: cuda_gn.gn_stats_plain(x, groups, eps)),
+                1e3 * nbytes / HBM_BYTES_PER_S, "bytes",
+                time_ms(lambda: torch.var_mean(xg, dim=(1, 3),
+                                               correction=0)),
+                {"bitwise_repeat": repeat, "bitwise_alone": alone,
+                 "copy_ms": time_ms(lambda: dst.copy_(half))})
+            ok_all &= ok
+            del x, xg, half, dst
+        for (shape, dt, act), n in counted["K1b"].items():
+            c = shape[-1]
+            x = randn(gen, *shape, dtype=getattr(torch, dt))
+            scale, bias = affine(c)
+            st = cuda_gn.gn_stats_plain(x, 8, 1e-6)
+            want = cuda_gn.gn_apply_plain(x, st, scale, bias, act)
+            err, ok = max_err(cuda_gn.gn_apply(x, st, scale, bias, act), want,
+                              dtype_tol(x.dtype))
+            whole_err, whole_ok = max_err(
+                cuda_gn.fused_group_norm_act(x, scale, bias, 8, 1e-6, act),
+                want, dtype_tol(x.dtype))
+            ok = ok and whole_ok
+            sb, bb = scale.to(x.dtype), bias.to(x.dtype)
+            nbytes = (2 * x.numel() * x.element_size() + st.numel() * 4
+                      + 2 * c * 4)
+            add("K1b", {"x": list(shape), "dtype": dt, "act": act}, n,
+                max(err, whole_err), ok,
+                time_ms(lambda: cuda_gn.gn_apply(x, st, scale, bias, act)),
+                time_ms(lambda: cuda_gn.gn_apply_plain(x, st, scale, bias,
+                                                       act)),
+                1e3 * nbytes / HBM_BYTES_PER_S, "bytes",
+                time_ms(lambda: act_fn(act)(F.group_norm(
+                    nchw(x), 8, sb, bb, 1e-6))),
+                {"k1_whole_ms": time_ms(
+                    lambda: cuda_gn.fused_group_norm_act(x, scale, bias, 8,
+                                                         1e-6, act))})
+            ok_all &= ok
+            del x, want
+        for (shape, dt, f, groups, eps, act), n in counted["K2"].items():
+            b, h, w, c = shape
+            x = randn(gen, *shape, dtype=getattr(torch, dt))
+            scale, bias = affine(c)
+            weight = torch.empty((f, c, 3, 3), device=dev).uniform_(
+                -(9 * c) ** -0.5, (9 * c) ** -0.5, generator=gen)
+            cb = randn(gen, f, scale=0.01)
+            packed = cuda_gn_conv.pack_conv3x3_weight(weight, x.dtype)
+            err, ok = max_err(
+                cuda_gn_conv.gn_act_conv3x3(x, scale, bias, weight, cb,
+                                            groups, eps, act, packed),
+                cuda_gn_conv.gn_act_conv3x3_plain(x, scale, bias, weight, cb,
+                                                  groups, eps, act),
+                dtype_tol(x.dtype))
+            st = cuda_gn.gn_stats(x, groups, eps)
+            flops = 2 * b * h * w * 9 * c * f
+            nbytes = ((x.numel() + packed.numel() + b * h * w * f)
+                      * x.element_size() + st.numel() * 4)
+            t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / HBM_BYTES_PER_S
+            sb, bb = scale.to(x.dtype), bias.to(x.dtype)
+            wt, cbt = weight.to(x.dtype), cb.to(x.dtype)
+            activated = nchw(cuda_gn.gn_apply_plain(x, st, scale, bias, act))
+            ms = time_ms(lambda: cuda_gn_conv.conv3x3_from_stats(
+                x, st, scale, bias, weight, cb, act, packed))
+            config, split = k2_config(x, f)
+            add("K2", {"x": list(shape), "dtype": dt, "f": f, "act": act,
+                       "config": config, "split": split}, n, err, ok, ms,
+                time_ms(lambda: cuda_gn_conv.conv3x3_from_stats_plain(
+                    x, st, scale, bias, weight, cb, act)),
+                1e3 * max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes",
+                time_ms(lambda: F.conv2d(act_fn(act)(F.group_norm(
+                    nchw(x), groups, sb, bb, eps)), wt, cbt, padding=1)),
+                {"whole_ms": time_ms(lambda: cuda_gn_conv.gn_act_conv3x3(
+                    x, scale, bias, weight, cb, groups, eps, act, packed)),
+                 "library_conv_ms": time_ms(lambda: F.conv2d(
+                     activated, wt, cbt, padding=1)),
+                 "gflop": flops / 1e9, "tflops": flops / ms / 1e9})
+            ok_all &= ok
+            del x, activated
+    return ok_all
+
+
 def hold_kernels(dev, gen, calls: dict) -> list:
     """K1a, K1b and K2 against their plain versions at every distinct shape
-    in ``calls`` (phase 2's tolerances, random inputs on the card)."""
+    and type in ``calls`` (phase 2's tolerances, random inputs on the
+    card)."""
     import torch
 
     from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
 
     out = []
     with torch.inference_mode():
-        for shape, groups, eps in sorted({k for k, _ in calls["K1a"]},
-                                         key=str):
-            x = randn(gen, *shape, dtype=torch.bfloat16)
+        for shape, dt, groups, eps in sorted({k for k, _ in calls["K1a"]},
+                                             key=str):
+            x = randn(gen, *shape, dtype=getattr(torch, dt))
             err, ok = max_err(cuda_gn.gn_stats(x, groups, eps),
                               cuda_gn.gn_stats_plain(x, groups, eps),
                               STATS_TOL)
-            out.append({"kernel": "K1a", "x": list(shape), "eps": eps,
+            out.append({"kernel": "K1a", "x": list(shape), "dtype": dt,
+                        "eps": eps,
                         "max_abs_err": err, "ok": ok})
-        for shape, act in sorted({k for k, _ in calls["K1b"]}, key=str):
-            x = randn(gen, *shape, dtype=torch.bfloat16)
+        for shape, dt, act in sorted({k for k, _ in calls["K1b"]}, key=str):
+            x = randn(gen, *shape, dtype=getattr(torch, dt))
             c = shape[-1]
             scale, bias = 1 + randn(gen, c, scale=0.1), randn(gen, c,
                                                               scale=0.1)
             st = cuda_gn.gn_stats_plain(x, 8, 1e-6)
             err, ok = max_err(cuda_gn.gn_apply(x, st, scale, bias, act),
                               cuda_gn.gn_apply_plain(x, st, scale, bias, act),
-                              BF16_TOL)
-            out.append({"kernel": "K1b", "x": list(shape), "act": act,
+                              dtype_tol(x.dtype))
+            out.append({"kernel": "K1b", "x": list(shape), "dtype": dt,
+                        "act": act,
                         "max_abs_err": err, "ok": ok})
-        for shape, f, groups, eps, act in sorted(
+        for shape, dt, f, groups, eps, act in sorted(
                 {k for k, _ in calls["K2"]}, key=str):
             c = shape[-1]
-            x = randn(gen, *shape, dtype=torch.bfloat16)
+            x = randn(gen, *shape, dtype=getattr(torch, dt))
             scale, bias = 1 + randn(gen, c, scale=0.1), randn(gen, c,
                                                               scale=0.1)
             weight = torch.empty((f, c, 3, 3), device=dev).uniform_(
                 -(9 * c) ** -0.5, (9 * c) ** -0.5, generator=gen)
             cb = randn(gen, f, scale=0.01)
-            packed = cuda_gn_conv.pack_conv3x3_weight(weight, torch.bfloat16)
+            packed = cuda_gn_conv.pack_conv3x3_weight(weight, x.dtype)
             err, ok = max_err(
                 cuda_gn_conv.gn_act_conv3x3(x, scale, bias, weight, cb,
                                             groups, eps, act, packed),
                 cuda_gn_conv.gn_act_conv3x3_plain(x, scale, bias, weight, cb,
                                                   groups, eps, act),
-                BF16_TOL)
-            out.append({"kernel": "K2", "x": list(shape), "f": f,
-                        "config": cuda_gn_conv.choose_config(*shape, f),
+                dtype_tol(x.dtype))
+            out.append({"kernel": "K2", "x": list(shape), "dtype": dt,
+                        "f": f, "config": k2_config(x, f),
                         "max_abs_err": err, "ok": ok})
             del x
     return out
@@ -4727,6 +4999,484 @@ def data_prep_path(dev, rad, fields) -> dict:
     return out
 
 
+def kernel_counts() -> dict:
+    from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
+
+    return {"K1a": cuda_gn.LAUNCHES["gn_stats"],
+            "K1b": cuda_gn.LAUNCHES["gn_apply"],
+            "K2": cuda_gn_conv.LAUNCHES["gn_act_conv3x3"]}
+
+
+def zero_kernel_counts() -> None:
+    from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
+
+    cuda_gn.LAUNCHES["gn_stats"] = cuda_gn.LAUNCHES["gn_apply"] = 0
+    cuda_gn_conv.LAUNCHES["gn_act_conv3x3"] = 0
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms (its weight gradients may sum with
+    atomics), for steps compared bit for bit."""
+    import torch
+
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def diffusion_cell(label: str, cfg: dict, dev, batch, codecs: list,
+                   sampler_s: list, calls: dict, root: Path,
+                   card: str) -> tuple:
+    """One training cell of phase 11 through cli/train_diffusion.run: the
+    files, every loss finite, the panel finite; one more step from the
+    reloaded checkpoint bit for bit the live state's; the K1a/K1b/K2
+    launches of one step (counters set to 0 before, read after) equal to
+    those of one VAE encode plus one network forward alone (their calls
+    recorded into ``calls`` by ``recording``, as run ``label``);
+    DIFF_TIMED steps timed by CUDA events and one profiled, its busy share
+    None where the profile misses a K1a/K1b/K2 launch of the step.
+    Returns (its metrics, the Trainer)."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.cli import train_diffusion
+    from tempo_tpu_torch.train.checkpoint import checkpoint_path
+    from tempo_tpu_torch.train.state import (create_train_state,
+                                             make_optimizer_from_config)
+    from tempo_tpu_torch.train.step import diffusion_loss_fn, flow_loss_fn
+    from tempo_tpu_torch.train.trainer import Trainer
+
+    cfg = json.loads(json.dumps(cfg))
+    out_dir = root / label
+    cfg["output_dir"] = str(out_dir)
+    n_codecs = len(codecs)
+    (trainer, stats, info), run_s = timed(
+        lambda: train_diffusion.run(cfg, device=dev))
+    sample_s = sampler_s[-1]
+    history = json.loads((out_dir / "metrics.json").read_text())
+    losses = [m["loss"] for m in history["train"] + [
+        {"loss": v["val_loss"]} for v in history["val"]]]
+    samples = np.load(out_dir / "figures" / "samples_final.npy")
+    n_steps = cfg["training"]["n_steps"]
+    ckpt = checkpoint_path(out_dir / "checkpoints", n_steps)
+    family = info["family"]
+    want_files = [ckpt, out_dir / "figures" / "samples_final.png",
+                  out_dir / "training_info.yaml", out_dir / "summary" /
+                  "loss.png"] + ([out_dir / "figures" /
+                                  f"reconstructions_step_{n_steps:06d}.png"]
+                                 if family == "vdm" else [])
+    missing = [str(f.name) for f in want_files if not f.exists()]
+    if missing or not history["val"]:
+        fail(f"diffusion {label}: missing {missing} or no validation")
+    if not (losses and all(math.isfinite(v) for v in losses)):
+        fail(f"diffusion {label}: a loss is not finite: {losses}")
+    want_shape = (cfg["sampling"]["n_samples"], *DIFF_TILE)
+    if samples.shape != want_shape or not np_all_finite(samples):
+        fail(f"diffusion {label}: samples {samples.shape} not finite or not "
+             f"{want_shape}")
+
+    # one more step from the reloaded checkpoint, bit for bit
+    encode_fn = codecs[-1][0] if len(codecs) > n_codecs else None
+    model = trainer.state.model
+    net = model.velocity_model if family == "sfm" else model.score_model
+    loss_of = flow_loss_fn if family == "sfm" else diffusion_loss_fn
+    model2, _ = train_diffusion._build_generative(cfg, info["model_shape"],
+                                                  dev, SEED + 99)
+    tx2 = make_optimizer_from_config(cfg["optimizer"], n_steps=n_steps)
+    trainer2 = Trainer(loss_of(model2, encode_fn), tx2,
+                       create_train_state(model2, tx2, SEED), root / "resume",
+                       device=dev, verbose=False)
+    trainer2.load_checkpoint(ckpt)
+    with deterministic_cudnn():
+        live, _ = trainer.train_step(trainer.state, batch)
+        again, _ = trainer2.train_step(trainer2.state, batch)
+    same = all(torch.equal(a, b) for a, b in zip(live.model.parameters(),
+                                                 again.model.parameters()))
+    same &= all(torch.equal(live.ema[k], again.ema[k]) for k in live.ema)
+    del trainer2, model2, again
+    if not same:
+        fail(f"diffusion {label}: a step from the reloaded checkpoint "
+             f"differs from the live state's")
+
+    # launches: one encode and one network forward alone, then one step
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    alone = {}
+    with torch.no_grad(), recording(calls, label):
+        zero_kernel_counts()
+        z = encode_fn(batch, gen) if encode_fn is not None else batch
+        torch.cuda.synchronize()
+        alone["encode"] = kernel_counts()
+        t = torch.rand((z.shape[0],), generator=gen, device=dev)
+        zero_kernel_counts()
+        if family == "sfm":
+            net(z, t=t, s_conditioning=torch.randn(
+                z.shape, generator=gen, device=dev))
+        else:
+            net(z, t=t)
+        torch.cuda.synchronize()
+        alone["network"] = kernel_counts()
+    zero_kernel_counts()
+    trainer.train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    per_step = kernel_counts()
+    if any(per_step[k] == 0 or per_step[k] != alone["encode"][k]
+           + alone["network"][k] for k in per_step):
+        fail(f"diffusion {label}: launches a step {per_step} are not one "
+             f"encode's plus one forward's {alone}")
+
+    # the step: CUDA events around DIFF_TIMED steps, and one profiled
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(DIFF_TIMED):
+        state, metrics = trainer.train_step(trainer.state, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    step_ms = e0.elapsed_time(e1) / DIFF_TIMED
+    if not math.isfinite(float(metrics["loss"])):
+        fail(f"diffusion {label}: a timed step's loss is not finite")
+    def lead_then_step(lead):
+        time.sleep(lead)
+        trainer.train_step(trainer.state, batch)
+
+    leads = {}
+    for lead in DIFF_PROFILE_LEADS_S:
+        profile = step_breakdown(lambda: lead_then_step(lead),
+                                 VAE_STEP_KINDS, f"diffusion {label}")
+        listed = profile and profile["listed"]
+        leads[lead] = listed and {
+            "K1a": listed["gn_stats_kernel"],
+            "K1b": listed["gn_apply_kernel"],
+            "K2": listed["conv_bf16"] + listed["conv_f32"]}
+        complete = leads[lead] == per_step
+        if complete:
+            break
+    busy = profile["device_ms"] / step_ms if complete else None
+    verdict = ("complete" if complete else "it misses device work, so the "
+               "busy share is not given")
+    print(f"[diffusion] {label}: K1a/K1b/K2 launches the profile lists after "
+          f"each lead (s) {leads}, the step's {per_step}: {verdict}",
+          flush=True)
+    b = batch.shape[0]
+    res = {"family": family, "batch": b, "model_shape": info["model_shape"],
+           "n_params": info["n_params"], "step_ms": step_ms,
+           "samples_per_s": 1e3 * b / step_ms, "device_busy_share": busy,
+           "profile": profile, "profile_complete": complete,
+           "profile_listed_by_lead_s": leads,
+           "sampler_s": sample_s,
+           "sampler": f"{cfg['sampling']['n_samples']} samples, "
+                      f"{cfg['sampling']['n_steps']} steps, "
+                      f"{cfg['sampling'].get('method', 'ancestral')}",
+           "cli_s": run_s, "cli_samples_per_s": stats["samples_per_sec"],
+           "launches_per_step": per_step, "launches_alone": alone,
+           "train": history["train"], "val": history["val"],
+           "resume_bitwise": same}
+    print(f"[diffusion] {label}: step_ms {step_ms:.3f}, samples_per_s "
+          f"{res['samples_per_s']:.1f} (batch {b}, CUDA events over "
+          f"{DIFF_TIMED} steps), device busy share {busy}, sampler "
+          f"{sample_s:.2f} s ({res['sampler']}), the CLI run {run_s:.1f} s "
+          f"({stats['samples_per_sec']:.1f} samples/s host wall), launches "
+          f"a step {per_step} = encode {alone['encode']} + network "
+          f"{alone['network']}; train {history['train']}, val "
+          f"{history['val']}; resumed step bitwise {same} (on {card})",
+          flush=True)
+    print(f"[diffusion] {label}: one step under torch.profiler: "
+          f"{json.dumps(profile)}", flush=True)
+    return res, trainer
+
+
+def diffusion_vs_plain(dev, gen, vae, batch) -> dict:
+    """11e: the CUNet forward (latent batch 64, pixel batch 8, and the
+    volumetric one at DIFF_VOLUME_SHAPE; fp32, the zero-init convs
+    re-drawn) through the kernels against the plain path, the network's
+    output less its residual input to MODEL_F32_REL_L2, and K1a/K1b
+    launched on the NDHWC volume; one VDM loss and its gradients with
+    fixed draws, kernels against plain (DIFF_LOSS_BATCH tiles, the
+    tolerances stated at DIFF_LOSS_BATCH)."""
+    import torch
+
+    from tempo_tpu_torch.models.diffusion import VDM
+    from tempo_tpu_torch.nn.unet import CUNet
+
+    score = DIFF_LATENT["score_model"]
+
+    def cunet(shape):
+        net = CUNet(shape=shape, chs=tuple(score["chs"]),
+                    norm_groups=score["norm_groups"],
+                    n_attention_heads=score["n_attention_heads"],
+                    mid_attn=len(shape) == 3, dropout_prob=0.0,
+                    t_conditioning=True,
+                    t_embedding_dim=score["t_embedding_dim"], device=dev,
+                    seed=SEED)
+        nudge_zero_init(net, gen)
+        return net
+
+    forward, launches = {}, {}
+    for label, shape, b in (("latent", DIFF_LATENT_SHAPE, 64),
+                            ("pixel", DIFF_TILE, 8),
+                            ("volume", DIFF_VOLUME_SHAPE, DIFF_VOLUME_BATCH)):
+        net = cunet(shape)
+        x = randn(gen, b, *shape)
+        t = torch.rand((b,), generator=gen, device=dev)
+        with torch.no_grad():
+            zero_kernel_counts()
+            got = net(x, t=t) - x
+            torch.cuda.synchronize()
+            launches[label] = kernel_counts()
+            with plain_kernels():
+                want = net(x, t=t) - x
+        forward[label] = rel_l2(got, want)
+        del net, x, got, want
+    torch.cuda.empty_cache()
+
+    vdm = VDM(cunet(DIFF_LATENT_SHAPE), seed=SEED)
+    x = batch[:DIFF_LOSS_BATCH]
+    zshape = (x.shape[0], *DIFF_LATENT_SHAPE)
+    post_noise, noise, noise_0 = (randn(gen, *zshape) for _ in range(3))
+    times = (torch.rand((), generator=gen, device=dev)
+             + torch.arange(x.shape[0], device=dev)) / x.shape[0]
+
+    def encode():
+        with torch.no_grad():
+            post = vae.encode(x)
+            return post.mean + post.std * post_noise
+
+    def loss_and_grads(z):
+        vdm.zero_grad(set_to_none=True)
+        loss, _ = vdm.get_loss(z, noise=noise, times=times, noise_0=noise_0)
+        loss.backward()
+        return loss.item(), {k: p.grad.clone()
+                             for k, p in vdm.named_parameters()}
+
+    def compare(a, b):
+        (la, ga), (lb, gb) = a, b
+        rels = {k: rel_l2(ga[k], gb[k]) for k in gb
+                if not k.endswith("mid_attn1.k.bias")}
+        worst = max(rels, key=rels.get)
+        key_bias = max(float(ga[k].abs().max()) for k in ga
+                       if k.endswith("mid_attn1.k.bias"))
+        return {"loss": la, "loss_plain": lb, "loss_rel": abs(la - lb)
+                / abs(lb), "max_grad_rel_l2": rels[worst],
+                "worst": worst, "attn_k_bias_grad_max": key_bias}
+
+    z = encode()
+    kernel_run = loss_and_grads(z)
+    with plain_kernels():
+        z_plain = encode()
+        same_z = loss_and_grads(z)
+        whole_plain = loss_and_grads(z_plain)
+    res = {"forward_rel_l2": forward, "forward_launches": launches,
+           "latents_rel_l2": rel_l2(z, z_plain),
+           "same_latents": compare(kernel_run, same_z),
+           "whole": compare(kernel_run, whole_plain)}
+    print(f"[diffusion] 11e vs plain: {json.dumps(res)} (tol: forward "
+          f"{MODEL_F32_REL_L2}, latents {MODEL_BF16_REL_L2}, same latents "
+          f"{STEP_F32_TOL}, whole {STEP_BF16_TOL})", flush=True)
+    if not all(v <= MODEL_F32_REL_L2 for v in forward.values()):
+        fail("the CUNet forward through the kernels disagrees with the "
+             "plain path")
+    if not (launches["volume"]["K1a"] and launches["volume"]["K1b"]
+            and not launches["volume"]["K2"]):
+        fail(f"the volumetric CUNet did not run K1 alone on NDHWC: "
+             f"{launches['volume']}")
+    if not res["latents_rel_l2"] <= MODEL_BF16_REL_L2:
+        fail("the bf16 encode's latents disagree with the plain path")
+    for key, tol in (("same_latents", STEP_F32_TOL),
+                     ("whole", STEP_BF16_TOL)):
+        r = res[key]
+        if not (r["loss_rel"] <= tol["loss"]
+                and r["max_grad_rel_l2"] <= tol["grad"]):
+            fail(f"the VDM loss or gradients ({key}) disagree with the "
+                 f"plain path")
+    return res
+
+
+def diffusion_path(dev, rows: dict) -> dict:
+    """Phase 11, the diffusion path: (a) latent VDM and (b) latent SFM
+    through cli/train_diffusion.run with the repo's configs' values, (c)
+    pixel-space VDM, each a diffusion_cell; (d) cli/sample_diffusion.run
+    over (a)'s run, DDIM (eta 0) and ancestral, and (b)'s flow integrated
+    with 'lm'; (e) each recorded K1a/K1b/K2 call and the whole CUNet and
+    VDM loss against the plain versions. Adds each kernel's launches a
+    latent VDM step and its diffusion shapes to its row."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.cli import sample_diffusion, train_diffusion
+    from tempo_tpu_torch.data.loader import TileLoader
+    from tempo_tpu_torch.data.synthetic import make_tile_shards
+    from tempo_tpu_torch.models.vae import build_vae
+    from tempo_tpu_torch.train.trainer import to_device
+
+    seconds, res, card = {}, {}, smi_line()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    codecs, sampler_s = [], []
+    build, make = train_diffusion._build_codec, train_diffusion._make_sampler
+
+    def build_codec(*args):
+        codecs.append(build(*args))
+        return codecs[-1]
+
+    def make_sampler(*args, **kwargs):
+        fn = make(*args, **kwargs)
+
+        def timed_sampler(generator):
+            samples, dt = timed(lambda: fn(generator))
+            sampler_s.append(dt)
+            return samples
+
+        return timed_sampler
+
+    train_diffusion._build_codec = build_codec
+    train_diffusion._make_sampler = make_sampler
+    sample_diffusion._build_codec = build_codec
+    sample_diffusion._make_sampler = make_sampler
+    try:
+        t_phase = time.perf_counter()
+        shards = make_tile_shards(root / "tiles", n_files=DIFF_SHARDS,
+                                  tiles_per_file=DIFF_TILES,
+                                  tile=DIFF_TILE[0],
+                                  n_spectral=DIFF_TILE[2], seed=SEED,
+                                  dtype=np.float16)
+        vae, _ = build_vae(DIFF_VAE, device=dev, seed=SEED)
+        nudge_zero_init(vae, torch.Generator(device=dev).manual_seed(SEED))
+        torch.save({"model": vae.state_dict()}, root / "vae.pt")
+        del vae
+        loader = TileLoader(shards, batch_size=64, min_buffer_size=64,
+                            seed=SEED)
+        try:
+            batch = to_device(next(loader), dev)
+        finally:
+            loader.close()
+        data = {"train_dir": str(shards), "val_dir": str(shards)}
+        seconds["setup"] = time.perf_counter() - t_phase
+
+        # the kernels' calls of 11a's and 11c's steps, held in 11e (11b's
+        # are 11a's)
+        calls = {"K1a": [], "K1b": [], "K2": []}
+        for label, cfg, b in (("11a_vdm", DIFF_LATENT, 64),
+                              ("11b_sfm", DIFF_FLOW, 64),
+                              ("11c_pixel", DIFF_PIXEL, 8)):
+            t_phase = time.perf_counter()
+            cfg = json.loads(json.dumps(cfg))
+            cfg["data"].update(data)
+            if "latent" in cfg:
+                cfg["latent"]["vae_checkpoint"] = str(root / "vae.pt")
+            res[label], trainer = diffusion_cell(
+                label, cfg, dev, batch[:b], codecs, sampler_s,
+                calls if label != "11b_sfm" else {
+                    "K1a": [], "K1b": [], "K2": []}, root, card)
+            if label == "11b_sfm":
+                # the same flow integrated with Leimkuhler-Matthews
+                n, steps = (DIFF_FLOW["sampling"][k]
+                            for k in ("n_samples", "n_steps"))
+                lm = make_sampler(trainer.state.model, "sfm",
+                                  DIFF_LATENT_SHAPE, n, steps,
+                                  decode_fn=codecs[-1][1], method="lm")
+                samples = lm(torch.Generator(device=dev).manual_seed(SEED))
+                res[label]["lm_sampler_s"] = sampler_s[-1]
+                if not torch_all_finite(samples):
+                    fail("diffusion 11b: the lm samples are not finite")
+                print(f"[diffusion] 11b_sfm: the lm integrator, {n} samples "
+                      f"over {steps} steps: {sampler_s[-1]:.2f} s",
+                      flush=True)
+            del trainer
+            torch.cuda.empty_cache()
+            seconds[label] = time.perf_counter() - t_phase
+
+        # 11d: the sampling CLI over 11a's run, DDIM eta 0 and ancestral
+        t_phase = time.perf_counter()
+        res["11d_sample"] = {}
+        for method in ("ddim", "ancestral"):
+            cfg = dict(DIFF_SAMPLE, run_dir=str(root / "11a_vdm"),
+                       output_dir=str(root / f"samples_{method}"),
+                       method=method, eta=0.0)
+            info, run_s = timed(lambda: sample_diffusion.run(cfg,
+                                                             device=dev))
+            samples = np.load(root / f"samples_{method}" / "samples.npy")
+            ok = (samples.shape == (DIFF_SAMPLE["n_samples"], *DIFF_TILE)
+                  and np_all_finite(samples)
+                  and (root / f"samples_{method}" / "samples.png").exists()
+                  and (root / f"samples_{method}" /
+                       "sampling_info.yaml").exists())
+            res["11d_sample"][method] = {"cli_s": run_s,
+                                         "sampler_s": sampler_s[-1],
+                                         "shape": list(samples.shape),
+                                         "ok": ok, "info": info}
+            print(f"[diffusion] 11d sample_diffusion {method}: "
+                  f"{DIFF_SAMPLE['n_samples']} samples over "
+                  f"{DIFF_SAMPLE['n_steps']} steps, sampler "
+                  f"{sampler_s[-1]:.2f} s (incl. the decode), the CLI "
+                  f"{run_s:.2f} s; ok {ok}", flush=True)
+            if not ok:
+                fail(f"sample_diffusion {method}: {samples.shape} not "
+                     f"finite or files missing")
+        seconds["11d"] = time.perf_counter() - t_phase
+
+        # 11e: against the plain versions
+        t_phase = time.perf_counter()
+        vae = codecs[0][3]
+        res["11e_vs_plain"] = diffusion_vs_plain(dev, gen, vae, batch)
+        held = {"K1a": [], "K1b": [], "K2": []}
+
+        def keep(name, info, n, err, ok, ms, plain_ms, bound_ms, bound_by,
+                 library_ms, extra):
+            held[name].append(dict(
+                info, calls=n, max_abs_err=err, ok=ok, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, **extra))
+
+        held_ok = hold_recorded(
+            dev, gen, {k: count_calls(v) for k, v in calls.items()}, keep)
+        for name, shapes in held.items():
+            for sh in shapes:
+                print(f"[kernels] diffusion {name} {json.dumps(sh)}",
+                      flush=True)
+        if not held_ok:
+            fail("on the diffusion path a kernel disagrees with its plain "
+                 "version beyond tolerance")
+        per_step = res["11a_vdm"]["launches_per_step"]
+        for name in ("K1a", "K1b", "K2"):
+            runs = {}
+            for sh in held[name]:
+                for run, n in sh["calls"].items():
+                    r = runs.setdefault(f"{sh['dtype']} {run}", {"calls": 0})
+                    for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                "library_conv_ms", "k1_whole_ms",
+                                "whole_ms"):
+                        if key in sh:
+                            r[key] = r.get(key, 0.0) + n * sh[key]
+                    r["calls"] += n
+            rows[name]["diffusion"] = {
+                "launches_per_step": per_step[name],
+                "per": "by type and run: one latent VDM train step at "
+                       "batch 64 (11a_vdm: one bf16 VAE encode + one fp32 "
+                       "CUNet forward) and one pixel-space forward at batch "
+                       "8 (11c_pixel): sums over their calls, each timed "
+                       "alone with a cold L2 (each shape on its [kernels] "
+                       "diffusion line)",
+                "by_run": runs}
+        seconds["11e"] = time.perf_counter() - t_phase
+    finally:
+        train_diffusion._build_codec, train_diffusion._make_sampler = (
+            build, make)
+        sample_diffusion._build_codec = build
+        sample_diffusion._make_sampler = make
+        tmp.cleanup()
+    res["seconds"] = seconds
+    print(f"[diffusion] phase 11 seconds: {json.dumps(seconds)} (on "
+          f"{card})", flush=True)
+    return res
+
+
 class Timed:
     """A loader, with the host's wait on each batch summed."""
 
@@ -4817,7 +5567,6 @@ def main() -> int:
         from tempo_tpu_torch.models.vae import build_vae
         from tempo_tpu_torch.ops import (_build, cuda_decode, cuda_gn,
                                          cuda_gn_conv)
-        from tempo_tpu_torch.ops.norms import ACTIVATIONS
     except ImportError as e:
         fail(f"the tempo_tpu_torch package is not beside this script: {e}")
 
@@ -4934,12 +5683,6 @@ def main() -> int:
         bias = 0.1 * torch.randn(c, generator=gen, device=dev)
         return scale, bias
 
-    def nchw(t):
-        return t.permute(0, 3, 1, 2)
-
-    def act_fn(act):
-        return ACTIVATIONS[act] if act else (lambda t: t)
-
     rows = {}
     checks_ok = True
 
@@ -4978,45 +5721,27 @@ def main() -> int:
                                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                 library_ms=lib_ms, **(extra or {})))
 
-    def count(lst):
-        out = {}
-        for key, run in lst:
-            out.setdefault(key, {"tile": 0, "granule": 0})[run] += 1
-        return out
+    # K1a, K1b and K2 at every (shape, type) of the path, and K1b at the
+    # two shapes asked of K1 besides (hold_recorded says what each holds)
+    row("K1a", "tempo_tpu_torch/csrc/gn.cu", "tempo_tpu/ops/pallas_gn.py:66",
+        "torch.var_mean over the [B,HW,G,C/G] view", copy_ms=0.0)
+    row("K1b", "tempo_tpu_torch/csrc/gn.cu", "tempo_tpu/ops/pallas_gn.py:105",
+        "F.group_norm + activation: statistics and apply; compare with "
+        "k1_whole_ms", k1_whole_ms=0.0)
+    row("K2", "tempo_tpu_torch/csrc/gn_conv.cu",
+        "tempo_tpu/ops/pallas_gn_conv.py:53",
+        "F.group_norm + activation + F.conv2d (cuDNN); compare with "
+        "whole_ms", whole_ms=0.0, library_conv_ms=0.0)
+    counted = {k: count_calls(v, ("tile", "granule"))
+               for k, v in calls.items()}
+    for shape, act in (((8, 64, 64, 512), "gelu"), ((8, 16, 16, 128), None)):
+        counted["K1b"].setdefault((shape, "bfloat16", act),
+                                  {"tile": 0, "granule": 0})
+    checks_ok &= hold_recorded(dev, gen, counted,
+                               lambda name, *a: add(rows[name], *a))
 
     with torch.inference_mode():
-        # K1a: statistics at every shape the path gives it; each is bitwise
-        # the same on a repeat and, in a batch, for each sample alone.
-        r = row("K1a", "tempo_tpu_torch/csrc/gn.cu",
-                "tempo_tpu/ops/pallas_gn.py:66",
-                "torch.var_mean over the [B,HW,G,C/G] view", copy_ms=0.0)
-        for (shape, groups, eps), n in count(calls["K1a"]).items():
-            b, c = shape[0], shape[-1]
-            x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-            got = cuda_gn.gn_stats(x, groups, eps)
-            want = cuda_gn.gn_stats_plain(x, groups, eps)
-            err, ok = max_err(got, want, STATS_TOL)
-            repeat = torch.equal(got, cuda_gn.gn_stats(x, groups, eps))
-            alone = all(torch.equal(got[i:i + 1], cuda_gn.gn_stats(
-                x[i:i + 1], groups, eps)) for i in range(b))
-            checks_ok &= ok and repeat and alone
-            # A yardstick of the card's memory rate: a device-to-device
-            # copy of half of x moves as many bytes as K1a reads.
-            half = x.view(-1)[: x.numel() // 2]
-            dst = torch.empty_like(half)
-            extra = {"bitwise_repeat": repeat, "bitwise_alone": alone,
-                     "copy_ms": time_ms(lambda: dst.copy_(half))}
-            nbytes = x.numel() * 2 + got.numel() * 4
-            xg = x.view(b, -1, groups, c // groups)
-            add(r, {"x": list(shape),
-                    "split": cuda_gn.choose_stats_split(
-                        x.numel() // (b * c), c, x.dtype)}, n, err, ok,
-                time_ms(lambda: cuda_gn.gn_stats(x, groups, eps)),
-                time_ms(lambda: cuda_gn.gn_stats_plain(x, groups, eps)),
-                1e3 * nbytes / HBM_BYTES_PER_S, "bytes",
-                time_ms(lambda: torch.var_mean(xg, dim=(1, 3),
-                                               correction=0)), extra)
-            del x, xg, half, dst
+        r = rows["K1a"]
         # The five granule calls at [1,128,2048,512] hold 76% of K1a's
         # bytes. Yardsticks beside them: the copy of the same bytes above,
         # torch.sum reading them, and a one-element kernel (what time_ms
@@ -5048,97 +5773,6 @@ def main() -> int:
                   f"{names}", flush=True)
             checks_ok &= len(names) == 1 and "gn_stats_kernel" in names[0]
             del x
-
-        # K1b: apply from given statistics at the path's shapes and at the
-        # two shapes asked of K1. The library GroupNorm computes the
-        # statistics too, so it stands beside K1 whole (K1a + K1b).
-        r = row("K1b", "tempo_tpu_torch/csrc/gn.cu",
-                "tempo_tpu/ops/pallas_gn.py:105",
-                "F.group_norm + activation: statistics and apply; compare "
-                "with k1_whole_ms", k1_whole_ms=0.0)
-        k1_shapes = count(calls["K1b"])
-        for key in [((8, 64, 64, 512), "gelu"), ((8, 16, 16, 128), None)]:
-            k1_shapes.setdefault(key, {"tile": 0, "granule": 0})
-        for (shape, act), n in k1_shapes.items():
-            c = shape[-1]
-            x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-            scale, bias = affine(c)
-            st = cuda_gn.gn_stats_plain(x, 8, 1e-6)
-            want = cuda_gn.gn_apply_plain(x, st, scale, bias, act)
-            err, ok = max_err(cuda_gn.gn_apply(x, st, scale, bias, act), want,
-                              BF16_TOL)
-            whole_err, whole_ok = max_err(
-                cuda_gn.fused_group_norm_act(x, scale, bias, 8, 1e-6, act),
-                want, BF16_TOL)
-            checks_ok &= ok and whole_ok
-            sb, bb = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
-            nbytes = 2 * x.numel() * 2 + st.numel() * 4 + 2 * c * 4
-            add(r, {"x": list(shape), "act": act}, n, max(err, whole_err),
-                ok and whole_ok,
-                time_ms(lambda: cuda_gn.gn_apply(x, st, scale, bias, act)),
-                time_ms(lambda: cuda_gn.gn_apply_plain(x, st, scale, bias,
-                                                       act)),
-                1e3 * nbytes / HBM_BYTES_PER_S, "bytes",
-                time_ms(lambda: act_fn(act)(torch.nn.functional.group_norm(
-                    nchw(x), 8, sb, bb, 1e-6))),
-                {"k1_whole_ms": time_ms(
-                    lambda: cuda_gn.fused_group_norm_act(x, scale, bias, 8,
-                                                         1e-6, act))})
-
-        # K2 at every distinct shape of the path. The check holds the whole
-        # wrapper (K1a statistics, then K2) against the plain chain; "ms"
-        # times the K2 launch alone from precomputed statistics, beside the
-        # plain version of that step and cuDNN's conv of the activated input.
-        # The library chain computes the statistics too, so it stands beside
-        # whole_ms (K1a + K2).
-        r = row("K2", "tempo_tpu_torch/csrc/gn_conv.cu",
-                "tempo_tpu/ops/pallas_gn_conv.py:53",
-                "F.group_norm + activation + F.conv2d (cuDNN); compare with "
-                "whole_ms", whole_ms=0.0, library_conv_ms=0.0)
-        for (shape, f, groups, eps, act), n in count(calls["K2"]).items():
-            b, h, w, c = shape
-            x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-            scale, bias = affine(c)
-            weight = torch.empty((f, c, 3, 3), device=dev).uniform_(
-                -(9 * c) ** -0.5, (9 * c) ** -0.5, generator=gen)
-            cb = 0.01 * torch.randn(f, generator=gen, device=dev)
-            packed = cuda_gn_conv.pack_conv3x3_weight(weight, torch.bfloat16)
-            got = cuda_gn_conv.gn_act_conv3x3(x, scale, bias, weight, cb,
-                                              groups, eps, act, packed)
-            want = cuda_gn_conv.gn_act_conv3x3_plain(x, scale, bias, weight,
-                                                     cb, groups, eps, act)
-            err, ok = max_err(got, want, BF16_TOL)
-            checks_ok &= ok
-            del got, want
-            st = cuda_gn.gn_stats(x, groups, eps)
-            flops = 2 * b * h * w * 9 * c * f
-            nbytes = ((x.numel() + packed.numel() + b * h * w * f) * 2
-                      + st.numel() * 4)
-            by = ("operations" if flops / PEAK_FLOPS["bfloat16"]
-                  >= nbytes / HBM_BYTES_PER_S else "bytes")
-            bound = 1e3 * max(flops / PEAK_FLOPS["bfloat16"],
-                              nbytes / HBM_BYTES_PER_S)
-            sb, bb = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
-            wb, cbb = weight.to(torch.bfloat16), cb.to(torch.bfloat16)
-            activated = nchw(cuda_gn.gn_apply_plain(x, st, scale, bias, act))
-            ms = time_ms(lambda: cuda_gn_conv.conv3x3_from_stats(
-                x, st, scale, bias, weight, cb, act, packed))
-            config, split = cuda_gn_conv.choose_config(b, h, w, c, f)
-            add(r, {"x": list(shape), "f": f, "config": config,
-                    "split": split}, n, err, ok, ms,
-                time_ms(lambda: cuda_gn_conv.conv3x3_from_stats_plain(
-                    x, st, scale, bias, weight, cb, act)),
-                bound, by,
-                time_ms(lambda: torch.nn.functional.conv2d(
-                    act_fn(act)(torch.nn.functional.group_norm(
-                        nchw(x), groups, sb, bb, eps)), wb, cbb, padding=1)),
-                {"whole_ms": time_ms(lambda: cuda_gn_conv.gn_act_conv3x3(
-                    x, scale, bias, weight, cb, groups, eps, act, packed)),
-                 "library_conv_ms": time_ms(
-                     lambda: torch.nn.functional.conv2d(activated, wb, cbb,
-                                                        padding=1)),
-                 "gflop": flops / 1e9, "tflops": flops / ms / 1e9})
-            del x, activated
 
         # fp32 kernel paths at one shape each (the plain side without TF32).
         x = torch.randn((8, 16, 16, 128), generator=gen, device=dev)
@@ -5414,6 +6048,13 @@ def main() -> int:
         seconds["prep"] = time.perf_counter() - t_phase
     finally:
         keep.cleanup()
+    live.clear()
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------- 11. the diffusion path
+    t_phase = time.perf_counter()
+    diffusion = diffusion_path(dev, rows)
+    seconds["diffusion"] = time.perf_counter() - t_phase
     print(f"[time] phases, s: {json.dumps(seconds)}", flush=True)
 
     for r in rows.values():
@@ -5427,6 +6068,7 @@ def main() -> int:
         "recon_rel_l2_f32": err_f32, "lm": lm, "train": train,
         "vae_train": vae_train, "vae_l2": vae_l2, "analysis": analysis,
         "export": export, "prep": prep, "spec": spec, "programs": programs,
+        "diffusion": diffusion,
         "granule_numpy_normalize_s": t_numpy_normalize,
         "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {

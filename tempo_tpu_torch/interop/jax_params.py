@@ -13,6 +13,10 @@ its own copy of the layout conversions, inverted:
   [in, out, 2, 2]
 - GroupNorm scale/bias -> weight/bias
 
+``cunet_state_dict_from_jax``, ``cmlp_state_dict_from_jax`` and
+``vdm_state_dict_from_jax`` do it for the diffusion toolkit's networks
+(the inverse of tempo_tpu/interop/unet_ckpt.py, whose reference names the
+port's CUNet and CMLP carry; 2-D and 3-D kernels alike).
 ``l2_state_dict_from_jax`` does it for the L2-supervised VAE (the inverse
 of ``l2_params_from_torch_state_dict``), ``gpt_state_dict_from_jax`` does the same for the GPT (the inverse of
 tempo_tpu/interop/gpt_ckpt.py), ``probe_state_dict_from_jax`` for the
@@ -29,21 +33,29 @@ import torch
 
 
 def _conv(k: np.ndarray) -> np.ndarray:
-    return np.transpose(k, (3, 2, 0, 1))
+    """HWIO -> OIHW (DHWIO -> OIDHW)."""
+    nd = k.ndim - 2
+    return np.transpose(k, (nd + 1, nd) + tuple(range(nd)))
 
 
 def _dense(k: np.ndarray) -> np.ndarray:
     return np.transpose(k, (1, 0))[:, :, None, None]
 
 
-def _down(k: np.ndarray) -> np.ndarray:
+def _linear(k: np.ndarray) -> np.ndarray:
+    """Dense kernel [in, out] -> nn.Linear weight [out, in]."""
+    return np.transpose(k, (1, 0))
+
+
+def _down(k: np.ndarray, dim: int = 2) -> np.ndarray:
     cout = k.shape[1]
-    return _conv(k.reshape(2, 2, -1, cout))
+    return _conv(k.reshape((2,) * dim + (-1, cout)))
 
 
-def _up(k: np.ndarray) -> np.ndarray:
+def _up(k: np.ndarray, dim: int = 2) -> np.ndarray:
     cin = k.shape[0]
-    return np.transpose(k.reshape(cin, 2, 2, -1), (0, 3, 1, 2))
+    return np.transpose(k.reshape((cin,) + (2,) * dim + (-1,)),
+                        (0, dim + 1) + tuple(range(1, dim + 1)))
 
 
 def _resnet(out: Dict, prefix: str, tree: Mapping, dropout: bool) -> None:
@@ -201,3 +213,123 @@ def probe_state_dict_from_jax(params: Sequence[Mapping[str, Any]]
         out[f"layers.{i}.bias"] = layer["bias"]
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in out.items()}
+
+
+def _tensors(out: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in out.items()}
+
+
+def _embed_mlp(out: Dict, prefix: str, tree: Mapping) -> None:
+    """A CondMLP's fc1/fc2 -> the Sequential's linears 0 and 2."""
+    for i, name in ((0, "fc1"), (2, "fc2")):
+        out[f"{prefix}.{i}.weight"] = _linear(tree[name]["kernel"])
+        out[f"{prefix}.{i}.bias"] = tree[name]["bias"]
+
+
+def _cond_resnet(out: Dict, prefix: str, tree: Mapping,
+                 dropout: bool) -> None:
+    """A CondResNetBlock: the ResNetBlock's entries and its cond_proj{k}
+    (a linear, or a CondMLP for the ``mlp`` type)."""
+    _resnet(out, prefix, tree, dropout)
+    for key, sub in tree.items():
+        if key.startswith("cond_proj"):
+            name = f"{prefix}.cond_projs.{key[9:]}"
+            if "fc1" in sub:
+                _embed_mlp(out, name, sub)
+            else:
+                out[f"{name}.weight"] = _linear(sub["kernel"])
+                out[f"{name}.bias"] = sub["bias"]
+
+
+def cunet_state_dict_from_jax(params: Mapping[str, Any],
+                              dropout: bool = False
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX CUNet params -> the port's (and the reference's) state_dict,
+    2-D or 3-D (read from the kernels' rank); the inverse of
+    tempo_tpu/interop/unet_ckpt.py ``params_from_torch_cunet``.
+    ``dropout``: the blocks hold a Dropout module (dropout_prob > 0),
+    which moves their second conv to ``net2.3``."""
+    tree = params.get("params", params)
+    dim = tree["conv_in"]["kernel"].ndim - 2
+    out: Dict[str, np.ndarray] = {}
+    for name in ("conv_in", "conv_out", "conv_residual_out"):
+        if name in tree:
+            out[f"{name}.weight"] = _conv(tree[name]["kernel"])
+            out[f"{name}.bias"] = tree[name]["bias"]
+    out["norm_out.weight"] = tree["norm_out"]["scale"]
+    out["norm_out.bias"] = tree["norm_out"]["bias"]
+    if "embed_t" in tree:
+        _embed_mlp(out, "embed_t_conditioning", tree["embed_t"])
+    for key, sub in tree.items():
+        if key.startswith("embed_v"):
+            _embed_mlp(out, f"embeds_v_conditionings.{key[7:]}", sub)
+        elif key in ("mid1", "mid2"):
+            _cond_resnet(out, key, sub, dropout)
+        elif key == "mid_attn":
+            _attn(out, "mid_attn1", sub)
+        elif key.startswith(("down", "up")) and "_" in key:
+            side, rest = ("down", key[4:]) if key.startswith("down") else (
+                "up", key[2:])
+            level, part = rest.split("_", 1)
+            prefix = f"{side}s.{level}"
+            if part.startswith("res"):
+                _cond_resnet(out, f"{prefix}.resnet_blocks.{part[3:]}", sub,
+                             dropout)
+            elif part == "down":
+                out[f"{prefix}.down.weight"] = _down(sub["kernel"], dim)
+                out[f"{prefix}.down.bias"] = sub["bias"]
+            elif part == "up":
+                out[f"{prefix}.up.weight"] = _up(sub["kernel"], dim)
+                out[f"{prefix}.up.bias"] = sub["bias"]
+    return _tensors(out)
+
+
+def cmlp_state_dict_from_jax(params: Mapping[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """JAX CMLP params -> the port's (and the reference's) state_dict:
+    ``embed_t_conditioning``, ``layers.{i}``, ``embedders.{i}.{k}``; the
+    inverse of tempo_tpu/interop/unet_ckpt.py ``params_from_torch_cmlp``."""
+    tree = params.get("params", params)
+    out: Dict[str, np.ndarray] = {}
+    for key, sub in tree.items():
+        if key == "embed_t":
+            _embed_mlp(out, "embed_t_conditioning", sub)
+        elif key.startswith("layer"):
+            out[f"layers.{key[5:]}.weight"] = _linear(sub["kernel"])
+            out[f"layers.{key[5:]}.bias"] = sub["bias"]
+        elif key.startswith("embed"):
+            i, k = key[5:].split("_")
+            _embed_mlp(out, f"embedders.{i}.{k}", sub)
+    return _tensors(out)
+
+
+def vdm_state_dict_from_jax(params: Mapping[str, Any],
+                            dropout: bool = False
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX VDM params -> the port's VDM state_dict: ``score_model.*`` (a
+    CUNet's or, where the tree holds ``layer0``, a CMLP's) and a learned
+    schedule's ``gamma.b``/``gamma.w`` (learned_linear) or
+    ``gamma.l1``/``l2``/``l3`` (learned_nn, nn.Linear layouts); the
+    inverse of tempo_tpu/interop/unet_ckpt.py ``params_from_torch_vdm``.
+    An SFM's params ({'velocity_model': CUNet}) give ``velocity_model.*``."""
+    tree = params.get("params", params)
+    if "velocity_model" in tree:
+        return {f"velocity_model.{k}": v for k, v in
+                cunet_state_dict_from_jax(tree["velocity_model"],
+                                          dropout).items()}
+    score = tree["score_model"]
+    sd = (cmlp_state_dict_from_jax(score) if "layer0" in score
+          else cunet_state_dict_from_jax(score, dropout))
+    out = {f"score_model.{k}": v for k, v in sd.items()}
+    gamma: Dict[str, np.ndarray] = {}
+    g = tree.get("gamma", {})
+    if "b" in g:
+        gamma = {"b": g["b"], "w": g["w"]}
+    elif "l1" in g:
+        for name in ("l1", "l2", "l3"):
+            gamma[f"{name}.weight"] = _linear(g[name]["kernel"])
+            if "bias" in g[name]:
+                gamma[f"{name}.bias"] = g[name]["bias"]
+    out.update({f"gamma.{k}": v for k, v in _tensors(gamma).items()})
+    return out

@@ -10,6 +10,9 @@ Counterpart of tempo_tpu/nn/blocks.py with the same math:
   head index varies fastest on the channel axis), softmax over keys in
   fp32, 1x1 proj, residual.
 - Downsample2x / Upsample2x: kernel-2 stride-2 (transposed) convs.
+- Conv3d, Downsample2x3d, Upsample2x3d: their NDHWC counterparts for the
+  volumetric (dim=3) CUNet, plain torch (the JAX package computes them
+  outside any Pallas kernel); ``norm_act_conv`` runs K1, then a Conv3d.
 
 Modules and parameters carry the reference PyTorch model's names
 (``resnet_blocks.{j}.net1.0`` ...), so its state_dicts load as they are.
@@ -20,14 +23,17 @@ JAX modules cast to their ``dtype``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional, Sequence
 
 import torch
 from torch import nn
 
 from tempo_tpu_torch.ops import cuda_gn_conv
-from tempo_tpu_torch.ops.convs import conv2d_nhwc, conv_transpose2x_nhwc, dense
+from tempo_tpu_torch.ops.convs import (conv2d_nhwc, conv3d_ndhwc,
+                                       conv_transpose2x_ndhwc,
+                                       conv_transpose2x_nhwc, dense)
 from tempo_tpu_torch.ops.norms import group_norm_act
 
 _ACT_MODULES = {"gelu": nn.GELU, "relu": nn.ReLU, "silu": nn.SiLU}
@@ -108,6 +114,43 @@ class Upsample2x(nn.ConvTranspose2d):
                                      self.bias)
 
 
+class Conv3d(nn.Conv3d):
+    """3x3x3 SAME conv over NDHWC in fp32; weight [F, C, 3, 3, 3]. The
+    volumetric CUNet's only conv; ``norm_act_conv`` reads
+    ``compute_dtype`` as it does Conv2d's."""
+
+    compute_dtype = torch.float32
+
+    def __init__(self, cin: int, cout: int, zero_init: bool = False):
+        super().__init__(cin, cout, 3, padding=1)
+        self.zero_init = zero_init
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3d_ndhwc(x.to(self.compute_dtype), self.weight, self.bias,
+                            padding=1)
+
+
+class Downsample2x3d(nn.Conv3d):
+    """Kernel-2 stride-2 conv over NDHWC, in x's type."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, channels, 2, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3d_ndhwc(x, self.weight, self.bias, stride=2)
+
+
+class Upsample2x3d(nn.ConvTranspose3d):
+    """Kernel-2 stride-2 transposed conv over NDHWC, in x's type; weight
+    [in, out, 2, 2, 2]."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 2, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_transpose2x_ndhwc(x, self.weight, self.bias)
+
+
 class GroupNorm(nn.GroupNorm):
     """GroupNorm over NHWC through K1. Where an activation follows, the
     caller passes this module's parameters to ``norm_act_conv``."""
@@ -150,9 +193,10 @@ def packed_for_export(model: nn.Module) -> Iterator[nn.Module]:
             m.export_packed = None
 
 
-def norm_act_conv(norm: GroupNorm, act: str, conv: Conv2d,
+def norm_act_conv(norm: GroupNorm, act: str, conv: nn.Module,
                   x: torch.Tensor) -> torch.Tensor:
-    """conv(act(norm(x))): one K2 call for a 3x3 conv, else K1 then conv.
+    """conv(act(norm(x))): one K2 call for a 2-D 3x3 conv, else (another
+    kernel size, a Conv3d) K1 then conv.
     The packed weight is the ``export_packed`` buffer where it is set,
     else the module's cache for a CUDA tensor. A trace (torch.export,
     torch.compile) reads pointers and version counts only as they were at
@@ -173,31 +217,41 @@ def norm_act_conv(norm: GroupNorm, act: str, conv: Conv2d,
 
 
 class ResNetBlock(nn.Module):
+    """``conv``, where given, builds both convs as ``conv(cin, cout,
+    zero_init=...)`` in place of a kernel_size Conv2d in compute_dtype
+    (the volumetric CUNet passes Conv3d)."""
+
     def __init__(self, cin: int, features: int, num_groups: int = 8,
                  norm_eps: float = 1e-6, norm_affine: bool = True,
                  act: str = "gelu", kernel_size: int = 3,
                  dropout_prob: float = 0.0,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 conv: Optional[Callable[..., nn.Module]] = None):
         super().__init__()
+        if conv is None:
+            conv = functools.partial(Conv2d, kernel_size=kernel_size,
+                                     compute_dtype=compute_dtype)
         self.act = act
         self.dropout_prob = dropout_prob
         self.net1 = nn.Sequential(
             GroupNorm(num_groups, cin, norm_eps, norm_affine),
-            _ACT_MODULES[act](),
-            Conv2d(cin, features, kernel_size, compute_dtype=compute_dtype))
+            _ACT_MODULES[act](), conv(cin, features))
         net2 = [GroupNorm(num_groups, features, norm_eps, norm_affine),
                 _ACT_MODULES[act]()]
         if dropout_prob > 0.0:
             net2.append(nn.Dropout(dropout_prob))
-        net2.append(Conv2d(features, features, kernel_size, zero_init=True,
-                           compute_dtype=compute_dtype))
+        net2.append(conv(features, features, zero_init=True))
         self.net2 = nn.Sequential(*net2)
         self.skip_conv = (Dense(cin, features, compute_dtype)
                           if cin != features else None)
 
-    def forward(self, x: torch.Tensor, deterministic: bool = True
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                adds: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+        """``adds`` are added in turn after the first conv (the CUNet's
+        conditioning projections)."""
         h = norm_act_conv(self.net1[0], self.act, self.net1[-1], x)
+        for a in adds:
+            h = h + a
         norm2, conv2 = self.net2[0], self.net2[-1]
         if deterministic or self.dropout_prob == 0.0:
             h = norm_act_conv(norm2, self.act, conv2, h)
@@ -248,15 +302,18 @@ class AttnBlock(nn.Module):
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """PyTorch's default init (uniform in +-1/sqrt(fan_in) for conv weights
-    and biases where they have one, fan_in from weight dim 1, as torch computes it for
-    ConvTranspose2d too), from ``generator``; zeros for ``zero_init`` convs;
+    """PyTorch's default init (uniform in +-1/sqrt(fan_in) for conv and
+    linear weights and biases where they have one, fan_in from weight dim
+    1 times the kernel, as torch computes it for the transposed convs too),
+    from ``generator``; zeros for ``zero_init`` convs and linears;
     ones/zeros for GroupNorm."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Conv3d,
+                          nn.ConvTranspose3d, nn.Linear)):
             if getattr(m, "zero_init", False):
                 nn.init.zeros_(m.weight)
-                nn.init.zeros_(m.bias)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
                 continue
             fan_in = m.weight.shape[1] * math.prod(m.weight.shape[2:])
             bound = 1.0 / math.sqrt(fan_in)

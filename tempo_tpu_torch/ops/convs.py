@@ -8,7 +8,9 @@ NHWC tensor, which is a view, not a copy.
 
 The kernel-2 stride-2 down/up resamples, which the JAX package computes as
 space-to-depth + matmul and matmul + depth-to-space, are here the strided
-Conv2d and ConvTranspose2d they are algebraically equal to. The TPU lane
+Conv2d and ConvTranspose2d they are algebraically equal to. The volumetric
+counterparts over NDHWC (the dim=3 CUNet) are ``conv3d_ndhwc`` and
+``conv_transpose2x_ndhwc`` (F.conv3d and F.conv_transpose3d). The TPU lane
 tricks (the ragged channel split, boundary lane padding) are not ported:
 they do not change the numbers.
 
@@ -53,6 +55,37 @@ def conv_transpose2x_nhwc(x: torch.Tensor, weight: torch.Tensor,
     if bias is not None:
         out = out + bias.to(out.dtype)[:, None, None]
     return _nhwc(out)
+
+
+def _ncdhw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 4, 1, 2, 3)
+
+
+def _ndhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def conv3d_ndhwc(x: torch.Tensor, weight: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, stride: int = 1,
+                 padding: int = 0) -> torch.Tensor:
+    """x [B, D, H, W, C], weight [F, C, kd, kh, kw] -> [B, D', H', W', F]
+    in x's type, zero padding."""
+    out = F.conv3d(_ncdhw(x), weight.to(x.dtype), stride=stride,
+                   padding=padding)
+    if bias is not None:
+        out = out + bias.to(out.dtype)[:, None, None, None]
+    return _ndhwc(out)
+
+
+def conv_transpose2x_ndhwc(x: torch.Tensor, weight: torch.Tensor,
+                           bias: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Kernel-2 stride-2 transposed 3-D conv: x [B, D, H, W, C], weight
+    [C, F, 2, 2, 2] -> [B, 2D, 2H, 2W, F] in x's type."""
+    out = F.conv_transpose3d(_ncdhw(x), weight.to(x.dtype), stride=2)
+    if bias is not None:
+        out = out + bias.to(out.dtype)[:, None, None, None]
+    return _ndhwc(out)
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor,

@@ -54,6 +54,44 @@ def vae_l2_loss_fn(model: nn.Module, l2_weights=None) -> LossFn:
     return loss_fn
 
 
+def diffusion_loss_fn(model: nn.Module, encode_fn=None) -> LossFn:
+    """(model, batch [B, H, W, C], generator) -> (loss, metrics): a VDM's
+    ``get_loss`` (models/diffusion.py), the ELBO renamed 'loss'. With
+    ``encode_fn(batch, generator) -> latents`` (a frozen VAE's posterior
+    sample) the diffusion trains in latent space: the encode runs first,
+    without gradients, drawing from the generator, then the VDM's own
+    draws."""
+
+    def loss_fn(model, batch, generator):
+        if encode_fn is not None:
+            with torch.no_grad():
+                batch = encode_fn(batch, generator)
+        loss, metrics = model.get_loss(batch, generator)
+        metrics = dict(metrics)
+        metrics["loss"] = metrics.pop("elbo")
+        return loss, metrics
+
+    return loss_fn
+
+
+def flow_loss_fn(model: nn.Module, encode_fn=None) -> LossFn:
+    """(model, batch, generator) -> (loss, {'loss'}): stochastic flow
+    matching (models/flow.py SFM) from a fresh standard-normal source x0
+    to the batch (encoded as in ``diffusion_loss_fn`` when ``encode_fn``
+    is given); the draws: the encode's, x0, then the loss's t and eps."""
+
+    def loss_fn(model, batch, generator):
+        if encode_fn is not None:
+            with torch.no_grad():
+                batch = encode_fn(batch, generator)
+        x0 = torch.randn(batch.shape, generator=generator,
+                         device=batch.device)
+        loss = model.compute_loss(x0, batch, generator=generator)
+        return loss, {"loss": loss}
+
+    return loss_fn
+
+
 def batch_size(batch: Batch) -> int:
     """The leading dimension of a tensor batch or of a dict's values."""
     first = next(iter(batch.values())) if isinstance(batch, dict) else batch
