@@ -141,7 +141,8 @@ Phases, each fatal on failure:
       K1/K2 launches of a batch of 16;
   7b. load_params of 5b's and 6c's checkpoints (and the L2 one's vae.*
       into the base VAE): the posterior mean of 16 tiles bit for bit the
-      live weights' (cuDNN deterministic); a .msgpack refused naming M11;
+      live weights' (cuDNN deterministic); a full-state resume from a
+      .msgpack refused naming M11;
   7c. one structured_granule [131, 2048, 1028] through encode_granules'
       encode_granule with decode_roundtrip: the device normalize within
       1e-4 of numpy's and no farther from float64 than numpy's (+1e-5);
@@ -237,6 +238,29 @@ Phases, each fatal on failure:
       calls, as phase 2 holds its own (hold_recorded); one VDM
       loss and its gradients with fixed draws, kernels against plain (the
       bf16 latents, the loss from the same latents, the whole).
+  then the trainers' options and the JAX checkpoint bridge (the flagship in
+  bf16; K1a, K1b and K2 in the forward):
+  12a. cli/train_vae.run in a fresh process over 5 fp16 shards of 8
+      flagship tiles at batch 8 for 6 steps, with metrics_jsonl,
+      profile_steps [2, 4], async checkpoints every 2 steps, the EMA logged
+      every step and a validation of 2 batches every 3: the K1a/K1b/K2
+      counters set to 0 before the run and read after (each non-zero), and
+      set to 0 where the profile window opens and read where it closes;
+      the Chrome trace lists exactly the kernels counted in the window,
+      (2 steps + 2 validation batches) x one training forward's; the JSONL
+      records are the metrics.json history; ckpt_step=000002/4/6.pt, the
+      last bit for bit the trainer's final model and AdamW state;
+  12b. the in-place race at batch 64: a sync and an async checkpoint of
+      one state, a train step run while the async one is written, 3
+      rounds: the two files byte for byte equal, their tensors unlike the
+      state after the step; save()'s blocking time sync and async (the
+      first async save allocates the pinned buffers the later ones reuse),
+      the time until the write is done, a step's time under the write and
+      alone;
+  12c. every flagship state-dict tensor, a bfloat16 leaf, a float, an int,
+      a string, an empty dict and a chunked leaf packed as flax lays a
+      checkpoint out (pack_flax), read back by interop/msgpack_reader.py
+      bit for bit (the bfloat16 widened exactly): MB/s.
 Prints the card's name and power limit first, each phase's seconds, each
 redesigned kernel's time against its time before the redesign
 (KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
@@ -534,7 +558,7 @@ LM_PROFILED = 4
 # no yaml) and train_flow_latent.yaml's (DIFF_FLOW, family sfm), and
 # configs/analysis/sample_diffusion.yaml's (DIFF_SAMPLE): the flagship VAE
 # (DIFF_VAE, bf16) from seeded weights saved as the port's .pt (the yamls
-# name a .msgpack, which the port refuses: M11), frozen; the CUNet chs
+# name a JAX .msgpack, which phase 12c reads), frozen; the CUNet chs
 # [128, 192], t_embedding_dim 128, over its 16x16x32 latent at batch 64;
 # DIFF_SHARDS fp16 shards of DIFF_TILES flagship tiles (make_tile_shards)
 # for train and validation. Cuts (PERF.md section 4): 10 steps of 100,000,
@@ -596,6 +620,22 @@ DIFF_LATENT_SHAPE = (16, 16, 32)  # its latent: 4x smaller, embed_dim 32
 # order only (STEP_F32_TOL); the whole loss carries the latents'
 # difference through an fp32 network and a smooth loss, STEP_BF16_TOL.
 DIFF_LOSS_BATCH = 8
+# Phase 12, the trainers' options and the JAX checkpoint bridge. 12a runs
+# cli/train_vae.run with every option in a fresh child process (a fresh
+# process's profiler lists every kernel: PERF.md section 6): the
+# flagship (VAE_MODEL, bf16) at batch OPTS["batch"] over VAE_SHARDS fp16
+# shards of VAE_TILES_PER_SHARD flagship tiles (5b's), OPTS["steps"] steps,
+# metrics_jsonl, profile_steps OPTS["profile"] (the window holds steps 3
+# and 4 and step 3's validation), async checkpoints every 2 steps, the EMA
+# logged every step, a validation every 3 steps of OPTS["n_val"] batches
+# (Trainer.n_val_batches; the CLI has no key for it). 12b takes a sync and
+# an async checkpoint of 5a's state at batch VAE_TRAIN_BATCH, a train step
+# running while the async one is written, OPTS["rounds"] times. 12c packs
+# every flagship state-dict tensor, a bfloat16 leaf, scalars, an empty dict
+# and a chunked leaf as flax lays them out and reads them back through
+# interop/msgpack_reader.py.
+OPTS = {"batch": 8, "steps": 6, "profile": [2, 4], "save_every": 2,
+        "val_every": 3, "n_val": 2, "rounds": 3}
 
 
 def fail(msg: str) -> None:
@@ -4241,7 +4281,7 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     (a) cli/evaluate_reconstruction.run over 5b's two checkpoints and a
     shard of 32 flagship tiles, against the same sweep through the plain
     versions; (b) load_params of 5b's and 6c's checkpoints against the live
-    weights, bit for bit, and a .msgpack refused; (c) one structured
+    weights, bit for bit, and a .msgpack resume refused; (c) one structured
     granule [131, 2048, 1028] through encode_granules' per-granule
     function: the device normalize against numpy's and float64, the latent
     against the plain path, the metrics on the card against numpy's; (d)
@@ -4270,7 +4310,8 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     from tempo_tpu_torch.models.vae import VAEConfig, build_vae
     from tempo_tpu_torch.models.vae_l2 import build_vae_l2
     from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
-    from tempo_tpu_torch.train.checkpoint import list_checkpoints, load_params
+    from tempo_tpu_torch.train.checkpoint import (list_checkpoints,
+                                                  load_checkpoint, load_params)
     from tempo_tpu_torch.train.png import PNG_SIGNATURE
     from tempo_tpu_torch.utils.config import save_json_yaml
 
@@ -4329,10 +4370,9 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     model, _ = build_vae(VAE_MODEL, device=dev, seed=SEED)
     tiles = evaluate_reconstruction.load_val_tiles(val_dir, n_val)
     with plain_kernels():
-        plain = evaluate_checkpoints(model, exp_dir, tiles, batch,
-                                     evaluation["metrics"], verbose=False,
-                                     pattern=evaluate_reconstruction
-                                     .DEFAULT_PATTERN)
+        plain = evaluate_checkpoints(model, exp_dir / "checkpoints", tiles,
+                                     batch, evaluation["metrics"],
+                                     verbose=False)
     with torch.inference_mode(), recording(calls, "sweep"):
         batch_metrics(model, torch.from_numpy(tiles[:batch]).to(dev),
                       torch.Generator(device=dev).manual_seed(0),
@@ -4389,18 +4429,19 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     finally:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = saved
-    (keep / "ckpt_step=000001.msgpack").write_bytes(b"")
-    try:
-        load_params(keep / "ckpt_step=000001.msgpack", twin)
+    try:  # phase 12c reads a .msgpack's parameters; a resume refuses it
+        load_checkpoint(keep / "ckpt_step=000001.msgpack", None)
         refused = "not refused"
     except NotImplementedError as e:
         refused = str(e)
     print(f"[analysis] 7b load_params, posterior mean of {batch} tiles bit "
           f"for bit the live weights': 5b's checkpoint {same_vae}, 6c's L2 "
           f"checkpoint {same_l2}, its vae.* into the base VAE "
-          f"{same_nested}; a .msgpack: {refused}", flush=True)
+          f"{same_nested}; a full-state resume from a .msgpack: {refused}",
+          flush=True)
     if not (same_vae and same_l2 and same_nested and "M11" in refused):
-        fail("load_params did not give the live weights, or took a .msgpack")
+        fail("load_params did not give the live weights, or a full-state "
+             "resume took a .msgpack")
     del twin, l2_model, l2_twin, x, loaded
     seconds["7b"] = time.perf_counter() - t_phase
 
@@ -5477,6 +5518,385 @@ def diffusion_path(dev, rows: dict) -> dict:
     return res
 
 
+def options_child(spec_path: str) -> None:
+    """Phase 12a's fresh process: cli/train_vae.run with every option
+    (OPTS). The K1a/K1b/K2 counters are set to 0 before the run and read
+    after it, and set to 0 where the profile window starts and read where
+    it stops (wrapping Trainer._start_profile / _stop_profile); a sink
+    stamps the host clock at every record. Then the trace's K1a/K1b/K2
+    kernels, one training forward's launches at the run's batch, the
+    JSONL records against metrics.json, and the last checkpoint against
+    the trainer's final state, bit for bit. Writes the result as JSON to
+    the spec's ``out``."""
+    import torch
+
+    from tempo_tpu_torch.cli import train_vae
+    from tempo_tpu_torch.train.trainer import Trainer
+
+    spec = json.loads(Path(spec_path).read_text())
+    out = Path(spec["run"])
+    window, stamps, clock = {}, [], {}
+    start, stop = Trainer._start_profile, Trainer._stop_profile
+
+    def counted_start(self):
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        clock["opened"] = time.perf_counter()
+        start(self)
+
+    def counted_stop(self):
+        torch.cuda.synchronize()
+        window.update(kernel_counts())
+        clock["closing"] = time.perf_counter()
+        stop(self)  # stops the profiler and writes the trace
+        clock["closed"] = time.perf_counter()
+
+    sinks = train_vae._metric_sinks
+    Trainer._start_profile, Trainer._stop_profile = counted_start, counted_stop
+    Trainer.n_val_batches = OPTS["n_val"]
+    train_vae._metric_sinks = lambda *a: sinks(*a) + [
+        lambda step, metrics, kind: stamps.append(
+            (step, kind, time.perf_counter()))]
+    cfg = {"output_dir": str(out), "seed": SEED,
+           "data": {"train_dir": spec["shards"], "val_dir": spec["shards"],
+                    "batch_size": OPTS["batch"],
+                    "min_buffer_size": VAE_BUFFER,
+                    "val_min_buffer_size": OPTS["batch"]},
+           "model": VAE_MODEL,
+           "optimizer": {"lr": 1e-4, "betas": [0.9, 0.95],
+                         "weight_decay": 0.05},
+           "training": {"n_steps": OPTS["steps"],
+                        "save_every": OPTS["save_every"],
+                        "val_every": OPTS["val_every"], "log_every": 1,
+                        "plot_every": 100, "metrics_jsonl": True,
+                        "profile_steps": OPTS["profile"],
+                        "checkpoint_format": "async"}}
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    trainer, stats = train_vae.run(cfg, device=spec["device"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = kernel_counts()
+
+    trace = out / "profile" / "trace_steps_{}-{}.json".format(
+        *OPTS["profile"])
+    listed = dict.fromkeys(("K1a", "K1b", "K2"), 0)
+    names = {"K1a": ("gn_stats_kernel",), "K1b": ("gn_apply_kernel",),
+             "K2": ("conv_bf16", "conv_f32")}
+    for ev in json.loads(trace.read_text())["traceEvents"]:
+        if ev.get("cat") == "kernel":
+            for k, keys in names.items():
+                listed[k] += any(key in ev.get("name", "") for key in keys)
+    model = trainer.state.model
+    x = torch.randn((OPTS["batch"], *model.config.shape[1:],
+                     model.config.shape[0]), device=spec["device"])
+    with torch.no_grad():
+        per_forward = launches_of(lambda: model.get_loss(
+            x, torch.Generator(device=spec["device"]).manual_seed(0)))
+
+    hist = json.loads((out / "metrics.json").read_text())
+    records = [json.loads(line) for line in
+               (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+    jsonl_is_history = all(
+        [{k: v for k, v in r.items() if k != "kind"} for r in records
+         if r["kind"] == kind] == hist[kind] for kind in ("train", "val"))
+    ckpts = sorted(p.name for p in (out / "checkpoints").glob("*.pt"))
+    raw = torch.load(out / "checkpoints" / ckpts[-1], map_location="cpu",
+                     weights_only=True)
+    live_opt = trainer.state.optimizer.state_dict()["state"]
+    reload_bitwise = (
+        raw["step"] == trainer.state.step
+        and all(torch.equal(raw["model"][k], v.cpu())
+                for k, v in model.state_dict().items())
+        and all(torch.equal(raw["optimizer"]["state"][i][k], v.cpu())
+                for i, st in live_opt.items() for k, v in st.items()))
+    train_t = [t for _, kind, t in stamps if kind == "train"]
+    Path(spec["out"]).write_text(json.dumps({
+        "run_s": run_s, "samples_per_sec": stats["samples_per_sec"],
+        "launches": launches, "window_launches": window,
+        "trace_listed": listed, "per_forward": per_forward,
+        "trace_bytes": trace.stat().st_size,
+        "step_host_ms": [1e3 * (b - a) for a, b in zip(train_t,
+                                                       train_t[1:])],
+        "window_s": clock["closing"] - clock["opened"],
+        "trace_stop_and_write_s": clock["closed"] - clock["closing"],
+        "jsonl_records": [[r["step"], r["kind"]] for r in records],
+        "jsonl_is_history": jsonl_is_history, "checkpoints": ckpts,
+        "reload_bitwise": reload_bitwise}))
+
+
+class Bf16(tuple):
+    """A bfloat16 array for ``pack_flax``, as its uint16 bits (numpy on the
+    card has no bfloat16)."""
+
+
+def pack_flax(obj) -> bytes:
+    """msgpack of ``obj`` as flax.serialization.msgpack_serialize lays a
+    checkpoint out: dicts, lists, str, int, float, bool, None, bytes, and
+    numpy arrays (and ``Bf16((shape, bits))``) as flax's ext 1, the nested
+    (shape, dtype name, C-order bytes). The port only reads this format;
+    this writer is phase 12c's, to make a file to read on the card."""
+    import struct
+
+    import numpy as np
+
+    out = []
+
+    def head(n, fix, fix_max, codes):
+        if fix is not None and n <= fix_max:
+            out.append(bytes([fix | n]))
+            return
+        for code, fmt, limit in zip(codes, (">B", ">H", ">I"),
+                                    (0xFF, 0xFFFF, 0xFFFFFFFF)):
+            if code is not None and n <= limit:
+                out.append(bytes([code]) + struct.pack(fmt, n))
+                return
+
+    def ext(payload):
+        head(len(payload), None, 0, (0xC7, 0xC8, 0xC9))
+        out.append(b"\x01")  # flax's ndarray code
+        out.append(payload)
+
+    def one(v):
+        if v is None or isinstance(v, bool):
+            out.append({None: b"\xc0", False: b"\xc2", True: b"\xc3"}[v])
+        elif isinstance(v, int):
+            out.append(bytes([v]) if 0 <= v < 128 else
+                       b"\xcf" + struct.pack(">Q", v) if v >= 0 else
+                       b"\xd3" + struct.pack(">q", v))
+        elif isinstance(v, float):
+            out.append(b"\xcb" + struct.pack(">d", v))
+        elif isinstance(v, str):
+            data = v.encode()
+            head(len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+            out.append(data)
+        elif isinstance(v, bytes):
+            head(len(v), None, 0, (0xC4, 0xC5, 0xC6))
+            out.append(v)
+        elif isinstance(v, Bf16):
+            ext(pack_flax([list(v[0]), "bfloat16", v[1].tobytes()]))
+        elif isinstance(v, np.ndarray):
+            ext(pack_flax([list(v.shape), v.dtype.name, v.tobytes("C")]))
+        elif isinstance(v, list):
+            head(len(v), 0x90, 15, (None, 0xDC, 0xDD))
+            for item in v:
+                one(item)
+        elif isinstance(v, dict):
+            head(len(v), 0x80, 15, (None, 0xDE, 0xDF))
+            for k, item in v.items():
+                one(k)
+                one(item)
+        else:
+            raise TypeError(f"pack_flax: {type(v).__name__}")
+
+    one(obj)
+    return b"".join(out)
+
+
+def options_path(dev, root: Path) -> dict:
+    """Phase 12: (a) cli/train_vae.run with every option in a fresh
+    process (options_child): the trace holds exactly the K1a/K1b/K2
+    launches counted in the window, those of 2 train steps and one
+    validation's OPTS["n_val"] forwards; the JSONL records are the
+    metrics.json history; the checkpoints of steps 2, 4 and 6 are there
+    and the last reloads bit for bit; (b) the in-place race at batch 64: a
+    sync and an async checkpoint of one state, a train step run while the
+    async one is written, the files' tensors equal bit for bit and unlike
+    the state after the step, the blocking times; (c) the flagship state
+    dict, a bfloat16 leaf, scalars, an empty dict and a chunked leaf packed
+    as flax does, read back by interop/msgpack_reader.py bit for bit (the
+    bfloat16 widened exactly), its MB/s."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.data.synthetic import make_tile_shards
+    from tempo_tpu_torch.interop import msgpack_reader
+    from tempo_tpu_torch.models.vae import VAEConfig, build_vae
+    from tempo_tpu_torch.train.checkpoint import (AsyncCheckpointer,
+                                                  save_checkpoint)
+    from tempo_tpu_torch.train.state import (create_train_state,
+                                             make_optimizer)
+    from tempo_tpu_torch.train.step import make_train_step, vae_loss_fn
+
+    card = smi_line()
+    seconds, result = {}, {"card": card}
+
+    # ------------------------------------ (a) the CLI with every option
+    t_phase = time.perf_counter()
+    c, h, w = VAEConfig.from_dict(VAE_MODEL).shape
+    shards = make_tile_shards(root / "tiles", n_files=VAE_SHARDS,
+                              tiles_per_file=VAE_TILES_PER_SHARD, tile=h,
+                              n_spectral=c, seed=SEED, dtype=np.float16)
+    spec = {"shards": str(shards), "run": str(root / "run"),
+            "out": str(root / "child.json"), "device": str(dev)}
+    (root / "spec.json").write_text(json.dumps(spec))
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.options_child(sys.argv[1])", str(root / "spec.json")],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    if child.returncode:
+        fail(f"12a's train_vae process failed:\n{child.stdout[-4000:]}\n"
+             f"{child.stderr[-8000:]}")
+    a = json.loads((root / "child.json").read_text())
+    window_steps = 2 + OPTS["n_val"]  # steps 3, 4 and step 3's validation
+    expected = {k: window_steps * n for k, n in a["per_forward"].items()}
+    want_ckpts = [f"ckpt_step={s:06d}.pt"
+                  for s in range(2, OPTS["steps"] + 1, 2)]
+    print(f"[options] 12a train_vae.run, the flagship bf16 at batch "
+          f"{OPTS['batch']}, {OPTS['steps']} steps, metrics_jsonl, "
+          f"profile_steps {OPTS['profile']}, async checkpoints, in a fresh "
+          f"process: {json.dumps(a)}; expected in the window "
+          f"{window_steps} x one forward's {a['per_forward']} = {expected} "
+          f"on {card}", flush=True)
+    if a["trace_listed"] != a["window_launches"] or \
+            a["window_launches"] != expected:
+        fail(f"12a's trace lists {a['trace_listed']} K1a/K1b/K2 kernels, "
+             f"the window counted {a['window_launches']}, expected "
+             f"{expected}")
+    if not all(a["launches"].values()):
+        fail(f"12a's run launched a kernel no time: {a['launches']}")
+    if not (a["jsonl_is_history"] and a["reload_bitwise"]
+            and a["checkpoints"] == want_ckpts):
+        fail("12a: the JSONL records are not the metrics.json history, or "
+             "the checkpoints are not there or do not reload bit for bit")
+    result["cli"] = a
+    seconds["12a"] = time.perf_counter() - t_phase
+
+    # --------------------------------- (b) the in-place race at batch 64
+    t_phase = time.perf_counter()
+    model, _ = build_vae(VAE_MODEL, device=dev, seed=SEED)
+    nudge_zero_init(model, torch.Generator(device=dev).manual_seed(SEED))
+    tx = make_optimizer(lr=1e-4, betas=(0.9, 0.95), weight_decay=0.05)
+    state = create_train_state(model, tx, SEED)
+    state.ema = {}
+    step = make_train_step(vae_loss_fn(model), tx)
+    batch = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (VAE_TRAIN_BATCH, h, w, c), dtype=np.float32)).to(dev)
+
+    def timed_step():
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    for _ in range(2):
+        timed_step()
+    saver = AsyncCheckpointer()
+    rounds = []
+    for r in range(OPTS["rounds"]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sync_path = save_checkpoint(root / f"sync{r}", state)
+        sync_s = time.perf_counter() - t
+        t = time.perf_counter()
+        async_path = saver.save(root / f"async{r}", state)
+        block_s = time.perf_counter() - t
+        step_under_write_ms = timed_step()
+        saver.wait()
+        done_s = time.perf_counter() - t
+        rounds.append({"sync_save_s": sync_s, "async_save_block_s": block_s,
+                       "async_write_done_s": done_s,
+                       "step_under_write_ms": step_under_write_ms,
+                       "step_ms": timed_step(),
+                       "bytes": async_path.stat().st_size})
+        if r:
+            continue
+        a_raw = torch.load(async_path, map_location="cpu", weights_only=True)
+        s_raw = torch.load(sync_path, map_location="cpu", weights_only=True)
+        after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        moments = state.optimizer.state_dict()["state"]
+        same = (a_raw["step"] == s_raw["step"]
+                and all(torch.equal(a_raw["model"][k], v)
+                        for k, v in s_raw["model"].items())
+                and all(torch.equal(a_raw["optimizer"]["state"][i][k], v)
+                        for i, st in s_raw["optimizer"]["state"].items()
+                        for k, v in st.items()))
+        moved = (not all(torch.equal(s_raw["model"][k], v)
+                         for k, v in after.items())
+                 and not all(torch.equal(s_raw["optimizer"]["state"][i][k],
+                                         v.cpu())
+                             for i, st in moments.items()
+                             for k, v in st.items() if k != "step"))
+        result["race"] = {"files_bitwise": same,
+                          "file_bytes_equal": (async_path.read_bytes()
+                                               == sync_path.read_bytes()),
+                          "post_step_state_differs": moved,
+                          "tensors": len(s_raw["model"])}
+        del a_raw, s_raw, after
+    saver.close()
+    # the first async save allocates the pinned buffers the others reuse
+    med = {k: statistics.median(r[k] for r in rounds[1:])
+           for k in rounds[0]}
+    result["race"].update(rounds=rounds, median=med,
+                          d2h_gb_per_s=med["bytes"] / med[
+                              "async_save_block_s"] / 1e9)
+    print(f"[options] 12b checkpoints of the flagship's state at batch "
+          f"{VAE_TRAIN_BATCH} ({med['bytes'] / 1e6:.1f} MB), "
+          f"{OPTS['rounds']} rounds: sync save {med['sync_save_s']:.3f} s, "
+          f"async save() blocks {1e3 * med['async_save_block_s']:.1f} ms "
+          f"(the first, allocating its pinned buffers, "
+          f"{1e3 * rounds[0]['async_save_block_s']:.1f} ms) "
+          f"({result['race']['d2h_gb_per_s']:.2f} GB/s to the host), its "
+          f"write done {med['async_write_done_s']:.3f} s after, a step "
+          f"under the write {med['step_under_write_ms']:.1f} ms vs "
+          f"{med['step_ms']:.1f} ms alone (medians of the later rounds); "
+          f"{json.dumps(result['race'])} on {card}", flush=True)
+    if not (result["race"]["files_bitwise"]
+            and result["race"]["file_bytes_equal"]
+            and result["race"]["post_step_state_differs"]):
+        fail(f"12b: the async checkpoint is not the sync one, or the step "
+             f"under the write did not move the state: {result['race']}")
+    seconds["12b"] = time.perf_counter() - t_phase
+
+    # --------------------------------------- (c) the reader on the card
+    t_phase = time.perf_counter()
+    params = {k: v.detach().cpu().numpy() for k, v in
+              model.state_dict().items()}
+    del state, step, batch, model
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED)
+    bits = rng.integers(0, 1 << 16, (64, 33), dtype=np.uint16)
+    flat = rng.standard_normal(3000).astype(np.float32)
+    tree = {"step": 6, "params": params, "lr": 1e-4, "count": 7,
+            "note": "ckpt_step=000006", "empty": {},
+            "bf16": Bf16(((64, 33), bits)),
+            "chunked": {"__msgpack_chunked_array__": True,
+                        "shape": {"0": 3, "1": 1000},
+                        "chunks": {"0": flat[:1700], "1": flat[1700:]}}}
+    path = root / "ckpt_step=000006.msgpack"
+    path.write_bytes(pack_flax(tree))
+    t = time.perf_counter()
+    got = msgpack_reader.read(path)
+    read_s = time.perf_counter() - t
+    widened = (bits.astype(np.uint32) << 16).view(np.float32)
+    same = (got["params"].keys() == params.keys()
+            and all(got["params"][k].dtype == v.dtype
+                    and got["params"][k].shape == v.shape
+                    and got["params"][k].tobytes() == v.tobytes()
+                    for k, v in params.items())
+            and got["bf16"].dtype == np.float32
+            and got["bf16"].tobytes() == widened.tobytes()
+            and got["chunked"].tobytes() == flat.reshape(3, 1000).tobytes()
+            and (got["step"], got["lr"], got["count"], got["note"],
+                 got["empty"]) == (6, 1e-4, 7, "ckpt_step=000006", {}))
+    size = path.stat().st_size
+    result["reader"] = {"bytes": size, "leaves": len(params) + 7,
+                        "read_s": read_s, "mb_per_s": size / read_s / 1e6,
+                        "bitwise": same}
+    print(f"[options] 12c interop/msgpack_reader.py on a flax-layout file of "
+          f"the flagship's {len(params)} state-dict tensors + a bfloat16 "
+          f"leaf, scalars, an empty dict and a chunked leaf: "
+          f"{json.dumps(result['reader'])} (the file just written: a warm "
+          f"read) on {card}", flush=True)
+    if not same:
+        fail("12c: the reader's tree is not what was packed")
+    seconds["12c"] = time.perf_counter() - t_phase
+    result["seconds"] = seconds
+    return result
+
+
 class Timed:
     """A loader, with the host's wait on each batch summed."""
 
@@ -6055,6 +6475,13 @@ def main() -> int:
     t_phase = time.perf_counter()
     diffusion = diffusion_path(dev, rows)
     seconds["diffusion"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+
+    # ---------- 12. the trainers' options and the JAX checkpoint bridge
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        options = options_path(dev, Path(tmp))
+    seconds["options"] = time.perf_counter() - t_phase
     print(f"[time] phases, s: {json.dumps(seconds)}", flush=True)
 
     for r in rows.values():
@@ -6068,7 +6495,7 @@ def main() -> int:
         "recon_rel_l2_f32": err_f32, "lm": lm, "train": train,
         "vae_train": vae_train, "vae_l2": vae_l2, "analysis": analysis,
         "export": export, "prep": prep, "spec": spec, "programs": programs,
-        "diffusion": diffusion,
+        "diffusion": diffusion, "options": options,
         "granule_numpy_normalize_s": t_numpy_normalize,
         "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ ground truth's 2%/98% quantiles scaling both panels) or <stem>_ch<c>.png.
 The figures are drawn through utils/figures.py (train/png.py where
 matplotlib is absent). ``reconstruction_figure`` draws one granule's
 figure from arrays; ``run(config_dict)`` reads the files (h5py or
-netCDF4).
+netCDF4). ``model.checkpoint_path``: the port's ``.pt`` or the JAX package's
+``.msgpack`` (train/checkpoint.py ``load_params``).
 """
 
 from __future__ import annotations

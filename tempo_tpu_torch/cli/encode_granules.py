@@ -15,6 +15,8 @@ normalization stats; the granule's own without it),
 model.{checkpoint_path, training_config_path}, decode_roundtrip,
 max_files, seed, shape_bucket. ``encode_granule`` is the per-granule work
 on an array; ``run(config_dict)`` reads the files (h5py or netCDF4).
+``model.checkpoint_path``: the port's ``.pt`` or the JAX package's
+``.msgpack`` (train/checkpoint.py ``load_params``).
 """
 
 from __future__ import annotations

@@ -5,15 +5,18 @@ tempo_tpu/cli/evaluate_reconstruction.py.
     python -m tempo_tpu_torch.cli.evaluate_reconstruction config.yaml [--overwrite] [--debug]
 
 For every checkpoint of an experiment directory (``model.checkpoint_pattern``
-relative to ``exp_dir``, default checkpoints/ckpt_step=*.pt: the port's
-train_vae and train_vae_l2 checkpoints and reference torch checkpoints),
-evaluate MSE / MAE / PSNR (and ``pk_err`` when listed) over the validation
-tiles (``data.val_dir``: .npy shards, else reference .pt shards); write
+relative to ``exp_dir``, as checkpoints/ckpt_step=*.msgpack in the repo's
+configs; by default every ``ckpt_step=*`` checkpoint of
+``exp_dir``/checkpoints: the port's ``.pt`` files, reference torch
+checkpoints and the JAX package's ``.msgpack`` files, all read by
+train/checkpoint.py ``load_params``), evaluate MSE / MAE / PSNR (and
+``pk_err`` when listed) over the validation tiles (``data.val_dir``: .npy
+shards, else reference .pt shards); write
 results/reconstruction_metrics.json, figures/metrics_vs_step.png and
 figures/best_metrics_summary.png into ``exp_dir``/<output_dir name>, as the
 JAX CLI does. ``run(config_dict)`` is the same run from a dict (no YAML
 reader needed); the training config it reads is YAML, or JSON where PyYAML
-is absent. .msgpack checkpoints (the JAX package's) are refused.
+is absent.
 """
 
 from __future__ import annotations
@@ -30,14 +33,12 @@ from tempo_tpu_torch.data.tiles import load_tile_shard
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.infer.sweep import evaluate_checkpoints
 from tempo_tpu_torch.models.vae import build_vae
-from tempo_tpu_torch.train.checkpoint import CKPT_PREFIX, CKPT_SUFFIX
 from tempo_tpu_torch.utils import figures as fig_kit
 from tempo_tpu_torch.utils.config import (copy_config, load_config,
                                           require_keys, save_json_yaml)
 from tempo_tpu_torch.utils.dirs import init_directory
 
 LOWER_IS_BETTER = {"mse", "mae", "pk_err"}
-DEFAULT_PATTERN = f"checkpoints/{CKPT_PREFIX}*{CKPT_SUFFIX}"
 
 
 def _best_entry(results, metric):
@@ -136,11 +137,12 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
                          seed=config.get("seed", 42))
     evaluation = config.get("evaluation", {})
     metrics_list = evaluation.get("metrics", ["mse", "mae", "psnr"])
+    pattern = config["model"].get("checkpoint_pattern")
     results = evaluate_checkpoints(
-        model, exp_dir, val_tiles,
+        model, exp_dir if pattern else exp_dir / "checkpoints", val_tiles,
         batch_size=evaluation.get("batch_size", 8),
         metrics_list=metrics_list, max_checkpoints=1 if debug else None,
-        pattern=config["model"].get("checkpoint_pattern", DEFAULT_PATTERN))
+        pattern=pattern)
 
     results_file = output_dir / "results" / "reconstruction_metrics.json"
     results_file.write_text(json.dumps(results, indent=2))

@@ -6,7 +6,7 @@ tempo_tpu/cli/export_codec.py.
 
 Builds the VAE from the run's training config, loads a checkpoint's
 parameters (train/checkpoint.py ``load_params``: the port's ``.pt``
-checkpoints; ``.msgpack`` raises NotImplementedError, M11) and writes
+checkpoints and the JAX package's ``.msgpack`` ones) and writes
 ``<output_dir>/codec/`` through infer/export_codec.py (``torch.export``
 programs with the weights inside and a symbolic batch, and meta.json). A
 serving host loads them with ``load_exported``, which needs the port's op

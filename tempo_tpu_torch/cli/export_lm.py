@@ -4,16 +4,17 @@ tempo_tpu/cli/export_lm.py.
 
     python -m tempo_tpu_torch.cli.export_lm config.yaml [--overwrite] [--debug]
 
-Reads a ``tempo_tpu_torch.cli.train_gpt`` output directory: rebuilds the
-model's config from the run's copied config.yaml the way train_gpt does
-(``build_transformer_config``; the vocabulary from ``model.in_size`` or the
-run's training_info.yaml), loads a checkpoint (the latest by default, a
-``ckpt_step=*.pt`` file) and writes ``<output_dir>/lm/`` through
-infer/export_lm.py ``export_lm``: the ``torch.export`` programs (traced on
-the CPU; one artifact serves the CPU and the card), weights.pt and
-meta.json. It then checks that greedy decoding through the loaded programs
-equals ``generate`` of the live model, on ``device`` (None: CUDA), and
-writes export_info.yaml.
+Reads a ``tempo_tpu_torch.cli.train_gpt`` output directory, or a JAX
+``tempo_tpu.cli.train_gpt`` one: rebuilds the model's config from the run's
+copied config.yaml the way train_gpt does (``build_transformer_config``;
+the vocabulary from ``model.in_size`` or the run's training_info.yaml),
+loads a checkpoint's parameters (train/checkpoint.py ``load_params``: the
+latest ``ckpt_step=*.pt`` or ``ckpt_step=*.msgpack`` by default) and
+writes ``<output_dir>/lm/`` through infer/export_lm.py ``export_lm``: the
+``torch.export`` programs (traced on the CPU; one artifact serves the CPU
+and the card), weights.pt and meta.json. It then checks that greedy
+decoding through the loaded programs equals ``generate`` of the live
+model, on ``device`` (None: CUDA), and writes export_info.yaml.
 
 Not ported (NotImplementedError): ``quantize: int8`` (weight-only int8,
 nn/quant.py, M11) and pipeline-parallel stage stacks.
@@ -66,7 +67,8 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
                                                  greedy_decode_exported)
     from tempo_tpu_torch.nn.transformer import (Transformer, generate,
                                                 num_params)
-    from tempo_tpu_torch.train.checkpoint import latest_checkpoint
+    from tempo_tpu_torch.train.checkpoint import (latest_checkpoint,
+                                                  load_params)
 
     config = load_config(config_path)
     require_keys(config, ["run_dir", "output_dir"])
@@ -99,7 +101,7 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
     model_cfg = dict(train_config["model"])
     model_cfg["in_size"] = _resolve_vocab(train_config, run_dir)
     tconfig = build_transformer_config(model_cfg)
-    state = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    state = load_params(ckpt, Transformer(tconfig, device="cpu")).state_dict()
     max_seq = config.get("max_seq")
     out = export_lm(state, tconfig, output_dir / "lm",
                     max_seq=int(max_seq) if max_seq else None,

@@ -11,7 +11,9 @@ and sample up to n_pixels_per_file valid pixels. Then, per product, an
 80/20 train/test split, a linear or MLP probe (analysis/probes.py, on the
 card), its R^2 and MSE; the same results/*.npz, JSON, models/*.npz and
 figures as the JAX CLI (drawn by train/png.py where matplotlib is absent).
-The model may be a base or an L2-supervised checkpoint (its ``vae.*``).
+The model may be a base or an L2-supervised checkpoint (its ``vae.*``):
+the port's ``.pt`` or the JAX package's ``.msgpack`` (train/checkpoint.py
+``load_params``).
 ``probe_granule`` is the per-granule work on arrays; ``run(config_dict)``
 reads the L1/L2 files (h5py or netCDF4).
 """

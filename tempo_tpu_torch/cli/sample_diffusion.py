@@ -6,11 +6,13 @@ GPU; counterpart of tempo_tpu/cli/sample_diffusion.py.
 
 Reads a train_diffusion output directory (family vdm or sfm): its copied
 config rebuilds the model, schedule and frozen-VAE codec; a checkpoint
-(``checkpoint``, else the run's latest) gives the weights; sampling runs
-on the device (ancestral or DDIM for vdm, SDE integration for sfm),
-decoded to pixels when the run trained in latents; writes samples.npy,
-samples.png (the first 8) and sampling_info.yaml. A run without
-training_info.yaml (preempted, or still running) samples too.
+(``checkpoint``, else the run's latest; the port's ``.pt`` or, from a JAX
+run, a ``.msgpack``, through train/checkpoint.py ``load_params``) gives
+the weights; sampling runs on the device (ancestral or DDIM for vdm, SDE
+integration for sfm), decoded to pixels when the run trained in latents;
+writes samples.npy, samples.png (the first 8) and sampling_info.yaml. A
+run without training_info.yaml (preempted, or still running) samples
+too.
 
 Config:
   run_dir: <train_diffusion output dir>

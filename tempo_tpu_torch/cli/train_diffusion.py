@@ -19,10 +19,11 @@ training_info.yaml with the JAX CLI's keys.
 The score (or velocity) model is a CUNet (nn/unet.py) over the tile or
 latent shape; its GroupNorms run through K1 and K2 in fp32. With
 ``latent:`` the VAE of ``latent.vae_model`` is loaded from
-``latent.vae_checkpoint`` (a .pt of the port's train_vae; the JAX
-package's .msgpack raises NotImplementedError) and frozen: it is no
-submodule of the trained model, its parameters do not require grad, and it
-stays out of the optimizer, the checkpoints and the parameter count. Its
+``latent.vae_checkpoint`` (a .pt of the port's train_vae or the JAX
+package's .msgpack, through train/checkpoint.py ``load_params``) and
+frozen: it is no submodule of the trained model, its parameters do not
+require grad, and it stays out of the optimizer, the checkpoints and the
+parameter count. Its
 encode (bf16 through K1/K2) runs without gradients inside every step,
 drawing a fresh posterior sample from the step's generator, scaled by
 ``latent.scale``; the latent reaches the CUNet in fp32. The model's
@@ -32,8 +33,11 @@ initializer, so a run does not reproduce the JAX package's weights.
 
 ``run(config_dict)`` is the same run from a dict: it needs no YAML reader
 and writes config.yaml and training_info.yaml as JSON. The port trains on
-one device (training_info's n_devices is 1). Not ported
-(NotImplementedError): ``training.checkpoint_format`` sharded and async.
+one device (training_info's n_devices is 1).
+``training.checkpoint_format: async`` writes the same checkpoints on a
+background thread. Not ported (NotImplementedError):
+``training.checkpoint_format: sharded`` and a sharded checkpoint directory
+as ``latent.vae_checkpoint`` (M13).
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ from tempo_tpu_torch.models.flow import predict as flow_predict
 from tempo_tpu_torch.models.vae import build_vae
 from tempo_tpu_torch.nn.unet import CUNet
 from tempo_tpu_torch.train import png
-from tempo_tpu_torch.train.checkpoint import (load_params,
+from tempo_tpu_torch.train.checkpoint import (check_format, load_params,
                                               resolve_resume_from,
                                               wants_auto_resume)
 from tempo_tpu_torch.train.state import (create_train_state,
@@ -80,19 +84,13 @@ def validate_config(config: Dict[str, Any]) -> None:
         ckpt = Path(config["latent"]["vae_checkpoint"])
         if not ckpt.exists():
             raise ValueError(f"FATAL: VAE checkpoint doesn't exist: {ckpt}")
-        if ckpt.suffix == ".msgpack" or ckpt.is_dir():
+        if ckpt.is_dir():
             raise NotImplementedError(
-                f"latent.vae_checkpoint {ckpt}: the JAX package's .msgpack "
-                f"and sharded checkpoints need the checkpoint bridge "
-                f"(ROADMAP Queue 1, M11), which is not ported; give a .pt "
-                f"checkpoint of the port's train_vae")
-    fmt = config["training"].get("checkpoint_format", "msgpack")
-    if fmt in ("sharded", "async"):
-        raise NotImplementedError(f"training.checkpoint_format {fmt!r} is "
-                                  f"not ported")
-    if fmt != "msgpack":  # the single-file format; the port writes .pt
-        raise ValueError(f"FATAL: unknown training.checkpoint_format "
-                         f"{fmt!r}")
+                f"latent.vae_checkpoint {ckpt}: sharded checkpoint "
+                f"directories wait for the sharded checkpoint format "
+                f"(ROADMAP Queue 1, M13), which is not ported; give a .pt "
+                f"or .msgpack checkpoint")
+    check_format(config["training"].get("checkpoint_format", "msgpack"))
 
 
 def _build_generative(train_config: Dict[str, Any], model_shape,
@@ -304,7 +302,8 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
             log_every=train_cfg.get("log_every", 10),
             plot_every=train_cfg.get("plot_every", 50),
             grad_accum=int(train_cfg.get("grad_accum", 1)), device=dev,
-            recon_fn=recon_fn)
+            recon_fn=recon_fn,
+            checkpoint_format=train_cfg.get("checkpoint_format", "msgpack"))
         resume_from = resolve_resume_from(train_cfg, output_dir)
         if resume_from:
             print(f"\nResuming from checkpoint: {resume_from}")

@@ -13,19 +13,26 @@ GPT two-group weight decay and no clipping (nn/transformer.py
 make_gpt_optimizer). Weights come from the config's seed through the
 port's own initializer, so a run does not reproduce the JAX package's
 weights; tests bridge weights where they compare the two.
+``training.checkpoint_format: async`` writes the same checkpoints on a
+background thread while training goes on (train/checkpoint.py
+AsyncCheckpointer). As the JAX CLI, it reads no ``training.metrics_jsonl``
+or ``training.profile_steps``.
+
+``run(config_dict)`` is the same run from a dict: it needs no YAML reader,
+and writes config.yaml and training_info.yaml as JSON, which YAML readers
+read.
 
 Not ported (NotImplementedError from validate_config): ``parallel.*``
 (pipeline, tensor, expert, context, fsdp), ``model.n_experts`` (MoE),
-``finetune.lora_rank`` (LoRA) and the sharded/async
-``training.checkpoint_format``; dropout and ``optimizer.moments_dtype``
-raise where they are used.
+``finetune.lora_rank`` (LoRA) and ``training.checkpoint_format: sharded``
+(M13); dropout and ``optimizer.moments_dtype`` raise where they are used.
 """
 
 from __future__ import annotations
 
 from datetime import datetime
 from pathlib import Path
-from typing import Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -35,14 +42,16 @@ from tempo_tpu_torch.data.tokens import TokenLoader, make_token_stream
 from tempo_tpu_torch.nn.transformer import (Transformer, TransformerConfig,
                                            generate, make_gpt_optimizer,
                                            num_params)
-from tempo_tpu_torch.train.checkpoint import (resolve_resume_from,
+from tempo_tpu_torch.train.checkpoint import (check_format,
+                                              resolve_resume_from,
                                               wants_auto_resume)
 from tempo_tpu_torch.train.schedules import lr_schedule
 from tempo_tpu_torch.train.state import create_train_state
 from tempo_tpu_torch.train.step import lm_loss_fn
 from tempo_tpu_torch.train.trainer import Trainer
 from tempo_tpu_torch.utils.config import (copy_config, load_config,
-                                          require_keys, save_yaml)
+                                          require_keys, save_json_yaml,
+                                          save_yaml)
 from tempo_tpu_torch.utils.dirs import init_directory
 
 # parallel.* keys and the values that mean "not parallel"
@@ -77,27 +86,26 @@ def validate_config(config) -> None:
         raise NotImplementedError("model.n_experts > 0 (MoE) is not ported")
     if int(dict(config.get("finetune", {})).get("lora_rank", 0)) > 0:
         raise NotImplementedError("finetune.lora_rank (LoRA) is not ported")
-    fmt = config["training"].get("checkpoint_format", "msgpack")
-    if fmt in ("sharded", "async"):
-        raise NotImplementedError(f"training.checkpoint_format {fmt!r} is "
-                                  f"not ported")
-    if fmt != "msgpack":  # the single-file format; the port writes .pt
-        raise ValueError(f"FATAL: unknown training.checkpoint_format "
-                         f"{fmt!r}")
+    check_format(config["training"].get("checkpoint_format", "msgpack"))
 
 
-def main(config_path: str, overwrite: bool = False, debug: bool = False,
-         device: Union[str, torch.device, None] = None) -> None:
-    """Train as the config says, on ``device`` (None: CUDA, raising
-    without it)."""
-    config = load_config(config_path)
+def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
+        device: Union[str, torch.device, None] = None,
+        config_path: Optional[str] = None):
+    """Train as the config dict says, on ``device`` (None: CUDA, raising
+    without it); returns the Trainer and its throughput stats.
+    ``config_path`` is copied into the run as config.yaml; without it the
+    dict is written there, and training_info.yaml too, as JSON."""
     validate_config(config)
     resume_auto = wants_auto_resume(config["training"])
     output_dir = init_directory(Path(config["output_dir"]),
                                 overwrite=overwrite,
                                 allow_existing=resume_auto)
     (output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
-    copy_config(config_path, output_dir)
+    if config_path is not None:
+        copy_config(config_path, output_dir)
+    else:
+        save_json_yaml(config, output_dir / "config.yaml")
 
     seed = config.get("seed", 42)
     if debug:
@@ -150,7 +158,8 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
         log_every=train_cfg.get("log_every", 10),
         plot_every=train_cfg.get("plot_every", 50),
         grad_accum=int(train_cfg.get("grad_accum", 1)),
-        device=device)
+        device=device,
+        checkpoint_format=train_cfg.get("checkpoint_format", "msgpack"))
     resume_from = resolve_resume_from(train_cfg, output_dir)
     if resume_from:
         print(f"\nResuming from checkpoint: {resume_from}")
@@ -163,7 +172,8 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
                           val_iter_factory=lambda: iter(val_loader),
                           n_steps=n_steps)
     end_time = datetime.now()
-    save_yaml({
+    write = save_yaml if config_path is not None else save_json_yaml
+    write({
         "seed": seed,
         "vocab_size": vocab,
         "n_params_non_embedding": int(n_params),
@@ -191,6 +201,13 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
                 continuation.astype(np.int32))
         print(f"Greedy continuation: {continuation[0][:24]}...")
     print("\nDone!")
+    return trainer, stats
+
+
+def main(config_path: str, overwrite: bool = False, debug: bool = False,
+         device: Union[str, torch.device, None] = None) -> None:
+    """Train as the YAML config at ``config_path`` says."""
+    run(load_config(config_path), overwrite, debug, device, config_path)
 
 
 if __name__ == "__main__":

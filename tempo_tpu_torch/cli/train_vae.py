@@ -18,18 +18,28 @@ clip at 1.0 and AdamW (train/state.py make_optimizer_from_config). Weights
 come from the config's seed through the port's own initializer, so a run
 does not reproduce the JAX package's weights.
 
+The trainer's options, as the JAX CLI's: ``training.metrics_jsonl: true``
+streams every train and val record to logs/metrics.jsonl;
+``training.profile_steps: [start, end]`` traces the steps after ``start``
+through ``end`` into profile/ (torch.profiler's Chrome trace);
+``training.checkpoint_format: async`` writes the same checkpoints on a
+background thread while training goes on.
+
+``run(config_dict)`` is the same run from a dict: it needs no YAML reader,
+and writes config.yaml and training_info.yaml as JSON, which YAML readers
+read.
+
 Not ported (NotImplementedError from validate_config): ``distributed``
 (multi-host), ``parallel.tensor`` > 1 and ``parallel.fsdp``,
-``data.partition: process``, the sharded and async
-``training.checkpoint_format``, ``training.metrics_jsonl`` and
-``training.profile_steps``.
+``data.partition: process`` and ``training.checkpoint_format: sharded``
+(M13).
 """
 
 from __future__ import annotations
 
 from datetime import datetime
 from pathlib import Path
-from typing import Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -38,15 +48,18 @@ from tempo_tpu_torch.data.device_buffer import DeviceTileBuffer
 from tempo_tpu_torch.data.loader import TileLoader
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.models.vae import build_vae
-from tempo_tpu_torch.train.checkpoint import (resolve_resume_from,
+from tempo_tpu_torch.train.checkpoint import (check_format,
+                                              resolve_resume_from,
                                               wants_auto_resume)
+from tempo_tpu_torch.train.metrics import JsonlSink
 from tempo_tpu_torch.train.schedules import sqrt_save_steps
 from tempo_tpu_torch.train.state import (create_train_state,
                                          make_optimizer_from_config)
 from tempo_tpu_torch.train.step import vae_loss_fn
 from tempo_tpu_torch.train.trainer import Trainer
 from tempo_tpu_torch.utils.config import (copy_config, load_config,
-                                          require_keys, save_yaml)
+                                          require_keys, save_json_yaml,
+                                          save_yaml)
 from tempo_tpu_torch.utils.dirs import init_directory
 
 
@@ -82,17 +95,15 @@ def refuse_unported(config) -> None:
         raise NotImplementedError("data.partition: process (a buffer per "
                                   "host process) is not ported: the port "
                                   "trains on one device")
-    fmt = train.get("checkpoint_format", "msgpack")
-    if fmt in ("sharded", "async"):
-        raise NotImplementedError(f"training.checkpoint_format {fmt!r} is "
-                                  f"not ported")
-    if fmt != "msgpack":  # the single-file format; the port writes .pt
-        raise ValueError(f"FATAL: unknown training.checkpoint_format "
-                         f"{fmt!r}")
-    if train.get("metrics_jsonl"):
-        raise NotImplementedError("training.metrics_jsonl is not ported")
-    if train.get("profile_steps"):
-        raise NotImplementedError("training.profile_steps is not ported")
+    check_format(train.get("checkpoint_format", "msgpack"))
+
+
+def _metric_sinks(train_cfg, output_dir):
+    """``training.metrics_jsonl: true``: every train and val record to
+    logs/metrics.jsonl; counterpart of the JAX CLI's ``_metric_sinks``."""
+    if not train_cfg.get("metrics_jsonl"):
+        return None
+    return [JsonlSink(Path(output_dir) / "logs" / "metrics.jsonl")]
 
 
 def make_train_loader(data_cfg, train_dir, batch_size: int, seed: int,
@@ -116,11 +127,13 @@ def make_train_loader(data_cfg, train_dir, batch_size: int, seed: int,
         verbose=True)
 
 
-def main(config_path: str, overwrite: bool = False, debug: bool = False,
-         device: Union[str, torch.device, None] = None) -> None:
-    """Train as the config says, on ``device`` (None: CUDA, raising
-    without it)."""
-    config = load_config(config_path)
+def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
+        device: Union[str, torch.device, None] = None,
+        config_path: Optional[str] = None):
+    """Train as the config dict says, on ``device`` (None: CUDA, raising
+    without it); returns the Trainer and its throughput stats.
+    ``config_path`` is copied into the run as config.yaml; without it the
+    dict is written there, and training_info.yaml too, as JSON."""
     validate_config(config)
     dev = resolve_device(device)
     resume_auto = wants_auto_resume(config["training"])
@@ -129,7 +142,10 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
                                 allow_existing=resume_auto)
     for sub in ("checkpoints", "figures", "logs"):
         (output_dir / sub).mkdir(parents=True, exist_ok=True)
-    copy_config(config_path, output_dir)
+    if config_path is not None:
+        copy_config(config_path, output_dir)
+    else:
+        save_json_yaml(config, output_dir / "config.yaml")
 
     seed = config.get("seed", 42)
     if debug:
@@ -171,6 +187,7 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
     if train_cfg.get("save_schedule") == "sqrt":
         save_steps = sqrt_save_steps(train_cfg["n_steps"],
                                      train_cfg.get("n_saves", 100))
+    profile_steps = train_cfg.get("profile_steps")  # e.g. [100, 110]
     trainer = Trainer(
         loss_fn=vae_loss_fn(model), tx=tx, state=state,
         output_dir=output_dir,
@@ -181,7 +198,10 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
         save_steps=save_steps,
         grad_accum=int(train_cfg.get("grad_accum", 1)),
         device=dev,
-        recon_fn=lambda m, x, g: m.reconstruct(x, generator=g))
+        recon_fn=lambda m, x, g: m.reconstruct(x, generator=g),
+        profile_steps=tuple(profile_steps) if profile_steps else None,
+        checkpoint_format=train_cfg.get("checkpoint_format", "msgpack"),
+        metric_sinks=_metric_sinks(train_cfg, output_dir))
     resume_from = resolve_resume_from(train_cfg, output_dir)
     if resume_from:
         print(f"\nResuming from checkpoint: {resume_from}")
@@ -202,7 +222,8 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
         if val_loader is not None:
             val_loader.close()
     end_time = datetime.now()
-    save_yaml({
+    write = save_yaml if config_path is not None else save_json_yaml
+    write({
         "seed": seed,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else str(dev)),
@@ -217,6 +238,13 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
     }, output_dir / "training_info.yaml")
     print(f"Training info saved to {output_dir / 'training_info.yaml'}")
     print("\nDone!")
+    return trainer, stats
+
+
+def main(config_path: str, overwrite: bool = False, debug: bool = False,
+         device: Union[str, torch.device, None] = None) -> None:
+    """Train as the YAML config at ``config_path`` says."""
+    run(load_config(config_path), overwrite, debug, device, config_path)
 
 
 if __name__ == "__main__":

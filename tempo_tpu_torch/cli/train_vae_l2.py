@@ -12,17 +12,19 @@ parameters, after the global-norm clip at 1.0. The ``l2:`` section sets
 ``components`` (default NO2, O3TOT, HCHO, CLDO4), per-product ``weights``
 (default 0.1) and the head's ``mlp_hidden`` (default [512, 512]).
 ``model.init_from_vae_checkpoint`` warm-starts ``vae.*`` from a checkpoint
-of the port's train_vae (the optimizer starts fresh, over every
+of the port's train_vae or the JAX package's (a ``.msgpack``, through
+train/checkpoint.py ``load_params``; the optimizer starts fresh, over every
 parameter). The config, --overwrite, --debug, ``training.resume_from``
-(auto or a path) and ``training.grad_accum`` behave as in the port's
-train_vae; the artifacts are its own plus summary/l2_losses.png, the L2
-panels of the figures, and the products and weights in
-training_info.yaml.
+(auto or a path), ``training.grad_accum``, ``training.metrics_jsonl`` and
+``training.checkpoint_format`` (msgpack or async) behave as in the port's
+train_vae; ``training.profile_steps`` is neither read nor refused, as the
+JAX CLI reads none. The artifacts are train_vae's plus
+summary/l2_losses.png, the L2 panels of the figures, and the products and
+weights in training_info.yaml.
 
 ``run(config_dict)`` is the same run from a dict: it needs no YAML
 reader, and writes config.yaml and training_info.yaml as JSON, which
-YAML readers read. Not ported: as train_vae, and ``.msgpack`` warm starts
-(the JAX package's checkpoints).
+YAML readers read. Not ported: as train_vae.
 """
 
 from __future__ import annotations
@@ -34,11 +36,13 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from tempo_tpu_torch.cli import run_cli
-from tempo_tpu_torch.cli.train_vae import make_train_loader, refuse_unported
+from tempo_tpu_torch.cli.train_vae import (_metric_sinks, make_train_loader,
+                                           refuse_unported)
 from tempo_tpu_torch.data.loader import TileLoader
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.models.vae_l2 import L2_PRODUCTS, build_vae_l2
-from tempo_tpu_torch.train.checkpoint import (resolve_resume_from,
+from tempo_tpu_torch.train.checkpoint import (load_params,
+                                              resolve_resume_from,
                                               wants_auto_resume)
 from tempo_tpu_torch.train.state import (create_train_state,
                                          make_optimizer_from_config)
@@ -56,20 +60,13 @@ def validate_config(config: Dict[str, Any]) -> None:
     if not data_dir.exists():
         raise ValueError(f"FATAL: data directory doesn't exist: {data_dir}")
     refuse_unported(config)
-    init = (config["model"] or {}).get("init_from_vae_checkpoint")
-    if init is not None and str(init).endswith(".msgpack"):
-        raise NotImplementedError(
-            f"model.init_from_vae_checkpoint {init}: the JAX package's "
-            f".msgpack checkpoints need the checkpoint bridge (ROADMAP "
-            f"Queue 1, M11), which is not ported; give a .pt checkpoint of "
-            f"the port's train_vae")
 
 
 def warm_start_vae(model, path: Union[str, Path]) -> None:
-    """Load ``vae.*`` from a checkpoint of the port's train_vae (strict:
-    the same VAE architecture)."""
-    raw = torch.load(path, map_location="cpu", weights_only=True)
-    model.vae.load_state_dict(raw["model"])
+    """Load ``vae.*`` from a VAE checkpoint (strict: the same VAE
+    architecture): the port's train_vae ``.pt`` or the JAX package's
+    ``.msgpack``."""
+    load_params(path, model.vae)
 
 
 def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
@@ -148,7 +145,9 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
             log_every=train_cfg.get("log_every", 10),
             plot_every=train_cfg.get("plot_every", 50),
             grad_accum=int(train_cfg.get("grad_accum", 1)), device=dev,
-            recon_fn=lambda m, x, g: m(x, g), l2_products=products)
+            recon_fn=lambda m, x, g: m(x, g), l2_products=products,
+            checkpoint_format=train_cfg.get("checkpoint_format", "msgpack"),
+            metric_sinks=_metric_sinks(train_cfg, output_dir))
         resume_from = resolve_resume_from(train_cfg, output_dir)
         if resume_from:
             print(f"\nResuming from checkpoint: {resume_from}")

@@ -1,7 +1,9 @@
 """Checkpoint-sweep reconstruction evaluation; counterpart of
 tempo_tpu/infer/sweep.py.
 
-For each ckpt_step=* checkpoint of a run, the validation tiles go through
+For each ckpt_step=* checkpoint of a run (the port's ``.pt`` and the JAX
+package's ``.msgpack`` alike, through train/checkpoint.py ``load_params``),
+the validation tiles go through
 the model's reconstruct (the posterior sampled) in fixed batches, the tail
 padded, and the per-sample MSE / MAE / PSNR (PSNR with max_val 20, the
 [-10, 10] clipped z-score range), and optionally ``pk_err``, are reduced

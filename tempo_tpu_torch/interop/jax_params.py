@@ -133,17 +133,18 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
 
 
 def l2_state_dict_from_jax(params: Mapping[str, Any],
-                           mlp_hidden=(512, 512)
+                           mlp_hidden=(512, 512), dropout: bool = False
                            ) -> Dict[str, torch.Tensor]:
     """JAX VAEWithL2Head params ({'vae', 'l2_head'}) -> the port's (and
     the reference VAEWithL2Supervision's) state_dict: ``vae.*`` as
     ``state_dict_from_jax_params``, and ``l2_head.mlp.{3i}`` (the bias-free
     dense), ``l2_head.mlp.{3i+1}`` (its GroupNorm) for each hidden width,
     then the output dense; the inverse of tempo_tpu/interop/torch_ckpt.py
-    ``l2_params_from_torch_state_dict``."""
+    ``l2_params_from_torch_state_dict``. ``dropout`` as for
+    ``state_dict_from_jax_params``."""
     tree = params.get("params", params)
-    out = {f"vae.{k}": v
-           for k, v in state_dict_from_jax_params(tree["vae"]).items()}
+    out = {f"vae.{k}": v for k, v in
+           state_dict_from_jax_params(tree["vae"], dropout).items()}
     head: Dict[str, np.ndarray] = {}
     h = tree["l2_head"]
     for i in range(len(mlp_hidden)):

@@ -2,17 +2,21 @@
 tempo_tpu/train/checkpoint.py.
 
 Checkpoints are <output_dir>/checkpoints/ckpt_step=NNNNNN.pt (the same
-``ckpt_step=*`` naming as the JAX package's .msgpack files; msgpack is not
-used here) holding the step, the model's and the optimizer's state dicts,
-the generator's state, the EMA and the metric histories, written through a
-temporary file and an atomic rename so a preempted save never leaves a
-torn checkpoint. ``load_params`` restores only the model's parameters,
-for inference and analysis. The sharded and asynchronous formats are not
-ported.
+``ckpt_step=*`` naming as the JAX package's .msgpack files) holding the
+step, the model's and the optimizer's state dicts, the generator's state,
+the EMA and the metric histories, all copied to the host first
+(``_host_payload``) and then written through a temporary file and an
+atomic rename (``_write_payload``), so a preempted save never leaves a
+torn checkpoint. ``AsyncCheckpointer`` writes the same file on a
+background thread. ``load_params`` restores only the model's parameters,
+for inference and analysis, from the port's ``.pt`` checkpoints, reference
+torch checkpoints and the JAX package's ``.msgpack`` ones
+(interop/jax_ckpt.py). The sharded format is not ported.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 from pathlib import Path
@@ -24,10 +28,100 @@ from tempo_tpu_torch.train.state import TrainState
 
 CKPT_PREFIX = "ckpt_step="
 CKPT_SUFFIX = ".pt"
+JAX_SUFFIX = ".msgpack"  # the JAX package's checkpoints, read by load_params
+
+
+def check_format(fmt: str) -> None:
+    """A ``checkpoint_format`` the port writes: 'msgpack' (the JAX
+    package's name of its single-file format; the port's files are .pt)
+    or 'async' (the same files, written by AsyncCheckpointer). 'sharded'
+    raises NotImplementedError, anything else ValueError."""
+    if fmt == "sharded":
+        raise NotImplementedError(
+            "checkpoint_format 'sharded' is not ported: it waits for the "
+            "sharded checkpoint format (ROADMAP Queue 1, M13)")
+    if fmt not in ("msgpack", "async"):
+        raise ValueError(f"FATAL: unknown checkpoint_format {fmt!r} "
+                         f"(msgpack | async | sharded)")
 
 
 def checkpoint_path(ckpt_dir: Union[str, Path], step: int) -> Path:
     return Path(ckpt_dir) / f"{CKPT_PREFIX}{step:06d}{CKPT_SUFFIX}"
+
+
+Staging = Dict[tuple, torch.Tensor]  # pinned host buffers of CUDA tensors
+
+
+def _key(t: torch.Tensor) -> tuple:
+    """A tensor's memory and layout: tensors that alias (tied weights)
+    share one key, and so one host copy, as torch.save shares a storage."""
+    return (t.device, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+
+
+def _host_copy(t: torch.Tensor, staging: Optional[Staging]) -> torch.Tensor:
+    """A host copy of ``t`` that the caller owns. With ``staging``, a CUDA
+    tensor goes into a pinned buffer kept there under its key, which the
+    next save reuses (no allocation, page faults or bounce copy), the copy
+    enqueued without a wait."""
+    if staging is None or not t.is_cuda:
+        return t.to("cpu", copy=True)
+    if _key(t) not in staging:
+        staging[_key(t)] = torch.empty(t.shape, dtype=t.dtype,
+                                       pin_memory=True)
+    return staging[_key(t)].copy_(t, non_blocking=True)
+
+
+def _to_host(obj: Any, memo: Dict[tuple, torch.Tensor],
+             staging: Optional[Staging] = None) -> Any:
+    """``obj`` with every tensor replaced by its ``_host_copy`` (tensors
+    of one key copied once), dicts (their ``_metadata`` too), lists and
+    tuples rebuilt, other values kept."""
+    if isinstance(obj, torch.Tensor):
+        if _key(obj) not in memo:
+            memo[_key(obj)] = _host_copy(obj.detach(), staging)
+        return memo[_key(obj)]
+    if isinstance(obj, dict):
+        out = type(obj)((k, _to_host(v, memo, staging))
+                        for k, v in obj.items())
+        if hasattr(obj, "_metadata"):
+            out._metadata = obj._metadata
+        return out
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v, memo, staging) for v in obj)
+    return obj
+
+
+def _host_payload(state: TrainState,
+                  train_metrics: Optional[List[Dict]],
+                  val_metrics: Optional[List[Dict]],
+                  staging: Optional[Staging] = None) -> Dict[str, Any]:
+    """Everything a checkpoint stores, copied to the host before this
+    returns (``staging``: see ``_host_copy``; its copies are waited on
+    here). The train step updates the parameters and AdamW's moments in
+    place, so a payload that still referenced them would change under a
+    write in flight."""
+    memo: Dict[tuple, torch.Tensor] = {}
+    payload = {
+        "step": int(state.step),
+        "model": _to_host(state.model.state_dict(), memo, staging),
+        "optimizer": _to_host(state.optimizer.state_dict(), memo, staging),
+        "generator": state.generator.get_state(),
+        "ema": {k: float(v) for k, v in (state.ema or {}).items()},
+        "train_metrics": json.dumps(train_metrics or []),
+        "val_metrics": json.dumps(val_metrics or []),
+    }
+    device = next(state.model.parameters()).device
+    if staging is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return payload
+
+
+def _write_payload(ckpt_dir: Path, payload: Dict[str, Any]) -> Path:
+    path = checkpoint_path(ckpt_dir, payload["step"])
+    tmp = path.with_suffix(".tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, path)  # atomic: no torn checkpoints on preemption
+    return path
 
 
 def save_checkpoint(ckpt_dir: Union[str, Path], state: TrainState,
@@ -35,20 +129,53 @@ def save_checkpoint(ckpt_dir: Union[str, Path], state: TrainState,
                     val_metrics: Optional[List[Dict]] = None) -> Path:
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    payload: Dict[str, Any] = {
-        "step": int(state.step),
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "generator": state.generator.get_state(),
-        "ema": {k: float(v) for k, v in (state.ema or {}).items()},
-        "train_metrics": json.dumps(train_metrics or []),
-        "val_metrics": json.dumps(val_metrics or []),
-    }
-    path = checkpoint_path(ckpt_dir, payload["step"])
-    tmp = path.with_suffix(".tmp")
-    torch.save(payload, tmp)
-    os.replace(tmp, path)  # atomic: no torn checkpoints on preemption
-    return path
+    return _write_payload(ckpt_dir,
+                          _host_payload(state, train_metrics, val_metrics))
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes that overlap training; counterpart of
+    tempo_tpu/train/checkpoint.py ``AsyncCheckpointer``.
+
+    ``save()`` takes the host copy of the state before it returns (the
+    next train step updates the parameters and moments in place), into
+    pinned buffers that it keeps for the next save where the state is on
+    CUDA, and hands ``torch.save`` and the atomic rename to one writer
+    thread. One write is in flight at a time: a save first joins the
+    previous one (whose payload the buffers hold), and a failed write
+    re-raises on the next ``save()`` or ``wait()``. The file is the one
+    ``save_checkpoint`` writes. Call ``wait()`` before reading the last
+    checkpoint back, ``close()`` when done."""
+
+    def __init__(self):
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="ckpt-writer")
+        self._pending: Optional[concurrent.futures.Future] = None
+        self._staging: Staging = {}
+
+    def wait(self) -> Optional[Path]:
+        """Join the write in flight; re-raises its exception, if any."""
+        if self._pending is None:
+            return None
+        fut, self._pending = self._pending, None
+        return fut.result()
+
+    def save(self, ckpt_dir: Union[str, Path], state: TrainState,
+             train_metrics: Optional[List[Dict]] = None,
+             val_metrics: Optional[List[Dict]] = None) -> Path:
+        self.wait()  # one in flight; surfaces the previous write's error
+        ckpt_dir = Path(ckpt_dir)
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        payload = _host_payload(state, train_metrics, val_metrics,
+                                self._staging)
+        self._pending = self._pool.submit(_write_payload, ckpt_dir, payload)
+        return checkpoint_path(ckpt_dir, payload["step"])
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            self._pool.shutdown(wait=True)
 
 
 def load_checkpoint(path: Union[str, Path], state: TrainState
@@ -57,7 +184,16 @@ def load_checkpoint(path: Union[str, Path], state: TrainState
     from ``path`` in place; returns it with the metric histories."""
     path = Path(path)
     if path.is_dir():
-        raise NotImplementedError("sharded checkpoints are not ported")
+        raise NotImplementedError(
+            f"{path}: sharded checkpoint directories wait for the sharded "
+            f"checkpoint format (ROADMAP Queue 1, M13), which is not ported")
+    if path.suffix == JAX_SUFFIX:
+        raise NotImplementedError(
+            f"{path}: resuming the full train state from the JAX package's "
+            f".msgpack needs a map of optax's AdamW state (mu, nu, count) "
+            f"onto torch's AdamW (exp_avg, exp_avg_sq, step), which is not "
+            f"ported (ROADMAP Queue 1, M11); load_params reads its "
+            f"parameters")
     device = next(state.model.parameters()).device
     # on the host: load_state_dict moves what belongs with the parameters
     # (the optimizer's step counts stay on the host, as a fresh AdamW's)
@@ -80,20 +216,21 @@ def load_params(path: Union[str, Path], model: torch.nn.Module
     tempo_tpu/train/checkpoint.py ``load_params``.
 
     Takes the port's checkpoints (``model`` of save_checkpoint's payload,
-    from train_vae or train_vae_l2) and reference torch checkpoints (a bare
-    state dict, or the trainer schema's ``model_state_dict``): the port's
-    parameter names are the reference's. A model without an L2 head takes
-    the ``vae.*`` half of an L2-supervised checkpoint."""
+    from any of its trainers), reference torch checkpoints (a bare state
+    dict, or the trainer schema's ``model_state_dict``): the port's
+    parameter names are the reference's; and the JAX package's ``.msgpack``
+    checkpoints, their ``params`` converted by the model's class
+    (interop/jax_ckpt.py). A model without an L2 head takes the ``vae``
+    half of an L2-supervised checkpoint."""
     path = Path(path)
     if path.is_dir():
         raise NotImplementedError(
             f"{path}: sharded checkpoint directories wait for the sharded "
             f"checkpoint format (ROADMAP Queue 1, M13), which is not ported")
-    if path.suffix == ".msgpack":
-        raise NotImplementedError(
-            f"{path}: the JAX package's .msgpack checkpoints need the "
-            f"checkpoint bridge (ROADMAP Queue 1, M11), which is not ported; "
-            f"give a .pt checkpoint")
+    if path.suffix == JAX_SUFFIX:
+        from tempo_tpu_torch.interop.jax_ckpt import load_jax_params
+
+        return load_jax_params(path, model)
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if "model" in raw and isinstance(raw["model"], dict):
         raw = raw["model"]
@@ -108,8 +245,9 @@ def load_params(path: Union[str, Path], model: torch.nn.Module
 
 def list_checkpoints(ckpt_dir: Union[str, Path]) -> List[Path]:
     """Every checkpoint in a directory (the port's and reference ``.pt``
-    files alike), sorted by step."""
-    return sorted(Path(ckpt_dir).glob(f"{CKPT_PREFIX}*{CKPT_SUFFIX}"),
+    files, and the JAX package's ``.msgpack`` ones), sorted by step."""
+    return sorted((p for suffix in (CKPT_SUFFIX, JAX_SUFFIX)
+                   for p in Path(ckpt_dir).glob(f"{CKPT_PREFIX}*{suffix}")),
                   key=checkpoint_step)
 
 

@@ -12,8 +12,15 @@ is given; metrics.json at the end; and samples/s over the loop's host wall
 time. Batches are tensors or the L2 variant's dicts; with ``l2_products``
 the per-product loss curves go to summary/l2_losses.png at every plot, and
 the figures show each product's pooled target beside the head's
-prediction. Multi-process runs, profiling windows and metric sinks are not
-ported; the checkpoints are the single-file format (train/checkpoint.py).
+prediction. Options as the JAX trainer's: ``profile_steps`` (start, end)
+traces the steps after ``start`` through ``end`` with torch.profiler (CPU
+and, on the card, CUDA activities) into a Chrome trace under
+output_dir/profile/; ``checkpoint_format`` 'msgpack' (the single-file
+format, train/checkpoint.py: its name in the JAX package, a .pt here) or
+'async' (the same files, written by checkpoint.AsyncCheckpointer while
+training goes on); ``metric_sinks`` are called as sink(step, metrics,
+kind) with every EMA history entry ('train') and every validation
+('val'). Multi-process runs and the 'sharded' format are not ported.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from __future__ import annotations
 import time
 from pathlib import Path
 from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
-                    Union)
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -75,13 +82,19 @@ class Trainer:
         recon_fn: Optional[Callable[[nn.Module, torch.Tensor,
                                      torch.Generator], Any]] = None,
         l2_products: Optional[Sequence[str]] = None,
+        profile_steps: Optional[Tuple[int, int]] = None,
+        checkpoint_format: str = "msgpack",
+        metric_sinks: Optional[Sequence[Callable]] = None,
     ):
         """``device`` (None: CUDA, raising without it) is where batches
         go; the state's model must be there. ``recon_fn(model, x,
         generator)`` reconstructs a batch for the figures (None: no
         figures): a tensor, or a dict with ``reconstruction`` and
         ``l2_predictions`` ({product: [B, Hl, Wl]}). ``l2_products``: the
-        products whose losses and targets the L2 plots and figures show."""
+        products whose losses and targets the L2 plots and figures show.
+        ``profile_steps``, ``checkpoint_format``, ``metric_sinks``: as the
+        module says."""
+        ckpt_lib.check_format(checkpoint_format)
         self.device = resolve_device(device)
         self.tx = tx
         self.state = state
@@ -94,6 +107,12 @@ class Trainer:
         self.save_steps = set(save_steps) if save_steps is not None else None
         self.recon_fn = recon_fn
         self.l2_products = list(l2_products) if l2_products else None
+        self.profile_steps = (tuple(profile_steps) if profile_steps
+                              else None)
+        self._profiler = None
+        self._async_ckpt = (ckpt_lib.AsyncCheckpointer()
+                            if checkpoint_format == "async" else None)
+        self.metric_sinks = list(metric_sinks or [])
         self.ckpt_dir = self.output_dir / "checkpoints"
         self.summary_dir = self.output_dir / "summary"
         self.figures_dir = self.output_dir / "figures"
@@ -111,13 +130,17 @@ class Trainer:
     # ------------------------------------------------------------------ io
 
     def save_checkpoint(self) -> Path:
-        path = ckpt_lib.save_checkpoint(self.ckpt_dir, self.state,
-                                        self.train_metrics, self.val_metrics)
+        save = (ckpt_lib.save_checkpoint if self._async_ckpt is None
+                else self._async_ckpt.save)
+        path = save(self.ckpt_dir, self.state, self.train_metrics,
+                    self.val_metrics)
         if self.verbose:
             print(f"Saved checkpoint: {path}")
         return path
 
     def load_checkpoint(self, path: Union[str, Path]) -> None:
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()  # never read a half-written file
         self.state, self.train_metrics, self.val_metrics = (
             ckpt_lib.load_checkpoint(path, self.state))
         self.step = self.state.step
@@ -176,6 +199,30 @@ class Trainer:
                                    _host_f32(out["reconstruction"]),
                                    l2_targets=targets, l2_preds=preds)
 
+    # -------------------------------------------------------------- profile
+
+    def _start_profile(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+
+    def _stop_profile(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the window's kernels end
+        self._profiler.stop()
+        out = self.output_dir / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        start, end = self.profile_steps
+        self._profiler.export_chrome_trace(
+            str(out / f"trace_steps_{start}-{end}.json"))
+        self._profiler = None
+        if self.verbose:
+            print(f"Saved profiler trace to {out}")
+
     # ----------------------------------------------------------------- loop
 
     def train(self, train_iter: Iterator, val_iter_factory=None,
@@ -189,11 +236,16 @@ class Trainer:
         while self.step < n_steps:
             batch = next(train_iter)
             bsz = batch_size(batch)
+            if self.profile_steps and self.step == self.profile_steps[0]:
+                self._start_profile()
             # no host sync per step: the device queue throttles the loop
             self.state, _ = self.train_step(self.state,
                                             to_device(batch, self.device))
             self.step += 1
             samples_done += bsz
+            if (self._profiler is not None
+                    and self.step == self.profile_steps[1]):
+                self._stop_profile()
 
             if self.step % self.log_every == 0:
                 self._log_ema()
@@ -208,6 +260,7 @@ class Trainer:
                 vm = self.validate(val_iter_factory())
                 if vm:
                     self.val_metrics.append({"step": self.step, **vm})
+                    self._emit(self.step, vm, "val")
                     if self.verbose:
                         msg = ", ".join(f"{k}={v:.4f}" for k, v in vm.items())
                         print(f"Step {self.step}: {msg}")
@@ -219,6 +272,12 @@ class Trainer:
                 self._save_recon_figure(batch)
 
         elapsed = time.perf_counter() - t_start
+        if self._profiler is not None:  # the run ended inside the window
+            self._stop_profile()
+        if self._async_ckpt is not None:
+            # join the last write (and surface its error) before the run
+            # reports completion: a resume or a sweep may read it at once
+            self._async_ckpt.wait()
         save_metrics(self.output_dir, self.train_metrics, self.val_metrics)
         stats = {"elapsed_s": elapsed, "steps": self.step,
                  "samples": samples_done,
@@ -230,5 +289,13 @@ class Trainer:
     def _log_ema(self) -> None:
         keys = list(self.state.ema)
         values = torch.stack([self.state.ema[k] for k in keys]).tolist()
-        self.train_metrics.append({"step": self.step,
-                                   **dict(zip(keys, values))})
+        ema = dict(zip(keys, values))
+        self.train_metrics.append({"step": self.step, **ema})
+        self._emit(self.step, ema, "train")
+
+    def _emit(self, step: int, metrics: Dict[str, float], kind: str) -> None:
+        """Every sink gets the metrics in key order, as the JAX trainer's
+        (its pytrees sort dict keys)."""
+        metrics = dict(sorted(metrics.items()))
+        for sink in self.metric_sinks:
+            sink(step, metrics, kind)

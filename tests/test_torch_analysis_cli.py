@@ -2,7 +2,9 @@
 extract_pca, analyze_reconstruction, encode_granules, probe_analysis}.py)
 run whole on a tiny h5py corpus on the CPU, against the JAX package's CLIs
 on the same files and weights (the JAX CLIs read .msgpack checkpoints, the
-port's .pt ones, both written from the same parameters).
+port's .pt ones, both written from the same parameters); the port's sweep
+and encode_granules also read the JAX run's .msgpack files and give what
+they give from the .pt ones, exactly.
 
 Compared wherever the outputs are deterministic, with these tolerances:
 - the sweep's metrics, pk_err included: rel 1e-4 (fp32; the posterior's
@@ -161,6 +163,54 @@ def test_evaluate_reconstruction_matches_jax(world, monkeypatch):
         assert _is_png(out["port"] / "figures" / name)
         assert (out["jax"] / "figures" / name).exists()
     assert json.loads((out["port"] / "config.yaml").read_text())["seed"] == 42
+
+
+def test_port_clis_read_the_jax_msgpack(world):
+    """The sweep over the JAX run directory with the repo configs'
+    checkpoint_pattern (ckpt_step=*.msgpack), and encode_granules over a
+    .msgpack: the numbers and latents the port gives over its .pt
+    checkpoints of the same weights."""
+    cfg = {"data": {"val_dir": str(world["tiles"] / "val"),
+                    "max_val_samples": 5},
+           "evaluation": {"batch_size": 4,
+                          "metrics": ["mse", "mae", "psnr", "pk_err"]},
+           "plotting": {"plot_metrics": False}, "seed": 42}
+    got = evaluate_reconstruction.run(dict(
+        cfg, exp_dir=str(world["runs"]["jax"]), output_dir="eval_msgpack",
+        model={"training_config_path": "config.yaml",
+               "checkpoint_pattern": "checkpoints/ckpt_step=*.msgpack"}),
+        device="cpu")
+    want = evaluate_reconstruction.run(dict(
+        cfg, exp_dir=str(world["runs"]["port"]), output_dir="eval_pt",
+        model={"training_config_path": "config.yaml"}), device="cpu")
+    assert [r.pop("checkpoint") for r in got] == [
+        "ckpt_step=000010.msgpack", "ckpt_step=000020.msgpack"]
+    assert [r.pop("checkpoint") for r in want] == [
+        "ckpt_step=000010.pt", "ckpt_step=000020.pt"]
+    assert got == want
+
+    root = world["root"]
+    enc = {"input_dir": str(world["l1"] / "raw"), "decode_roundtrip": True,
+           "max_files": 1, "seed": 42,
+           "data": {"tiles_path": str(world["tiles"])}}
+    summaries = {}
+    for pkg in ("jax", "port"):
+        summaries[pkg] = encode_granules.run(dict(
+            enc, output_dir=str(root / f"encoded_from_{pkg}_ckpt"),
+            model={"checkpoint_path": _ckpt(world, pkg),
+                   "training_config_path": str(world["runs"][pkg] /
+                                               "config.yaml")}),
+            device="cpu")
+    for g, w in zip(summaries["jax"]["granules"],
+                    summaries["port"]["granules"]):
+        assert {k: g[k] for k in ("mse", "mae", "psnr", "latent_shape")} == \
+            {k: w[k] for k in ("mse", "mae", "psnr", "latent_shape")}
+        stem = Path(g["granule"]).stem + ".npz"
+        np.testing.assert_array_equal(
+            np.load(root / "encoded_from_jax_ckpt" / "latents" / stem)[
+                "latent"],
+            np.load(root / "encoded_from_port_ckpt" / "latents" / stem)[
+                "latent"])
 
 
 def test_extract_pca_and_analyze_reconstruction_match_jax(world,

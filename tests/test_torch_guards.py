@@ -186,6 +186,37 @@ def test_vae_training_entry_points_default_to_cuda_and_raise_without_it(
     assert not (tmp_path / "run").exists()
 
 
+def test_trainer_run_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    """train_vae.run and train_gpt.run (a config dict, no YAML) resolve
+    device None to CUDA and raise without it; train_vae's before it writes
+    anything."""
+    from tempo_tpu_torch.cli import train_gpt, train_vae
+    from tempo_tpu_torch.data.synthetic import make_tile_shards
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiles = make_tile_shards(tmp_path / "tiles", n_files=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_vae.run({
+            "output_dir": str(tmp_path / "vae"),
+            "data": {"train_dir": str(tiles), "batch_size": 2,
+                     "min_buffer_size": 2},
+            "model": {"shape": [8, 16, 16], "chs": [16, 12, 8],
+                      "z_channels": 4, "embed_dim": 4,
+                      "n_attention_heads": 2, "norm_groups": 4},
+            "training": {"n_steps": 2, "checkpoint_format": "async",
+                         "metrics_jsonl": True, "profile_steps": [0, 1]}})
+    assert not (tmp_path / "vae").exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_gpt.run({
+            "output_dir": str(tmp_path / "gpt"),
+            "data": {"synthetic": {"vocab_size": 17, "length": 2000},
+                     "batch_size": 2},
+            "model": {"n_layer": 1, "n_head": 2, "n_embd": 32,
+                      "block_size": 16},
+            "training": {"n_steps": 2, "checkpoint_format": "async"}})
+
+
 def test_l2_training_entry_points_default_to_cuda_and_raise_without_it(
         monkeypatch, tmp_path):
     from tempo_tpu_torch.cli.train_vae_l2 import main, run

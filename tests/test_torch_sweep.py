@@ -163,8 +163,9 @@ def test_evaluate_checkpoints_matches_jax(tmp_path, n_tiles):
 def test_load_params_formats(tmp_path):
     """The port's checkpoints of both models, a bare reference state dict
     and the reference trainer schema load strictly; an L2 checkpoint gives
-    a base VAE its ``vae.*``; .msgpack files and sharded directories are
-    refused, naming the work that would take them."""
+    a base VAE its ``vae.*``; the JAX package's .msgpack files give the
+    same weights (an L2 one its ``vae`` half to a base VAE); sharded
+    directories are refused, naming the work that would take them."""
     _, params = pinned_jax_params(4)
     sd = state_dict_from_jax_params(params)
     base = AutoencoderKL(VAEConfig(**TINY), device="cpu")
@@ -197,9 +198,24 @@ def test_load_params_formats(tmp_path):
     assert same(load_params(l2_path, VAEWithL2Head(
         VAEConfig(**TINY), (16, 16), device="cpu", seed=5)), l2_sd)
 
-    (tmp_path / "ckpt_step=000001.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="M11"):
-        load_params(tmp_path / "ckpt_step=000001.msgpack", fresh())
+    (tmp_path / "jax").mkdir()
+    _write_payload(tmp_path / "jax", {
+        "step": 1, "params": serialization.to_state_dict(params)})
+    assert same(load_params(tmp_path / "jax" / "ckpt_step=000001.msgpack",
+                            fresh()), sd)
+    head = {"dense0_kernel": np.ones((4, 16), np.float32),
+            "norm0": {"scale": np.ones(16, np.float32),
+                      "bias": np.zeros(16, np.float32)},
+            "out_kernel": np.ones((16, 4), np.float32),
+            "out_bias": np.zeros(4, np.float32)}
+    _write_payload(tmp_path / "jax", {"step": 2, "params": {
+        "vae": serialization.to_state_dict(params), "l2_head": head}})
+    mp_l2 = tmp_path / "jax" / "ckpt_step=000002.msgpack"
+    assert same(load_params(mp_l2, fresh()), sd)
+    l2_jax = load_params(mp_l2, VAEWithL2Head(VAEConfig(**TINY), (16,),
+                                              device="cpu", seed=5))
+    assert same(l2_jax, l2_state_dict_from_jax(
+        {"vae": params, "l2_head": head}, (16,)))
     (tmp_path / "ckpt_step=000002.sharded").mkdir()
     with pytest.raises(NotImplementedError, match="M13"):
         load_params(tmp_path / "ckpt_step=000002.sharded", fresh())

@@ -7,8 +7,9 @@ a tiny size: latent VDM, pixel-space VDM with DDIM sampling, latent SFM.
 They write the files the JAX CLIs write, with the same training_info.yaml
 and sampling_info.yaml keys; dropout never drops in training; the frozen
 VAE's parameters are unchanged and stay out of the checkpoints; a step
-from a reloaded checkpoint equals the live one; the unported options
-raise; the entry points default to CUDA.
+from a reloaded checkpoint equals the live one; the async checkpoints are
+the sync ones and a JAX .msgpack serves as the frozen VAE; the unported
+options raise; the entry points default to CUDA.
 
 Tolerances: fp32 on both sides, sum order only: the loss and its terms
 rtol 1e-4; each gradient within 1e-4 relative L2 (the attention's key
@@ -37,6 +38,7 @@ from tempo_tpu.models import diffusion as jd
 from tempo_tpu.models.vae import AutoencoderKL as JaxVAE
 from tempo_tpu.models.vae import VAEConfig as JaxConfig
 from tempo_tpu.nn.unet import CUNet as JaxCUNet
+from tempo_tpu.train import checkpoint as jckpt
 from tempo_tpu.train import state as jstate
 from tempo_tpu.train import step as jstep
 from tempo_tpu_torch.cli import sample_diffusion, train_diffusion
@@ -378,18 +380,72 @@ def test_train_and_sample_latent_sfm(tmp_path, tiles_dir, vae_ckpt):
     assert np.abs(euler - lm).max() > 1e-6
 
 
-def test_unported_and_unknown_options_raise(tmp_path, tiles_dir, vae_ckpt):
-    for fmt in ("sharded", "async"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train_diffusion.run(_cfg(tmp_path / fmt, tiles_dir, training={
-                "checkpoint_format": fmt}), device="cpu")
+def test_sample_diffusion_reads_a_jax_checkpoint(tmp_path, tiles_dir):
+    """The run's weights as the JAX package writes them (a .msgpack of a
+    later step): sample_diffusion takes it as the run's latest checkpoint
+    and draws what it draws from the .pt of the same weights."""
+    out = tmp_path / "run"
+    trainer, _, _ = train_diffusion.run(_cfg(out, tiles_dir, training={
+        "n_steps": 2, "save_every": 2, "val_every": 100,
+        "plot_every": 100}, sampling={"n_steps": 2}), device="cpu")
+    state = jstate.create_train_state(
+        params_from_torch_vdm(trainer.state.model.state_dict(), n_levels=2),
+        jstate.make_optimizer(), jax.random.PRNGKey(0))
+    jckpt.save_checkpoint(out / "checkpoints",
+                          state.replace(step=jnp.asarray(3, jnp.int32)))
+    got, info = _sample(tmp_path, out, "from_msgpack")
+    assert info["checkpoint"].endswith("ckpt_step=000003.msgpack")
+    want, _ = _sample(tmp_path, out, "from_pt", checkpoint=str(
+        out / "checkpoints" / "ckpt_step=000002.pt"))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_unported_and_unknown_options_raise(tmp_path, tiles_dir, vae_ckpt,
+                                           monkeypatch):
+    """sharded and an unknown family raise; checkpoint_format: async
+    writes, byte for byte, what a sync save of the run's last state writes
+    (the loader's threads order batches freely, so two runs may differ);
+    the JAX package's
+    .msgpack of the VAE serves as latent.vae_checkpoint (the frozen VAE
+    gets its weights), a sharded directory does not."""
+    with pytest.raises(NotImplementedError, match="not ported"):
+        train_diffusion.run(_cfg(tmp_path / "sharded", tiles_dir, training={
+            "checkpoint_format": "sharded"}), device="cpu")
     with pytest.raises(ValueError, match="unknown family"):
         train_diffusion.run(_cfg(tmp_path / "fam", tiles_dir,
                                  family="ddpm"), device="cpu")
-    msgpack = tmp_path / "ckpt_step=000001.msgpack"
-    msgpack.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="M11"):
-        train_diffusion.run(_cfg(tmp_path / "mp", tiles_dir, msgpack),
+    short = {"n_steps": 2, "save_every": 1, "val_every": 2, "log_every": 1,
+             "plot_every": 100}
+    trainer, _, _ = train_diffusion.run(_cfg(
+        tmp_path / "async", tiles_dir, training=dict(
+            short, checkpoint_format="async")), device="cpu")
+    assert trainer._async_ckpt is not None
+    assert sorted(p.name for p in (tmp_path / "async" / "checkpoints")
+                  .iterdir()) == ["ckpt_step=000001.pt", "ckpt_step=000002.pt"]
+    resaved = save_checkpoint(tmp_path / "sync", trainer.state,
+                              trainer.train_metrics, trainer.val_metrics)
+    assert resaved.read_bytes() == (
+        tmp_path / "async" / "checkpoints" / resaved.name).read_bytes()
+
+    saved = torch.load(vae_ckpt, weights_only=True)["model"]
+    vae = AutoencoderKL(VAEConfig.from_dict(VAE_CFG), device="cpu")
+    vae.load_state_dict(saved)
+    msgpack = jckpt.save_checkpoint(
+        tmp_path / "jax_vae", jstate.create_train_state(
+            params_from_torch_state_dict(vae.state_dict(), n_levels=2),
+            jstate.make_optimizer(), jax.random.PRNGKey(0)))
+    codecs = []
+    build = train_diffusion._build_codec
+    monkeypatch.setattr(train_diffusion, "_build_codec",
+                        lambda *a: codecs.append(build(*a)) or codecs[-1])
+    train_diffusion.run(_cfg(tmp_path / "mp", tiles_dir, msgpack,
+                             training=short), device="cpu")
+    got = codecs[0][3].state_dict()
+    assert all(torch.equal(got[k], v) for k, v in saved.items())
+    (tmp_path / "ckpt_step=000003.sharded").mkdir()
+    with pytest.raises(NotImplementedError, match="M13"):
+        train_diffusion.run(_cfg(tmp_path / "sh", tiles_dir,
+                                 tmp_path / "ckpt_step=000003.sharded"),
                             device="cpu")
     with pytest.raises(ValueError, match="doesn't exist"):
         train_diffusion.run(_cfg(tmp_path / "missing", tiles_dir,

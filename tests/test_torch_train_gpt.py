@@ -1,7 +1,8 @@
 """The port's GPT training CLI (tempo_tpu_torch/cli/train_gpt.py) on the CPU,
 on the config of tests/test_train_gpt.py's dense case: it learns the
 synthetic affine stream and writes the same artifacts; the config checks
-and the unported options raise."""
+and the unported options raise; the async checkpoint format is accepted
+and writes what the sync one does."""
 
 from __future__ import annotations
 
@@ -109,12 +110,10 @@ def test_train_gpt_resumes_and_plots(tmp_path):
      "LoRA"),
     (lambda c: c["training"].update(checkpoint_format="sharded"),
      NotImplementedError, "sharded"),
-    (lambda c: c["training"].update(checkpoint_format="async"),
-     NotImplementedError, "async"),
     (lambda c: c["training"].update(checkpoint_format="zip"), ValueError,
      "checkpoint_format"),
 ], ids=["no_model", "no_data", "missing_stream", "unknown_parallel",
-        "pipeline", "fsdp", "context", "moe", "lora", "sharded", "async",
+        "pipeline", "fsdp", "context", "moe", "lora", "sharded",
         "unknown_format"])
 def test_validate_config_refuses(tmp_path, mutate, error, match):
     cfg = _base_cfg(tmp_path / "run")
@@ -158,3 +157,39 @@ def test_trainer_saves_at_save_steps(tmp_path):
     hist = json.loads((tmp_path / "metrics.json").read_text())
     assert [m["step"] for m in hist["train"]] == [2, 4]
     assert set(hist["train"][0]) == {"step", "loss", "nll", "grad_norm"}
+
+
+def _same_checkpoints(a: Path, b: Path) -> None:
+    """The same checkpoint files, and in each the same tensors bitwise."""
+    names = [p.name for p in list_checkpoints(a / "checkpoints")]
+    assert names == [p.name for p in list_checkpoints(b / "checkpoints")]
+    for name in names:
+        x = torch.load(a / "checkpoints" / name, weights_only=True)
+        y = torch.load(b / "checkpoints" / name, weights_only=True)
+        assert x["step"] == y["step"]
+        assert x["model"].keys() == y["model"].keys()
+        assert all(torch.equal(x["model"][k], y["model"][k])
+                   for k in x["model"])
+        for i, st in x["optimizer"]["state"].items():
+            assert all(torch.equal(v, y["optimizer"]["state"][i][k])
+                       for k, v in st.items())
+
+
+@pytest.mark.parametrize("fmt", ["async"])
+def test_validate_config_accepts(tmp_path, fmt):
+    """checkpoint_format: async validates, and ``run`` from a dict writes
+    the checkpoints the sync format writes, tensor for tensor."""
+    cfgs = {}
+    for name, f in (("sync", "msgpack"), ("async", fmt)):
+        cfgs[name] = _base_cfg(tmp_path / name)
+        cfgs[name]["training"].update(n_steps=6, save_every=3, val_every=3,
+                                      checkpoint_format=f)
+        cfgs[name]["generation"]["n_tokens"] = 2
+    train_gpt.validate_config(cfgs["async"])
+    train_gpt.main(_write(tmp_path / "sync.yaml", cfgs["sync"]),
+                   device="cpu")
+    trainer, stats = train_gpt.run(cfgs["async"], device="cpu")
+    assert trainer._async_ckpt is not None and stats["steps"] == 6
+    _same_checkpoints(tmp_path / "async", tmp_path / "sync")
+    assert json.loads((tmp_path / "async" / "config.yaml").read_text())[
+        "training"]["checkpoint_format"] == "async"

@@ -3,8 +3,9 @@ mirroring the train_vae cases of tests/test_e2e.py on tile shards from
 make_tile_shards: it learns and writes checkpoints, figures, summary
 plots, metrics.json and training_info.yaml; --debug reduces as JAX's does;
 resume_from (auto and explicit), save_schedule: sqrt and grad_accum work;
-the unported options raise (the device loader and the NO2 probe run:
-tests/test_torch_train_vae_l2.py)."""
+metrics_jsonl, profile_steps and the async checkpoint format are accepted
+and honoured; the unported options raise (the device loader and the NO2
+probe run: tests/test_torch_train_vae_l2.py)."""
 
 from __future__ import annotations
 
@@ -162,18 +163,11 @@ def test_sqrt_schedule_and_grad_accum(tmp_path, tiles_dir):
     (lambda c: c["data"].update(loader="disk"), ValueError, "loader"),
     (lambda c: c["training"].update(checkpoint_format="sharded"),
      NotImplementedError, "sharded"),
-    (lambda c: c["training"].update(checkpoint_format="async"),
-     NotImplementedError, "async"),
     (lambda c: c["training"].update(checkpoint_format="zip"), ValueError,
      "checkpoint_format"),
-    (lambda c: c["training"].update(metrics_jsonl=True), NotImplementedError,
-     "metrics_jsonl"),
-    (lambda c: c["training"].update(profile_steps=[2, 4]),
-     NotImplementedError, "profile_steps"),
 ], ids=["no_model", "no_train_dir", "missing_train_dir", "missing_val_dir",
         "distributed", "tensor", "fsdp", "device_loader", "unknown_loader",
-        "sharded", "async", "unknown_format", "metrics_jsonl",
-        "profile_steps"])
+        "sharded", "unknown_format"])
 def test_validate_config_refuses(tmp_path, tiles_dir, mutate, error, match):
     cfg = _cfg(tmp_path / "run", tiles_dir)
     mutate(cfg)
@@ -185,3 +179,43 @@ def test_validate_config_refuses(tmp_path, tiles_dir, mutate, error, match):
     ok["data"]["loader"] = "host"
     ok["training"].update(checkpoint_format="msgpack", metrics_jsonl=False)
     train_vae.validate_config(ok)
+
+
+def _honours_async(out: Path) -> None:
+    assert _steps(out) == [3, 6]
+    raw = torch.load(out / "checkpoints" / "ckpt_step=000006.pt",
+                     weights_only=True)
+    assert raw["step"] == 6 and raw["model"] and raw["optimizer"]["state"]
+    assert not list((out / "checkpoints").glob("*.tmp"))
+
+
+def _honours_metrics_jsonl(out: Path) -> None:
+    lines = [json.loads(line) for line in
+             (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+    hist = _history(out)
+    assert [{k: v for k, v in r.items() if k != "kind"} for r in lines
+            if r["kind"] == "train"] == hist["train"]
+    assert [{k: v for k, v in r.items() if k != "kind"} for r in lines
+            if r["kind"] == "val"] == hist["val"]
+
+
+def _honours_profile_steps(out: Path) -> None:
+    trace = out / "profile" / "trace_steps_2-4.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+
+
+@pytest.mark.parametrize("option, honoured", [
+    ({"checkpoint_format": "async"}, _honours_async),
+    ({"metrics_jsonl": True}, _honours_metrics_jsonl),
+    ({"profile_steps": [2, 4]}, _honours_profile_steps),
+], ids=["async", "metrics_jsonl", "profile_steps"])
+def test_validate_config_accepts(tmp_path, tiles_dir, option, honoured):
+    """The options the JAX CLI has and the port now runs: the config
+    validates, and a short run honours the option."""
+    out = tmp_path / "run"
+    cfg = _cfg(out, tiles_dir, n_steps=6, save_every=3, val_every=3,
+               log_every=1, plot_every=100, **option)
+    train_vae.validate_config(cfg)
+    train_vae.main(_write(tmp_path / "cfg.yaml", cfg), device="cpu")
+    honoured(out)

@@ -4,9 +4,10 @@ test_train_l2_supervised on tile shards with L2 fields from
 make_tile_shards: per-product losses in metrics.json, summary/
 l2_losses.png and figures written, with the host loader and with
 ``data.loader: device`` (the DeviceTileBuffer on the CPU); ``run`` from a
-dict; the warm start from a train_vae checkpoint and the refusal of a
-.msgpack one; --debug, auto resume and grad_accum; the figures drawn
-without matplotlib; train_vae with the device loader and the NO2 probe."""
+dict; the warm start from a train_vae checkpoint and from a JAX .msgpack
+one; metrics_jsonl and async checkpoints; --debug, auto resume and
+grad_accum; the figures drawn without matplotlib; train_vae with the
+device loader and the NO2 probe."""
 
 from __future__ import annotations
 
@@ -14,13 +15,18 @@ import json
 import sys
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
 import yaml
 
+from tempo_tpu.interop.torch_ckpt import params_from_torch_state_dict
+from tempo_tpu.train import checkpoint as jckpt
+from tempo_tpu.train import state as jstate
 from tempo_tpu_torch.cli import train_vae, train_vae_l2
 from tempo_tpu_torch.data.synthetic import make_tile_shards
+from tempo_tpu_torch.models.vae import build_vae
 from tempo_tpu_torch.train.checkpoint import checkpoint_step, list_checkpoints
 
 torch.set_num_threads(1)
@@ -180,9 +186,6 @@ def test_figures_without_matplotlib(tmp_path, tiles_dir, monkeypatch):
     (lambda c: c["data"].pop("data_dir"), ValueError, "data_dir"),
     (lambda c: c["data"].update(data_dir="/nonexistent/tiles"), ValueError,
      "doesn't exist"),
-    (lambda c: c["model"].update(
-        init_from_vae_checkpoint="run/ckpt_step=000600.msgpack"),
-     NotImplementedError, "checkpoint bridge"),
     (lambda c: c["data"].update(partition="process"), NotImplementedError,
      "partition"),
     (lambda c: c.update(parallel={"tensor": 2}), NotImplementedError,
@@ -190,14 +193,92 @@ def test_figures_without_matplotlib(tmp_path, tiles_dir, monkeypatch):
     (lambda c: c["training"].update(checkpoint_format="sharded"),
      NotImplementedError, "sharded"),
     (lambda c: c["data"].update(loader="disk"), ValueError, "loader"),
-], ids=["no_data_dir", "missing_data_dir", "msgpack_warm_start",
-        "process_partition", "tensor", "sharded", "unknown_loader"])
+], ids=["no_data_dir", "missing_data_dir", "process_partition", "tensor",
+        "sharded", "unknown_loader"])
 def test_validate_config_refuses(tmp_path, tiles_dir, mutate, error, match):
     cfg = _cfg(tmp_path / "run", tiles_dir, "device")
     mutate(cfg)
     with pytest.raises(error, match=match):
         train_vae_l2.validate_config(cfg)
     train_vae_l2.validate_config(_cfg(tmp_path / "run", tiles_dir, "device"))
+
+
+def _jax_vae_checkpoint(tmp_path: Path):
+    """A JAX package checkpoint (.msgpack) of a seeded MODEL_CFG VAE, and
+    that VAE's state_dict."""
+    base, _ = build_vae(MODEL_CFG, device="cpu", seed=11)
+    params = params_from_torch_state_dict(base.state_dict(), n_levels=3)
+    tx = jstate.make_optimizer()
+    path = jckpt.save_checkpoint(tmp_path / "jax_run" / "checkpoints",
+                                 jstate.create_train_state(
+                                     params, tx, jax.random.PRNGKey(0)))
+    return path, base.state_dict()
+
+
+def _honours_msgpack_warm_start(tmp_path, cfg, monkeypatch):
+    path, want = _jax_vae_checkpoint(tmp_path)
+    cfg["model"]["init_from_vae_checkpoint"] = str(path)
+    seen = {}
+    real = train_vae_l2.warm_start_vae
+
+    def spy(model, p):
+        real(model, p)
+        seen.update({k: v.clone() for k, v in model.vae.state_dict().items()})
+
+    monkeypatch.setattr(train_vae_l2, "warm_start_vae", spy)
+    yield
+    assert seen.keys() == want.keys()
+    assert all(torch.equal(seen[k], want[k]) for k in want)
+
+
+def _honours_metrics_jsonl(tmp_path, cfg, monkeypatch):
+    cfg["training"]["metrics_jsonl"] = True
+    yield
+    out = Path(cfg["output_dir"])
+    lines = [json.loads(line) for line in
+             (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+    for kind in ("train", "val"):
+        assert [{k: v for k, v in r.items() if k != "kind"} for r in lines
+                if r["kind"] == kind] == _history(out)[kind]
+    assert [r["step"] for r in lines if r["kind"] == "val"] == [2]
+    keys = list(lines[0])
+    assert keys[:2] == ["step", "kind"] and keys[2:] == sorted(keys[2:])
+    assert "NO2_loss" in keys
+
+
+def _honours_async(tmp_path, cfg, monkeypatch):
+    cfg["training"]["checkpoint_format"] = "async"
+    yield
+    out = Path(cfg["output_dir"])
+    assert _steps(out) == [1, 2]
+    raw = torch.load(out / "checkpoints" / "ckpt_step=000002.pt",
+                     weights_only=True)
+    assert raw["step"] == 2 and any(k.startswith("l2_head.")
+                                    for k in raw["model"])
+
+
+def _profile_steps_not_read(tmp_path, cfg, monkeypatch):
+    cfg["training"]["profile_steps"] = [0, 1]  # the JAX L2 CLI reads none
+    yield
+    assert not (Path(cfg["output_dir"]) / "profile").exists()
+
+
+@pytest.mark.parametrize("option", [
+    _honours_msgpack_warm_start, _honours_metrics_jsonl, _honours_async,
+    _profile_steps_not_read],
+    ids=["msgpack_warm_start", "metrics_jsonl", "async",
+         "profile_steps_not_read"])
+def test_validate_config_accepts(tmp_path, tiles_dir, monkeypatch, option):
+    """What the L2 CLI now takes: the config validates, and a 2-step run
+    honours it."""
+    cfg = _cfg(tmp_path / "run", tiles_dir, "device", n_steps=2,
+               save_every=1, val_every=2, log_every=1, plot_every=100)
+    check = option(tmp_path, cfg, monkeypatch)
+    next(check)
+    train_vae_l2.validate_config(cfg)
+    trainer, stats = train_vae_l2.run(cfg, device="cpu")
+    assert stats["steps"] == 2
+    next(check, None)
 
 
 def test_train_vae_takes_the_device_loader_and_the_no2_probe(tmp_path,
