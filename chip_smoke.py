@@ -181,7 +181,8 @@ Phases, each fatal on failure:
   shape (6 layers, weights from SEED + 1), k_draft 4; K3 in the draft's
   captured steps, K4 in the paged pools:
   9a. serve_lm's continuous + draft and paged + draft (8 slots, 65 pages)
-      over the 64 requests and scheduler: speculative over the first 8, each
+      over the first 32 of the 64 requests (64 until phase 13 came) and
+      scheduler: speculative over the first 8, each
       beside the same scheduler target-only: tokens/s, accept_rate, rounds,
       target passes, K3/K4 launches, greedy agreement with target-only and
       the reference's top-two logit gap at each first difference (reported:
@@ -261,6 +262,44 @@ Phases, each fatal on failure:
       a string, an empty dict and a chunked leaf packed as flax lays a
       checkpoint out (pack_flax), read back by interop/msgpack_reader.py
       bit for bit (the bfloat16 widened exactly): MB/s.
+  then the GPT family's options at GPT-2-small's widths (bf16, weights from
+  a seed), 13b-d after phase 10 (they read its artifacts), 13a and 13e at
+  the end; K3, K4 and K5 on the new paths, each counter set to 0 just
+  before a run and read just after:
+  13a. MoE training at bench_gpt(n_experts=4)'s shape (4 experts, top-1,
+      capacity factor 1.25, [8, 1025] tokens, AdamW 3e-4 / 0.1 / (0.9,
+      0.95)): 3 warm, then 5 timed steps, K5f/K5dkv/K5dq 12 a step each;
+      step ms, tokens/s, MFU on all and on the active parameters, peak
+      memory, the mean moe_aux; the loss falls on the fixed batch; one
+      step through K5 against the plain attention, and one top-2 step at 4
+      layers, at 4c's tolerances: the bf16 loss, and in fp32 (2 layers,
+      batch 2) the loss and every gradient; the bf16 gradients are
+      reported beside the tokens whose expert the two paths chose
+      differently (bf16 rounding flips routes; fp32 flips none);
+  13b. MoE serving: generate of 8 x (64 + 128) tokens captured, K3 12 x
+      127, bitwise the eager loop; PagedLMServer over live_paged_surface on
+      16 of 3b's requests, K4 counted (no batch-independence gate: the
+      capacity depends on the call's token count, JAX's semantics);
+  13c. int8: quantize_lm_params of GPT-2-small, the weights' bytes against
+      bf16; generate at 3a's shape captured (K3 counted, bitwise eager),
+      ms/token beside 3a's bf16; the logits against the bf16 model on the
+      dequantized weights; serve_lm paged over the int8 artifact (exported
+      in the background with the others) beside the live int8 surface:
+      tokens and K4 launches equal;
+  13d. beam search: LMServer.beam_batch over 3d's bf16 artifact, 8 prompts
+      x width 4 x 32 tokens, K3 counted; width 1 bitwise the greedy stream;
+      equal to nn/beam.py beam_search on the live model; one beam_width
+      request through _serve_batch and one through _serve_http's POST
+      /generate equal to beam_batch of its prompt alone; the host
+      scoring's share of the call;
+  13e. cli/train_gpt.run at GPT-2-small's widths, 5 steps at batch 8 each:
+      LoRA rank 8 over a seeded base checkpoint (the base file unchanged,
+      the checkpoint only the adapters, merged_final.pt bitwise the base
+      plus s a @ b, K5 counted); dropout 0.1 (finite losses, zero K5: the
+      materialized attention; in eval the model is the dropout-0 model bit
+      for bit); moments_dtype bfloat16 (exp_avg bf16, 2 bytes a parameter
+      less optimizer state than fp32 moments, one step from the reloaded
+      checkpoint bitwise the live state's).
 Prints the card's name and power limit first, each phase's seconds, each
 redesigned kernel's time against its time before the redesign
 (KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
@@ -518,7 +557,8 @@ LM_POOLS = {"roomy": 65, "tight": 33}
 # Phase 9: speculation over GPT-2-small exported (3d's model: SPEC_TARGET
 # overrides nothing) with a self-draft and a distinct draft of DistilGPT2's
 # published shape (6 layers of GPT-2-small's widths; weights from SEED + 1),
-# k_draft SPEC_K. 9a times the 64 requests (continuous and paged pools) and
+# k_draft SPEC_K. 9a times the first SPEC_REQUESTS of the 64 requests
+# (continuous and paged pools; all 64 until phase 13 took the time) and
 # the first SPEC_BATCH1 (the batch-1 scheduler) in bf16; 9b holds SPEC_F32
 # (greedy, sampled) requests cut to SPEC_F32_NEW new tokens in fp32; 9c
 # serves ONLINE_REQS requests from ONLINE_THREADS threads and cancels an
@@ -526,6 +566,7 @@ LM_POOLS = {"roomy": 65, "tight": 33}
 SPEC_TARGET: dict = {}
 SPEC_DRAFT = {"n_layer": 6}
 SPEC_K, SPEC_BATCH1, SPEC_F32, SPEC_F32_NEW = 4, 8, (4, 2), 32
+SPEC_REQUESTS = 32
 SPEC_ROUNDS = 10  # 9a's round breakdown: rounds timed each way
 ONLINE_REQS, ONLINE_THREADS = 16, 4
 ONLINE_CANCEL_NEW, ONLINE_CANCEL_AFTER = 256, 4
@@ -542,6 +583,9 @@ LM_EXPORTS = {
     "target_fp32": (SPEC_TARGET, SEED, "float32", "cuda", 0, LM_PAGE),
     "draft_bf16": (SPEC_DRAFT, SEED + 1, "bfloat16", "cuda", 0, 0),
     "draft_fp32": (SPEC_DRAFT, SEED + 1, "float32", "cuda", 0, 0),
+    # 13c: the target's weights quantized (quantize_lm_params) and exported
+    "target_int8": ({"quantize": "int8"}, SEED, "bfloat16", "cuda", LM_K,
+                    LM_PAGE),
 }
 # Phase 10: each exported program against the live model's call at two
 # batches and two positions; a fresh process's loads and greedy decode of
@@ -636,6 +680,31 @@ DIFF_LOSS_BATCH = 8
 # interop/msgpack_reader.py.
 OPTS = {"batch": 8, "steps": 6, "profile": [2, 4], "save_every": 2,
         "val_every": 3, "n_val": 2, "rounds": 3}
+# Phase 13, the GPT family's options at GPT-2-small's widths (OPT_MODEL
+# overrides TransformerConfig's GPT-2-small defaults: none on the card),
+# bf16, weights from SEED. 13a: bench_gpt(n_experts=4)'s MoE training
+# (MOE_MODEL: top-1, capacity factor 1.25; TRAIN_BATCH x 1025 tokens, AdamW
+# 3e-4, wd 0.1, betas (0.9, 0.95)), MOE_WARM warm then MOE_STEPS timed
+# steps, one step against the plain attention and one top-2 step at
+# MOE_TOP2_LAYERS layers (4c's tolerances, moe_step_vs_plain). 13b: MoE generate at 3a's shape
+# and PagedLMServer over the first OPT_REQUESTS of 3b's requests. 13c: int8
+# at bench_decode(quantize=True)'s shape (3a's), its logits against the
+# bf16 model on the dequantized weights (INT8_DEQ_REL_L2: bf16 rounding in
+# another order at the tied head and the bias adds, as LM_BF16_REL_L2), and
+# serve_lm paged over the int8 artifact ('target_int8') beside the live
+# int8 surface. 13d: beam_batch over 3d's bf16 artifact, BEAM_BATCH
+# prompts of LM_PROMPT tokens x width BEAM_WIDTH x BEAM_NEW tokens. 13e:
+# train_gpt.run with LoRA (rank OPT_LORA_RANK over a seeded base), dropout
+# OPT_DROPOUT and moments_dtype bfloat16, OPT_STEPS steps each at batch
+# OPT_BATCH on a synthetic stream of OPT_STREAM tokens.
+OPT_MODEL: dict = {}
+MOE_MODEL = {"n_experts": 4, "expert_top_k": 1, "expert_capacity_factor": 1.25}
+MOE_WARM, MOE_STEPS, MOE_TOP2_LAYERS = 3, 5, 4
+INT8_DEQ_REL_L2 = 5e-2
+OPT_REQUESTS = 16
+BEAM_BATCH, BEAM_WIDTH, BEAM_NEW = 8, 4, 32
+OPT_STEPS, OPT_BATCH, OPT_LORA_RANK, OPT_DROPOUT = 5, 8, 8, 0.1
+OPT_STREAM = 200_000
 
 
 def fail(msg: str) -> None:
@@ -2087,11 +2156,12 @@ def online_http(online, cfg: dict, tmp: Path, two: list, want: list) -> dict:
 def speculative_path(dev, rows: dict, fused: dict, exports: "LMExports",
                      after_9a=lambda: None) -> dict:
     """Phase 9: speculation and the online server from exported
-    GPT-2-small. 9a bf16: continuous + draft and paged + draft over the 64
-    requests, the batch-1 speculative scheduler over the first
-    SPEC_BATCH1, each with the self-draft and the distinct draft beside the
-    same scheduler target-only: tokens/s, accept_rate, rounds, target
-    passes, K3/K4 launches, greedy agreement with target-only (reported);
+    GPT-2-small. 9a bf16: continuous + draft and paged + draft over the
+    first SPEC_REQUESTS requests, the batch-1 speculative scheduler over
+    the first SPEC_BATCH1, each with the self-draft and the distinct draft
+    beside the same scheduler target-only: tokens/s, accept_rate, rounds,
+    target passes, K3/K4 launches, greedy agreement with target-only
+    (reported);
     9b fp32: the same with the target and the distinct draft in fp32 over
     SPEC_F32 requests, every greedy stream equal to target-only's but at a
     near-tie; 9c the online servers. ``fused`` is 3d's serve_lm
@@ -2127,7 +2197,8 @@ def speculative_path(dev, rows: dict, fused: dict, exports: "LMExports",
         drafts = {"self": target, "distinct": arts["draft", "bfloat16"]}
         runs = {}
         for pool in ("continuous", "paged", "speculative"):
-            work = reqs if pool != "speculative" else reqs[:SPEC_BATCH1]
+            work = reqs[:SPEC_REQUESTS if pool != "speculative"
+                        else SPEC_BATCH1]
             ref = spec_run(spec_configs(target, None, pool), work, dev,
                            work[:2])
             runs[pool, "none"] = ref
@@ -2311,8 +2382,11 @@ def stop_process(proc: subprocess.Popen) -> None:
 
 def export_child(spec_path: str) -> None:
     """One LM_EXPORTS entry, in a process of its own (LMExports): the model
-    built from its seed on the device that traces, then export_lm; writes
-    the seconds (build, export) to the spec's ``result``."""
+    built from its seed on the device that traces (its weights quantized
+    for a ``quantize`` entry), then export_lm; writes the seconds (build,
+    export) to the spec's ``result``."""
+    import dataclasses
+
     import torch
 
     torch.set_num_threads(1)
@@ -2321,10 +2395,18 @@ def export_child(spec_path: str) -> None:
 
     spec = json.loads(Path(spec_path).read_text())
     t0 = time.perf_counter()
-    cfg = TransformerConfig(compute_dtype=spec["dtype"], **spec["shape"])
+    shape = dict(spec["shape"])
+    quantize = shape.pop("quantize", "none")
+    cfg = TransformerConfig(compute_dtype=spec["dtype"], **shape)
     model = Transformer(cfg, device=spec["device"], seed=spec["seed"])
+    state = model.state_dict()
+    if quantize == "int8":
+        from tempo_tpu_torch.nn.quant import quantize_lm_params
+
+        cfg = dataclasses.replace(cfg, quantize="int8")
+        state = quantize_lm_params(state)
     t1 = time.perf_counter()
-    export_lm(model.state_dict(), cfg, spec["out"], max_seq=spec["max_seq"],
+    export_lm(state, cfg, spec["out"], max_seq=spec["max_seq"],
               decode_chunk=spec["decode_chunk"],
               page_size=spec["page_size"])
     Path(spec["result"]).write_text(json.dumps({
@@ -5973,6 +6055,609 @@ def nudge_zero_init(model, generator) -> None:
                 p.uniform_(-bound, bound, generator=generator)
 
 
+# ------------------------------------------------------------------------
+# Phase 13: the GPT family's options (MoE, int8, beam search, LoRA,
+# dropout, bf16 first moments) at GPT-2-small's widths.
+
+def opt_config(**kw):
+    """GPT-2-small (TransformerConfig's defaults, OPT_MODEL's overrides) in
+    bf16 with the options ``kw``."""
+    from tempo_tpu_torch.nn.transformer import TransformerConfig
+
+    return TransformerConfig(**dict({"compute_dtype": "bfloat16"},
+                                    **OPT_MODEL, **kw))
+
+
+def count_decode(fn):
+    """(fn(), K3 launches, K4 launches), the counters set to 0 just before
+    and read just after (the card synchronised)."""
+    import torch
+
+    from tempo_tpu_torch.ops import cuda_decode
+
+    for key in ("decode_attention", "paged_decode_attention"):
+        cuda_decode.LAUNCHES[key] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, cuda_decode.LAUNCHES["decode_attention"],
+            cuda_decode.LAUNCHES["paged_decode_attention"])
+
+
+def count_flash(fn):
+    """(fn(), {K5f, K5dkv, K5dq launches}), counted as count_decode."""
+    import torch
+
+    from tempo_tpu_torch.ops import flash_attention as fa
+
+    for key in fa.LAUNCHES:
+        fa.LAUNCHES[key] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"K5f": fa.LAUNCHES["flash_fwd"],
+                 "K5dkv": fa.LAUNCHES["flash_bwd_dkv"],
+                 "K5dq": fa.LAUNCHES["flash_bwd_dq"]}
+
+
+def opt_generate(model, prompt, tag: str) -> dict:
+    """generate at 3a's shape, captured: K3 counted (n_layer x (LM_NEW - 1)),
+    bitwise the eager loop, timed (host wall of a warm run)."""
+    import torch
+
+    from tempo_tpu_torch.nn.transformer import _generate_eager, generate
+
+    def run(fn=generate):
+        return fn(model, prompt, LM_NEW, temperature=0.0,
+                  cache_dtype=torch.bfloat16, cache_len=LM_CACHE)
+
+    out, k3, _ = count_decode(run)
+    want = model.config.n_layer * (LM_NEW - 1)
+    if k3 != want:
+        fail(f"{tag}: K3 launched {k3} times in generate, want {want}")
+    if not torch.equal(out, run(_generate_eager)):
+        fail(f"{tag}: captured generate differs from the eager loop")
+    _, dt = timed(run)
+    return {"k3_launches": k3, "bitwise_eager": True,
+            "ms_per_token": 1e3 * dt / LM_NEW,
+            "tokens_per_s": LM_BATCH * LM_NEW / dt, "tokens": out}
+
+
+def paged_serve(surface, reqs, dev):
+    from tempo_tpu_torch.infer.paged import PagedLMServer
+
+    srv = PagedLMServer(surface=surface, n_slots=LM_SLOTS,
+                        n_pages=LM_POOLS["roomy"], k_decode=LM_K,
+                        prefill_chunk=LM_CHUNK, device=dev)
+    resp = srv.serve(reqs)
+    return [r["tokens"] for r in resp], dict(srv.last_stats)
+
+
+def serve_http_once(srv, cfg: dict, tmp: Path, payload: dict) -> dict:
+    """One POST /generate of ``payload`` to ``_serve_http`` on 127.0.0.1,
+    port 0, in a thread (max_requests 1); returns the response."""
+    import threading
+    import urllib.request
+
+    from tempo_tpu_torch.cli.serve_lm import _serve_http
+
+    tmp.mkdir()
+    th = threading.Thread(target=_serve_http, args=(srv, {
+        **cfg, "host": "127.0.0.1", "port": 0, "max_requests": 1}, tmp, 64),
+        daemon=True)
+    th.start()
+    info = tmp / "serving_info.yaml"
+    for _ in range(600):
+        if info.exists() and info.read_text().strip():
+            break
+        time.sleep(0.05)
+    else:
+        fail("13d: the HTTP server did not start")
+    base = f"http://127.0.0.1:{json.loads(info.read_text())['port']}"
+    post = urllib.request.Request(f"{base}/generate",
+                                  data=json.dumps(payload).encode(),
+                                  headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(post, timeout=300) as r:
+        got = json.loads(r.read())
+    th.join(timeout=60)
+    if th.is_alive():
+        fail("13d: the HTTP server did not stop after its one request")
+    return got
+
+
+def options_serving_path(dev, rows: dict, lm: dict,
+                         exports: "LMExports") -> dict:
+    """13b MoE serving, 13c int8, 13d beam search (module docstring)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.cli.serve_lm import _serve_batch, build_server
+    from tempo_tpu_torch.infer.export_lm import live_paged_surface
+    from tempo_tpu_torch.nn.beam import beam_search
+    from tempo_tpu_torch.nn.quant import quantize_lm_params
+    from tempo_tpu_torch.nn.transformer import Transformer, serving_copy
+
+    card = smi_line()
+    seconds, t_part = {}, time.perf_counter()
+    dense_cfg = opt_config()
+    prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, dense_cfg.in_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)).to(dev)
+    reqs = lm_workload(dense_cfg.in_size)[:OPT_REQUESTS]
+    out: dict = {"card": card}
+
+    # ------------------------------------------------- 13b MoE serving
+    moe = Transformer(opt_config(**MOE_MODEL), device=dev, seed=SEED)
+    gen_moe = opt_generate(moe, prompt, "13b")
+    gen_moe.pop("tokens")
+    surface = live_paged_surface(moe, max_seq=LM_CACHE, decode_chunk=LM_K,
+                                 page_size=LM_PAGE, device=dev)
+    (toks, st), _, k4 = count_decode(lambda: paged_serve(surface, reqs, dev))
+    if k4 == 0 or [len(t) for t in toks] != [r["n_tokens"] for r in reqs]:
+        fail(f"13b: the MoE paged server launched K4 {k4} times or returned "
+             f"wrong token counts")
+    out["moe_serving"] = {
+        "generate": gen_moe, "paged": {"k4_launches": k4, "requests":
+                                       len(reqs), **{k: st[k] for k in (
+                                           "tokens_per_sec", "seconds",
+                                           "decode_steps", "preemptions")}},
+        "batch_independence": "not gated: the expert capacity ceil(k n / E "
+                              "cf) depends on the call's token count, so a "
+                              "row's routing depends on its batch (JAX's "
+                              "semantics)"}
+    print(f"[13b] MoE (4 experts, top-1) serving on {card}: "
+          f"{json.dumps(out['moe_serving'])}", flush=True)
+    del moe, surface
+    seconds["13b"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # ------------------------------------------------------ 13c int8
+    dense = Transformer(dense_cfg, device=dev, seed=SEED)
+    qcfg = dataclasses.replace(dense_cfg, quantize="int8")
+    qmodel = Transformer(qcfg, device="meta")
+    qmodel.load_state_dict(quantize_lm_params(dense.state_dict()),
+                           assign=True)
+
+    def served_bytes(state, config):
+        return sum(p.numel() * p.element_size()
+                   for p in serving_copy(state, config).parameters())
+
+    bytes_int8 = served_bytes(qmodel.state_dict(), qcfg)
+    bytes_bf16 = served_bytes(dense.state_dict(), dense_cfg)
+    gen_q = opt_generate(qmodel, prompt, "13c")
+    q_tokens = gen_q.pop("tokens")
+    # the bf16 model over the dequantized weights, each rounded to bf16 as
+    # the int8 forward rounds it: the same weights, another order of
+    # rounding only at the tied head (scale after the matmul) and the bias
+    # adds
+    deq = {}
+    for name, value in qmodel.state_dict().items():
+        if name.endswith("kernel_q"):
+            prefix = name[:-len("kernel_q")]
+            scale = qmodel.state_dict()[prefix + "scale"]
+            deq[prefix + "weight"] = (value.to(torch.bfloat16)
+                                      * scale.to(torch.bfloat16)[:, None]
+                                      ).float()
+        elif not name.endswith(".scale"):
+            deq[name] = value
+    deq_model = Transformer(dense_cfg, device="meta")
+    deq_model.load_state_dict(deq, assign=True)
+    with torch.no_grad():
+        logits_q = qmodel(prompt)
+        logits_d = deq_model(prompt)
+    deq_rel = rel_l2(logits_q, logits_d)
+    if not deq_rel <= INT8_DEQ_REL_L2:
+        fail(f"13c: int8 logits vs the bf16 model on the dequantized "
+             f"weights: rel L2 {deq_rel} > {INT8_DEQ_REL_L2}")
+    del deq_model, deq, logits_q, logits_d
+    # serve_lm paged over the int8 programs beside the live int8 surface
+    art = exports.path("target_int8")
+    meta = json.loads((art / "meta.json").read_text())
+    if meta["quantize"] != "int8" or meta["n_experts"] != 0:
+        fail(f"13c: the int8 artifact's meta says {meta['quantize']}, "
+             f"{meta['n_experts']} experts")
+    srv_cfg = {"artifacts": str(art), "scheduler": "paged",
+               "slots": LM_SLOTS, "k_decode": LM_K,
+               "n_pages": LM_POOLS["roomy"], "prefill_chunk": LM_CHUNK}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "reqs.jsonl"
+        path.write_text("".join(json.dumps(r) + "\n" for r in reqs))
+        srv = build_server(srv_cfg, dev)
+        _, _, k4_prog = count_decode(lambda: _serve_batch(
+            srv, {**srv_cfg, "requests": str(path)}, Path(tmp), 64))
+        prog_tokens = [json.loads(line)["tokens"] for line in
+                       (Path(tmp) / "completions.jsonl").read_text()
+                       .splitlines()]
+        prog_info = json.loads((Path(tmp) / "serving_info.yaml").read_text())
+    del srv
+    live = live_paged_surface(qmodel, max_seq=LM_CACHE, decode_chunk=LM_K,
+                              page_size=LM_PAGE, device=dev)
+    (live_tokens, _), _, k4_live = count_decode(
+        lambda: paged_serve(live, reqs, dev))
+    if prog_tokens != live_tokens or k4_prog != k4_live or k4_prog == 0:
+        fail(f"13c: serve_lm paged over the int8 programs differs from the "
+             f"live int8 surface: tokens equal {prog_tokens == live_tokens}, "
+             f"K4 {k4_prog} vs {k4_live}")
+    out["int8"] = {
+        "weight_bytes_int8": bytes_int8, "weight_bytes_bf16": bytes_bf16,
+        "bytes_ratio": bytes_int8 / bytes_bf16, "generate": gen_q,
+        "generate_bf16_ms_per_token_3a": lm["generate_ms_per_token"],
+        "logits_vs_dequantized_bf16_rel_l2": deq_rel,
+        "serve_lm_paged": {"k4_launches": k4_prog, "tokens_equal_live": True,
+                           "tokens_per_sec": prog_info["tokens_per_sec"],
+                           "requests": len(reqs)},
+        "export_s": exports.results["target_int8"]["export_s"]}
+    print(f"[13c] int8 on {card}: {json.dumps(out['int8'])}", flush=True)
+    del qmodel, live, q_tokens
+    seconds["13c"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # --------------------------------------------------- 13d beam search
+    art = exports.path("target_bf16")
+    srv_cfg = {"artifacts": str(art), "scheduler": "bucketed"}
+    srv = build_server(srv_cfg, dev)
+    prompts = np.random.default_rng(SEED + 13).integers(
+        0, dense_cfg.in_size, (BEAM_BATCH, LM_PROMPT)).astype(np.int64)
+    (beams, scores), k3, _ = count_decode(
+        lambda: srv.beam_batch(prompts, BEAM_NEW, BEAM_WIDTH))
+    # the first step's call captures its graph (an eager warm-up, then a
+    # replay), each of the other BEAM_NEW - 2 steps replays it
+    want = dense_cfg.n_layer * BEAM_NEW
+    if k3 != want:
+        fail(f"13d: K3 launched {k3} times in beam_batch, want {want}")
+    _, dt = timed(lambda: srv.beam_batch(prompts, BEAM_NEW, BEAM_WIDTH))
+    stats = dict(srv.beam_stats)
+    one, _ = srv.beam_batch(prompts, BEAM_NEW, 1)
+    greedy = srv.generate_batch(prompts, BEAM_NEW)
+    if not np.array_equal(one[:, 0], greedy):
+        fail("13d: beam width 1 differs from the greedy stream")
+    seq, live_scores = beam_search(dense, prompts, BEAM_NEW, BEAM_WIDTH,
+                                   cache_dtype=torch.bfloat16,
+                                   cache_len=LM_CACHE)
+    live_equal = bool(np.array_equal(seq[:, :, LM_PROMPT:].cpu().numpy(),
+                                     beams))
+    score_diff = float(np.abs(live_scores.cpu().numpy() - scores).max())
+    if not live_equal:
+        fail(f"13d: beam_batch over the artifact differs from nn/beam.py "
+             f"on the live model (scores differ by {score_diff})")
+    # one request decodes at batch 1: held to beam_batch of its prompt
+    # alone (the matmuls of another batch may round otherwise)
+    alone, _ = srv.beam_batch(prompts[:1], BEAM_NEW, BEAM_WIDTH)
+    req = {"tokens": prompts[0].tolist(), "n_tokens": BEAM_NEW,
+           "beam_width": BEAM_WIDTH}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "beam.jsonl"
+        path.write_text(json.dumps(req) + "\n")
+        _serve_batch(srv, {**srv_cfg, "requests": str(path)}, Path(tmp), 64)
+        batch_resp = json.loads((Path(tmp) / "completions.jsonl")
+                                .read_text().splitlines()[0])
+        http_resp = serve_http_once(srv, srv_cfg, Path(tmp) / "http", req)
+    if (batch_resp["beams"] != alone[0].tolist()
+            or http_resp.get("beams") != batch_resp["beams"]
+            or http_resp.get("tokens") != batch_resp["tokens"]):
+        fail(f"13d: a beam_width request through serve_requests "
+             f"({batch_resp['beams'] == alone[0].tolist()}) or _serve_http "
+             f"({http_resp.get('beams') == batch_resp['beams']}) differs "
+             f"from beam_batch")
+    out["beam"] = {
+        "batch": BEAM_BATCH, "width": BEAM_WIDTH, "new_tokens": BEAM_NEW,
+        "k3_launches": k3, "ms_per_step": 1e3 * dt / BEAM_NEW,
+        "tokens_per_s": BEAM_BATCH * BEAM_NEW / dt,
+        "host_scoring_share": stats["host_scoring_s"] / stats["seconds"],
+        "host_scoring_ms_per_step": 1e3 * stats["host_scoring_s"]
+        / stats["steps"], "width1_equals_greedy": True,
+        "equals_live_beam_search": live_equal,
+        "live_score_max_abs_diff": score_diff,
+        "serve_requests_and_http_equal": True}
+    print(f"[13d] beam search over the bf16 artifact on {card}: "
+          f"{json.dumps(out['beam'])}", flush=True)
+    del srv, dense
+    seconds["13d"] = time.perf_counter() - t_part
+    rows["K3"]["launches_phase13"] = {
+        "moe_generate": gen_moe["k3_launches"],
+        "int8_generate": gen_q["k3_launches"], "beam_batch": k3}
+    rows["K4"]["launches_phase13"] = {
+        "moe_paged": out["moe_serving"]["paged"]["k4_launches"],
+        "int8_programs": k4_prog, "int8_live": k4_live}
+    out["seconds"] = seconds
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_step_vs_plain(dev, cfg, tokens) -> dict:
+    """One MoE train step's loss and gradients through K5 against the plain
+    attention path, at 4c's tolerances: in bf16 at ``cfg``'s size the loss
+    (STEP_BF16_TOL); in fp32 at 2 layers and batch 2 the loss and every
+    gradient (STEP_F32_TOL). The bf16 gradients are reported beside the
+    tokens whose top-1 expert the two paths chose differently: the router
+    reads activations that K5 and the plain attention round differently in
+    bf16, so some routes flip and move those tokens' gradients to another
+    expert (a discrete change, not a rounding error); fp32 flips none."""
+    import dataclasses
+
+    from tempo_tpu_torch.nn.transformer import Transformer
+    from tempo_tpu_torch.train.step import lm_loss_fn
+
+    def loss_and_grads(config, batch):
+        model = Transformer(config, device=dev, seed=SEED)
+        routes = []
+        hooks = [blk.moe.register_forward_hook(
+            lambda mod, inp, out: routes.append(mod.router(
+                inp[0].reshape(-1, inp[0].shape[-1]).float()).argmax(-1)))
+            for blk in model.transformer["h"]]
+        loss, _ = lm_loss_fn(model)(model, batch, None)
+        loss.backward()
+        for h in hooks:
+            h.remove()
+        return (float(loss.detach()), {k: p.grad for k, p in
+                                       model.named_parameters()}, routes)
+
+    res = {}
+    for label, config, batch, tol in (
+            ("bf16", cfg, tokens, STEP_BF16_TOL),
+            ("f32_2layer_b2", dataclasses.replace(
+                cfg, compute_dtype="float32", n_layer=2), tokens[:2],
+             STEP_F32_TOL)):
+        loss_k, grads_k, routes_k = loss_and_grads(config, batch)
+        loss_p, grads_p, routes_p = loss_and_grads(
+            dataclasses.replace(config, attn_impl="xla"), batch)
+        r = res[label] = {
+            "loss_kernel": loss_k, "loss_plain": loss_p,
+            "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+            "max_grad_rel_l2": max(rel_l2(grads_k[k], grads_p[k])
+                                   for k in grads_p),
+            "route_flips_by_layer": [int((a != b).sum()) for a, b in
+                                     zip(routes_k, routes_p)],
+            "tokens_a_layer": int(batch[:, :-1].numel())}
+        gated = r["loss_rel"] <= tol["loss"] and (
+            label == "bf16" or r["max_grad_rel_l2"] <= tol["grad"])
+        if not gated:
+            fail(f"13a: an MoE step through K5 disagrees with the plain "
+                 f"path ({label}): {r} (tol {tol})")
+        del grads_k, grads_p
+    return res
+
+
+def gpt_run_config(out: Path, **extra) -> dict:
+    """train_gpt's config at GPT-2-small's widths for 13e: OPT_STEPS steps
+    at batch OPT_BATCH on a synthetic stream, one validation and one
+    checkpoint at the end."""
+    cfg = opt_config()
+    model = {"n_layer": cfg.n_layer, "n_head": cfg.n_head,
+             "n_embd": cfg.n_embd, "block_size": cfg.block_size,
+             "in_size": cfg.in_size, "compute_dtype": "bfloat16"}
+    model.update(extra.pop("model", {}))
+    return dict({
+        "output_dir": str(out), "seed": SEED,
+        "data": {"synthetic": {"vocab_size": cfg.in_size,
+                               "length": OPT_STREAM}, "batch_size": OPT_BATCH},
+        "model": model,
+        "optimizer": {"lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1},
+        "training": {"n_steps": OPT_STEPS, "save_every": OPT_STEPS,
+                     "val_every": OPT_STEPS, "log_every": 1,
+                     "plot_every": 10 ** 6},
+        "generation": {"n_tokens": 8}}, **extra)
+
+
+def options_training_path(dev, rows: dict, root: Path) -> dict:
+    """13a MoE training, 13e LoRA, dropout and bf16 moments through
+    train_gpt.run (module docstring)."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.cli import train_gpt
+    from tempo_tpu_torch.nn.lora import lora_delta
+    from tempo_tpu_torch.nn.transformer import (Transformer, estimate_mfu,
+                                                make_gpt_optimizer,
+                                                num_params)
+    from tempo_tpu_torch.train.state import create_train_state
+    from tempo_tpu_torch.train.step import lm_loss_fn, make_train_step
+    from tempo_tpu_torch.train.trainer import Trainer, to_device
+
+    card = smi_line()
+    seconds, t_part = {}, time.perf_counter()
+    out: dict = {"card": card}
+
+    # ---------------------------------------------------- 13a MoE training
+    cfg = opt_config(attn_impl="auto", **MOE_MODEL)
+    model = Transformer(cfg, device=dev, seed=SEED)
+    tx = make_gpt_optimizer(model, weight_decay=0.1, learning_rate=3e-4,
+                            betas=(0.9, 0.95))
+    state = create_train_state(model, tx, SEED)
+    step = make_train_step(lm_loss_fn(model), tx)
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.in_size, (TRAIN_BATCH, cfg.block_size + 1))).to(dev)
+    losses, aux = [], []
+    for _ in range(MOE_WARM):
+        state, m = step(state, tokens)
+        losses.append(m["loss"])
+        aux.append(m["moe_aux"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed_steps():
+        nonlocal state
+        t0 = time.perf_counter()
+        for _ in range(MOE_STEPS):
+            state, m = step(state, tokens)
+            losses.append(m["loss"])
+            aux.append(m["moe_aux"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / MOE_STEPS
+
+    dt, k5 = count_flash(timed_steps)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = cfg.n_layer * MOE_STEPS
+    if any(n != want for n in k5.values()):
+        fail(f"13a: K5 launches in the {MOE_STEPS} timed MoE steps {k5}, "
+             f"want {want} each")
+    losses = torch.stack(losses).tolist()
+    aux = torch.stack(aux).tolist()
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"13a: the MoE loss is not finite or not falling: {losses}")
+    n_params = num_params(model)
+    expert = sum(p.numel() for k, p in model.named_parameters()
+                 if ".moe." in k and ".router." not in k)
+    e = cfg.n_experts
+    active = n_params - expert * (e - 1) // e
+    tok_s = TRAIN_BATCH * cfg.block_size / dt
+    del model, tx, state, step
+    torch.cuda.empty_cache()
+    vs_plain = moe_step_vs_plain(dev, cfg, tokens)
+    top2 = moe_step_vs_plain(dev, dataclasses.replace(
+        cfg, expert_top_k=2, n_layer=MOE_TOP2_LAYERS), tokens)
+    out["moe_train"] = {
+        "experts": e, "top_k": cfg.expert_top_k,
+        "capacity_factor": cfg.expert_capacity_factor, "batch": TRAIN_BATCH,
+        "step_ms": 1e3 * dt, "tokens_per_s": tok_s,
+        "n_params": n_params, "n_params_active": active,
+        "mfu": estimate_mfu(cfg, n_params, TRAIN_BATCH, dt,
+                            PEAK_FLOPS["bfloat16"]),
+        "mfu_active": estimate_mfu(cfg, active, TRAIN_BATCH, dt,
+                                   PEAK_FLOPS["bfloat16"]),
+        "peak_device_gb": peak_gb, "k5_launches": k5,
+        "moe_aux_mean": sum(aux) / len(aux), "losses": losses,
+        "step_vs_plain": vs_plain,
+        f"top2_{MOE_TOP2_LAYERS}layer_step_vs_plain": top2}
+    print(f"[13a] MoE GPT-2-small training on {card}: "
+          f"{json.dumps(out['moe_train'])}", flush=True)
+    seconds["13a"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 13e LoRA through train_gpt
+    base = Transformer(opt_config(), device=dev, seed=SEED)
+    base_path = root / "base.pt"
+    torch.save({"model": {k: v.cpu() for k, v in base.state_dict().items()}},
+               base_path)
+    digest = hashlib.sha256(base_path.read_bytes()).hexdigest()
+    lcfg = gpt_run_config(root / "lora", finetune={
+        "lora_rank": OPT_LORA_RANK, "lora_scale": 1.0,
+        "base_checkpoint": str(base_path)})
+    (trainer, stats), k5 = count_flash(lambda: train_gpt.run(lcfg,
+                                                             device=dev))
+    want = base.config.n_layer * OPT_STEPS
+    if k5["K5dkv"] != want or k5["K5dq"] != want or k5["K5f"] < want:
+        fail(f"13e: K5 launches in the LoRA run {k5}, want {want} backward "
+             f"each and at least {want} forward")
+    if hashlib.sha256(base_path.read_bytes()).hexdigest() != digest:
+        fail("13e: the LoRA base checkpoint changed")
+    ckpts = root / "lora" / "checkpoints"
+    adapters = torch.load(ckpts / f"ckpt_step={OPT_STEPS:06d}.pt",
+                          weights_only=True)["model"]
+    merged = torch.load(ckpts / "merged_final.pt", weights_only=True)["model"]
+    if not adapters or not all(k.startswith("adapters.") for k in adapters):
+        fail("13e: the LoRA checkpoint holds more than the adapters")
+    moved = sum(int(torch.count_nonzero(v) > 0) for k, v in adapters.items()
+                if k.endswith(".b"))
+    exact = True
+    for name, w in base.state_dict().items():
+        key = "adapters." + name.replace(".", "/")
+        if key + ".a" in adapters:
+            w = w + lora_delta(name, adapters[key + ".a"].to(dev),
+                               adapters[key + ".b"].to(dev), 1.0)
+        exact &= bool(torch.equal(merged[name].to(dev), w))
+    if not exact or moved == 0:
+        fail(f"13e: merged_final is not the base plus s a @ b, or no "
+             f"adapter moved ({moved})")
+    n_adapter = sum(v.numel() for v in adapters.values())
+    out["lora"] = {"rank": OPT_LORA_RANK, "steps": OPT_STEPS,
+                   "adapter_params": n_adapter, "k5_launches": k5,
+                   "base_unchanged": True, "adapters_moved": moved,
+                   "merged_equals_base_plus_delta": True,
+                   "samples_per_sec": stats["samples_per_sec"]}
+    print(f"[13e] LoRA fine-tune through train_gpt.run on {card}: "
+          f"{json.dumps(out['lora'])}", flush=True)
+    del trainer, adapters, merged, base
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ 13e dropout through train_gpt
+    dcfg = gpt_run_config(root / "dropout",
+                          model={"dropout": OPT_DROPOUT})
+    (trainer, stats), k5d = count_flash(lambda: train_gpt.run(dcfg,
+                                                              device=dev))
+    if any(k5d.values()):
+        fail(f"13e: the dropout run launched K5 {k5d}: live attention "
+             f"dropout takes the materialized path")
+    history = json.loads((root / "dropout" / "metrics.json").read_text())
+    d_losses = [m["loss"] for m in history["train"]]
+    if not all(math.isfinite(x) for x in d_losses):
+        fail(f"13e: the dropout run's loss is not finite: {d_losses}")
+    trained = trainer.state.model
+    plain = Transformer(dataclasses.replace(trained.config, dropout=0.0),
+                        device="meta")
+    plain.load_state_dict(trained.state_dict(), assign=True)
+    with torch.no_grad():
+        eval_equal = bool(torch.equal(trained(tokens[:2, :-1]),
+                                      plain(tokens[:2, :-1])))
+    if not eval_equal:
+        fail("13e: the dropout model in eval differs from the dropout-0 "
+             "model on the same weights")
+    out["dropout"] = {"rate": OPT_DROPOUT, "steps": OPT_STEPS,
+                      "k5_launches": k5d, "losses": d_losses,
+                      "eval_equals_dropout0": True,
+                      "samples_per_sec": stats["samples_per_sec"]}
+    print(f"[13e] dropout through train_gpt.run on {card}: "
+          f"{json.dumps(out['dropout'])}", flush=True)
+    del trainer, trained, plain
+    torch.cuda.empty_cache()
+
+    # ----------------------------------- 13e bf16 moments through train_gpt
+    mcfg = gpt_run_config(root / "mu", optimizer={
+        "lr": 3e-4, "betas": [0.9, 0.95], "weight_decay": 0.1,
+        "moments_dtype": "bfloat16"})
+    trainer, stats = train_gpt.run(mcfg, device=dev)
+    opt_states = list(trainer.state.optimizer.state.values())
+    n = sum(p.numel() for p in trainer.state.model.parameters())
+    if {s["exp_avg"].dtype for s in opt_states} != {torch.bfloat16}:
+        fail("13e: moments_dtype bfloat16 did not store exp_avg in bf16")
+    state_bytes = sum(s["exp_avg"].nbytes + s["exp_avg_sq"].nbytes
+                      for s in opt_states)
+    saved = 8 * n - state_bytes
+    if saved != 2 * n:
+        fail(f"13e: the optimizer state is {state_bytes} bytes for {n} "
+             f"parameters: {saved} fewer than fp32 moments, want {2 * n}")
+    ckpt = root / "mu" / "checkpoints" / f"ckpt_step={OPT_STEPS:06d}.pt"
+    model2 = Transformer(trainer.state.model.config, device=dev,
+                         seed=SEED + 99)
+    tx2 = make_gpt_optimizer(model2, 0.1, 3e-4, (0.9, 0.95),
+                             moments_dtype="bfloat16")
+    trainer2 = Trainer(lm_loss_fn(model2), tx2,
+                       create_train_state(model2, tx2, SEED), root / "mu2",
+                       device=dev, verbose=False)
+    trainer2.load_checkpoint(ckpt)
+    batch = to_device(tokens.cpu().numpy(), dev)
+    live, _ = trainer.train_step(trainer.state, batch)
+    again, _ = trainer2.train_step(trainer2.state, batch)
+    same = all(torch.equal(a, b) for a, b in zip(
+        live.model.parameters(), again.model.parameters()))
+    same &= all(torch.equal(a["exp_avg"], b["exp_avg"]) for a, b in zip(
+        live.optimizer.state.values(), again.optimizer.state.values()))
+    if not same:
+        fail("13e: a step from the reloaded bf16-moment checkpoint differs "
+             "from the live state's")
+    out["moments_bf16"] = {"steps": OPT_STEPS, "n_params": n,
+                           "optimizer_state_bytes": state_bytes,
+                           "bytes_saved_vs_fp32_moments": saved,
+                           "resume_bitwise": True,
+                           "samples_per_sec": stats["samples_per_sec"]}
+    print(f"[13e] bf16 first moments through train_gpt.run on {card}: "
+          f"{json.dumps(out['moments_bf16'])}", flush=True)
+    del trainer, trainer2, live, again, model2
+    torch.cuda.empty_cache()
+    seconds["13e"] = time.perf_counter() - t_part
+    for name in ("K5f", "K5dkv", "K5dq"):
+        rows[name]["launches_phase13"] = {
+            "moe_timed_steps": out["moe_train"]["k5_launches"][name],
+            "lora_run": out["lora"]["k5_launches"][name],
+            "dropout_run": out["dropout"]["k5_launches"][name]}
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6417,6 +7102,11 @@ def main() -> int:
     t_phase = time.perf_counter()
     programs = programs_path(dev, rows, exports, children[0])
     seconds["programs"] = time.perf_counter() - t_phase
+
+    # --------------- 13b-d. MoE serving, int8 and beam search (phase 13)
+    t_phase = time.perf_counter()
+    options_serving = options_serving_path(dev, rows, lm, exports)
+    seconds["model_options_serving"] = time.perf_counter() - t_phase
     HELD.clear()
     exports.stop()
     lm_root.cleanup()
@@ -6482,6 +7172,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         options = options_path(dev, Path(tmp))
     seconds["options"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+
+    # ------- 13a, 13e. MoE training, LoRA, dropout, bf16 moments (phase 13)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        options_training = options_training_path(dev, rows, Path(tmp))
+    seconds["model_options_training"] = time.perf_counter() - t_phase
     print(f"[time] phases, s: {json.dumps(seconds)}", flush=True)
 
     for r in rows.values():
@@ -6496,6 +7193,8 @@ def main() -> int:
         "vae_train": vae_train, "vae_l2": vae_l2, "analysis": analysis,
         "export": export, "prep": prep, "spec": spec, "programs": programs,
         "diffusion": diffusion, "options": options,
+        "model_options": {"serving": options_serving,
+                          "training": options_training},
         "granule_numpy_normalize_s": t_numpy_normalize,
         "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,15 @@ and the card), weights.pt and meta.json. It then checks that greedy
 decoding through the loaded programs equals ``generate`` of the live
 model, on ``device`` (None: CUDA), and writes export_info.yaml.
 
-Not ported (NotImplementedError): ``quantize: int8`` (weight-only int8,
-nn/quant.py, M11) and pipeline-parallel stage stacks.
+``quantize: int8`` exports the weight-only int8 model (nn/quant.py
+``quantize_lm_params``: int8 block matmuls and token table with fp32
+scales; weights.pt and the programs' weight input carry the int8 tensors
+and their scales, and meta.json says ``quantize: int8``); the round-trip
+check then holds the programs to the live int8 model. An MoE run is
+refused (NotImplementedError from export_lm: the expert capacity needs the
+batch, which the programs keep symbolic; the JAX package's export fails
+there too). Not ported (NotImplementedError): pipeline-parallel stage
+stacks.
 
 Config:
   run_dir: <train_gpt output dir>
@@ -31,6 +38,7 @@ Config:
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 from typing import Union
@@ -78,10 +86,7 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
         raise ValueError(f"FATAL: no config.yaml in run dir: {run_dir}")
     train_config = load_config(str(train_cfg_path))
     quantize = str(config.get("quantize", "none")).lower()
-    if quantize == "int8":
-        raise NotImplementedError("quantize: int8 (nn/quant.py) is not "
-                                  "ported yet (ROADMAP M11)")
-    if quantize != "none":
+    if quantize not in ("none", "int8"):
         raise ValueError(f"FATAL: unknown quantize mode {quantize!r} "
                          "(none | int8)")
     if int(train_config.get("parallel", {}).get("pipeline", 1)) > 1:
@@ -102,6 +107,12 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
     model_cfg["in_size"] = _resolve_vocab(train_config, run_dir)
     tconfig = build_transformer_config(model_cfg)
     state = load_params(ckpt, Transformer(tconfig, device="cpu")).state_dict()
+    if quantize == "int8":
+        from tempo_tpu_torch.nn.quant import quantize_lm_params
+
+        print("Quantizing weights to int8 (weight-only, per-channel)")
+        tconfig = dataclasses.replace(tconfig, quantize="int8")
+        state = quantize_lm_params(state)
     max_seq = config.get("max_seq")
     out = export_lm(state, tconfig, output_dir / "lm",
                     max_seq=int(max_seq) if max_seq else None,

@@ -51,7 +51,11 @@ serving functions run where PyYAML is absent, as on the card's machine:
 there ``build_server`` and ``_serve_batch`` / ``_serve_http`` are driven
 with a dict config (chip_smoke.py). Only ``main`` reads YAML.
 
-Not ported yet (NotImplementedError): ``beam_width`` requests (M11).
+``beam_width`` requests (with ``eos`` and ``length_penalty``) decode by
+beam search on the bucketed scheduler, in batch mode and through POST
+/generate; their responses add ``beams`` and ``scores`` (infer/serving.py
+``LMServer.serve_requests``). As in the JAX CLI, the slot schedulers take
+no beams.
 
 Config:
   output_dir: <logs/completions dir>

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Train a dense GPT on a token stream, on one GPU; counterpart of
-tempo_tpu/cli/train_gpt.py's single-device dense path.
+"""Train a GPT (dense or mixture-of-experts) on a token stream, or LoRA
+fine-tune one, on one GPU; counterpart of tempo_tpu/cli/train_gpt.py's
+single-device path.
 
     python -m tempo_tpu_torch.cli.train_gpt config.yaml [--overwrite] [--debug]
 
@@ -10,7 +11,20 @@ summary plots, training_info.yaml, and generation_final.npy (a greedy
 continuation of the stream's first 8 tokens). The step is forward (the
 attention through K5, ops/flash_attention.py), backward and AdamW with the
 GPT two-group weight decay and no clipping (nn/transformer.py
-make_gpt_optimizer). Weights come from the config's seed through the
+make_gpt_optimizer; ``optimizer.moments_dtype: bfloat16`` keeps the first
+moment in bf16). ``model.n_experts`` > 0 trains the MoE FFN (nn/moe.py,
+``expert_top_k``, ``expert_capacity_factor``) with
+``training.moe_aux_weight`` (default 0.01) times the Switch loss added
+and logged as ``moe_aux``; ``model.dropout`` > 0 trains with dropout (the
+attention materialized, as JAX's: no K5). ``finetune.lora_rank`` > 0
+freezes a base checkpoint (``finetune.base_checkpoint``, or the latest of
+``finetune.base_run``'s; the port's .pt or the JAX package's .msgpack) and
+trains rank-r adapters (nn/lora.py; ``finetune.lora_scale``, default 1):
+the checkpoints hold the adapters, and the run ends by writing
+checkpoints/merged_final.pt (the base plus scale * a @ b, a plain
+checkpoint that export_lm and load_params read; JAX writes
+merged_final.msgpack) and generating from the merged weights.
+Weights come from the config's seed through the
 port's own initializer, so a run does not reproduce the JAX package's
 weights; tests bridge weights where they compare the two.
 ``training.checkpoint_format: async`` writes the same checkpoints on a
@@ -23,9 +37,8 @@ and writes config.yaml and training_info.yaml as JSON, which YAML readers
 read.
 
 Not ported (NotImplementedError from validate_config): ``parallel.*``
-(pipeline, tensor, expert, context, fsdp), ``model.n_experts`` (MoE),
-``finetune.lora_rank`` (LoRA) and ``training.checkpoint_format: sharded``
-(M13); dropout and ``optimizer.moments_dtype`` raise where they are used.
+(pipeline, tensor, expert, context, fsdp) and
+``training.checkpoint_format: sharded`` (M13).
 """
 
 from __future__ import annotations
@@ -42,7 +55,9 @@ from tempo_tpu_torch.data.tokens import TokenLoader, make_token_stream
 from tempo_tpu_torch.nn.transformer import (Transformer, TransformerConfig,
                                            generate, make_gpt_optimizer,
                                            num_params)
+from tempo_tpu_torch.nn.lora import LoRA, init_lora, num_lora_params
 from tempo_tpu_torch.train.checkpoint import (check_format,
+                                              latest_checkpoint, load_params,
                                               resolve_resume_from,
                                               wants_auto_resume)
 from tempo_tpu_torch.train.schedules import lr_schedule
@@ -82,10 +97,12 @@ def validate_config(config) -> None:
             raise NotImplementedError(
                 f"parallel.{key}={value!r} is not ported: the port trains on "
                 f"one device")
-    if int(config["model"].get("n_experts", 0)) > 0:
-        raise NotImplementedError("model.n_experts > 0 (MoE) is not ported")
-    if int(dict(config.get("finetune", {})).get("lora_rank", 0)) > 0:
-        raise NotImplementedError("finetune.lora_rank (LoRA) is not ported")
+    ft = dict(config.get("finetune", {}))
+    if int(ft.get("lora_rank", 0)) > 0 and ("base_checkpoint" not in ft
+                                            and "base_run" not in ft):
+        raise ValueError("FATAL: finetune.lora_rank needs "
+                         "finetune.base_checkpoint (ckpt path) or "
+                         "finetune.base_run (train_gpt output dir)")
     check_format(config["training"].get("checkpoint_format", "msgpack"))
 
 
@@ -135,6 +152,10 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
     model = Transformer(tconfig, device=device, seed=seed)
     n_params = num_params(model)
     print(f"Parameters: {n_params:,} (non-embedding)")
+    trained = model
+    lora_rank = int(dict(config.get("finetune", {})).get("lora_rank", 0))
+    if lora_rank > 0:
+        trained = _lora_model(config["finetune"], model, seed)
 
     batch_size = int(data_cfg.get("batch_size", 16))
     train_loader = TokenLoader(stream, batch_size, tconfig.block_size,
@@ -145,14 +166,16 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
     opt_cfg = dict(config.get("optimizer", {}))
     train_cfg = config["training"]
     tx = make_gpt_optimizer(
-        model, weight_decay=float(opt_cfg.get("weight_decay", 0.1)),
+        trained, weight_decay=float(opt_cfg.get("weight_decay", 0.1)),
         learning_rate=lr_schedule(opt_cfg, int(train_cfg.get("n_steps",
                                                              10_000))),
         betas=tuple(opt_cfg.get("betas", (0.9, 0.95))),
         moments_dtype=opt_cfg.get("moments_dtype"))
-    state = create_train_state(model, tx, seed + 3)
+    state = create_train_state(trained, tx, seed + 3)
+    aux_weight = float(train_cfg.get("moe_aux_weight", 0.01))
     trainer = Trainer(
-        loss_fn=lm_loss_fn(model), tx=tx, state=state, output_dir=output_dir,
+        loss_fn=lm_loss_fn(model, aux_weight), tx=tx, state=state,
+        output_dir=output_dir,
         save_every=train_cfg.get("save_every", 1000),
         val_every=train_cfg.get("val_every", 100),
         log_every=train_cfg.get("log_every", 10),
@@ -183,6 +206,17 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
         "samples_per_sec": float(stats["samples_per_sec"]),
     }, output_dir / "training_info.yaml")
 
+    if trained is not model:
+        # a plain checkpoint of the merged weights, for export and serving
+        merged = trained.merged_state_dict()
+        model = Transformer(tconfig, device="meta")
+        model.load_state_dict(merged, assign=True)
+        merged_path = output_dir / "checkpoints" / "merged_final.pt"
+        torch.save({"step": int(trainer.state.step),
+                    "model": {k: v.cpu() for k, v in merged.items()}},
+                   merged_path)
+        print(f"Merged LoRA checkpoint: {merged_path}")
+
     # end-of-run greedy continuation of the stream's first tokens
     n_tokens = int(dict(config.get("generation", {})).get(
         "n_tokens", 16 if debug else 64))
@@ -204,6 +238,23 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
     return trainer, stats
 
 
+def _lora_model(ft_cfg: dict, model: Transformer, seed: int) -> LoRA:
+    """The base checkpoint loaded into ``model`` (frozen) and rank-r
+    adapters over it, drawn from seed + 7 (JAX's key)."""
+    base_ckpt = ft_cfg.get("base_checkpoint")
+    if base_ckpt is None:
+        base_ckpt = latest_checkpoint(Path(ft_cfg["base_run"]) / "checkpoints")
+        if base_ckpt is None:
+            raise ValueError(f"FATAL: no checkpoints in {ft_cfg['base_run']}")
+    print(f"LoRA base: {base_ckpt}")
+    load_params(base_ckpt, model)
+    scale = float(ft_cfg.get("lora_scale", 1.0))
+    adapters = init_lora(model, int(ft_cfg["lora_rank"]), seed + 7)
+    print(f"LoRA fine-tune: rank {ft_cfg['lora_rank']}, scale {scale}, "
+          f"{num_lora_params(adapters):,} trainable adapter params")
+    return LoRA(model, adapters, scale)
+
+
 def main(config_path: str, overwrite: bool = False, debug: bool = False,
          device: Union[str, torch.device, None] = None) -> None:
     """Train as the YAML config at ``config_path`` says."""
@@ -211,4 +262,4 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
 
 
 if __name__ == "__main__":
-    run_cli(main, "Train a dense GPT on a token stream (one GPU)")
+    run_cli(main, "Train a GPT on a token stream (one GPU)")

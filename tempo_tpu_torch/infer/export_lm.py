@@ -34,6 +34,14 @@ hand-written ones, so one artifact serves both devices, whichever device
 exported it (``"devices"``); a program is moved to its device at load
 (``move_to_device_pass``), as infer/export_codec.py does.
 
+A ``quantize='int8'`` model (nn/quant.py) exports as it is: its int8
+kernels are in the weights' tuple and ``weights.pt``, its scales in the
+compute type, and each program dequantizes at the read, as the live model
+does; ``meta.json`` says ``quantize`` and ``n_experts``. An MoE model is
+refused (NotImplementedError): its expert capacity needs the call's token
+count, which the programs keep symbolic, and the JAX package's export
+fails there too.
+
 The fused family (``decode_k``, ``decode_k_rows``, ``decode_k_sample``,
 ``decode_paged_k``, ``decode_paged_k_sample``) is exported as ONE step of
 its body (the model step, the argmax or the on-device draw, the chosen
@@ -480,7 +488,7 @@ def _live_surface(model, max_seq: Optional[int], decode_chunk: int,
                   page_size: int, device: Device,
                   captured: bool = True) -> _Surface:
     dev = resolve_device(device)
-    wdev = model.transformer["wte"].weight.device
+    wdev = model.device
     if wdev.type != dev.type or dev.index not in (None, wdev.index):
         raise ValueError(f"the model is on {wdev}, the surface on {dev}")
     cfg = model.config
@@ -618,7 +626,7 @@ def trace_program(name: str, model: nn.Module, meta: Dict[str, Any]):
     the weights (in ``model.named_parameters()`` order; empty for the
     copies), holding no tensor of its own."""
     named = () if name in _COPIES else tuple(model.named_parameters())
-    dev = model.transformer["wte"].weight.device
+    dev = model.device
     inputs, dims = _examples(name, meta, dev)
     traced = _Traced(model, _bodies(meta)[name], tuple(n for n, _ in named))
     with torch.no_grad():
@@ -644,6 +652,11 @@ def export_lm(state_dict: Dict[str, torch.Tensor], config,
     Returns the directory."""
     from tempo_tpu_torch.nn.transformer import serving_copy
 
+    if config.n_experts > 0:
+        raise NotImplementedError(
+            "an MoE model's expert capacity ceil(k * n / E * cf) depends on "
+            "the call's token count n, which the programs keep symbolic: "
+            "the JAX package's export cannot trace it either")
     out_dir = Path(out_dir)
     max_seq = config.block_size if max_seq is None else int(max_seq)
     assert 0 < max_seq <= config.block_size, (max_seq, config.block_size)

@@ -23,7 +23,12 @@ stream order, before the next step replays). Each server or engine owns
 its caches for its lifetime (the graphs write them in place) and copies
 prefilled rows into them.
 
-Not ported yet: beam search (``LMServer.beam_batch``, M11).
+Beam search (``LMServer.beam_batch``, and ``beam_width`` requests of the
+bucketed ``serve_requests``) runs the unmodified prefill and decode_step
+programs on the flattened [b*k] beam batch and scores candidates on the
+host, as JAX's does; the server's beam cache is one tensor whose views are
+the layers' caches, so the expand and each step's reorder are one device
+gather each.
 """
 
 from __future__ import annotations
@@ -479,6 +484,26 @@ class _TicketEngine:
                         break
 
 
+def top_k_rows_host(cand: np.ndarray, k: int):
+    """(values, indices) [rows, k] of each row's k largest entries, best
+    first, the lowest index first among equal values: what a stable
+    argsort of -cand gives (``lax.top_k``'s order), without sorting whole
+    rows. A partition finds each row's k-th largest value; only the entries
+    above it and the lowest-indexed ones equal to it are ordered."""
+    n = cand.shape[-1]
+    if k >= n:
+        idx = np.argsort(-cand, axis=-1, kind="stable")[:, :k]
+        return np.take_along_axis(cand, idx, axis=-1), idx
+    kth = np.partition(cand, n - k, axis=-1)[:, n - k]
+    idx = np.empty((cand.shape[0], k), np.int64)
+    for r, row in enumerate(cand):
+        above = np.flatnonzero(row > kth[r])
+        tied = np.flatnonzero(row == kth[r])[:k - above.size]
+        sel = np.concatenate([above, tied])
+        idx[r] = sel[np.lexsort((sel, -row[sel]))]
+    return np.take_along_axis(cand, idx, axis=-1), idx
+
+
 class LMServer:
     """Loads the exported artifacts once (``device`` None: CUDA) and serves
     batched generate calls. The server keeps one cache per batch size: a
@@ -512,6 +537,9 @@ class LMServer:
         # prefix cache: tuple(prefix tokens) -> batch-1 KV cache
         self._prefix_caches: Dict[tuple, Any] = {}
         self._caches: Dict[int, Any] = {}  # batch -> the server's cache
+        # b*k -> the beam cache: one [2L, b*k, S, kv, hd] tensor
+        self._beam_bufs: Dict[int, torch.Tensor] = {}
+        self.beam_stats: Dict[str, float] = {}  # the last beam_batch's
 
     def _cache(self, b: int, src):
         """The server's cache for batch ``b``, with ``src`` (a cache of
@@ -629,32 +657,138 @@ class LMServer:
             pos += 1
         return np.concatenate(out, axis=1).astype(np.int32)
 
+    def _beam_expand(self, cache, k: int):
+        """The server's beam cache for ``cache``'s b rows (kept for its
+        lifetime: the captured decode calls write it in place), each row
+        repeated k times in place, filled by one gather; returns (the
+        tensor, the layers' (k, v) views of it)."""
+        src = torch.stack([t for layer in cache for t in layer])
+        b = src.shape[1]
+        buf = self._beam_bufs.get(b * k)
+        if buf is None:
+            buf = self._beam_bufs[b * k] = torch.empty(
+                (src.shape[0], b * k) + tuple(src.shape[2:]),
+                dtype=src.dtype, device=src.device)
+        rows = torch.arange(b, device=src.device).repeat_interleave(k)
+        torch.index_select(src, 1, rows, out=buf)
+        return buf, tuple((buf[2 * i], buf[2 * i + 1])
+                          for i in range(len(cache)))
+
+    def _beam_reorder(self, buf: torch.Tensor, flat_parent: np.ndarray):
+        """Every layer's cache rows gathered by ``flat_parent``: one
+        gather (and its copy back into the captured calls' tensor)."""
+        idx = torch.as_tensor(flat_parent).to(self.device)
+        buf.copy_(buf.index_select(1, idx))
+
     def beam_batch(self, prompts: np.ndarray, max_new_tokens: int,
                    beam_width: int, eos_id: Optional[int] = None,
                    length_penalty: float = 0.0):
-        """Beam decode over the artifacts: not ported yet (M11)."""
-        raise NotImplementedError(
-            "beam search (LMServer.beam_batch) is not ported yet (ROADMAP "
-            "M11)")
+        """Deterministic beam decode over the exported artifacts; the
+        serving twin of nn/beam.py ``beam_search`` (the same scoring,
+        frozen-eos and GNMT length-penalty semantics). The device runs the
+        prefill and decode_step programs on the [b*k] beam batch, the host
+        scores candidates (fp32 log-softmax, ``top_k_rows_host``: the
+        lowest flat index first among ties, as JAX's stable argsort), and
+        each step's beam reorder is one cache gather. Returns (continuations [b, k, max_new_tokens] best
+        first, scores [b, k]); the prompt is not repeated, as in
+        generate_batch. ``beam_stats`` holds the call's seconds and those
+        of the host's scoring."""
+        t_start = time.perf_counter()
+        prompts = np.asarray(prompts, np.int64)
+        assert prompts.ndim == 2, prompts.shape
+        b, t = prompts.shape
+        k = int(beam_width)
+        if not 1 <= k <= self.vocab:
+            raise ValueError(f"beam_width {k} outside [1, {self.vocab}]")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if t + max_new_tokens > self.window:
+            raise ValueError(
+                f"prompt {t} + {max_new_tokens} new tokens exceeds the "
+                f"exported serving window {self.window}")
+        if prompts.min() < 0 or prompts.max() >= self.vocab:
+            raise ValueError(f"token ids outside [0, {self.vocab})")
+        host = 0.0
+
+        def log_softmax(logits):
+            x = logits[:, -1].float().cpu().numpy()
+            x = x - x.max(axis=-1, keepdims=True)
+            return x - np.log(np.exp(x).sum(axis=-1, keepdims=True))
+
+        def top_k_rows(cand):
+            return top_k_rows_host(cand, k)
+
+        logits, row = self._prefill(prompts)
+        scores, tok = top_k_rows(log_softmax(logits))
+        buf, cache = self._beam_expand(row, k)
+        del row, logits
+        toks = np.zeros((b, k, max_new_tokens), np.int64)
+        toks[:, :, 0] = tok
+        finished = ((tok == eos_id) if eos_id is not None
+                    else np.zeros((b, k), bool))
+        lengths = np.ones((b, k), np.int64)
+        if eos_id is not None:
+            frozen = np.full((self.vocab,), -np.inf, np.float32)
+            frozen[eos_id] = 0.0
+        rows = np.arange(b)[:, None] * k
+        for i in range(1, max_new_tokens):
+            logits, cache = self.decode_step(tok.reshape(b * k, 1), cache,
+                                             t + i - 1)
+            t0 = time.perf_counter()
+            logp = log_softmax(logits).reshape(b, k, self.vocab)
+            if eos_id is not None:
+                logp = np.where(finished[:, :, None], frozen, logp)
+            cand = (scores[:, :, None] + logp).reshape(b, k * self.vocab)
+            scores, flat = top_k_rows(cand)
+            parent = flat // self.vocab
+            tok = flat % self.vocab
+            toks = np.take_along_axis(toks, parent[:, :, None], axis=1)
+            finished = np.take_along_axis(finished, parent, axis=1)
+            lengths = np.take_along_axis(lengths, parent, axis=1)
+            host += time.perf_counter() - t0
+            self._beam_reorder(buf, (rows + parent).reshape(b * k))
+            toks[:, :, i] = tok
+            lengths = lengths + (~finished)
+            if eos_id is not None:
+                finished = finished | (tok == eos_id)
+
+        if length_penalty != 0.0:
+            scores = scores / ((5.0 + lengths.astype(np.float32)) / 6.0
+                               ) ** length_penalty
+            order = np.argsort(-scores, axis=-1, kind="stable")
+            scores = np.take_along_axis(scores, order, axis=1)
+            toks = np.take_along_axis(toks, order[:, :, None], axis=1)
+        if eos_id is not None:
+            past_eos = np.cumsum(toks == eos_id, axis=-1) > 1
+            toks = np.where(past_eos, eos_id, toks)
+        self.beam_stats = {"seconds": time.perf_counter() - t_start,
+                           "host_scoring_s": host,
+                           "steps": max_new_tokens - 1}
+        return toks.astype(np.int32), scores.astype(np.float32)
 
     def serve_requests(self, requests: Sequence[Dict[str, Any]],
                        default_new_tokens: int = 64) -> List[Dict[str, Any]]:
         """requests: dicts with 'tokens' and optional 'n_tokens',
-        'temperature', 'top_k', 'top_p', 'seed' and 'prefix' (shared
-        system-prompt tokens, KV-cached once per distinct prefix).
-        Buckets by (prompt length, sampling params, prefix) so each bucket
-        is one batched prefill and decode chain; responses keep request
-        order. 'beam_width' requests raise NotImplementedError (M11)."""
+        'temperature', 'top_k', 'top_p', 'seed', 'prefix' (shared
+        system-prompt tokens, KV-cached once per distinct prefix) and
+        'beam_width' (+ 'eos', 'length_penalty'): beam requests decode
+        through beam_batch, and their responses carry all k hypotheses
+        under 'beams' and 'scores', the best one as 'tokens'. Buckets by
+        (prompt length, sampling params, prefix, beam) so each bucket is
+        one batched prefill and decode chain; responses keep request
+        order."""
         buckets: Dict[tuple, List[int]] = {}
         for i, req in enumerate(requests):
             if "tokens" not in req:
                 raise ValueError(f"request {i}: missing 'tokens'")
-            if req.get("beam_width"):
-                self.beam_batch(np.zeros((1, 1), np.int64), 1,
-                                int(req["beam_width"]))
+            if req.get("beam_width") and req.get("prefix"):
+                raise ValueError(f"request {i}: beam_width does not compose "
+                                 f"with prefix caching yet")
             # per-request early stops and logprobs need per-slot
-            # bookkeeping: the slot schedulers' job
-            for key in ("stop", "logprobs", "eos"):
+            # bookkeeping: the slot schedulers' job ('eos' is honored
+            # inside beam requests only)
+            for key in (("stop", "logprobs") if req.get("beam_width")
+                        else ("stop", "logprobs", "eos")):
                 # presence, not truthiness, for eos: token id 0 is a
                 # real vocab id
                 if req.get(key) or (key == "eos"
@@ -663,23 +797,36 @@ class LMServer:
                         f"request {i}: {key!r} is not supported by the "
                         "bucketed scheduler — use scheduler: continuous "
                         "(or paged)")
+            beam = None
+            if req.get("beam_width"):
+                beam = (int(req["beam_width"]), req.get("eos"),
+                        float(req.get("length_penalty", 0.0)))
             key = (len(req["tokens"]),
                    int(req.get("n_tokens", default_new_tokens)),
                    float(req.get("temperature", 0.0)),
                    req.get("top_k"), req.get("top_p"),
                    int(req.get("seed", 0)),
-                   tuple(req["prefix"]) if req.get("prefix") else None)
+                   tuple(req["prefix"]) if req.get("prefix") else None,
+                   beam)
             buckets.setdefault(key, []).append(i)
 
         responses: List[Optional[Dict[str, Any]]] = [None] * len(requests)
         for (t, n_tokens, temperature, top_k, top_p, seed,
-             prefix), idxs in buckets.items():
+             prefix, beam), idxs in buckets.items():
             prompts = np.asarray([requests[i]["tokens"] for i in idxs],
                                  np.int64).reshape(len(idxs), t)
             t0 = time.perf_counter()
-            toks = self.generate_batch(prompts, n_tokens,
-                                       temperature=temperature, top_k=top_k,
-                                       top_p=top_p, seed=seed, prefix=prefix)
+            beams = scores = None
+            if beam is not None:
+                k, eos, alpha = beam
+                beams, scores = self.beam_batch(prompts, n_tokens, k,
+                                                eos_id=eos,
+                                                length_penalty=alpha)
+                toks = beams[:, 0]  # the best hypothesis
+            else:
+                toks = self.generate_batch(
+                    prompts, n_tokens, temperature=temperature, top_k=top_k,
+                    top_p=top_p, seed=seed, prefix=prefix)
             per_req = (time.perf_counter() - t0) / len(idxs)
             for row, i in enumerate(idxs):
                 responses[i] = {
@@ -689,6 +836,9 @@ class LMServer:
                     "batch": len(idxs),
                     "seconds": round(per_req, 4),
                 }
+                if beams is not None:
+                    responses[i]["beams"] = beams[row].tolist()
+                    responses[i]["scores"] = scores[row].tolist()
         assert all(r is not None for r in responses)
         return responses  # type: ignore[return-value]
 

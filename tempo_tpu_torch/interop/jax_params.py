@@ -19,14 +19,15 @@ its own copy of the layout conversions, inverted:
 port's CUNet and CMLP carry; 2-D and 3-D kernels alike).
 ``l2_state_dict_from_jax`` does it for the L2-supervised VAE (the inverse
 of ``l2_params_from_torch_state_dict``), ``gpt_state_dict_from_jax`` does the same for the GPT (the inverse of
-tempo_tpu/interop/gpt_ckpt.py), ``probe_state_dict_from_jax`` for the
+tempo_tpu/interop/gpt_ckpt.py; MoE and int8 trees too), and
+``lora_state_dict_from_jax`` for its LoRA adapters, ``probe_state_dict_from_jax`` for the
 probes of tempo_tpu/analysis/probes.py. The tree comes as nested dicts of numpy arrays (``{"params": ...}`` or the
 bare tree).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -166,16 +167,32 @@ def gpt_state_dict_from_jax(params: Mapping[str, Any],
     The inverse of tempo_tpu/interop/gpt_ckpt.py
     ``params_from_torch_transformer`` (reference layout): dense kernels
     [in, out] become nn.Linear weights [out, in]; LayerNorm scale/bias
-    become weight/bias; ``wte``/``wpe`` tables keep their layout.
-    ``config`` is either package's TransformerConfig (only ``n_layer``,
-    ``pos_embed``, ``ln``, ``mlp`` and ``tie_emb`` are read)."""
+    become weight/bias; ``wte``/``wpe`` tables keep their layout. An MoE
+    block's ``moe`` subtree (``router/kernel``, ``w1``, ``w2``, ``b1``,
+    ``b2``) becomes ``moe.router.weight`` [E, d] and the stacked kernels
+    as they are ([E, in, out]). An int8 tree (nn/quant.py) maps
+    ``kernel_q`` [in, out] to ``kernel_q`` [out, in] beside its ``scale``,
+    ``wte_q``/``wte_scale`` to ``transformer.wte.kernel_q``/``scale`` and
+    the experts' ``w1_q``/``w1_scale``, ``w2_q``/``w2_scale`` as they are;
+    int8 leaves stay int8, every other leaf becomes fp32. ``config`` is
+    either package's TransformerConfig (only ``n_layer``, ``pos_embed``,
+    ``ln``, ``mlp`` and ``tie_emb`` are read)."""
     tree = params.get("params", params)
-    out: Dict[str, np.ndarray] = {"transformer.wte.weight": tree["wte"]}
+    out: Dict[str, np.ndarray] = {}
+    if "wte_q" in tree:
+        out["transformer.wte.kernel_q"] = tree["wte_q"]
+        out["transformer.wte.scale"] = tree["wte_scale"]
+    else:
+        out["transformer.wte.weight"] = tree["wte"]
     if config.pos_embed:
         out["transformer.wpe.weight"] = tree["wpe"]
 
     def linear(prefix: str, sub: Mapping) -> None:
-        out[f"{prefix}.weight"] = np.transpose(sub["kernel"], (1, 0))
+        if "kernel_q" in sub:
+            out[f"{prefix}.kernel_q"] = np.transpose(sub["kernel_q"], (1, 0))
+            out[f"{prefix}.scale"] = sub["scale"]
+        else:
+            out[f"{prefix}.weight"] = np.transpose(sub["kernel"], (1, 0))
         if "bias" in sub:
             out[f"{prefix}.bias"] = sub["bias"]
 
@@ -193,14 +210,67 @@ def gpt_state_dict_from_jax(params: Mapping[str, Any],
         if config.mlp:
             if config.ln:
                 norm(f"{ref}.ln_2", blk["ln_2"])
-            linear(f"{ref}.mlp.c_fc", blk["mlp"]["c_fc"])
-            linear(f"{ref}.mlp.c_proj", blk["mlp"]["c_proj"])
+            if "moe" in blk:
+                moe = blk["moe"]
+                linear(f"{ref}.moe.router", moe["router"])
+                for key, value in moe.items():
+                    if key != "router":
+                        out[f"{ref}.moe.{key}"] = value
+            else:
+                linear(f"{ref}.mlp.c_fc", blk["mlp"]["c_fc"])
+                linear(f"{ref}.mlp.c_proj", blk["mlp"]["c_proj"])
     if config.ln:
         norm("transformer.ln_f", tree["ln_f"])
     if not config.tie_emb:
-        out["lm_head.weight"] = np.transpose(tree["lm_head"]["kernel"], (1, 0))
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in out.items()}
+        linear("lm_head", tree["lm_head"])
+    return {k: _tensor_as_stored(v) for k, v in out.items()}
+
+
+def _tensor_as_stored(value) -> torch.Tensor:
+    """int8 leaves as int8 (the quantized kernels), the rest as fp32."""
+    arr = np.asarray(value)
+    if arr.dtype == np.int8:
+        return torch.from_numpy(np.array(arr))
+    return torch.from_numpy(np.array(arr, dtype=np.float32))
+
+
+def lora_state_dict_from_jax(lora: Mapping[str, Any],
+                             config: Any) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX adapter tree (tempo_tpu/nn/lora.py ``init_lora``: {'a', 'b'}
+    under each adapted leaf's path) -> the port's adapters (nn/lora.py):
+    {parameter name: {'a', 'b'}}, the factors as they are ([..., in, r]
+    and [..., r, out], JAX's orientation). The names are the ones
+    ``gpt_state_dict_from_jax`` gives the adapted leaves: a dense
+    ``kernel`` is the Linear's ``weight``, ``w1``/``w2`` keep theirs."""
+    tree = lora.get("params", lora)
+    flat: Dict[str, Any] = {}
+
+    def walk(node: Mapping, path: Tuple[str, ...]) -> None:
+        if "a" in node and "b" in node and not isinstance(node["a"],
+                                                          Mapping):
+            flat["/".join(path)] = node
+            return
+        for key, sub in node.items():
+            walk(sub, path + (key,))
+
+    walk(tree, ())
+    names = {}
+    for i in range(config.n_layer):
+        jref, ref = f"h_{i}", f"transformer.h.{i}"
+        for sub in ("attn/c_attn", "attn/c_proj", "mlp/c_fc", "mlp/c_proj",
+                    "moe/router"):
+            names[f"{jref}/{sub}/kernel"] = \
+                f"{ref}.{sub.replace('/', '.')}.weight"
+        for leaf in ("w1", "w2"):
+            names[f"{jref}/moe/{leaf}"] = f"{ref}.moe.{leaf}"
+    names["lm_head/kernel"] = "lm_head.weight"
+    out = {}
+    for path, factors in flat.items():
+        if path not in names:
+            raise KeyError(f"no port parameter for the adapted leaf {path}")
+        out[names[path]] = {k: torch.from_numpy(
+            np.array(factors[k], dtype=np.float32)) for k in ("a", "b")}
+    return out
 
 
 def probe_state_dict_from_jax(params: Sequence[Mapping[str, Any]]

@@ -30,12 +30,23 @@ for the programs of infer/export_lm.py, which must not cast. Names
 follow the reference toolkit's torch GPT (``transformer.h.{i}.attn.c_attn``
 ...), so tempo_tpu/interop/gpt_ckpt.py reads ``state_dict()`` as it is.
 
-Training: ``gpt_decay_mask`` / ``make_gpt_optimizer`` (AdamW, two
-parameter groups, no clipping) and ``estimate_mfu``.
+Options (the JAX package's): ``n_experts`` > 0 swaps each block's MLP for
+an MoE FFN (nn/moe.py; ``with_aux=True`` also returns the mean Switch
+loss over the blocks); ``quantize="int8"`` holds the block matmuls, the
+token table and the expert kernels int8 with fp32 scales (nn/quant.py:
+inference only, weights from ``quantize_lm_params``); ``dropout`` > 0 with
+``deterministic=False`` drops at JAX's five sites (the embeddings, the
+attention weights, the attention output after ``c_proj``, the MLP after
+``c_proj``, the MoE hidden) drawing from ``generator``: live attention
+dropout needs the weights, so that forward takes the materialized
+attention, never K5, as JAX does.
 
-Not ported yet (raise NotImplementedError): ``seq_axis``, ``n_experts >
-0``, ``quantize="int8"``, dropout in training, activation taps and
-capture, and the untokenized / embedder modes.
+Training: ``gpt_decay_mask`` / ``make_gpt_optimizer`` (AdamW, two
+parameter groups, no clipping; ``moments_dtype="bfloat16"`` stores the
+first moment in bf16, as optax's ``mu_dtype``) and ``estimate_mfu``.
+
+Not ported yet (raise NotImplementedError): ``seq_axis``, activation taps
+and capture, and the untokenized / embedder modes.
 """
 
 from __future__ import annotations
@@ -108,13 +119,13 @@ class TransformerConfig:
 def _check_supported(cfg: TransformerConfig) -> None:
     unsupported = [
         (cfg.seq_axis is not None, "seq_axis (context parallelism)"),
-        (cfg.n_experts > 0, "n_experts > 0 (MoE)"),
-        (cfg.quantize != "none", f"quantize={cfg.quantize!r}"),
         (not cfg.tokenized, "untokenized input"),
     ]
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.quantize not in ("none", "int8"):
+        raise ValueError(f"unknown quantize mode {cfg.quantize!r}")
     if cfg.attn_impl not in ("auto", "xla", "flash"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
 
@@ -157,9 +168,10 @@ def cast_param(owner: nn.Module, p: torch.Tensor,
     """``p`` in ``dtype``, cached on ``owner`` until ``p`` changes (in
     place, or moved) or another type is asked for. Not cached where a
     graph is being built, nor for a parameter made under
-    torch.inference_mode() (no version count). A cast missing from the
-    cache inside a CUDA graph capture raises, and so does any cast under
-    torch.export (export ``serving_copy``)."""
+    torch.inference_mode() (no version count), nor for a tensor that is
+    not a Parameter. A cast missing from the cache inside a CUDA graph
+    capture raises, and so does any cast under torch.export (export
+    ``serving_copy``)."""
     if p.dtype == dtype:
         return p
     if torch.compiler.is_exporting():
@@ -167,7 +179,10 @@ def cast_param(owner: nn.Module, p: torch.Tensor,
             "a parameter's cast inside torch.export would run at every call "
             "of the program: export a serving_copy, whose parameters are in "
             "the types their uses read")
-    if (torch.is_grad_enabled() and p.requires_grad) or p.is_inference():
+    if ((torch.is_grad_enabled() and p.requires_grad) or p.is_inference()
+            or not isinstance(p, nn.Parameter)):
+        # a weight computed in the call (nn/lora.py's adapted weights
+        # through functional_call) is new at every call: nothing to cache
         return p.to(dtype)
     cache = owner.__dict__.setdefault("_cast_cache", {})
     key = (p.device, p.data_ptr(), p._version, dtype)
@@ -192,6 +207,33 @@ class Linear(nn.Linear):
         dt = self.compute_dtype
         b = None if self.bias is None else cast_param(self, self.bias, dt)
         return F.linear(cast(x, dt), cast_param(self, self.weight, dt), b)
+
+
+def make_linear(cin: int, cout: int, bias: bool, cfg: TransformerConfig
+                ) -> nn.Module:
+    """The block matmul layer: Linear, or its int8 twin (nn/quant.py
+    QuantLinear) when cfg.quantize == 'int8' (JAX's ``_dense``)."""
+    if cfg.quantize == "int8":
+        from tempo_tpu_torch.nn.quant import QuantLinear
+
+        return QuantLinear(cin, cout, bias, cfg.dtype)
+    return Linear(cin, cout, bias, cfg.dtype)
+
+
+class Dropout:
+    """Live dropout at rate ``p`` (flax nn.Dropout): keep each element with
+    probability 1 - p, kept values scaled by 1 / (1 - p), the draws from
+    ``generator`` (None: the device's default generator)."""
+
+    def __init__(self, p: float, generator: Optional[torch.Generator]):
+        self.p = p
+        self.generator = generator
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < 1.0 - self.p
+        return torch.where(keep, x / (1.0 - self.p),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class LayerNorm(nn.Module):
@@ -257,8 +299,8 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.config = cfg
         c, hd, kv = cfg.n_embd, cfg.head_dim, cfg.kv_heads
-        self.c_attn = Linear(c, c + 2 * kv * hd, cfg.bias, cfg.dtype)
-        self.c_proj = Linear(c, c, cfg.bias, cfg.dtype)
+        self.c_attn = make_linear(c, c + 2 * kv * hd, cfg.bias, cfg)
+        self.c_proj = make_linear(c, c, cfg.bias, cfg)
         self._rope: Optional[torch.Tensor] = None
 
     def _rope_table(self, device: torch.device) -> torch.Tensor:
@@ -270,7 +312,8 @@ class SelfAttention(nn.Module):
         return self._rope
 
     def forward(self, x: torch.Tensor, cache: Optional[Cache] = None,
-                input_pos: Optional[torch.Tensor] = None
+                input_pos: Optional[torch.Tensor] = None,
+                drop: Optional[Dropout] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
         cfg = self.config
         b, t, c = x.shape
@@ -289,7 +332,20 @@ class SelfAttention(nn.Module):
             k = apply_rope(k, rc)
 
         new_cache = None
-        if cache is None and _flash_ok(cfg, q):
+        if cache is None and drop is not None:
+            # attention-weight dropout needs the materialized weights
+            if kv < n:
+                k = k.repeat_interleave(n // kv, dim=2)
+                v = v.repeat_interleave(n // kv, dim=2)
+            scores = torch.einsum("bqnh,bknh->bnqk", q.float(),
+                                  k.float()) / math.sqrt(hd)
+            if cfg.causal:
+                mask = torch.ones((t, t), dtype=torch.bool,
+                                  device=x.device).tril()
+                scores = scores.masked_fill(~mask, float("-inf"))
+            weights = drop(torch.softmax(scores, dim=-1))
+            y = torch.einsum("bnqk,bknh->bqnh", weights, v.float())
+        elif cache is None and _flash_ok(cfg, q):
             if kv < n:  # GQA trains at MHA FLOPs: K/V repeated per group
                 k = k.repeat_interleave(n // kv, dim=2)
                 v = v.repeat_interleave(n // kv, dim=2)
@@ -322,8 +378,10 @@ class SelfAttention(nn.Module):
                                                      input_pos)
                 else:
                     y = cuda_decode.masked_attention(q, ck, cv, tok_pos)
-        y = cast(y, cfg.dtype).reshape(b, t, c)
-        return self.c_proj(y), new_cache
+        y = self.c_proj(cast(y, cfg.dtype).reshape(b, t, c))
+        if drop is not None:
+            y = drop(y)
+        return y, new_cache
 
     def _paged(self, q, k, v, cache, input_pos, tok_pos):
         """One flat scatter of this call's keys/values through the table,
@@ -357,15 +415,18 @@ class MLPBlock(nn.Module):
         super().__init__()
         d_hidden = int(cfg.rmlp * cfg.n_embd)
         assert d_hidden == cfg.rmlp * cfg.n_embd, "rmlp*n_embd must be int"
-        self.c_fc = Linear(cfg.n_embd, d_hidden, cfg.bias, cfg.dtype)
-        self.c_proj = Linear(d_hidden, cfg.n_embd, cfg.bias, cfg.dtype)
+        self.c_fc = make_linear(cfg.n_embd, d_hidden, cfg.bias, cfg)
+        self.c_proj = make_linear(d_hidden, cfg.n_embd, cfg.bias, cfg)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(gelu_exact(self.c_fc(x)))
+    def forward(self, x: torch.Tensor,
+                drop: Optional[Dropout] = None) -> torch.Tensor:
+        h = self.c_proj(gelu_exact(self.c_fc(x)))
+        return h if drop is None else drop(h)
 
 
 class TransformerBlock(nn.Module):
-    """pre-LN attention + MLP residual block."""
+    """pre-LN attention + MLP (or MoE) residual block; forward returns
+    (x, the updated cache, the MoE block's Switch loss or None)."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -376,17 +437,27 @@ class TransformerBlock(nn.Module):
         if cfg.mlp:
             if cfg.ln:
                 self.ln_2 = LayerNorm(cfg.n_embd, cfg.bias, cfg.dtype)
-            self.mlp = MLPBlock(cfg)
+            if cfg.n_experts > 0:
+                from tempo_tpu_torch.nn.moe import MoEBlock
 
-    def forward(self, x, cache=None, input_pos=None):
+                self.moe = MoEBlock(cfg)
+            else:
+                self.mlp = MLPBlock(cfg)
+
+    def forward(self, x, cache=None, input_pos=None, drop=None):
         cfg = self.config
         h = self.ln_1(x) if cfg.ln else x
-        attn_res, new_cache = self.attn(h, cache, input_pos)
+        attn_res, new_cache = self.attn(h, cache, input_pos, drop)
         x = x + attn_res
+        aux = None
         if cfg.mlp:
             h = self.ln_2(x) if cfg.ln else x
-            x = x + self.mlp(h)
-        return x, new_cache
+            if cfg.n_experts > 0:
+                mlp_res, aux = self.moe(h, drop)
+            else:
+                mlp_res = self.mlp(h, drop)
+            x = x + mlp_res
+        return x, new_cache, aux
 
 
 def _as_positions(input_pos, device: torch.device) -> Optional[torch.Tensor]:
@@ -424,7 +495,12 @@ class Transformer(nn.Module):
         self.config = cfg = config
         # device "meta" builds the shapes only (parameter counts, no memory)
         with torch.device("meta" if dev.type == "meta" else "cpu"):
-            parts = {"wte": nn.Embedding(cfg.in_size, cfg.n_embd)}
+            if cfg.quantize == "int8":
+                from tempo_tpu_torch.nn.quant import QuantEmbedding
+
+                parts = {"wte": QuantEmbedding(cfg.in_size, cfg.n_embd)}
+            else:
+                parts = {"wte": nn.Embedding(cfg.in_size, cfg.n_embd)}
             if cfg.pos_embed:
                 parts["wpe"] = nn.Embedding(cfg.block_size, cfg.n_embd)
             parts["h"] = nn.ModuleList(TransformerBlock(cfg)
@@ -433,72 +509,120 @@ class Transformer(nn.Module):
                 parts["ln_f"] = LayerNorm(cfg.n_embd, cfg.bias, cfg.dtype)
             self.transformer = nn.ModuleDict(parts)
             if not cfg.tie_emb:
-                self.lm_head = Linear(cfg.n_embd, cfg.in_size, False,
-                                      cfg.dtype)
+                self.lm_head = make_linear(cfg.n_embd, cfg.in_size, False,
+                                           cfg)
         if dev.type != "meta":
             self.init_weights(seed)
             self.to(dev)
 
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
+        """The int8 twin's placeholders as JAX's: kernels 0, scales 1."""
         gen = torch.Generator().manual_seed(seed)
         resid_std = 0.02 / math.sqrt(2 * self.config.n_layer)
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)
             if isinstance(self.get_submodule(leaf[0]), LayerNorm):
                 p.fill_(1.0 if leaf[1] == "weight" else 0.0)
-            elif leaf[1] == "bias":
+            elif leaf[1] in ("bias", "b1", "b2") or p.dtype == torch.int8:
                 p.zero_()
+            elif leaf[1].endswith("scale"):
+                p.fill_(1.0)
             else:
-                std = resid_std if name.endswith("c_proj.weight") else 0.02
+                resid = name.endswith("c_proj.weight") or leaf[1] == "w2"
+                std = resid_std if resid else 0.02
                 p.copy_(torch.randn(p.shape, generator=gen) * std)
 
     def forward(self, x: torch.Tensor, cache: Optional[Sequence] = None,
                 input_pos=None, deterministic: bool = True, taps=None,
-                capture: bool = False):
+                capture: bool = False,
+                generator: Optional[torch.Generator] = None,
+                with_aux: bool = False):
         """Logits [b, t, vocab] in compute_dtype; with ``cache``, also the
-        (in-place updated) caches. ``input_pos``: None, an int, or an int
-        tensor, scalar or [b] (per-row positions)."""
+        (in-place updated) caches; with ``with_aux``, last, the mean of the
+        MoE blocks' Switch losses (0 without experts), JAX's ``'losses'``
+        collection. ``input_pos``: None, an int, or an int tensor, scalar
+        or [b] (per-row positions). ``deterministic=False`` with
+        ``dropout`` > 0 makes dropout live, drawing from ``generator``
+        (None: the device's default generator)."""
         cfg = self.config
-        if cfg.dropout > 0.0 and not deterministic:
-            raise NotImplementedError("dropout is not ported")
         if taps or capture:
             raise NotImplementedError("activation taps and capture are not "
                                       "ported yet")
-        wte = self.transformer["wte"].weight
-        dev = wte.device
+        drop = (Dropout(cfg.dropout, generator)
+                if cfg.dropout > 0.0 and not deterministic else None)
+        wte = self.transformer["wte"]
+        quant = cfg.quantize == "int8"
+        dev = self.device
         x = cast(torch.as_tensor(x, device=dev), torch.int64)
         b, t = x.shape
         if t > cfg.block_size:
             raise ValueError(f"sequence length {t} > block size "
                              f"{cfg.block_size}")
         input_pos = _as_positions(input_pos, dev)
-        h = cast(F.embedding(x, wte), cfg.dtype)
+        h = (wte.embed(x, cfg.dtype) if quant
+             else cast(F.embedding(x, wte.weight), cfg.dtype))
         if cfg.pos_embed:
             pos = _token_positions(input_pos, b, t, dev)
             if pos is None:
                 pos = torch.arange(t, device=dev)[None]
             wpe = self.transformer["wpe"].weight
             h = h + cast(F.embedding(pos, wpe), cfg.dtype)
+        if drop is not None:
+            h = drop(h)
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
-        new_caches = []
+        new_caches, auxes = [], []
         for i, block in enumerate(self.transformer["h"]):
             if remat:
-                h, layer_cache = torch.utils.checkpoint.checkpoint(
-                    block, h, None, input_pos, use_reentrant=False)
+                h, layer_cache, aux = _remat_block(block, h, input_pos, drop)
             else:
-                h, layer_cache = block(h, None if cache is None
-                                       else cache[i], input_pos)
+                h, layer_cache, aux = block(h, None if cache is None
+                                            else cache[i], input_pos, drop)
             new_caches.append(layer_cache)
+            auxes.append(aux)
         if cfg.ln:
             h = self.transformer["ln_f"](h)
         if cfg.tie_emb:
-            out = h @ cast_param(self, wte, cfg.dtype).T
+            out = (wte.head(h, cfg.dtype) if quant
+                   else h @ cast_param(self, wte.weight, cfg.dtype).T)
         else:
             out = self.lm_head(h)
-        if cache is not None:
-            return out, tuple(new_caches)
+        result = (out,) if cache is None else (out, tuple(new_caches))
+        if with_aux:
+            from tempo_tpu_torch.nn.moe import moe_aux_mean
+
+            aux = moe_aux_mean(auxes)
+            result += (torch.zeros((), device=dev) if aux is None else aux,)
+        return result[0] if len(result) == 1 else result
+
+
+def _remat_block(block: TransformerBlock, h: torch.Tensor, input_pos,
+                 drop: Optional[Dropout]):
+    """``block`` under torch.utils.checkpoint (nn.remat): its activations
+    are recomputed in the backward. checkpoint restores the default
+    generators' state for the recompute, not an explicit one's: live
+    dropout from a generator draws from a copy of its state taken here, in
+    the forward and again in the recompute, and the generator then moves
+    on to where the forward's draws left it."""
+    if drop is None or drop.generator is None:
+        return torch.utils.checkpoint.checkpoint(
+            block, h, None, input_pos, drop, use_reentrant=False)
+    start, end = drop.generator.get_state(), {}
+
+    def run(h):
+        g = torch.Generator(device=h.device)
+        g.set_state(start)
+        out = block(h, None, input_pos, Dropout(drop.p, g))
+        end.setdefault("state", g.get_state())
         return out
+
+    out = torch.utils.checkpoint.checkpoint(run, h, use_reentrant=False)
+    drop.generator.set_state(end["state"])
+    return out
 
 
 def serving_copy(state_dict, config: TransformerConfig) -> Transformer:
@@ -510,13 +634,22 @@ def serving_copy(state_dict, config: TransformerConfig) -> Transformer:
     (then cast to compute_dtype) and cast whole for the head; one copy in
     compute_dtype serves both bit for bit, since a cast is elementwise and
     the gather of the cast table is the cast of the gather. The same holds
-    for ``wpe``. The state dict must fit the config (strict load)."""
+    for ``wpe``. The state dict must fit the config (strict load). An int8
+    model keeps its int8 kernels (dequantized at each read, the point of
+    them) and holds its scales and biases in compute_dtype; the MoE router
+    stays fp32, the type it computes in."""
     model = Transformer(config, device="meta")
     model.load_state_dict({k: v.detach() for k, v in state_dict.items()},
                           assign=True)
     for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Embedding)):
+        if isinstance(m, Linear):
+            m.to(m.compute_dtype)
+        elif isinstance(m, nn.Embedding):
             m.to(config.dtype)
+        elif m is not model and not isinstance(m, LayerNorm):
+            for name, p in m.named_parameters(recurse=False):
+                if p.is_floating_point():
+                    setattr(m, name, nn.Parameter(p.to(config.dtype)))
     return model.requires_grad_(False)
 
 
@@ -554,6 +687,18 @@ def init_paged_cache(config: TransformerConfig, batch_size: int,
     return tuple((torch.zeros(shape, dtype=dtype, device=dev),
                   torch.zeros(shape, dtype=dtype, device=dev), table)
                  for _ in range(config.n_layer))
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries of each row, best first,
+    the lowest index first among ties, as ``lax.top_k`` orders them
+    (``torch.topk`` promises no order among ties on CUDA): an argmax (the
+    first max) for k = 1, a stable descending sort otherwise."""
+    if k == 1:
+        idx = torch.argmax(x, dim=-1, keepdim=True)
+        return x.gather(-1, idx), idx
+    order = torch.sort(x, dim=-1, descending=True, stable=True)
+    return order.values[..., :k], order.indices[..., :k]
 
 
 def nucleus_mask(logits: torch.Tensor, top_p: float) -> torch.Tensor:
@@ -634,7 +779,7 @@ def _generate_start(model, idx, max_new_tokens, seed, temperature, top_k,
     from tempo_tpu_torch.infer.export_lm import sample_rows
 
     cfg = model.config
-    dev = model.transformer["wte"].weight.device
+    dev = model.device
     idx = torch.as_tensor(idx, device=dev).long()
     b, t0 = idx.shape
     if t0 + max_new_tokens > cfg.block_size:
@@ -697,17 +842,25 @@ def estimate_mfu(config: TransformerConfig, n_params: int,
     return flops_per_token * T * fwdbwd_per_iter / dt / peak_flops
 
 
+# leaf names that decay besides Linear / Embedding weights (JAX's
+# ``kernel``, ``wte``, ``wpe``, ``embedding``): the stacked expert matmuls
+DECAY_LEAVES = ("w1", "w2")
+
+
 def gpt_decay_mask(model: nn.Module) -> dict:
-    """{parameter name: decays}: Linear weights and the wte/wpe tables
-    decay; biases and LayerNorm weights (norm scales, named ``weight`` in
-    torch) do not. tempo_tpu's name-keyed rule (``kernel``, ``wte``,
-    ``wpe``) on the port's modules."""
+    """{parameter name: decays}: Linear weights (the MoE router's too), the
+    wte/wpe tables and the stacked expert kernels ``w1``/``w2`` decay;
+    biases (the experts' ``b1``/``b2`` too), LayerNorm weights (norm
+    scales, named ``weight`` in torch) and LoRA adapters (``a``/``b``) do
+    not. tempo_tpu's name-keyed rule (``kernel``, ``w1``, ``w2``, ``wte``,
+    ``wpe``, ``embedding``) on the port's modules."""
     out = {}
     for mod_name, mod in model.named_modules():
         for leaf, _ in mod.named_parameters(recurse=False):
             name = f"{mod_name}.{leaf}" if mod_name else leaf
-            out[name] = leaf == "weight" and isinstance(
-                mod, (nn.Linear, nn.Embedding))
+            out[name] = leaf in DECAY_LEAVES or (
+                leaf == "weight" and isinstance(mod, (nn.Linear,
+                                                      nn.Embedding)))
     return out
 
 
@@ -717,9 +870,12 @@ def make_gpt_optimizer(model: nn.Module, weight_decay: float, learning_rate,
     """AdamW (eps 1e-8, no gradient clipping) with weight decay only on the
     ``gpt_decay_mask`` parameters: two parameter groups, as the reference's
     two optimizer groups. ``learning_rate`` is a float or a function of the
-    update count (train/schedules.py lr_schedule)."""
-    if moments_dtype is not None:
-        raise NotImplementedError("optimizer.moments_dtype is not ported")
+    update count (train/schedules.py lr_schedule). ``moments_dtype``
+    'bfloat16' keeps the first moment in bf16 (optax's ``mu_dtype``;
+    train/state.py ``MuAdamW``), the second in fp32."""
+    if moments_dtype not in (None, "float32", "bfloat16"):
+        raise ValueError(f"unknown moments_dtype {moments_dtype!r} "
+                         f"(bfloat16 | float32)")
     mask = gpt_decay_mask(model)
 
     def groups(m: nn.Module) -> list:
@@ -730,4 +886,6 @@ def make_gpt_optimizer(model: nn.Module, weight_decay: float, learning_rate,
                  "weight_decay": 0.0}]
 
     return Optimizer(learning_rate, groups, betas, eps=1e-8,
-                     max_grad_norm=None)
+                     max_grad_norm=None,
+                     moments_dtype=(None if moments_dtype == "float32"
+                                    else moments_dtype))

@@ -108,19 +108,33 @@ def split_batch(batch: Batch, k: int) -> List[Batch]:
             for i in range(k)]
 
 
-def lm_loss_fn(model: nn.Module) -> LossFn:
+def lm_loss_fn(model: nn.Module, aux_weight: float = 0.01) -> LossFn:
     """(model, batch [B, T+1], generator) -> (loss, metrics): the mean
-    next-token NLL of the dense GPT (cli/train_gpt.py's _lm_loss_fn). The
-    MoE loss with its aux term and dropout are not ported."""
+    next-token NLL (cli/train_gpt.py's _lm_loss_fn). With experts it is
+    nn/moe.py ``moe_lm_loss_fn``: the NLL plus ``aux_weight`` times the
+    mean Switch loss over the MoE blocks, with metrics 'loss', 'nll' and
+    'moe_aux'. With ``dropout`` > 0 dropout is live and draws from the
+    generator (the state's), and the attention takes the materialized
+    path, never K5, as JAX's does."""
     cfg = model.config
+    dropout = cfg.dropout > 0.0
     if cfg.n_experts > 0:
-        raise NotImplementedError("the MoE LM loss is not ported")
-    if cfg.dropout > 0.0:
-        raise NotImplementedError("dropout in training is not ported")
+        from tempo_tpu_torch.nn.moe import moe_lm_loss_fn
+
+        moe_loss = moe_lm_loss_fn(model, aux_weight)
+
+        def loss_fn(model, batch, generator):
+            loss, metrics = moe_loss(model, batch[:, :-1], batch[:, 1:],
+                                     generator)
+            return loss, dict(metrics, loss=loss)
+
+        return loss_fn
 
     def loss_fn(model, batch, generator):
         tokens, targets = batch[:, :-1], batch[:, 1:]
-        nll = lm_cross_entropy(model(tokens), targets)
+        kwargs = ({"deterministic": False, "generator": generator}
+                  if dropout else {})
+        nll = lm_cross_entropy(model(tokens, **kwargs), targets)
         return nll, {"loss": nll, "nll": nll}
 
     return loss_fn

@@ -384,3 +384,43 @@ def test_lm_loaders_default_to_cuda_and_raise_without_it(monkeypatch,
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert e.zero_cache(meta, 2, "cpu")[0][0].shape == (2, 8, 2, 8)
+
+
+def test_model_option_entry_points_default_to_cuda_and_raise_without_it(
+        monkeypatch, tmp_path):
+    """The GPT family's options: MoE, int8, dropout models, a LoRA
+    fine-tune run and its adapters, and the beam searches, live and over
+    artifacts, default to CUDA and raise without it; their modules are
+    among those that import nothing the card lacks."""
+    from tempo_tpu_torch.cli.train_gpt import run
+    from tempo_tpu_torch.infer.serving import LMServer
+    from tempo_tpu_torch.nn.lora import LoRA, init_lora
+    from tempo_tpu_torch.nn.transformer import Transformer, TransformerConfig
+
+    assert {f"tempo_tpu_torch.nn.{m}" for m in ("moe", "quant", "lora",
+                                                "beam")} <= set(
+        _port_modules())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = dict(in_size=17, block_size=16, n_layer=1, n_head=2, n_embd=32)
+    for kw in (dict(n_experts=2), dict(n_experts=2, expert_top_k=2,
+                                       quantize="int8"),
+               dict(quantize="int8"), dict(dropout=0.1)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Transformer(TransformerConfig(**base, **kw))
+        Transformer(TransformerConfig(**base, **kw), device="cpu")
+    model = Transformer(TransformerConfig(**base, n_experts=2), device="cpu")
+    adapters = init_lora(model, 2)
+    assert {t.device.type for ab in adapters.values()
+            for t in ab.values()} == {"cpu"}
+    LoRA(model, adapters)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run({"output_dir": str(tmp_path / "ft"),
+             "data": {"synthetic": {"vocab_size": 17, "length": 2000},
+                      "batch_size": 2},
+             "model": {"n_layer": 1, "n_head": 2, "n_embd": 32,
+                       "block_size": 16, "n_experts": 2},
+             "training": {"n_steps": 2},
+             "finetune": {"lora_rank": 2,
+                          "base_checkpoint": str(tmp_path / "x.pt")}})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LMServer(tmp_path)

@@ -349,14 +349,22 @@ def test_estimate_mfu_matches_jax_with_the_peak_given():
 
 
 def test_unported_training_options_raise():
+    """bf16 first moments and dropout, which the port now runs, run; an
+    unknown moments type and grad_accum 0 raise."""
     pcfg, _ = _configs()
     model = pt.Transformer(pcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="moments_dtype"):
+    tx = pt.make_gpt_optimizer(model, 0.1, 1e-3, (0.9, 0.95),
+                               moments_dtype="bfloat16")
+    assert isinstance(tx.build(model), pstate.MuAdamW)
+    with pytest.raises(ValueError, match="moments_dtype"):
         pt.make_gpt_optimizer(model, 0.1, 1e-3, (0.9, 0.95),
-                              moments_dtype="bfloat16")
+                              moments_dtype="int8")
     dropout = pt.Transformer(dataclasses.replace(pcfg, dropout=0.1),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        pstep.lm_loss_fn(dropout)
+    batch = torch.from_numpy(_stream()[:2 * (BLOCK + 1)].reshape(
+        2, BLOCK + 1).astype(np.int64))
+    loss, _ = pstep.lm_loss_fn(dropout)(dropout, batch,
+                                        torch.Generator().manual_seed(0))
+    assert torch.isfinite(loss)
     with pytest.raises(ValueError, match="grad_accum"):
         pstep.make_train_step(pstep.lm_loss_fn(model), None, grad_accum=0)

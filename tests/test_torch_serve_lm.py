@@ -373,12 +373,22 @@ def test_export_lm_cli_from_a_train_gpt_run(lm, tmp_path):
 
 
 def test_unported_options_raise(lm, tmp_path):
-    with pytest.raises(NotImplementedError, match="M11"):
-        psrv.LMServer(lm["pdir"], device="cpu").beam_batch(
-            np.asarray([[1, 2]]), 3, 2)
-    with pytest.raises(NotImplementedError, match="M11"):
+    """What stays refused is refused; beam search and int8 exports, which
+    the port now runs, run: beam_batch and beam requests equal the JAX
+    LMServer's over its artifact of the same weights, and an int8 export
+    of a train_gpt run serves the live int8 model's greedy tokens."""
+    prompts = np.asarray([[1, 2], [5, 3]])
+    got = psrv.LMServer(lm["pdir"], device="cpu").beam_batch(prompts, 3, 2)
+    want = jsrv.LMServer(lm["jdir"]).beam_batch(prompts, 3, 2)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], **TOL)
+    req = [{"tokens": [1, 2], "n_tokens": 3, "beam_width": 2}]
+    resp = psrv.LMServer(lm["pdir"], device="cpu").serve_requests(req)[0]
+    assert resp["beams"] == got[0][0].tolist()
+    assert resp["tokens"] == resp["beams"][0]
+    with pytest.raises(ValueError, match="prefix"):
         psrv.LMServer(lm["pdir"], device="cpu").serve_requests(
-            [{"tokens": [1, 2], "beam_width": 2}])
+            [dict(req[0], prefix=[1])])
     base = {"artifacts": str(lm["pdir"])}
     # speculation and the online server are ported; online stays the mode
     # of the slot pools, as in the JAX CLI
@@ -387,14 +397,42 @@ def test_unported_options_raise(lm, tmp_path):
                             "cpu")
     with pytest.raises(ValueError, match="unknown scheduler"):
         pserve.build_server({**base, "scheduler": "beam"}, "cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        pexport_cli.main(_write(tmp_path / "q.yaml", {
+    with pytest.raises(ValueError, match="quantize"):
+        pexport_cli.main(_write(tmp_path / "q4.yaml", {
             "run_dir": str(_run_dir_stub(tmp_path)),
-            "output_dir": str(tmp_path / "q"), "quantize": "int8"}),
+            "output_dir": str(tmp_path / "q4"), "quantize": "int4"}),
             device="cpu")
     with pytest.raises(ValueError, match="bucketed scheduler"):
         psrv.LMServer(lm["pdir"], device="cpu").serve_requests(
             [dict(GREEDY[0], eos=0)])
+    run = tmp_path / "run"
+    model_cfg = {"n_layer": 1, "n_head": 2, "n_embd": 32, "block_size": 32}
+    train_gpt.main(_write(tmp_path / "train.yaml", {
+        "output_dir": str(run), "seed": 7,
+        "data": {"synthetic": {"vocab_size": 17, "length": 2000},
+                 "batch_size": 4},
+        "model": model_cfg,
+        "training": {"n_steps": 2, "save_every": 2, "val_every": 2,
+                     "plot_every": 1000},
+        "generation": {"n_tokens": 0}}), device="cpu")
+    out = tmp_path / "q"
+    pexport_cli.main(_write(tmp_path / "q.yaml", {
+        "run_dir": str(run), "output_dir": str(out), "quantize": "int8",
+        "max_seq": 16, "decode_chunk": 4, "page_size": 0}), device="cpu")
+    meta = json.loads((out / "lm" / "meta.json").read_text())
+    assert meta["quantize"] == "int8" and meta["n_experts"] == 0
+    from tempo_tpu_torch.nn.quant import quantize_lm_params
+
+    state = torch.load(run / "checkpoints" / "ckpt_step=000002.pt",
+                       weights_only=True)["model"]
+    model = pt.Transformer(pt.TransformerConfig(in_size=17, quantize="int8",
+                                                **model_cfg), device="cpu")
+    model.load_state_dict(quantize_lm_params(state))
+    want = pt.generate(model, torch.tensor([[1, 2, 3]]), 6, temperature=0.0,
+                       cache_len=16)
+    got = psrv.LMServer(out / "lm", device="cpu").serve_requests(
+        [{"tokens": [1, 2, 3], "n_tokens": 6}])[0]["tokens"]
+    assert got == want[0, 3:].tolist()
 
 
 def _run_dir_stub(tmp_path: Path) -> Path:

@@ -105,15 +105,14 @@ def test_train_gpt_resumes_and_plots(tmp_path):
      "fsdp"),
     (lambda c: c.update(parallel={"context": 2}), NotImplementedError,
      "context"),
-    (lambda c: c["model"].update(n_experts=2), NotImplementedError, "MoE"),
-    (lambda c: c.update(finetune={"lora_rank": 8}), NotImplementedError,
-     "LoRA"),
+    (lambda c: c.update(finetune={"lora_rank": 8}), ValueError,
+     "base_checkpoint"),
     (lambda c: c["training"].update(checkpoint_format="sharded"),
      NotImplementedError, "sharded"),
     (lambda c: c["training"].update(checkpoint_format="zip"), ValueError,
      "checkpoint_format"),
 ], ids=["no_model", "no_data", "missing_stream", "unknown_parallel",
-        "pipeline", "fsdp", "context", "moe", "lora", "sharded",
+        "pipeline", "fsdp", "context", "lora_without_base", "sharded",
         "unknown_format"])
 def test_validate_config_refuses(tmp_path, mutate, error, match):
     cfg = _base_cfg(tmp_path / "run")
@@ -129,14 +128,57 @@ def test_validate_config_refuses(tmp_path, mutate, error, match):
 
 
 def test_unported_run_options_raise(tmp_path):
+    """optimizer.moments_dtype and model.dropout, which the port now runs,
+    run (tests/test_torch_lm_options.py holds what they compute); an
+    unknown moments type raises."""
     cfg = _base_cfg(tmp_path / "run_mu")
     cfg["optimizer"]["moments_dtype"] = "bfloat16"
-    with pytest.raises(NotImplementedError, match="moments_dtype"):
-        train_gpt.main(_write(tmp_path / "mu.yaml", cfg), device="cpu")
+    cfg["training"].update(n_steps=4, save_every=4, val_every=4)
+    train_gpt.main(_write(tmp_path / "mu.yaml", cfg), device="cpu")
+    ckpt = torch.load(tmp_path / "run_mu" / "checkpoints"
+                      / "ckpt_step=000004.pt", weights_only=True)
+    assert {s["exp_avg"].dtype for s in ckpt["optimizer"]["state"].values()
+            } == {torch.bfloat16}
     cfg = _base_cfg(tmp_path / "run_drop")
     cfg["model"]["dropout"] = 0.1
-    with pytest.raises(NotImplementedError, match="dropout"):
-        train_gpt.main(_write(tmp_path / "drop.yaml", cfg), device="cpu")
+    cfg["training"].update(n_steps=4, save_every=4, val_every=4)
+    train_gpt.main(_write(tmp_path / "drop.yaml", cfg), device="cpu")
+    assert (tmp_path / "run_drop" / "checkpoints"
+            / "ckpt_step=000004.pt").exists()
+    cfg = _base_cfg(tmp_path / "run_bad")
+    cfg["optimizer"]["moments_dtype"] = "float16"
+    with pytest.raises(ValueError, match="moments_dtype"):
+        train_gpt.main(_write(tmp_path / "bad.yaml", cfg), device="cpu")
+
+
+@pytest.mark.parametrize("option", ["moe", "lora"])
+def test_validate_config_accepts_lifted_options(tmp_path, option):
+    """MoE and LoRA, which validate_config refused until the port ran
+    them, validate and run: a 4-step MoE run logs its aux loss; a LoRA
+    fine-tune over that run's checkpoint trains only the adapters and
+    writes merged_final.pt (tests/test_torch_lora.py holds the math)."""
+    base = _base_cfg(tmp_path / "base", n_experts=2)
+    base["training"].update(n_steps=4, save_every=4, val_every=4,
+                            log_every=2)
+    base["generation"]["n_tokens"] = 4
+    train_gpt.validate_config(base)
+    train_gpt.run(base, device="cpu")
+    metrics = json.loads((tmp_path / "base" / "metrics.json").read_text())
+    assert "moe_aux" in metrics["train"][-1]
+    if option == "lora":
+        cfg = _base_cfg(tmp_path / "ft", n_experts=2)
+        cfg["training"].update(n_steps=4, save_every=4, val_every=4)
+        cfg["finetune"] = {"lora_rank": 2, "lora_scale": 0.5,
+                           "base_run": str(tmp_path / "base")}
+        train_gpt.validate_config(cfg)
+        train_gpt.run(cfg, device="cpu")
+        ckpts = tmp_path / "ft" / "checkpoints"
+        adapters = torch.load(ckpts / "ckpt_step=000004.pt",
+                              weights_only=True)["model"]
+        assert adapters and all(k.startswith("adapters.") for k in adapters)
+        merged = torch.load(ckpts / "merged_final.pt", weights_only=True)
+        assert merged["step"] == 4
+        assert "transformer.h.0.moe.w1" in merged["model"]
 
 
 def test_trainer_saves_at_save_steps(tmp_path):

@@ -252,9 +252,7 @@ def test_unported_options_raise():
         pt.Transformer(dataclasses.replace(pt.TransformerConfig(n_layer=1),
                                            attn_impl="pallas"),
                        device="meta")
-    for kw in (dict(seq_axis="seq"),
-               dict(n_experts=2), dict(quantize="int8"),
-               dict(tokenized=False)):
+    for kw in (dict(seq_axis="seq"), dict(tokenized=False)):
         cfg = dataclasses.replace(pt.TransformerConfig(n_layer=1), **kw)
         with pytest.raises(NotImplementedError):
             pt.Transformer(cfg, device="meta")
