@@ -141,8 +141,8 @@ Phases, each fatal on failure:
       K1/K2 launches of a batch of 16;
   7b. load_params of 5b's and 6c's checkpoints (and the L2 one's vae.*
       into the base VAE): the posterior mean of 16 tiles bit for bit the
-      live weights' (cuDNN deterministic); a full-state resume from a
-      .msgpack refused naming M11;
+      live weights' (cuDNN deterministic) (a .msgpack full-state resume:
+      14d);
   7c. one structured_granule [131, 2048, 1028] through encode_granules'
       encode_granule with decode_roundtrip: the device normalize within
       1e-4 of numpy's and no farther from float64 than numpy's (+1e-5);
@@ -300,6 +300,31 @@ Phases, each fatal on failure:
       for bit); moments_dtype bfloat16 (exp_avg bf16, 2 bytes a parameter
       less optimizer state than fp32 moments, one step from the reloaded
       checkpoint bitwise the live state's).
+  then the rest of the LM family and the connectomics toolkit (phase 14):
+  14a. activation taps at GPT-2-small bf16, b 2 x 1024: cached_forward's
+      names by kind (JAX's), K5 never launched, its logits bitwise the
+      attn_impl "xla" forward's, the K5 forward's loss within 4c's bf16
+      tolerance; a w = 1 patch of x_6 from another prompt reproduces its
+      downstream captures, a w = 0 patch is bitwise no patch; one captured
+      decode step over a 1024-slot cache, K3 x 12, bitwise the plain step;
+  14b. untokenized training (in_size 1028, b 8 x 1024 features): one
+      forward and backward, K5f/K5dkv/K5dq 12 each, loss and gradients
+      against the plain attention path at 4c's tolerances; then the dict-
+      embedder mode (x, cond, pos embedders, an x unembedder) at 4 layers;
+  14c. a GPT-2-small state dict in the reference and in HF's layout (a
+      stand-in .config): logits bitwise the source's, greedy generate from
+      the HF import launches K3 and gives the source's tokens;
+  14d. JAX-layout full states (written with pack_flax): GPT-2-small's
+      masked AdamW after 3 steps, fp32 and bf16 first moments, and the
+      flagship VAE's chain(clip, adamw) at batch 64, resumed through
+      train_gpt.run / train_vae.run: parameters, moments and step counts
+      bitwise the state written, the next step bitwise the live state's
+      (K5 counted on the GPT's); write and read MB/s;
+  14e. membrane_prob through the default CUNet (fp32) on a 1024 x 1024
+      EM-like section, K1a/K1b/K2 counted, rel L2 1e-4 to the plain
+      forward; get_seg on the card bitwise the CPU's, its seconds and
+      fixpoint steps; vi, error_map, rescan_map; get_freer_device names
+      the card.
 Prints the card's name and power limit first, each phase's seconds, each
 redesigned kernel's time against its time before the redesign
 (KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
@@ -4363,7 +4388,7 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     (a) cli/evaluate_reconstruction.run over 5b's two checkpoints and a
     shard of 32 flagship tiles, against the same sweep through the plain
     versions; (b) load_params of 5b's and 6c's checkpoints against the live
-    weights, bit for bit, and a .msgpack resume refused; (c) one structured
+    weights, bit for bit; (c) one structured
     granule [131, 2048, 1028] through encode_granules' per-granule
     function: the device normalize against numpy's and float64, the latent
     against the plain path, the metrics on the card against numpy's; (d)
@@ -4392,8 +4417,7 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     from tempo_tpu_torch.models.vae import VAEConfig, build_vae
     from tempo_tpu_torch.models.vae_l2 import build_vae_l2
     from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
-    from tempo_tpu_torch.train.checkpoint import (list_checkpoints,
-                                                  load_checkpoint, load_params)
+    from tempo_tpu_torch.train.checkpoint import list_checkpoints, load_params
     from tempo_tpu_torch.train.png import PNG_SIGNATURE
     from tempo_tpu_torch.utils.config import save_json_yaml
 
@@ -4511,19 +4535,13 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     finally:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = saved
-    try:  # phase 12c reads a .msgpack's parameters; a resume refuses it
-        load_checkpoint(keep / "ckpt_step=000001.msgpack", None)
-        refused = "not refused"
-    except NotImplementedError as e:
-        refused = str(e)
     print(f"[analysis] 7b load_params, posterior mean of {batch} tiles bit "
           f"for bit the live weights': 5b's checkpoint {same_vae}, 6c's L2 "
           f"checkpoint {same_l2}, its vae.* into the base VAE "
-          f"{same_nested}; a full-state resume from a .msgpack: {refused}",
+          f"{same_nested} (a .msgpack full-state resume: phase 14d)",
           flush=True)
-    if not (same_vae and same_l2 and same_nested and "M11" in refused):
-        fail("load_params did not give the live weights, or a full-state "
-             "resume took a .msgpack")
+    if not (same_vae and same_l2 and same_nested):
+        fail("load_params did not give the live weights")
     del twin, l2_model, l2_twin, x, loaded
     seconds["7b"] = time.perf_counter() - t_phase
 
@@ -6658,6 +6676,749 @@ def options_training_path(dev, rows: dict, root: Path) -> dict:
     return out
 
 
+# ------------------------------------------------------------------------
+# Phase 14: the rest of the LM family (taps, untokenized and embedder
+# modes, the torch/HF import, the .msgpack full-state resume) and the
+# connectomics toolkit.
+
+TAPS_BATCH, TAPS_PATCH_LAYER = 2, 6
+UNTOK = {"in_size": 1028, "batch": 8, "cond": 16, "dict_layers": 4}
+RESUME = {"steps": 3, "gpt_batch": 8, "vae_batch": 64,
+          "key": (SEED, 14), "stream": 20_000}
+MEMBRANE = {"size": 1024, "cells": 600, "levels": 3, "rel_l2": 1e-4,
+            "rescan_frac": 0.1}
+
+
+def lm_taps_path(dev, rows: dict) -> dict:
+    """14a: GPT-2-small in bf16 (weights from SEED), b 2 x t 1024:
+    cached_forward's names by kind, K5 never launched, its logits bitwise
+    the attn_impl='xla' forward's; the K5 forward's loss within 4c's bf16
+    tolerance of it; a w = 1 patch of x_6 from another prompt reproduces
+    that prompt's downstream captures and logits (bf16 rounding of
+    x + (p - x) apart), a w = 0 patch is bitwise no patch; one captured
+    decode step over a 1024-slot bf16 cache: K3 12 times, logits bitwise
+    the uncaptured step's. Times and captured bytes printed."""
+    import dataclasses
+
+    import torch
+
+    from tempo_tpu_torch.nn import transformer as pt
+    from tempo_tpu_torch.ops.losses import lm_cross_entropy
+
+    card = smi_line()
+    cfg = pt.TransformerConfig(compute_dtype="bfloat16")
+    model = pt.Transformer(cfg, device=dev, seed=SEED)
+    plain = pt.Transformer(dataclasses.replace(cfg, attn_impl="xla"),
+                           device="meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    g = torch.Generator().manual_seed(SEED + 14)
+    b, t, n_layer = TAPS_BATCH, cfg.block_size, cfg.n_layer
+    toks_a = torch.randint(0, cfg.in_size, (b, t), generator=g).to(dev)
+    toks_b = torch.randint(0, cfg.in_size, (b, t), generator=g).to(dev)
+    res = {"card": card}
+    with torch.inference_mode():
+        (logits, hid), k5 = count_flash(lambda: pt.cached_forward(model,
+                                                                  toks_a))
+        per_layer = ("q", "k", "v", "attn_um", "attn", "y_out",
+                     "y_out_proj", "attn_res", "x_attn", "mlp_res")
+        want = ({f"{k}^{i}" for k in per_layer
+                 for i in range(1, n_layer + 1)}
+                | {"tok_emb", "pos_emb", "x_0", "x_ln_f"}
+                | {f"x_{i}" for i in range(1, n_layer + 1)})
+        kinds = {}
+        for name in hid:
+            kinds[name.split("^")[0]] = kinds.get(name.split("^")[0], 0) + 1
+        ref = plain(toks_a)
+        fused, k5_fused = count_flash(lambda: model(toks_a))
+        loss_c = float(lm_cross_entropy(logits[:, :-1], toks_a[:, 1:]))
+        loss_k = float(lm_cross_entropy(fused[:, :-1], toks_a[:, 1:]))
+        res["capture"] = {
+            "names": len(hid), "by_kind": kinds, "k5_launches": k5,
+            "bitwise_xla_forward": torch.equal(logits, ref),
+            "k5_forward_launches": k5_fused,
+            "k5_loss_rel": abs(loss_k - loss_c) / abs(loss_c),
+            "k5_logits_rel_l2": rel_l2(fused, logits),
+            "captured_bytes": sum(v.numel() * v.element_size()
+                                  for v in hid.values())}
+        if set(hid) != want or any(k5.values()):
+            fail(f"14a: the capture's names are not JAX's, or K5 ran under "
+                 f"capture: {sorted(set(hid) ^ want)[:8]} {k5}")
+        if not res["capture"]["bitwise_xla_forward"]:
+            fail("14a: the captured forward's logits are not the xla "
+                 "forward's bit for bit")
+        if (k5_fused["K5f"] != n_layer or res["capture"]["k5_loss_rel"]
+                > STEP_BF16_TOL["loss"]):
+            fail(f"14a: the K5 forward disagrees with the materialized one: "
+                 f"{res['capture']}")
+        del ref, fused
+
+        # patching
+        out_b, hid_b = pt.cached_forward(model, toks_b)
+        name = f"x_{TAPS_PATCH_LAYER}"
+        moved, hid_m = pt.cached_forward(
+            model, toks_a, taps={name: (hid_b[name], 1.0)})
+        down = [f"x_{i}" for i in range(TAPS_PATCH_LAYER + 1, n_layer + 1)]
+        errs = {k: rel_l2(hid_m[k], hid_b[k]) for k in down + ["x_ln_f"]}
+        errs["logits"] = rel_l2(moved, out_b)
+        zero = model(toks_a, taps={name: (hid_b[name], 0.0)})
+        res["patch"] = {"w1_rel_l2": errs,
+                        "prompts_rel_l2": rel_l2(logits, out_b),
+                        "w0_bitwise": torch.equal(zero, logits)}
+        if (max(errs.values()) > STEP_BF16_TOL["loss"]
+                or res["patch"]["prompts_rel_l2"] < 0.1
+                or not res["patch"]["w0_bitwise"]):
+            fail(f"14a: patching {name} does not transplant the other "
+                 f"prompt, or w = 0 is not bitwise no patch: {res['patch']}")
+        del hid_b, hid_m, moved, zero, out_b
+
+        # one captured decode step
+        cache = pt.init_cache(cfg, b, dtype=torch.bfloat16, cache_len=t,
+                              device=dev)
+        model(toks_a[:, :t - 1], cache=cache, input_pos=0)
+        twin = tuple((k.clone(), v.clone()) for k, v in cache)
+        step = toks_a[:, t - 1:]
+        ((got, _), hid_d), k3, _ = count_decode(lambda: pt.cached_forward(
+            model, step, cache=cache, input_pos=t - 1))
+        want_d, _ = model(step, cache=twin, input_pos=t - 1)
+        res["decode"] = {"k3_launches": k3, "names": len(hid_d),
+                         "bitwise_plain_step": torch.equal(got, want_d)}
+        if (k3 != n_layer or not res["decode"]["bitwise_plain_step"]
+                or any(k.startswith("attn_um") for k in hid_d)):
+            fail(f"14a: the captured decode step: {res['decode']}")
+        res["ms"] = {
+            "capture_forward": time_ms(
+                lambda: pt.cached_forward(model, toks_a), iters=3, warmup=1),
+            "xla_forward": time_ms(lambda: plain(toks_a), iters=3,
+                                   warmup=1),
+            "k5_forward": time_ms(lambda: model(toks_a), iters=3, warmup=1),
+            "capture_decode_step": time_ms(lambda: pt.cached_forward(
+                model, step, cache=cache, input_pos=t - 1), iters=5),
+            "decode_step": time_ms(lambda: model(step, cache=twin,
+                                                 input_pos=t - 1), iters=5)}
+    rows["K3"]["launches_phase14"]["14a"] = k3
+    print(f"[lm-rest] 14a taps at GPT-2-small bf16, b {b} x t {t}: "
+          f"{json.dumps(res)}", flush=True)
+    return res
+
+
+def untokenized_path(dev, rows: dict) -> dict:
+    """14b: untokenized training at GPT-2-small widths (in_size 1028, b 8 x
+    1024 random features from SEED, the next step's features as the
+    target): one forward and backward with K5f/K5dkv/K5dq 12 times each;
+    loss and gradients against the plain attention path by 4c's
+    tolerances (bf16 at full size; fp32 at 2 layers, b 2); step ms. Then
+    the dict-embedder mode (x and cond linear embedders, a pos embedding,
+    an x unembedder) at 4 layers under the same gates."""
+    import dataclasses
+
+    import torch
+    from torch import nn
+
+    from tempo_tpu_torch.nn import transformer as pt
+
+    card = smi_line()
+    g = torch.Generator().manual_seed(SEED + 15)
+    b, c_in = UNTOK["batch"], UNTOK["in_size"]
+    base = pt.TransformerConfig(in_size=c_in, tokenized=False,
+                                compute_dtype="bfloat16")
+    t = base.block_size
+    feats = torch.randn((b, t + 1, c_in), generator=g).to(dev)
+    cond = torch.randn((b, t, UNTOK["cond"]), generator=g).to(dev)
+
+    def modules(config, dict_mode: bool):
+        if not dict_mode:
+            return {}
+        gen = torch.Generator().manual_seed(SEED + 16)
+        e = config.n_embd
+        mods = {"x": nn.Linear(c_in, e), "cond": nn.Linear(UNTOK["cond"], e),
+                "pos": nn.Embedding(config.block_size, e)}
+        out = {"x": nn.Linear(e, c_in)}
+        with torch.no_grad():
+            for m in list(mods.values()) + list(out.values()):
+                for p in m.parameters():
+                    p.copy_(0.02 * torch.randn(p.shape, generator=gen))
+        return {"embedders": mods, "unembedders": out}
+
+    def loss_and_grads(config, rows_, dict_mode):
+        model = pt.Transformer(config, device=dev, seed=SEED,
+                               **modules(config, dict_mode))
+        x = feats[:rows_]
+        inp = ({"x": x[:, :-1], "cond": cond[:rows_]} if dict_mode
+               else x[:, :-1])
+        loss = (model(inp).float() - x[:, 1:]).square().mean()
+        loss.backward()
+        return float(loss.detach()), {k: p.grad for k, p in
+                                      model.named_parameters()}, model
+
+    res = {"card": card}
+    for label, dict_mode, layers in (("untokenized", False, base.n_layer),
+                                     ("dict_embedders", True,
+                                      UNTOK["dict_layers"])):
+        cfg = dataclasses.replace(base, n_layer=layers)
+        r = res[label] = {}
+        for sub, config, rows_, tol in (
+                ("bf16", cfg, b, STEP_BF16_TOL),
+                ("f32_2layer_b2", dataclasses.replace(
+                    cfg, compute_dtype="float32", n_layer=2), 2,
+                 STEP_F32_TOL)):
+            (loss_k, grads_k, model), k5 = count_flash(
+                lambda: loss_and_grads(config, rows_, dict_mode))
+            loss_p, grads_p, _ = loss_and_grads(
+                dataclasses.replace(config, attn_impl="xla"), rows_,
+                dict_mode)
+            r[sub] = {"loss_kernel": loss_k, "loss_plain": loss_p,
+                      "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+                      "max_grad_rel_l2": max(rel_l2(grads_k[k], grads_p[k])
+                                             for k in grads_p),
+                      "k5_launches": k5}
+            want = {k: config.n_layer for k in k5}
+            if k5 != want or not (r[sub]["loss_rel"] <= tol["loss"]
+                                  and r[sub]["max_grad_rel_l2"]
+                                  <= tol["grad"]):
+                fail(f"14b {label} {sub}: K5 launches {k5} (want {want}), or "
+                     f"the step disagrees with the plain path: {r[sub]} "
+                     f"(tol {tol})")
+            if sub == "bf16":
+                for k, n in k5.items():
+                    rows[k]["launches_phase14"][f"14b_{label}"] = n
+                x = feats[:rows_]
+                inp = ({"x": x[:, :-1], "cond": cond[:rows_]} if dict_mode
+                       else x[:, :-1])
+
+                def fwd_bwd():
+                    model.zero_grad(set_to_none=True)
+                    (model(inp).float() - x[:, 1:]).square().mean(
+                        ).backward()
+
+                r[sub]["step_ms"] = 1e3 * statistics.median(
+                    timed(fwd_bwd)[1] for _ in range(3))
+            del grads_k, grads_p, model
+    print(f"[lm-rest] 14b untokenized and dict-embedder training at "
+          f"GPT-2-small widths, b {b} x t {t}: {json.dumps(res)} (tol bf16 "
+          f"{STEP_BF16_TOL}, f32 {STEP_F32_TOL})", flush=True)
+    return res
+
+
+def gpt_import_path(dev, rows: dict) -> dict:
+    """14c: a GPT-2-small state dict (fp32, weights from SEED) in the
+    reference layout, and in HF's (Conv1D weights transposed, a tied
+    lm_head, the attention-mask buffers) behind a stand-in ``.config``:
+    the port model built from each gives the source's logits bit for bit,
+    and greedy generate from the HF import launches K3 (12 x (new - 1))
+    and gives the source's tokens."""
+    import types
+
+    import torch
+
+    from tempo_tpu_torch.interop.gpt_ckpt import (
+        from_hf_gpt2, state_dict_from_torch_transformer)
+    from tempo_tpu_torch.nn import transformer as pt
+
+    card = smi_line()
+    cfg = pt.TransformerConfig()
+    source = pt.Transformer(cfg, device=dev, seed=SEED)
+    sd = {k: v.detach().cpu() for k, v in source.state_dict().items()}
+    hf_sd = {k: (v.t().contiguous() if k.endswith((
+        "attn.c_attn.weight", "attn.c_proj.weight", "mlp.c_fc.weight",
+        "mlp.c_proj.weight")) else v) for k, v in sd.items()}
+    hf_sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    for i in range(cfg.n_layer):
+        hf_sd[f"transformer.h.{i}.attn.bias"] = torch.ones(1, 1, 8, 8)
+    stand_in = types.SimpleNamespace(
+        config=types.SimpleNamespace(vocab_size=cfg.in_size,
+                                     n_positions=cfg.block_size,
+                                     n_layer=cfg.n_layer, n_head=cfg.n_head,
+                                     n_embd=cfg.n_embd),
+        state_dict=lambda: hf_sd)
+
+    def built(config, state_dict):
+        model = pt.Transformer(config, device="meta")
+        model.load_state_dict({k: v.to(dev) for k, v in state_dict.items()},
+                              assign=True)
+        return model
+
+    t0 = time.perf_counter()
+    ref_model = built(cfg, state_dict_from_torch_transformer(sd, cfg))
+    hf_cfg, hf_import = from_hf_gpt2(stand_in)
+    hf_model = built(hf_cfg, hf_import)
+    import_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(SEED + 17)
+    toks = torch.randint(0, cfg.in_size, (2, min(256, cfg.block_size)),
+                         generator=g).to(dev)
+    new = min(32, cfg.block_size // 2)
+    prompt = toks[:, :new]
+    with torch.inference_mode():
+        want = source(toks)
+        res = {"card": card, "import_s": import_s,
+               "reference_bitwise": torch.equal(ref_model(toks), want),
+               "hf_bitwise": torch.equal(hf_model(toks), want),
+               "hf_config_is_source": hf_cfg == cfg}
+        out, k3, _ = count_decode(lambda: pt.generate(
+            hf_model, prompt, new, temperature=0.0))
+        res["generate_k3"] = k3
+        res["generate_is_source"] = torch.equal(
+            out, pt.generate(source, prompt, new, temperature=0.0))
+    rows["K3"]["launches_phase14"]["14c"] = k3
+    print(f"[lm-rest] 14c GPT-2-small import: {json.dumps(res)}", flush=True)
+    if not (res["reference_bitwise"] and res["hf_bitwise"]
+            and res["hf_config_is_source"] and res["generate_is_source"]
+            and k3 == cfg.n_layer * (new - 1)):
+        fail(f"14c: an imported model is not its source: {res}")
+    return res
+
+
+# ---- the JAX package's checkpoint layout, written here without JAX: the
+# inverse of interop/jax_params.py for the GPT and the VAE (test
+# scaffolding; the port only reads this format)
+
+def _t(a):
+    return a.T
+
+
+def _conv_hwio(w):  # OIHW -> HWIO
+    return w.transpose(2, 3, 1, 0)
+
+
+def _dense_io(w):  # [out, in, 1, 1] -> [in, out]
+    return w[:, :, 0, 0].T
+
+
+def _down_io(w):  # Conv2d [out, in, 2, 2] -> [(kh, kw, cin), cout]
+    return _conv_hwio(w).reshape(-1, w.shape[0])
+
+
+def _up_io(w):  # ConvTranspose2d [in, out, 2, 2] -> [cin, (di, dj, cout)]
+    return w.transpose(0, 2, 3, 1).reshape(w.shape[0], -1)
+
+
+def _put(tree: dict, path: list, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def gpt_jax_tree(sd: dict) -> dict:
+    """The port GPT's state dict (numpy) as tempo_tpu's params tree."""
+    tree = {}
+    for name, w in sd.items():
+        parts = name.split(".")
+        if parts[0] == "transformer":
+            parts = parts[1:]
+        if parts[0] == "h":
+            parts = [f"h_{parts[1]}"] + parts[2:]
+        leaf, mod = parts[-1], parts[:-1]
+        if mod[-1] in ("wte", "wpe"):
+            _put(tree, mod, w)
+        elif mod[-1].startswith("ln"):
+            _put(tree, mod + ["scale" if leaf == "weight" else "bias"], w)
+        else:
+            _put(tree, mod + ["kernel" if leaf == "weight" else "bias"],
+                 _t(w) if leaf == "weight" else w)
+    return tree
+
+
+_RES = {"net1.0": ("norm1", None), "net1.2": ("conv1", _conv_hwio),
+        "net2.0": ("norm2", None), "net2.2": ("conv2", _conv_hwio),
+        "net2.3": ("conv2", _conv_hwio), "skip_conv": ("skip", _dense_io)}
+
+
+def _vae_leaf(path: list, leaf: str, w, kernel_map):
+    if kernel_map is None:  # a norm
+        return path + ["scale" if leaf == "weight" else "bias"], w
+    if leaf == "weight":
+        return path + ["kernel"], kernel_map(w)
+    return path + ["bias"], w
+
+
+def vae_jax_tree(sd: dict) -> dict:
+    """The port AutoencoderKL's state dict (numpy) as tempo_tpu's params
+    tree (the inverse of jax_params.state_dict_from_jax_params)."""
+    tree = {}
+    for name, w in sd.items():
+        p = name.split(".")
+        leaf = p[-1]
+        if name == "logvar":
+            _put(tree, ["logvar"], w)
+            continue
+        if p[0] in ("quant_conv", "post_quant_conv"):
+            _put(tree, *_vae_leaf([p[0]], leaf, w, _dense_io))
+            continue
+        coder, rest = p[0], p[1:-1]
+        if rest[0] in ("conv_in", "conv_out"):
+            path, kmap = [coder, rest[0]], _conv_hwio
+        elif rest[0] == "norm_out":
+            path, kmap = [coder, "norm_out"], None
+        elif rest[0] in ("downs", "ups"):
+            lvl = [coder, ("down" if rest[0] == "downs" else "up") + rest[1]]
+            if rest[2] in ("down", "up"):
+                key = f"{rest[2]}_{'kernel' if leaf == 'weight' else 'bias'}"
+                kmap = _down_io if rest[2] == "down" else _up_io
+                _put(tree, lvl + [key], kmap(w) if leaf == "weight" else w)
+                continue
+            kind = "res" if rest[2] == "resnet_blocks" else "attn"
+            path, sub = lvl + [f"{kind}{rest[3]}"], rest[4:]
+            if kind == "res":
+                mod, kmap = _RES[".".join(sub)]
+            else:
+                mod, kmap = sub[0], (None if sub[0] == "norm" else _dense_io)
+            path = path + [mod]
+        elif rest[0] in ("mid1", "mid2"):
+            mod, kmap = _RES[".".join(rest[1:])]
+            path = [coder, rest[0], mod]
+        elif rest[0] == "mid_attn1":
+            kmap = None if rest[1] == "norm" else _dense_io
+            path = [coder, "mid_attn1", rest[1]]
+        else:
+            raise KeyError(f"no JAX layout for {name}")
+        _put(tree, *_vae_leaf(path, leaf, w, kmap))
+    return tree
+
+
+def _contiguous(tree):
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return {k: _contiguous(v) for k, v in tree.items()}
+    if isinstance(tree, Bf16):
+        return tree
+    tree = np.asarray(tree)
+    return tree if tree.flags.c_contiguous else tree.copy(order="C")
+
+
+def jax_full_state(state, to_tree, layout: str, key, train_metrics,
+                   val_metrics) -> dict:
+    """The payload tempo_tpu's save_checkpoint writes for ``state`` (the
+    port's TrainState): params and AdamW's mu/nu through ``to_tree`` (a
+    bf16 mu as flax's bfloat16 leaves), ``count`` the update count, in
+    optax's state layout for ``layout``: 'gpt' (masked adamw, constant
+    lr) or 'vae' (chain(clip_by_global_norm, adamw), constant lr)."""
+    import numpy as np
+    import torch
+
+    model, opt = state.model, state.optimizer
+    names = {id(p): n for n, p in model.named_parameters()}
+    mu, nu, counts = {}, {}, set()
+    bf16 = any(st["exp_avg"].dtype == torch.bfloat16
+               for st in opt.state.values())
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state[p]
+            if not st:  # never stepped (no gradient): optax holds zeros
+                st = {"step": state.step,
+                      "exp_avg": torch.zeros_like(p, dtype=(
+                          torch.bfloat16 if bf16 else torch.float32)),
+                      "exp_avg_sq": torch.zeros_like(p)}
+            counts.add(float(st["step"]))
+            m = st["exp_avg"].detach().cpu()
+            mu[names[id(p)]] = (m.view(torch.int16).numpy().view(np.uint16)
+                                if m.dtype == torch.bfloat16 else m.numpy())
+            nu[names[id(p)]] = st["exp_avg_sq"].detach().cpu().numpy()
+    assert counts == {float(state.step)}, counts
+
+    def wrap(tree):
+        if isinstance(tree, dict):
+            return {k: wrap(v) for k, v in tree.items()}
+        return Bf16((tree.shape, tree))
+
+    params = {k: v.detach().cpu().numpy() for k, v in
+              model.named_parameters()}
+    mu_tree = _contiguous(to_tree(mu))
+    adam = {"count": np.asarray(state.step, np.int32),
+            "mu": wrap(mu_tree) if bf16 else mu_tree,
+            "nu": _contiguous(to_tree(nu))}
+    opt_state = ({"0": adam, "1": {"inner_state": {}}, "2": {}}
+                 if layout == "gpt" else
+                 {"0": {}, "1": {"0": adam, "1": {}, "2": {}}})
+    return {"step": int(state.step), "params": _contiguous(to_tree(params)),
+            "opt_state": opt_state, "rng": np.asarray(key, np.uint32),
+            "ema": {k: float(v) for k, v in (state.ema or {}).items()},
+            "train_metrics": json.dumps(train_metrics),
+            "val_metrics": json.dumps(val_metrics)}
+
+
+def same_state(a, b) -> dict:
+    """Parameters, moments and step counts of two TrainStates, bitwise."""
+    import torch
+
+    pa = dict(a.model.named_parameters())
+    pb = dict(b.model.named_parameters())
+    params = pa.keys() == pb.keys() and all(
+        torch.equal(pa[k], pb[k]) for k in pa)
+    moments, steps, unstepped = True, set(), 0
+    for k in pa:
+        sa, sb = a.optimizer.state[pa[k]], b.optimizer.state[pb[k]]
+        if not sa or not sb:  # a parameter without a gradient: no state
+            unstepped += 1    # on one side, zeros (optax's) on the other
+            moments &= all(not s_[m].any() for s_ in (sa, sb) if s_
+                           for m in ("exp_avg", "exp_avg_sq"))
+            continue
+        for m in ("exp_avg", "exp_avg_sq"):
+            moments &= (sa[m].dtype == sb[m].dtype
+                        and torch.equal(sa[m], sb[m].to(sa[m].device)))
+        steps |= {float(sa["step"]), float(sb["step"])}
+    return {"params": params, "moments": moments,
+            "steps": sorted(steps), "state_step": [a.step, b.step],
+            "unstepped_params": unstepped}
+
+
+def resume_path(dev, rows: dict, root: Path) -> dict:
+    """14d: full states in the JAX package's layout, written here with
+    pack_flax: GPT-2-small's masked AdamW after 3 port steps (batch 8 x
+    1024) with fp32 and with bf16 first moments, and the flagship VAE's
+    chain(clip, adamw) after 3 steps at batch 64; each resumed through
+    cli/train_gpt.run / cli/train_vae.run with training.resume_from (n_steps
+    3: nothing more to train). Gates: parameters, moments and step counts
+    bitwise the state written; the next step of the resumed state bitwise
+    the live state's next step on the same batch (the live generator
+    re-seeded by interop/optax_state.generator_seed of the written key, as
+    the resume seeds it: the VAE's posterior draw). Write and read MB/s."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.cli import train_gpt, train_vae
+    from tempo_tpu_torch.data.synthetic import make_tile_shards
+    from tempo_tpu_torch.interop.jax_ckpt import read_jax_checkpoint
+    from tempo_tpu_torch.interop.optax_state import generator_seed
+    from tempo_tpu_torch.models.vae import VAEConfig, build_vae
+    from tempo_tpu_torch.nn import transformer as pt
+    from tempo_tpu_torch.train.schedules import lr_schedule
+    from tempo_tpu_torch.train.state import (create_train_state,
+                                             make_optimizer_from_config)
+    from tempo_tpu_torch.train.step import (lm_loss_fn, make_train_step,
+                                            vae_loss_fn)
+
+    card = smi_line()
+    res = {"card": card}
+    steps = RESUME["steps"]
+    history = ([{"step": s, "loss": 1.0 / s} for s in range(1, steps + 1)],
+               [{"step": steps, "val_loss": 0.5}])
+
+    def write(state, to_tree, layout, name):
+        t0 = time.perf_counter()
+        path = root / name / "checkpoints" / f"ckpt_step={steps:06d}.msgpack"
+        path.parent.mkdir(parents=True)
+        path.write_bytes(pack_flax(jax_full_state(
+            state, to_tree, layout, RESUME["key"], *history)))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        read_jax_checkpoint(path)
+        read_s = time.perf_counter() - t0
+        size = path.stat().st_size
+        return path, {"bytes": size, "write_mb_per_s": size / write_s / 1e6,
+                      "read_mb_per_s": size / read_s / 1e6,
+                      "read": "warm (the file just written)"}
+
+    def check(label, live, trainer, step_live, batch):
+        r = res[label]
+        r["resumed"] = same_state(live, trainer.state)
+        r["histories"] = (trainer.train_metrics == history[0]
+                          and trainer.val_metrics == history[1])
+        live.generator.manual_seed(generator_seed(RESUME["key"]))
+        with deterministic_cudnn():
+            step_live(live, batch)
+            _, r["k5_launches"] = count_flash(
+                lambda: trainer.train_step(trainer.state, batch))
+        r["next_step"] = same_state(live, trainer.state)
+        print(f"[lm-rest] 14d {label}: {json.dumps(r)} on {card}",
+              flush=True)
+        ok = all(r[k]["params"] and r[k]["moments"]
+                 and r[k]["steps"] == [float(steps + (k == "next_step"))]
+                 and r[k]["state_step"] == [steps + (k == "next_step")] * 2
+                 for k in ("resumed", "next_step"))
+        if not (ok and r["histories"]):
+            fail(f"14d {label}: the resumed state is not the state written, "
+                 f"or its next step is not the live state's: {r}")
+
+    # ---------------- GPT-2-small, masked AdamW, fp32 and bf16 moments
+    g = torch.Generator().manual_seed(SEED + 18)
+    gpt_cfg = pt.TransformerConfig(compute_dtype="bfloat16")
+    batches = [torch.randint(0, gpt_cfg.in_size, (RESUME["gpt_batch"],
+                                                  gpt_cfg.block_size + 1),
+                             generator=g).to(dev) for _ in range(steps + 1)]
+    for label, mdt in (("gpt_fp32_moments", None),
+                       ("gpt_bf16_moments", "bfloat16")):
+        opt_cfg = {"lr": 3e-4, "weight_decay": 0.1}
+        if mdt:
+            opt_cfg["moments_dtype"] = mdt
+        model = pt.Transformer(gpt_cfg, device=dev, seed=SEED)
+        tx = pt.make_gpt_optimizer(model, 0.1, lr_schedule(opt_cfg, steps),
+                                   (0.9, 0.95), moments_dtype=mdt)
+        live = create_train_state(model, tx, SEED)
+        live.ema = {}
+        step = make_train_step(lm_loss_fn(model), tx)
+        for bt in batches[:steps]:
+            step(live, bt)
+        path, res[label] = write(live, gpt_jax_tree, "gpt", label)
+        run_cfg = {"output_dir": str(root / f"{label}_run"), "seed": SEED,
+                   "data": {"synthetic": {"vocab_size": gpt_cfg.in_size,
+                                          "length": RESUME["stream"]},
+                            "batch_size": RESUME["gpt_batch"]},
+                   "model": {"compute_dtype": "bfloat16",
+                             "in_size": gpt_cfg.in_size},
+                   "optimizer": opt_cfg,
+                   "training": {"n_steps": steps, "save_every": 1000,
+                                "val_every": 1000, "log_every": 1000,
+                                "plot_every": 1000,
+                                "resume_from": str(path)},
+                   "generation": {"n_tokens": 0}}
+        t0 = time.perf_counter()
+        trainer, _ = train_gpt.run(run_cfg, device=dev)
+        res[label]["run_s"] = time.perf_counter() - t0
+        check(label, live, trainer, step, batches[steps])
+        k5 = res[label]["k5_launches"]
+        if k5 != {k: gpt_cfg.n_layer for k in k5}:
+            fail(f"14d {label}: the resumed step's K5 launches {k5}")
+        for k, n in k5.items():
+            rows[k]["launches_phase14"][f"14d_{label}"] = n
+        del live, trainer, model, step
+        torch.cuda.empty_cache()
+
+    # ------------------------ the flagship VAE, chain(clip, adamw), b 64
+    opt_cfg = {"lr": 1e-4, "betas": [0.9, 0.95], "weight_decay": 0.05}
+    model, _ = build_vae({}, device=dev, seed=SEED)
+    nudge_zero_init(model, torch.Generator(device=dev).manual_seed(SEED))
+    tx = make_optimizer_from_config(opt_cfg, n_steps=steps)
+    live = create_train_state(model, tx, SEED)
+    live.ema = {}
+    step = make_train_step(vae_loss_fn(model), tx)
+    c, h, w = VAEConfig().shape
+    batch = torch.from_numpy(np.random.default_rng(SEED + 19).standard_normal(
+        (RESUME["vae_batch"], h, w, c), dtype=np.float32)).to(dev)
+    with deterministic_cudnn():
+        for _ in range(steps):
+            step(live, batch)
+    path, res["vae"] = write(live, vae_jax_tree, "vae", "vae")
+    tiles = make_tile_shards(root / "tiles", n_files=1, tiles_per_file=8,
+                             tile=h, n_spectral=c, seed=SEED,
+                             dtype=np.float16)
+    run_cfg = {"output_dir": str(root / "vae_run"), "seed": SEED,
+               "data": {"train_dir": str(tiles), "batch_size": 8,
+                        "min_buffer_size": 8},
+               "model": {}, "optimizer": opt_cfg,
+               "training": {"n_steps": steps, "save_every": 1000,
+                            "val_every": 1000, "log_every": 1000,
+                            "plot_every": 1000, "resume_from": str(path)}}
+    t0 = time.perf_counter()
+    trainer, _ = train_vae.run(run_cfg, device=dev)
+    res["vae"]["run_s"] = time.perf_counter() - t0
+    check("vae", live, trainer, step, batch)
+    return res
+
+
+def em_image(size: int, seed: int, n_cells: int):
+    """An EM-like uint8 section and its clean membrane map: Voronoi cells
+    (dark interiors) with bright membranes on their borders, the section
+    with noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0, size, (n_cells, 2))
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    best = np.full((size, size), np.inf, np.float32)
+    second = np.full((size, size), np.inf, np.float32)
+    for cy, cx in centers:
+        d = np.hypot(yy - cy, xx - cx)
+        second = np.minimum(second, np.maximum(best, d))
+        best = np.minimum(best, d)
+    memb = 210 * np.exp(-0.5 * ((second - best) / 1.5) ** 2)
+    clean = np.clip(30 + memb, 0, 255).astype(np.uint8)
+    noisy = np.clip(30 + memb + rng.normal(0, 12, (size, size)), 0, 255)
+    return noisy.astype(np.uint8), clean
+
+
+def connectomics_path(dev, rows: dict) -> dict:
+    """14e: membrane inference through the CUNet at its default widths (chs
+    48/96/192/384, norm groups 8, mid attention, 1 -> 1 channel, fp32,
+    weights from SEED with the zero-init output convs re-drawn) on a
+    1024 x 1024 EM-like section: K1a/K1b/K2 counted and the probabilities
+    held against the plain forward at rel L2 1e-4; get_seg of the noisy
+    section (standing for a trained net's membrane map) on the card bitwise
+    get_seg on the CPU (seconds, fixpoint steps), more than half its cells
+    found; vi against the clean map's segmentation, error_map of the two
+    and rescan_map of the errors; get_freer_device names the card."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.analysis import connectomics as pc
+    from tempo_tpu_torch.nn.unet import CUNet
+    from tempo_tpu_torch.ops import morphology
+    from tempo_tpu_torch.utils.devices import (device_memory_summary,
+                                               get_freer_device)
+
+    card = smi_line()
+    size = MEMBRANE["size"]
+    em, clean = em_image(size, SEED, MEMBRANE["cells"])
+    net = CUNet(shape=(size, size, 1), out_channels=1, device=dev, seed=SEED)
+    nudge_zero_init(net, torch.Generator(device=dev).manual_seed(SEED))
+    net.eval()
+    levels = MEMBRANE["levels"]
+    pc.membrane_prob(net, em, levels=levels, return_dtype=np.float32)
+    zero_kernel_counts()
+    (prob, prob_s) = timed(lambda: pc.membrane_prob(
+        net, em, levels=levels, return_dtype=np.float32))
+    launches = kernel_counts()
+    with plain_kernels():
+        plain, plain_s = timed(lambda: pc.membrane_prob(
+            net, em, levels=levels, return_dtype=np.float32))
+    res = {"card": card, "membrane": {
+        "launches": launches, "ms": 1e3 * prob_s, "plain_ms": 1e3 * plain_s,
+        "rel_l2": rel_l2(torch.from_numpy(prob), torch.from_numpy(plain)),
+        "prob_std": float(prob.std())}}
+    for k, n in launches.items():
+        rows[k]["launches_phase14"]["14e"] = n
+    if not all(launches.values()) or not (
+            res["membrane"]["rel_l2"] <= MEMBRANE["rel_l2"]):
+        fail(f"14e: membrane inference launched a kernel no time or "
+             f"disagrees with the plain forward: {res['membrane']}")
+    # weights from a seed make no membrane map worth segmenting: the noisy
+    # section (bright membranes) stands for a trained net's map, the clean
+    # one for the slow scan's
+    mb = em
+
+    def seg_on(device):
+        morphology.STEPS["fixpoint"] = 0
+        out, s = timed(lambda: pc.get_seg(mb, device=device))
+        return out, s, morphology.STEPS["fixpoint"]
+
+    seg, seg_s, seg_steps = seg_on(dev)
+    t0 = time.perf_counter()
+    seg_cpu, _, cpu_steps = seg_on("cpu")
+    cpu_s = time.perf_counter() - t0
+    gt = pc.get_seg(clean, device=dev)
+    total, split, merge, _, _ = pc.vi(seg, gt)
+    (err, e_total, _, _), err_s = timed(lambda: pc.error_map(
+        mb, clean, device=dev))
+    # the error probability: the flagged segments, ranked inside and out
+    # by how far the fast scan's pixel is from the slow scan's
+    rescan = pc.rescan_map(
+        0.5 * err / 255.0 + 0.5 * np.abs(em.astype(np.float32) - clean)
+        / 255.0, MEMBRANE["rescan_frac"])
+    res["segmentation"] = {
+        "bitwise_cpu": bool(np.array_equal(seg, seg_cpu)),
+        "seconds": seg_s, "cpu_seconds": cpu_s,
+        "fixpoint_steps": seg_steps, "cpu_fixpoint_steps": cpu_steps,
+        "cells": int(len(np.unique(seg)) - 1),
+        "gt_cells": int(len(np.unique(gt)) - 1),
+        "vi": [total, split, merge], "error_map_vi": e_total,
+        "error_map_s": err_s, "error_pixels": int((err > 0).sum()),
+        "rescan_share": float(rescan.mean()),
+        "rescan_covers_errors": float(rescan[err > 0].mean())
+        if err.any() else None}
+    freer = get_freer_device()
+    res["device"] = {"freer": str(freer),
+                     "summary": device_memory_summary()}
+    print(f"[connectomics] 14e membrane inference and segmentation of a "
+          f"{size} x {size} section: {json.dumps(res)}", flush=True)
+    if not (res["segmentation"]["bitwise_cpu"]
+            and res["segmentation"]["cells"] > MEMBRANE["cells"] // 2
+            and freer.type == "cuda"
+            and res["device"]["summary"][freer.index]["name"]
+            == torch.cuda.get_device_name(freer)):
+        fail(f"14e: the card's segmentation is not the CPU's bit for bit, "
+             f"or get_freer_device does not name the card: {res}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -7179,6 +7940,27 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         options_training = options_training_path(dev, rows, Path(tmp))
     seconds["model_options_training"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+
+    # ---- 14. taps, untokenized and embedder modes, the torch/HF import,
+    # the .msgpack resume, and the connectomics toolkit
+    for r in rows.values():
+        r["launches_phase14"] = {}
+    lm_rest = {}
+    for key, fn in (("14a", lm_taps_path), ("14b", untokenized_path),
+                    ("14c", gpt_import_path)):
+        t_phase = time.perf_counter()
+        lm_rest[key] = fn(dev, rows)
+        seconds[key] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_rest["14d"] = resume_path(dev, rows, Path(tmp))
+    seconds["14d"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    connectomics = connectomics_path(dev, rows)
+    seconds["14e"] = time.perf_counter() - t_phase
     print(f"[time] phases, s: {json.dumps(seconds)}", flush=True)
 
     for r in rows.values():
@@ -7195,6 +7977,7 @@ def main() -> int:
         "diffusion": diffusion, "options": options,
         "model_options": {"serving": options_serving,
                           "training": options_training},
+        "lm_rest": lm_rest, "connectomics": connectomics,
         "granule_numpy_normalize_s": t_numpy_normalize,
         "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {

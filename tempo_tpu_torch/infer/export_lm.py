@@ -652,6 +652,8 @@ def export_lm(state_dict: Dict[str, torch.Tensor], config,
     Returns the directory."""
     from tempo_tpu_torch.nn.transformer import serving_copy
 
+    if not config.tokenized:
+        raise ValueError("export_lm requires a tokenized model")
     if config.n_experts > 0:
         raise NotImplementedError(
             "an MoE model's expert capacity ceil(k * n / E * cf) depends on "

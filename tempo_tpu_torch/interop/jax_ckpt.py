@@ -12,11 +12,15 @@ through interop/jax_params.py:
 - ``VAEWithL2Head``: ``l2_state_dict_from_jax`` with the head's widths;
 - ``VDM`` and ``SFM``: ``vdm_state_dict_from_jax`` (a CUNet or CMLP score
   model, a learned schedule, an SFM's velocity model);
-- ``Transformer``: ``gpt_state_dict_from_jax`` with the model's config.
+- ``Transformer``: ``gpt_state_dict_from_jax`` with the model's config
+  (untokenized and embedder-mode trees too);
+- ``LoRA`` (nn/lora.py): ``lora_state_dict_from_jax``, the adapters as
+  ``adapters.<name with / for .>.{a, b}``.
 
 Where the model's ResNet blocks hold a Dropout module (their second conv at
-``net2.3``), the converters are told so. The optimizer state (optax's) is
-not read: a full-state resume from a ``.msgpack`` is not ported.
+``net2.3``), the converters are told so. The converters take any tree laid
+out as the parameters are, so optax's moments cross the same way
+(interop/optax_state.py, the full-state resume).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from torch import nn
 from tempo_tpu_torch.interop import msgpack_reader
 from tempo_tpu_torch.interop.jax_params import (gpt_state_dict_from_jax,
                                                 l2_state_dict_from_jax,
+                                                lora_state_dict_from_jax,
                                                 state_dict_from_jax_params,
                                                 vdm_state_dict_from_jax)
 
@@ -55,9 +60,14 @@ def jax_state_dict_for(model: nn.Module, params: Mapping[str, Any]
     from tempo_tpu_torch.models.flow import SFM
     from tempo_tpu_torch.models.vae import AutoencoderKL
     from tempo_tpu_torch.models.vae_l2 import VAEWithL2Head
+    from tempo_tpu_torch.nn.lora import LoRA
     from tempo_tpu_torch.nn.transformer import Transformer
 
     tree = params.get("params", params)
+    if isinstance(model, LoRA):
+        return {f"adapters.{name.replace('.', '/')}.{k}": v
+                for name, ab in lora_state_dict_from_jax(
+                    tree, model.config).items() for k, v in ab.items()}
     dropout = _has_dropout(model)
     if isinstance(model, VAEWithL2Head):
         return l2_state_dict_from_jax(tree, model.mlp_hidden, dropout)
@@ -71,7 +81,7 @@ def jax_state_dict_for(model: nn.Module, params: Mapping[str, Any]
         return gpt_state_dict_from_jax(tree, model.config)
     raise TypeError(f"no JAX checkpoint converter for "
                     f"{type(model).__name__} (AutoencoderKL, VAEWithL2Head, "
-                    f"VDM, SFM, Transformer)")
+                    f"VDM, SFM, Transformer, LoRA)")
 
 
 def load_jax_params(path: Union[str, Path], model: nn.Module) -> nn.Module:

@@ -174,18 +174,28 @@ def gpt_state_dict_from_jax(params: Mapping[str, Any],
     ``kernel_q`` [in, out] to ``kernel_q`` [out, in] beside its ``scale``,
     ``wte_q``/``wte_scale`` to ``transformer.wte.kernel_q``/``scale`` and
     the experts' ``w1_q``/``w1_scale``, ``w2_q``/``w2_scale`` as they are;
-    int8 leaves stay int8, every other leaf becomes fp32. ``config`` is
-    either package's TransformerConfig (only ``n_layer``, ``pos_embed``,
-    ``ln``, ``mlp`` and ``tie_emb`` are read)."""
+    int8 leaves stay int8, every other leaf becomes fp32. An untokenized
+    model's ``wte`` {kernel [in, embd]} becomes ``transformer.wte.lin.weight``
+    [embd, in]; the dict mode's ``embedders_<k>`` / ``unembedders_<k>``
+    subtrees become ``embedders.<k>.*`` / ``unembedders.<k>.*``
+    (``_module``). ``config`` is either package's TransformerConfig (only
+    ``n_layer``, ``ln`` and ``mlp`` are read; ``wpe`` and ``lm_head`` are
+    taken where the tree holds them)."""
     tree = params.get("params", params)
     out: Dict[str, np.ndarray] = {}
     if "wte_q" in tree:
         out["transformer.wte.kernel_q"] = tree["wte_q"]
         out["transformer.wte.scale"] = tree["wte_scale"]
-    else:
+    elif isinstance(tree.get("wte"), Mapping):  # untokenized: TiedLinear
+        out["transformer.wte.lin.weight"] = _linear(tree["wte"]["kernel"])
+    elif "wte" in tree:
         out["transformer.wte.weight"] = tree["wte"]
-    if config.pos_embed:
+    if "wpe" in tree:
         out["transformer.wpe.weight"] = tree["wpe"]
+    for key, sub in tree.items():
+        for kind in ("embedders", "unembedders"):
+            if key.startswith(kind + "_"):
+                _module(out, f"{kind}.{key[len(kind) + 1:]}", sub)
 
     def linear(prefix: str, sub: Mapping) -> None:
         if "kernel_q" in sub:
@@ -221,9 +231,26 @@ def gpt_state_dict_from_jax(params: Mapping[str, Any],
                 linear(f"{ref}.mlp.c_proj", blk["mlp"]["c_proj"])
     if config.ln:
         norm("transformer.ln_f", tree["ln_f"])
-    if not config.tie_emb:
+    if "lm_head" in tree:
         linear("lm_head", tree["lm_head"])
     return {k: _tensor_as_stored(v) for k, v in out.items()}
+
+
+def _module(out: Dict, prefix: str, tree: Mapping) -> None:
+    """A flax submodule's tree under the torch module at ``prefix``: Dense
+    ``kernel`` [in, out] -> Linear ``weight`` [out, in], Embed
+    ``embedding`` and LayerNorm ``scale`` -> ``weight``, ``bias`` as it
+    is; nested modules by their names (the embedders and unembedders of
+    the GPT's dict mode)."""
+    for key, sub in tree.items():
+        if isinstance(sub, Mapping):
+            _module(out, f"{prefix}.{key}", sub)
+        elif key == "kernel":
+            out[f"{prefix}.weight"] = _linear(sub)
+        elif key in ("embedding", "scale"):
+            out[f"{prefix}.weight"] = sub
+        else:
+            out[f"{prefix}.{key}"] = sub
 
 
 def _tensor_as_stored(value) -> torch.Tensor:

@@ -24,7 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from tempo_tpu_torch.nn.transformer import Transformer, init_cache, top_k
+from tempo_tpu_torch.nn.transformer import (Transformer, init_cache,
+                                           require_tokenized, top_k)
 
 
 def log_softmax(x: torch.Tensor) -> torch.Tensor:
@@ -68,6 +69,7 @@ def beam_search(model: Transformer, idx, max_new_tokens: int,
     defaults to fp32 and to the request rounded up to 64 slots;
     ``cache_len`` overrides that (e.g. a serving window), as in
     ``generate``."""
+    require_tokenized(model, "beam_search")
     cfg = model.config
     dev = model.device
     idx = torch.as_tensor(idx, device=dev).long()

@@ -14,8 +14,10 @@ Counterpart of tempo_tpu/nn/transformer.py with the same math:
   table. Caches are updated IN PLACE and returned (JAX returns new arrays).
 - attention: the no-cache forward (training) goes through K5
   (ops/flash_attention.py) where ``_flash_ok`` picks it, GQA's K/V repeated
-  per group first, and otherwise runs the plain masked attention (the XLA
-  path); every cache call with t > 1 runs the plain masked attention; a
+  per group first, and otherwise (the XLA path, taps, live dropout) runs
+  the materialized attention (``_materialized_attention``, the plain
+  masked attention's ops); every cache call with t > 1 runs the plain
+  masked attention; a
   t == 1 cache call goes through K3 (ops/cuda_decode.py decode_attention,
   the op ``tempo::decode_attention``) on a dense cache and K4
   (``tempo::paged_decode_attention``) on a paged one, whatever
@@ -41,19 +43,42 @@ attention weights, the attention output after ``c_proj``, the MLP after
 dropout needs the weights, so that forward takes the materialized
 attention, never K5, as JAX does.
 
+Interpretability (JAX's ``tap``, transformer.py:172, 276-310, 549-570,
+614-716): ``forward(taps=, capture=, suffix=)`` records and patches the
+named activations (``tok_emb``, ``pos_emb``, ``x_0``, ``kT``/``qT``,
+``q_rope``/``k_rope``/``v`` or ``q``/``k``/``v`` as [b, heads, t, hd],
+``attn_um``, ``attn``, ``y_out``, ``y_out_proj``, ``attn_res``,
+``x_attn``, ``mlp_res``, ``x_i``, ``x_ln_f``, block names with ``^i``); a
+patch (array, w) makes the value x + w * (patch - x); ``capture=True``
+returns the flat dict of what was recorded last (``cached_forward``).
+Without a cache, taps take the materialized attention, which exposes the
+scores (JAX's ``:454-473``) and is the ``attn_impl="xla"`` path itself, so
+with nothing patched the logits are bitwise an xla forward's, and K5 is
+never used.
+With a cache the cache branch runs as always (K3 at t == 1) and
+``attn_um``/``attn`` are not tapped. Remat is off under taps.
+
+Input modes (the reference's three, networks.py:405-527): tokenized (the
+token table ``wte`` and the tied head), untokenized (``TiedLinear``: one
+[n_embd, in_size] weight ``transformer.wte.lin.weight`` used forward and
+transposed), and dicts of named ``embedders`` / ``unembedders`` modules
+(the input a dict of tensors whose embeddings are summed, an embedder
+named ``pos`` in place of ``wpe``, ``unembedders["x"]`` the head).
+``generate``, ``beam_search`` and ``export_lm`` take tokenized models only,
+as in JAX.
+
 Training: ``gpt_decay_mask`` / ``make_gpt_optimizer`` (AdamW, two
 parameter groups, no clipping; ``moments_dtype="bfloat16"`` stores the
 first moment in bf16, as optax's ``mu_dtype``) and ``estimate_mfu``.
 
-Not ported yet (raise NotImplementedError): ``seq_axis``, activation taps
-and capture, and the untokenized / embedder modes.
+Not ported yet (raise NotImplementedError): ``seq_axis``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -117,13 +142,9 @@ class TransformerConfig:
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    unsupported = [
-        (cfg.seq_axis is not None, "seq_axis (context parallelism)"),
-        (not cfg.tokenized, "untokenized input"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if cfg.seq_axis is not None:
+        raise NotImplementedError("seq_axis (context parallelism) is not "
+                                  "ported yet")
     if cfg.quantize not in ("none", "int8"):
         raise ValueError(f"unknown quantize mode {cfg.quantize!r}")
     if cfg.attn_impl not in ("auto", "xla", "flash"):
@@ -289,6 +310,81 @@ def _token_positions(input_pos: Optional[torch.Tensor], b: int, t: int,
 
 
 Cache = Tuple[torch.Tensor, ...]
+Patches = Dict[str, Tuple[torch.Tensor, float]]
+Tap = Callable[[torch.Tensor, str], torch.Tensor]
+
+
+class Taps:
+    """The taps of one forward: ``tap(x, name)`` records x under ``name``
+    in ``hiddens`` when capturing (the value before its patch, as JAX's
+    ``sow``), and returns x + w * (patch - x) where ``patches`` holds
+    (patch, w) under ``name`` (reference network_tools.py:65-76), x
+    itself elsewhere."""
+
+    def __init__(self, patches: Optional[Patches], capture: bool):
+        self.patches = patches or {}
+        self.hiddens: Optional[Dict[str, torch.Tensor]] = (
+            {} if capture else None)
+
+    def __call__(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        if self.hiddens is not None:
+            self.hiddens[name] = x
+        hit = self.patches.get(name)
+        if hit is None:
+            return x
+        patch, w = hit
+        patch = cast(torch.as_tensor(patch, device=x.device), x.dtype)
+        return x + w * (patch - x)
+
+    def suffixed(self, suffix: str) -> Tap:
+        return lambda x, name: self(x, name + suffix)
+
+
+def _tap(tap: Optional[Tap], x: torch.Tensor, name: str) -> torch.Tensor:
+    return x if tap is None else tap(x, name)
+
+
+def _tap_heads(tap: Optional[Tap], x: torch.Tensor,
+               name: str) -> torch.Tensor:
+    """Tap x [b, t, heads, hd] in the reference's [b, heads, t, hd]."""
+    if tap is None:
+        return x
+    return tap(x.transpose(1, 2), name).transpose(1, 2)
+
+
+def _materialized_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool,
+                            tap: Optional[Tap],
+                            drop: Optional[Dropout]) -> torch.Tensor:
+    """The no-cache attention outside K5 (the XLA path, taps, live
+    dropout): the grouped einsum of cuda_decode.masked_attention in its
+    order, with ``attn_um`` (the scaled scores before the mask) and
+    ``attn`` (the weights) tapped as [b, n_head, t, t] (GQA's heads
+    kv-major, as JAX's repeated K/V give them), then attention-weight
+    dropout. With nothing patched the taps change no bit. Returns [b, t,
+    n, hd] in fp32."""
+    b, t, n, hd = q.shape
+    kv = k.shape[2]
+    g = n // kv
+
+    def tapped(a: torch.Tensor, name: str) -> torch.Tensor:
+        if tap is None:
+            return a
+        return tap(a.reshape(b, n, t, t), name).reshape(b, kv, g, t, t)
+
+    qg = cuda_decode._f32(q.reshape(b, t, kv, g, hd))
+    scores = tapped(torch.einsum("bqkgh,bskh->bkgqs", qg,
+                                 cuda_decode._f32(k)) / math.sqrt(hd),
+                    "attn_um")
+    if causal:
+        steps = torch.arange(t, device=q.device)
+        mask = steps[None, None, :] <= steps[None][:, :, None]
+        scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    weights = tapped(torch.softmax(scores, dim=-1), "attn")
+    if drop is not None:
+        weights = drop(weights)
+    y = torch.einsum("bkgqs,bskh->bqkgh", weights, cuda_decode._f32(v))
+    return y.reshape(b, t, n, hd)
 
 
 class SelfAttention(nn.Module):
@@ -313,8 +409,9 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, cache: Optional[Cache] = None,
                 input_pos: Optional[torch.Tensor] = None,
-                drop: Optional[Dropout] = None
+                drop: Optional[Dropout] = None, tap: Optional[Tap] = None
                 ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        """``tap``: the block's taps (names suffixed), or None."""
         cfg = self.config
         b, t, c = x.shape
         n, hd, kv = cfg.n_head, cfg.head_dim, cfg.kv_heads
@@ -324,37 +421,29 @@ class SelfAttention(nn.Module):
         v = qkv[..., c + kv * hd:].reshape(b, t, kv, hd)
         tok_pos = _token_positions(input_pos, b, t, x.device)
         if cfg.rope:
+            k = _tap(tap, k, "kT")
+            q = _tap(tap, q, "qT")
             full = self._rope_table(x.device)
             rc = full[:t] if tok_pos is None else full[tok_pos]
             if rc.ndim == 4 and rc.shape[0] == 1:
                 rc = rc[0]  # one scalar position: [t, hd//2, 2]
-            q = apply_rope(q, rc)
-            k = apply_rope(k, rc)
+            q = _tap_heads(tap, apply_rope(q, rc), "q_rope")
+            k = _tap_heads(tap, apply_rope(k, rc), "k_rope")
+        else:
+            q = _tap_heads(tap, q, "q")
+            k = _tap_heads(tap, k, "k")
+        v = _tap_heads(tap, v, "v")
 
         new_cache = None
-        if cache is None and drop is not None:
-            # attention-weight dropout needs the materialized weights
-            if kv < n:
-                k = k.repeat_interleave(n // kv, dim=2)
-                v = v.repeat_interleave(n // kv, dim=2)
-            scores = torch.einsum("bqnh,bknh->bnqk", q.float(),
-                                  k.float()) / math.sqrt(hd)
-            if cfg.causal:
-                mask = torch.ones((t, t), dtype=torch.bool,
-                                  device=x.device).tril()
-                scores = scores.masked_fill(~mask, float("-inf"))
-            weights = drop(torch.softmax(scores, dim=-1))
-            y = torch.einsum("bnqk,bknh->bqnh", weights, v.float())
-        elif cache is None and _flash_ok(cfg, q):
+        if cache is None and tap is None and drop is None and _flash_ok(cfg,
+                                                                       q):
             if kv < n:  # GQA trains at MHA FLOPs: K/V repeated per group
                 k = k.repeat_interleave(n // kv, dim=2)
                 v = v.repeat_interleave(n // kv, dim=2)
             y = flash_attention.flash_attention(q, k, v, cfg.causal,
                                                 1.0 / math.sqrt(hd))
         elif cache is None:
-            q_idx = (torch.arange(t, device=x.device)[None] if cfg.causal
-                     else None)
-            y = cuda_decode.masked_attention(q, k, v, q_idx)
+            y = _materialized_attention(q, k, v, cfg.causal, tap, drop)
         else:
             if tok_pos is None:
                 input_pos = torch.zeros((), dtype=torch.int32,
@@ -378,10 +467,11 @@ class SelfAttention(nn.Module):
                                                      input_pos)
                 else:
                     y = cuda_decode.masked_attention(q, ck, cv, tok_pos)
-        y = self.c_proj(cast(y, cfg.dtype).reshape(b, t, c))
+        y = _tap(tap, cast(y, cfg.dtype).reshape(b, t, c), "y_out")
+        y = self.c_proj(y)
         if drop is not None:
             y = drop(y)
-        return y, new_cache
+        return _tap(tap, y, "y_out_proj"), new_cache
 
     def _paged(self, q, k, v, cache, input_pos, tok_pos):
         """One flat scatter of this call's keys/values through the table,
@@ -444,11 +534,11 @@ class TransformerBlock(nn.Module):
             else:
                 self.mlp = MLPBlock(cfg)
 
-    def forward(self, x, cache=None, input_pos=None, drop=None):
+    def forward(self, x, cache=None, input_pos=None, drop=None, tap=None):
         cfg = self.config
         h = self.ln_1(x) if cfg.ln else x
-        attn_res, new_cache = self.attn(h, cache, input_pos, drop)
-        x = x + attn_res
+        attn_res, new_cache = self.attn(h, cache, input_pos, drop, tap)
+        x = _tap(tap, x + _tap(tap, attn_res, "attn_res"), "x_attn")
         aux = None
         if cfg.mlp:
             h = self.ln_2(x) if cfg.ln else x
@@ -456,7 +546,7 @@ class TransformerBlock(nn.Module):
                 mlp_res, aux = self.moe(h, drop)
             else:
                 mlp_res = self.mlp(h, drop)
-            x = x + mlp_res
+            x = x + _tap(tap, mlp_res, "mlp_res")
         return x, new_cache, aux
 
 
@@ -477,40 +567,88 @@ def _as_positions(input_pos, device: torch.device) -> Optional[torch.Tensor]:
     return p.to(device=device, dtype=torch.int32)
 
 
+class TiedLinear(nn.Module):
+    """One weight [n_embd, in_size] used forward ([.., in] -> [.., embd])
+    and transposed ([.., embd] -> [.., in]) for untokenized input and
+    output (JAX's TiedLinear, whose kernel is this weight transposed;
+    reference networks.py:405-416, ``transformer.wte.lin``)."""
+
+    def __init__(self, in_size: int, n_embd: int,
+                 compute_dtype: torch.dtype):
+        super().__init__()
+        self.lin = Linear(in_size, n_embd, False, compute_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.lin(x)
+
+    def transposed(self, y: torch.Tensor) -> torch.Tensor:
+        dt = self.lin.compute_dtype
+        return cast(y, dt) @ cast_param(self.lin, self.lin.weight, dt)
+
+
+def _apply(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module(x)`` with a floating x promoted to the type of the module's
+    parameters where they differ, as a flax module without ``dtype``
+    promotes its input and parameters to a common type."""
+    p = next(module.parameters(), None)
+    if p is not None and x.is_floating_point() and x.dtype != p.dtype:
+        x = x.to(torch.promote_types(x.dtype, p.dtype))
+    return module(x)
+
+
+def _as_input(v, device: torch.device) -> torch.Tensor:
+    """A model input on ``device``; fp64 becomes fp32, as jnp.asarray
+    makes it."""
+    v = torch.as_tensor(v, device=device)
+    return v.float() if v.dtype == torch.float64 else v
+
+
 class Transformer(nn.Module):
     """GPT (tokenized, weight-tied head by default), on ``device`` (None
     means CUDA; raises without it unless "cpu" is asked for), weights drawn
     from ``seed`` with the JAX package's init distributions: normal(0.02)
     matmuls and embeddings, residual projections scaled by 1/sqrt(2L),
-    zero biases, LayerNorm ones."""
+    zero biases, LayerNorm ones.
+
+    ``embedders`` / ``unembedders``: dicts of named modules (both or
+    neither), kept with their own initialization and moved to ``device``;
+    the input is then a dict of tensors, and ``unembedders["x"]`` maps the
+    final hidden state out."""
 
     def __init__(self, config: TransformerConfig,
                  device: Union[str, torch.device, None] = None,
                  seed: int = 0, embedders=None, unembedders=None):
         super().__init__()
-        if embedders is not None or unembedders is not None:
-            raise NotImplementedError("embedder modes are not ported yet")
+        if (embedders is None) != (unembedders is None):
+            raise ValueError("embedders and unembedders go together")
         _check_supported(config)
         dev = resolve_device(device)
         self.config = cfg = config
         # device "meta" builds the shapes only (parameter counts, no memory)
         with torch.device("meta" if dev.type == "meta" else "cpu"):
-            if cfg.quantize == "int8":
+            parts = {}  # in embedder mode the embedders take wte's place
+            if embedders is None and not cfg.tokenized:
+                parts["wte"] = TiedLinear(cfg.in_size, cfg.n_embd, cfg.dtype)
+            elif embedders is None and cfg.quantize == "int8":
                 from tempo_tpu_torch.nn.quant import QuantEmbedding
 
-                parts = {"wte": QuantEmbedding(cfg.in_size, cfg.n_embd)}
-            else:
-                parts = {"wte": nn.Embedding(cfg.in_size, cfg.n_embd)}
-            if cfg.pos_embed:
+                parts["wte"] = QuantEmbedding(cfg.in_size, cfg.n_embd)
+            elif embedders is None:
+                parts["wte"] = nn.Embedding(cfg.in_size, cfg.n_embd)
+            if cfg.pos_embed and "pos" not in (embedders or {}):
                 parts["wpe"] = nn.Embedding(cfg.block_size, cfg.n_embd)
             parts["h"] = nn.ModuleList(TransformerBlock(cfg)
                                        for _ in range(cfg.n_layer))
             if cfg.ln:
                 parts["ln_f"] = LayerNorm(cfg.n_embd, cfg.bias, cfg.dtype)
             self.transformer = nn.ModuleDict(parts)
-            if not cfg.tie_emb:
+            if not cfg.tie_emb and cfg.tokenized and embedders is None:
                 self.lm_head = make_linear(cfg.n_embd, cfg.in_size, False,
                                            cfg)
+        self.embedders = self.unembedders = None
+        if embedders is not None:
+            self.embedders = nn.ModuleDict(embedders)
+            self.unembedders = nn.ModuleDict(unembedders)
         if dev.type != "meta":
             self.init_weights(seed)
             self.to(dev)
@@ -525,6 +663,8 @@ class Transformer(nn.Module):
         gen = torch.Generator().manual_seed(seed)
         resid_std = 0.02 / math.sqrt(2 * self.config.n_layer)
         for name, p in self.named_parameters():
+            if name.startswith(("embedders.", "unembedders.")):
+                continue  # the caller's modules keep their own init
             leaf = name.rsplit(".", 1)
             if isinstance(self.get_submodule(leaf[0]), LayerNorm):
                 p.fill_(1.0 if leaf[1] == "weight" else 0.0)
@@ -537,67 +677,149 @@ class Transformer(nn.Module):
                 std = resid_std if resid else 0.02
                 p.copy_(torch.randn(p.shape, generator=gen) * std)
 
-    def forward(self, x: torch.Tensor, cache: Optional[Sequence] = None,
-                input_pos=None, deterministic: bool = True, taps=None,
-                capture: bool = False,
+    def forward(self, x, cache: Optional[Sequence] = None,
+                input_pos=None, deterministic: bool = True,
+                taps: Optional[Patches] = None, capture: bool = False,
                 generator: Optional[torch.Generator] = None,
-                with_aux: bool = False):
-        """Logits [b, t, vocab] in compute_dtype; with ``cache``, also the
-        (in-place updated) caches; with ``with_aux``, last, the mean of the
-        MoE blocks' Switch losses (0 without experts), JAX's ``'losses'``
-        collection. ``input_pos``: None, an int, or an int tensor, scalar
-        or [b] (per-row positions). ``deterministic=False`` with
+                with_aux: bool = False, suffix: str = ""):
+        """Logits [b, t, vocab] (or the unembedder's output) in
+        compute_dtype; with ``cache``, also the (in-place updated) caches;
+        with ``with_aux``, the mean of the MoE blocks' Switch losses (0
+        without experts), JAX's ``'losses'`` collection; with ``capture``,
+        last, the flat dict of the recorded activations. ``x``: token ids
+        [b, t], features [b, t, in_size] (untokenized), or a dict of tensors
+        (embedder mode). ``input_pos``: None, an int, or an int tensor,
+        scalar or [b] (per-row positions). ``deterministic=False`` with
         ``dropout`` > 0 makes dropout live, drawing from ``generator``
-        (None: the device's default generator)."""
+        (None: the device's default generator). ``taps``: {name: (patch,
+        w)}; ``suffix`` is appended to every tap name."""
         cfg = self.config
-        if taps or capture:
-            raise NotImplementedError("activation taps and capture are not "
-                                      "ported yet")
+        taps_ = Taps(taps, capture) if (taps or capture) else None
+        tap = None if taps_ is None else taps_.suffixed(suffix)
         drop = (Dropout(cfg.dropout, generator)
                 if cfg.dropout > 0.0 and not deterministic else None)
-        wte = self.transformer["wte"]
-        quant = cfg.quantize == "int8"
         dev = self.device
-        x = cast(torch.as_tensor(x, device=dev), torch.int64)
-        b, t = x.shape
-        if t > cfg.block_size:
-            raise ValueError(f"sequence length {t} > block size "
-                             f"{cfg.block_size}")
         input_pos = _as_positions(input_pos, dev)
-        h = (wte.embed(x, cfg.dtype) if quant
-             else cast(F.embedding(x, wte.weight), cfg.dtype))
-        if cfg.pos_embed:
-            pos = _token_positions(input_pos, b, t, dev)
-            if pos is None:
-                pos = torch.arange(t, device=dev)[None]
-            wpe = self.transformer["wpe"].weight
-            h = h + cast(F.embedding(pos, wpe), cfg.dtype)
+        if self.embedders is not None:
+            h = self._embed_dict(x, dev)
+        else:
+            h = self._embed(x, input_pos, dev, tap)
         if drop is not None:
             h = drop(h)
-        remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        h = _tap(tap, h, "x_0")
+        remat = (cfg.remat and cache is None and torch.is_grad_enabled()
+                 and tap is None)
         new_caches, auxes = [], []
         for i, block in enumerate(self.transformer["h"]):
             if remat:
                 h, layer_cache, aux = _remat_block(block, h, input_pos, drop)
             else:
-                h, layer_cache, aux = block(h, None if cache is None
-                                            else cache[i], input_pos, drop)
+                h, layer_cache, aux = block(
+                    h, None if cache is None else cache[i], input_pos, drop,
+                    None if tap is None else taps_.suffixed(
+                        f"{suffix}^{i + 1}"))
+            h = _tap(tap, h, f"x_{i + 1}")
             new_caches.append(layer_cache)
             auxes.append(aux)
         if cfg.ln:
             h = self.transformer["ln_f"](h)
-        if cfg.tie_emb:
-            out = (wte.head(h, cfg.dtype) if quant
-                   else h @ cast_param(self, wte.weight, cfg.dtype).T)
-        else:
+        h = _tap(tap, h, "x_ln_f")
+        wte = self.transformer["wte"] if "wte" in self.transformer else None
+        if self.unembedders is not None:
+            out = _apply(self.unembedders["x"], h)
+        elif not cfg.tokenized:
+            out = wte.transposed(h)
+        elif not cfg.tie_emb:
             out = self.lm_head(h)
+        elif cfg.quantize == "int8":
+            out = wte.head(h, cfg.dtype)
+        else:
+            out = h @ cast_param(self, wte.weight, cfg.dtype).T
         result = (out,) if cache is None else (out, tuple(new_caches))
         if with_aux:
             from tempo_tpu_torch.nn.moe import moe_aux_mean
 
             aux = moe_aux_mean(auxes)
             result += (torch.zeros((), device=dev) if aux is None else aux,)
+        if capture:
+            result += (taps_.hiddens,)
         return result[0] if len(result) == 1 else result
+
+    def _embed(self, x, input_pos: Optional[torch.Tensor],
+               dev: torch.device, tap: Optional[Tap]) -> torch.Tensor:
+        """Token (or TiedLinear feature) embeddings plus the learned
+        positions, tapped as ``tok_emb`` and ``pos_emb`` ([t, c] for one
+        position origin, [b, t, c] for per-row positions, as JAX's)."""
+        cfg = self.config
+        wte = self.transformer["wte"]
+        x = _as_input(x, dev)
+        if cfg.tokenized:
+            x = cast(x, torch.int64)
+        b, t = x.shape[:2]
+        if t > cfg.block_size:
+            raise ValueError(f"sequence length {t} > block size "
+                             f"{cfg.block_size}")
+        if not cfg.tokenized:
+            h = wte(x)
+        elif cfg.quantize == "int8":
+            h = wte.embed(x, cfg.dtype)
+        else:
+            h = cast(F.embedding(x, wte.weight), cfg.dtype)
+        h = _tap(tap, h, "tok_emb")
+        if cfg.pos_embed:
+            wpe = self.transformer["wpe"].weight
+            pos = _token_positions(input_pos, b, t, dev)
+            if pos is None or input_pos.ndim == 0:
+                pos = torch.arange(t, device=dev) if pos is None else pos[0]
+                h = h + _tap(tap, cast(F.embedding(pos, wpe), cfg.dtype),
+                             "pos_emb")[None]
+            else:
+                h = h + _tap(tap, cast(F.embedding(pos, wpe), cfg.dtype),
+                             "pos_emb")
+        return h
+
+    def _embed_dict(self, x, dev: torch.device) -> torch.Tensor:
+        """Embedder mode: the embeddings of every key of ``x`` summed over
+        zeros in compute_dtype, plus the positions of 0..t-1 (the ``pos``
+        embedder's, or ``wpe``'s); type promotion as JAX's (an fp32
+        embedder's output lifts a bf16 sum to fp32)."""
+        cfg = self.config
+        if not isinstance(x, dict):
+            raise TypeError("a model with embedders takes a dict of inputs")
+        xs = {k: _as_input(v, dev) for k, v in x.items()}
+        if "pos" in xs:
+            raise ValueError("'pos' names the position embedder, not an "
+                             "input")
+        b, t = next(iter(xs.values())).shape[:2]
+        h = torch.zeros((b, t, cfg.n_embd), dtype=cfg.dtype, device=dev)
+        if cfg.pos_embed:
+            pos = torch.arange(t, device=dev)
+            if "pos" in self.embedders:
+                h = h + _apply(self.embedders["pos"], pos)
+            else:
+                h = h + cast(F.embedding(pos, self.transformer["wpe"].weight),
+                             cfg.dtype)
+        for key, v in xs.items():
+            h = h + _apply(self.embedders[key], v)
+        return h
+
+
+def cached_forward(model: Transformer, x, **kwargs):
+    """(out, flat dict of the activations) of one forward with capture:
+    JAX's ``cached_forward`` (the reference's activation capture,
+    networks.py:529-564). ``out`` is what the forward returns without
+    capture: the logits, or (logits, caches) with a cache."""
+    result = model(x, capture=True, **kwargs)
+    out = result[:-1]
+    return (out[0] if len(out) == 1 else out), result[-1]
+
+
+def require_tokenized(model: nn.Module, what: str) -> None:
+    """``what`` decodes tokens: refuse an untokenized or embedder-mode
+    model (JAX asserts cfg.tokenized, transformer.py:849)."""
+    if not model.config.tokenized or getattr(model, "embedders",
+                                             None) is not None:
+        raise ValueError(f"{what} requires a tokenized model")
 
 
 def _remat_block(block: TransformerBlock, h: torch.Tensor, input_pos,
@@ -778,6 +1000,7 @@ def _generate_start(model, idx, max_new_tokens, seed, temperature, top_k,
     device tensor), all on the device with fixed shapes."""
     from tempo_tpu_torch.infer.export_lm import sample_rows
 
+    require_tokenized(model, "generate")
     cfg = model.config
     dev = model.device
     idx = torch.as_tensor(idx, device=dev).long()

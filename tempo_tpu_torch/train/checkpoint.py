@@ -8,10 +8,13 @@ the EMA and the metric histories, all copied to the host first
 (``_host_payload``) and then written through a temporary file and an
 atomic rename (``_write_payload``), so a preempted save never leaves a
 torn checkpoint. ``AsyncCheckpointer`` writes the same file on a
-background thread. ``load_params`` restores only the model's parameters,
-for inference and analysis, from the port's ``.pt`` checkpoints, reference
-torch checkpoints and the JAX package's ``.msgpack`` ones
-(interop/jax_ckpt.py). The sharded format is not ported.
+background thread. ``load_checkpoint`` resumes from the port's ``.pt``
+files and from the JAX package's ``.msgpack`` full states
+(interop/optax_state.py). ``load_params`` restores only the model's
+parameters, for inference and analysis, from the port's ``.pt``
+checkpoints, reference torch checkpoints and the JAX package's
+``.msgpack`` ones (interop/jax_ckpt.py). The sharded format is not
+ported.
 """
 
 from __future__ import annotations
@@ -181,19 +184,20 @@ class AsyncCheckpointer:
 def load_checkpoint(path: Union[str, Path], state: TrainState
                     ) -> Tuple[TrainState, List[Dict], List[Dict]]:
     """Restore ``state`` (a state of the same model and optimizer layout)
-    from ``path`` in place; returns it with the metric histories."""
+    from ``path`` in place; returns it with the metric histories. A JAX
+    ``.msgpack`` full state (parameters, optax's AdamW moments and count,
+    the EMA, the histories) is mapped by interop/optax_state.py; its PRNG
+    key seeds the generator (``generator_seed``)."""
     path = Path(path)
     if path.is_dir():
         raise NotImplementedError(
             f"{path}: sharded checkpoint directories wait for the sharded "
             f"checkpoint format (ROADMAP Queue 1, M13), which is not ported")
     if path.suffix == JAX_SUFFIX:
-        raise NotImplementedError(
-            f"{path}: resuming the full train state from the JAX package's "
-            f".msgpack needs a map of optax's AdamW state (mu, nu, count) "
-            f"onto torch's AdamW (exp_avg, exp_avg_sq, step), which is not "
-            f"ported (ROADMAP Queue 1, M11); load_params reads its "
-            f"parameters")
+        from tempo_tpu_torch.interop.jax_ckpt import read_jax_checkpoint
+        from tempo_tpu_torch.interop.optax_state import load_jax_train_state
+
+        return load_jax_train_state(read_jax_checkpoint(path), state)
     device = next(state.model.parameters()).device
     # on the host: load_state_dict moves what belongs with the parameters
     # (the optimizer's step counts stay on the host, as a fresh AdamW's)

@@ -46,7 +46,9 @@ def test_port_imports_no_jax():
                  "cli.analyze_reconstruction", "analysis.probes",
                  "cli.probe_analysis", "infer.export_codec",
                  "cli.export_codec", "cli.compute_stats",
-                 "cli.prepare_tiles", "cli.download"):
+                 "cli.prepare_tiles", "cli.download", "ops.morphology",
+                 "analysis.connectomics", "utils.h5", "utils.devices",
+                 "interop.gpt_ckpt", "interop.optax_state"):
         assert f"tempo_tpu_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -80,6 +82,33 @@ def test_chip_smoke_imports_nothing_the_card_lacks():
     assert "tempo_tpu_torch" in names
     assert not names & {"jax", "jaxlib", "flax", "optax", "tempo_tpu", "yaml",
                         "matplotlib", "msgpack", "h5py", "netCDF4"}
+
+
+def test_host_only_packages_are_imported_inside_functions():
+    """utils/h5.py imports h5py (and connectomics cv2) only inside the
+    functions that use it; chip_smoke.py imports only the standard
+    library at module level (the port and torch inside main)."""
+    import ast
+    import sys as _sys
+    from pathlib import Path
+
+    root = Path(__file__).parents[1]
+    for rel, lazy in (("tempo_tpu_torch/utils/h5.py", "h5py"),
+                      ("tempo_tpu_torch/analysis/connectomics.py", "cv2")):
+        tree = ast.parse((root / rel).read_text())
+        top = {a.name.split(".")[0] for node in tree.body
+               if isinstance(node, ast.Import) for a in node.names}
+        top |= {node.module.split(".")[0] for node in tree.body
+                if isinstance(node, ast.ImportFrom) and node.module}
+        inner = {a.name for node in ast.walk(tree)
+                 if isinstance(node, ast.Import) for a in node.names}
+        assert lazy not in top and lazy in inner, rel
+    tree = ast.parse((root / "chip_smoke.py").read_text())
+    top = {a.name.split(".")[0] for node in tree.body
+           if isinstance(node, ast.Import) for a in node.names}
+    top |= {node.module.split(".")[0] for node in tree.body
+            if isinstance(node, ast.ImportFrom) and node.module}
+    assert top - {"__future__"} <= set(_sys.stdlib_module_names), top
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

@@ -59,6 +59,7 @@ from tempo_tpu_torch.nn.unet import CMLP, CUNet
 from tempo_tpu_torch.train.checkpoint import (latest_checkpoint,
                                               list_checkpoints,
                                               load_checkpoint, load_params)
+from tempo_tpu_torch.train.state import create_train_state
 
 torch.set_num_threads(1)
 
@@ -363,8 +364,17 @@ def test_the_bridge_names_what_it_cannot_take(tmp_path):
     path = _jax_checkpoint(tmp_path, params)
     with pytest.raises(TypeError, match="Linear"):
         jax_state_dict_for(torch.nn.Linear(2, 2), params)
-    with pytest.raises(NotImplementedError, match="optax.*M11"):
-        load_checkpoint(path, None)
+    # the full state resumes (tests/test_torch_msgpack_resume.py holds
+    # every optimizer layout against JAX's next step)
+    model = pt.Transformer(pt.TransformerConfig(**GPT), device="cpu", seed=4)
+    tx = pt.make_gpt_optimizer(model, 0.1, 1e-3, (0.9, 0.95))
+    state, train_m, val_m = load_checkpoint(
+        path, create_train_state(model, tx, 0))
+    _bitwise(model, seeded)
+    assert state.step == 5 and state.ema["loss"].item() == 0.25
+    assert (train_m, val_m) == ([{"step": 5, "loss": 0.25}], [])
+    assert all(float(st["step"]) == 0.0 and not st["exp_avg"].any()
+               for st in state.optimizer.state.values())
     (tmp_path / "checkpoints" / "ckpt_step=000002.pt").write_bytes(b"")
     assert [p.name for p in list_checkpoints(tmp_path / "checkpoints")] == [
         "ckpt_step=000002.pt", "ckpt_step=000005.msgpack"]

@@ -252,18 +252,28 @@ def test_unported_options_raise():
         pt.Transformer(dataclasses.replace(pt.TransformerConfig(n_layer=1),
                                            attn_impl="pallas"),
                        device="meta")
-    for kw in (dict(seq_axis="seq"), dict(tokenized=False)):
-        cfg = dataclasses.replace(pt.TransformerConfig(n_layer=1), **kw)
-        with pytest.raises(NotImplementedError):
-            pt.Transformer(cfg, device="meta")
+    cfg = dataclasses.replace(pt.TransformerConfig(n_layer=1),
+                              seq_axis="seq")
     with pytest.raises(NotImplementedError):
-        pt.Transformer(pt.TransformerConfig(n_layer=1), device="meta",
-                       embedders={})
+        pt.Transformer(cfg, device="meta")
+    # untokenized input, the embedder modes and capture are ported
+    # (tests/test_torch_{embedders,taps}.py hold them against JAX)
+    untok = pt.Transformer(pt.TransformerConfig(
+        in_size=5, block_size=16, n_layer=1, n_head=2, n_embd=32,
+        tokenized=False), device="cpu")
+    with torch.no_grad():
+        assert untok(torch.ones(1, 3, 5)).shape == (1, 3, 5)
+    emb = pt.Transformer(pt.TransformerConfig(n_layer=1), device="meta",
+                         embedders={}, unembedders={})
+    assert "transformer.wte.weight" not in emb.state_dict()
     tiny = pt.Transformer(pt.TransformerConfig(
         in_size=29, block_size=16, n_layer=1, n_head=2, n_embd=32),
         device="cpu")
-    with pytest.raises(NotImplementedError):
-        tiny(torch.zeros(1, 3, dtype=torch.long), capture=True)
+    with torch.no_grad():
+        logits, hiddens = tiny(torch.zeros(1, 3, dtype=torch.long),
+                               capture=True)
+    assert torch.equal(hiddens["x_ln_f"] @ tiny.transformer["wte"].weight.T,
+                       logits)
     # decode_attn is accepted and ignored: every value is the same function
     cfg = pt.TransformerConfig(in_size=29, block_size=16, n_layer=1,
                                n_head=2, n_embd=32, decode_attn="pallas")
