@@ -325,6 +325,27 @@ Phases, each fatal on failure:
       forward; get_seg on the card bitwise the CPU's, its seconds and
       fixpoint steps; vi, error_map, rescan_map; get_freer_device names
       the card.
+  then data parallelism and ZeRO-3 (phase 15; two ranks share the one card
+  over gloo, NCCL refusing two ranks on one device; FSDP2 needs NCCL's
+  all-gather and reduce-scatter on CUDA, so it runs at world 1):
+  15a. DDP over 2 rank processes: the flagship VAE (bf16, L2 loss) at a
+      global batch of 64 (32 a rank) and the fp32 two-level VAE at 4, 3
+      steps of the VAE recipe, every posterior draw a slice of one global
+      draw, against this process's 3 steps on the same draws: loss and
+      pixel MSE within STEP_BF16_TOL / STEP_F32_TOL, each first-step
+      gradient too, the unused down and up convs bitwise; step ms, a gloo
+      all-reduce of the gradient bytes beside it, K1a/K1b/K2 launches a
+      rank a step;
+  15b. FSDP2 at world 1 over NCCL against the unwrapped flagship (bf16,
+      batch 64, cuDNN deterministic): parameters bitwise after each of 3
+      steps (K2's packed-weight cache is off under FSDP2), peak memory;
+  15c. the same for GPT-2-small at 8 x 1024, K5 launches counted;
+  15d. train_vae.run (device buffer, partition replicate, then process)
+      and train_vae_l2.run under the 2 rank processes at the flagship's
+      widths, a global batch of 16, 5 steps: rank 1 writes nothing under
+      the run's directory, training_info's n_devices is 2, the last
+      checkpoint loads through load_params on one device bitwise both
+      ranks' final weights.
 Prints the card's name and power limit first, each phase's seconds, each
 redesigned kernel's time against its time before the redesign
 (KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
@@ -583,7 +604,8 @@ LM_POOLS = {"roomy": 65, "tight": 33}
 # overrides nothing) with a self-draft and a distinct draft of DistilGPT2's
 # published shape (6 layers of GPT-2-small's widths; weights from SEED + 1),
 # k_draft SPEC_K. 9a times the first SPEC_REQUESTS of the 64 requests
-# (continuous and paged pools; all 64 until phase 13 took the time) and
+# (continuous and paged pools; all 64 until phase 13 took the time, 32
+# until phase 15 did) and
 # the first SPEC_BATCH1 (the batch-1 scheduler) in bf16; 9b holds SPEC_F32
 # (greedy, sampled) requests cut to SPEC_F32_NEW new tokens in fp32; 9c
 # serves ONLINE_REQS requests from ONLINE_THREADS threads and cancels an
@@ -591,7 +613,7 @@ LM_POOLS = {"roomy": 65, "tight": 33}
 SPEC_TARGET: dict = {}
 SPEC_DRAFT = {"n_layer": 6}
 SPEC_K, SPEC_BATCH1, SPEC_F32, SPEC_F32_NEW = 4, 8, (4, 2), 32
-SPEC_REQUESTS = 32
+SPEC_REQUESTS = 16
 SPEC_ROUNDS = 10  # 9a's round breakdown: rounds timed each way
 ONLINE_REQS, ONLINE_THREADS = 16, 4
 ONLINE_CANCEL_NEW, ONLINE_CANCEL_AFTER = 256, 4
@@ -7419,6 +7441,544 @@ def connectomics_path(dev, rows: dict) -> dict:
     return res
 
 
+# ------------------------------------------------------------------------
+# Phase 15: data parallelism (DDP) and ZeRO-3 (FSDP2) on the one card.
+# NCCL refuses two ranks on one device, so the two-rank runs share cuda:0
+# over gloo, which all-reduces and broadcasts CUDA tensors; gloo has no
+# all-gather or reduce-scatter for them, so FSDP2 runs at world 1 over
+# NCCL. Two ranks on one card share its time: no number here is a scaling
+# number. 15a: the flagship VAE (bf16, the smooth L2 loss as 5c's
+# per-gradient rule) at a global batch of 64, 32 a rank, 3 steps of the
+# VAE recipe, every posterior draw a slice of one global draw, against
+# this process's 3 steps at 64 on the same draws (loss and pixel MSE
+# STEP_BF16_TOL["loss"], each first-step gradient STEP_BF16_TOL["grad"]);
+# the same in fp32 at two levels and batch 4 (STEP_F32_TOL); the unused
+# down and up convs bitwise. 15b/15c: FSDP2 at world 1 against the
+# unwrapped model, parameters bitwise after each of 3 steps (the flagship
+# VAE bf16 at 64, cuDNN deterministic; GPT-2-small at 8 x 1024). 15d: the
+# CLIs under 2 ranks at the flagship's widths, a global batch of 16:
+# train_vae with the device buffer replicated, then partitioned by
+# process, then train_vae_l2.
+PAR = {"world": 2, "steps": 3, "vae_batch": 64, "f32_batch": 4,
+       "cli_batch": 16, "cli_steps": 5, "tiles": (2, 8), "timeout": 600}
+PAR_OPT = {"lr": 1e-4, "betas": [0.9, 0.95], "weight_decay": 0.05}
+PAR_UNUSED = ("encoder.downs.2.down", "decoder.ups.2.up")
+PAR_L2 = {"nll_loss_type": "l2"}
+PAR_GPT: dict = {}  # TransformerConfig overrides of 15c (none: GPT-2-small)
+
+
+def par_vae(dev, model_cfg: dict, dtype=None):
+    """Phase 15's VAE: build_vae from SEED, the zero-initialized output
+    convs nudged from SEED (the same weights in every process)."""
+    import torch
+
+    from tempo_tpu_torch.models.vae import build_vae
+
+    model, _ = build_vae(model_cfg, compute_dtype=dtype, device=dev,
+                         seed=SEED)
+    nudge_zero_init(model, torch.Generator(device=dev).manual_seed(SEED))
+    return model
+
+
+def par_inputs(dev, model, n: int):
+    """PAR["steps"] global batches of n tiles and their posterior draws,
+    from SEED + 31 on the card (the same in every process)."""
+    import torch
+
+    cfg = model.config
+    c, h, w = cfg.shape
+    f = cfg.spatial_factor
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    batches = [torch.randn((n, h, w, c), generator=g, device=dev)
+               for _ in range(PAR["steps"])]
+    noises = [torch.randn((n, h // f, w // f, cfg.embed_dim), generator=g,
+                          device=dev) for _ in range(PAR["steps"])]
+    return batches, noises
+
+
+@contextlib.contextmanager
+def fed_posterior(noises, rows: slice):
+    """The posterior samples take the given global draws in turn, each cut
+    to ``rows`` (a rank's slice of the global batch)."""
+    from tempo_tpu_torch.nn.distributions import DiagonalGaussian
+
+    saved, it = DiagonalGaussian.sample, iter(noises)
+    DiagonalGaussian.sample = (lambda self, generator=None: self.mean
+                               + self.std * next(it)[rows].to(self.mean.dtype))
+    try:
+        yield
+    finally:
+        DiagonalGaussian.sample = saved
+
+
+def par_steps(dev, state, step, batches, noises, rows: slice) -> dict:
+    """The steps on ``rows`` of each global batch: every step's loss and
+    pixel MSE, the first step's gradients (fp32, on the host), the K1a/
+    K1b/K2 launches of the last step, and the last two steps' ms."""
+    import torch
+
+    out = {"loss": [], "pixel_mse": []}
+    with fed_posterior(noises, rows):
+        for i, x in enumerate(batches):
+            if i == len(batches) - 1:
+                torch.cuda.synchronize()
+                zero_kernel_counts()
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = step(state, x[rows])
+            if i == 0:
+                out["grads"] = {
+                    k: p.grad.detach().float().cpu()
+                    for k, p in state.model.named_parameters()
+                    if p.grad is not None}
+            out["loss"].append(float(m["loss"]))
+            out["pixel_mse"].append(float(m["pixel_mse"]))
+    torch.cuda.synchronize()
+    out["step_ms"] = 1e3 * (time.perf_counter() - t0) / (len(batches) - 1)
+    out["launches_last_step"] = kernel_counts()
+    out["unused"] = {k: v.detach().cpu() for k, v in
+                     state.model.state_dict().items()
+                     if k.startswith(PAR_UNUSED)}
+    return out
+
+
+def par_cli_config(kind: str, root: Path) -> dict:
+    """A 15d run: train_vae (device buffer, ``kind`` 'replicate' or
+    'process') or train_vae_l2 ('l2'), the flagship's widths, a global
+    batch of PAR["cli_batch"], PAR["cli_steps"] steps, the last saved (the
+    caller joins the 2 ranks' gloo group: NCCL refuses two ranks on one
+    card)."""
+    training = {"n_steps": PAR["cli_steps"], "save_every": PAR["cli_steps"],
+                "val_every": 100000, "log_every": PAR["cli_steps"],
+                "plot_every": PAR["cli_steps"]}
+    data = {"batch_size": PAR["cli_batch"], "loader": "device",
+            "buffer_slots": 2, "swap_every": 3, "buffer_dtype": "float16"}
+    out = str(root / f"run_{kind}")
+    if kind == "l2":
+        return dict(FLAGSHIP_L2, output_dir=out,
+                    data=dict(FLAGSHIP_L2["data"], **data,
+                              data_dir=str(root / "tiles")),
+                    training=training)
+    return {"output_dir": out, "seed": SEED,
+            "data": dict(data, train_dir=str(root / "tiles" / "train"),
+                         partition=kind),
+            "model": dict(VAE_MODEL), "optimizer": PAR_OPT,
+            "training": training}
+
+
+def parallel_child(spec_path: str, rank: int) -> None:
+    """One rank of phase 15a and 15d, sharing cuda:0 with the other over
+    gloo. 15a: the flagship (bf16) and the two-level fp32 VAE under DDP on
+    this rank's half of each global batch (par_steps), a timed gloo
+    all-reduce of the flagship's gradient bytes, the group left. 15d: each
+    CLI run of the spec in a gloo group of its own, joined here (the CLI
+    takes a live group as it is); rank 1 records every file it writes, renames or makes under the run's
+    output directory. Writes its results to the spec's directory."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from tempo_tpu_torch.cli import train_vae, train_vae_l2
+    from tempo_tpu_torch.parallel.mesh import create_mesh, shard_state
+    from tempo_tpu_torch.train.state import (create_train_state,
+                                             make_optimizer_from_config)
+    from tempo_tpu_torch.train.step import make_train_step, vae_loss_fn
+
+    spec = json.loads(Path(spec_path).read_text())
+    root, world = Path(spec["root"]), PAR["world"]
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":  # "cuda" alone: the process's current device
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"rank": rank}
+    dist.init_process_group("gloo", init_method=f"file://{spec['store']}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    for label, model_cfg, dtype, n in (
+            ("bf16", dict(VAE_MODEL, **PAR_L2), None, PAR["vae_batch"]),
+            ("f32_2level", dict(VAE_F32_MODEL, **PAR_L2), "float32",
+             PAR["f32_batch"])):
+        model = par_vae(dev, model_cfg, dtype)
+        if label == "bf16":
+            n_grad = sum(p.numel() for p in model.parameters())
+        batches, noises = par_inputs(dev, model, n)
+        tx = make_optimizer_from_config(PAR_OPT, n_steps=PAR["steps"])
+        state = shard_state(create_train_state(model, tx, SEED),
+                            create_mesh(dev))
+        rows = slice(rank * n // world, (rank + 1) * n // world)
+        out = par_steps(dev, state, make_train_step(vae_loss_fn(model), tx),
+                        batches, noises, rows)
+        if rank == 0:
+            torch.save({"grads": out["grads"], "unused": out["unused"]},
+                       root / f"ddp_{label}.pt")
+        res[label] = {k: out[k] for k in ("loss", "pixel_mse", "step_ms",
+                                          "launches_last_step")}
+        del model, state, batches, noises, out
+        torch.cuda.empty_cache()
+    buf = torch.ones(n_grad, device=dev)
+    dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    res["allreduce_ms"] = 1e3 * (time.perf_counter() - t0) / 3
+    res["allreduce_bytes"] = 4 * n_grad
+    del buf
+    dist.barrier()
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    written, current = [], {"out": None}
+
+    def audit(event, args):
+        out = current["out"]
+        if out is None:
+            return
+        path = None
+        if event == "open" and args[1] is not None and any(
+                c in str(args[1]) for c in "wax+"):
+            path = args[0]
+        elif event in ("os.mkdir", "os.rename"):
+            path = args[0]
+        if path is not None and os.path.realpath(str(path)).startswith(out):
+            written.append(f"{event} {path}")
+
+    if rank != 0:
+        sys.addaudithook(audit)
+    res["cli"] = {}
+    for kind in ("replicate", "process", "l2"):
+        cfg = par_cli_config(kind, root)
+        dist.init_process_group(
+            "gloo", init_method=f"file://{root / f'store_{kind}'}",
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=120))
+        current["out"] = os.path.realpath(cfg["output_dir"])
+        written.clear()
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        cli = train_vae_l2 if kind == "l2" else train_vae
+        trainer, stats = cli.run(cfg, device=dev)
+        torch.cuda.synchronize()
+        current["out"] = None
+        dist.destroy_process_group()
+        torch.save(trainer.state.model.state_dict(),
+                   root / f"cli_{kind}_rank{rank}.pt")
+        res["cli"][kind] = {"launches": kernel_counts(), "step": trainer.step,
+                            "run_s": time.perf_counter() - t0,
+                            "samples_per_sec": stats["samples_per_sec"],
+                            "written": list(written)}
+        del trainer
+        torch.cuda.empty_cache()
+    (root / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def fsdp_vs_unwrapped(dev, make, counted, label: str) -> dict:
+    """``make()`` -> (model, tx, loss_fn, batches, posterior draws or
+    None): PAR["steps"] steps of the unwrapped model, then of the same
+    model under FSDP2 over this process's group of one (parallel/fsdp.py),
+    the parameters held bitwise after each step; each run's peak memory,
+    each step's ms (host wall to a sync; the first includes FSDP2's lazy
+    set-up and first use) and ``counted(fn)``'s launches of its last
+    step."""
+    import torch
+
+    from tempo_tpu_torch.parallel.fsdp import shard_state_fsdp
+    from tempo_tpu_torch.parallel.mesh import create_mesh
+    from tempo_tpu_torch.train.state import create_train_state
+    from tempo_tpu_torch.train.step import make_train_step
+
+    runs = {}
+    for mode in ("unwrapped", "fsdp"):
+        model, tx, loss_fn, batches, noises = make()
+        state = create_train_state(model, tx, SEED)
+        if mode == "fsdp":
+            state = shard_state_fsdp(state, create_mesh(dev), tx)
+        step = make_train_step(loss_fn, tx)
+        after, launches, ms = [], {}, []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with (contextlib.nullcontext() if noises is None
+              else fed_posterior(noises, slice(None))):
+            for i, x in enumerate(batches):
+                t0 = time.perf_counter()
+                if i == len(batches) - 1:
+                    launches = counted(lambda: step(state, x))
+                else:
+                    step(state, x)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                after.append({k: (p.to_local() if hasattr(p, "to_local")
+                                  else p).detach().clone()
+                              for k, p in model.named_parameters()})
+        runs[mode] = {"after": after, "launches": launches, "ms": ms,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "sharded": sum(hasattr(p, "to_local")
+                                     for p in model.parameters())}
+        del model, state, step, batches, noises
+        torch.cuda.empty_cache()
+    a, b = runs["unwrapped"]["after"], runs["fsdp"]["after"]
+    runs_launches = {mode: r["launches"] for mode, r in runs.items()}
+    bitwise = [all(torch.equal(x[k], y[k]) for k in x) for x, y in zip(a, b)]
+    moved = [any(not torch.equal(a[i][k], a[i + 1][k]) for k in a[i])
+             for i in range(len(a) - 1)]
+    res = {"bitwise_after_each_step": bitwise, "weights_moved": moved,
+           "n_params": len(a[0]), "sharded_params": runs["fsdp"]["sharded"]}
+    for mode, r in runs.items():
+        res[mode] = {"step_ms": r["ms"], "peak_gb": r["peak_gb"],
+                     "launches_last_step": r["launches"]}
+    del runs, a, b
+    print(f"[parallel] 15{label}: {json.dumps(res)} on {smi_line()}",
+          flush=True)
+    launched = (runs_launches["fsdp"] == runs_launches["unwrapped"]
+                and all(v > 0 for v in runs_launches["fsdp"].values()))
+    if not (all(bitwise) and all(moved) and res["sharded_params"]
+            and launched):
+        fail(f"15{label}: FSDP2 at world 1 is not bitwise the unwrapped "
+             f"model after every step (or nothing was sharded or moved, or "
+             f"its step launched other kernel counts than the unwrapped "
+             f"step's, or a kernel no time)")
+    return res
+
+
+def parallel_path(dev, rows: dict, root: Path) -> dict:
+    """Phase 15 (see PAR): 15a and 15d in two rank processes started
+    together (parallel_child), checked here against this process's
+    one-device runs; then 15b and 15c here, FSDP2 over NCCL at world 1.
+    Adds each kernel's phase-15 launches to its row."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tempo_tpu_torch.data.synthetic import make_tile_shards
+    from tempo_tpu_torch.models.vae import VAEConfig, build_vae
+    from tempo_tpu_torch.models.vae_l2 import build_vae_l2
+    from tempo_tpu_torch.nn.transformer import (Transformer,
+                                                TransformerConfig,
+                                                make_gpt_optimizer)
+    from tempo_tpu_torch.train.checkpoint import load_params
+    from tempo_tpu_torch.train.state import (create_train_state,
+                                             make_optimizer_from_config)
+    from tempo_tpu_torch.train.step import (lm_loss_fn, make_train_step,
+                                            vae_loss_fn)
+
+    card = smi_line()
+    seconds, result = {}, {"card": card,
+                           "note": "two ranks on one card: no scaling"}
+    for r in rows.values():
+        r["launches_phase15"] = {}
+
+    # -------------------- 15a's one-device runs, then the rank processes
+    t_phase = time.perf_counter()
+    ref = {}
+    for label, model_cfg, dtype, n in (
+            ("bf16", dict(VAE_MODEL, **PAR_L2), None, PAR["vae_batch"]),
+            ("f32_2level", dict(VAE_F32_MODEL, **PAR_L2), "float32",
+             PAR["f32_batch"])):
+        model = par_vae(dev, model_cfg, dtype)
+        batches, noises = par_inputs(dev, model, n)
+        tx = make_optimizer_from_config(PAR_OPT, n_steps=PAR["steps"])
+        state = create_train_state(model, tx, SEED)
+        ref[label] = par_steps(dev, state, make_train_step(
+            vae_loss_fn(model), tx), batches, noises, slice(None))
+        del model, state, batches, noises
+        torch.cuda.empty_cache()
+    c, h, w = VAEConfig.from_dict(VAE_MODEL).shape
+    n_files, per_file = PAR["tiles"]
+    make_tile_shards(root / "tiles" / "train", n_files=n_files,
+                     tiles_per_file=per_file, tile=h, n_spectral=c,
+                     l2_products=FLAGSHIP_L2["l2"]["components"], seed=SEED,
+                     dtype=np.float16)
+    spec = root / "spec.json"
+    spec.write_text(json.dumps({"root": str(root), "device": str(dev),
+                                "store": str(root / "store_15a")}))
+    logs = [open(root / f"rank{r}.log", "w") for r in range(PAR["world"])]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.parallel_child(sys.argv[1], int(sys.argv[2]))",
+         str(spec), str(r)], cwd=Path(__file__).resolve().parent,
+        stdout=logs[r], stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        for r in range(PAR["world"])]
+    try:
+        deadline = time.perf_counter() + PAR["timeout"]
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            stop_process(p)
+        for f in logs:
+            f.close()
+    if any(p.returncode for p in procs):
+        tails = "\n".join((root / f"rank{r}.log").read_text()[-6000:]
+                          for r in range(PAR["world"]))
+        fail(f"a phase-15 rank failed or ran past {PAR['timeout']} s:\n"
+             f"{tails}")
+    ranks = [json.loads((root / f"rank{r}.json").read_text())
+             for r in range(PAR["world"])]
+    seconds["15a+d ranks"] = time.perf_counter() - t_phase
+
+    # --------------------------------------------------------- 15a gates
+    a = {}
+    for label, tol in (("bf16", STEP_BF16_TOL), ("f32_2level", STEP_F32_TOL)):
+        got = torch.load(root / f"ddp_{label}.pt", weights_only=True)
+        want = ref[label]
+        r0 = ranks[0][label]
+        loss_rel = max(abs(g - w) / abs(w) for g, w in
+                       zip(r0["loss"], want["loss"]))
+        mse_rel = max(abs(g - w) / abs(w) for g, w in
+                      zip(r0["pixel_mse"], want["pixel_mse"]))
+        grad_rel = {k: rel_l2(got["grads"][k], g)
+                    for k, g in want["grads"].items()
+                    if not k.endswith("attn1.k.bias")}
+        same_keys = set(got["grads"]) == set(want["grads"])
+        unused = all(torch.equal(got["unused"][k], v)
+                     for k, v in want["unused"].items())
+        a[label] = {"loss_rel": loss_rel, "pixel_mse_rel": mse_rel,
+                    "max_grad_rel_l2": max(grad_rel.values()),
+                    "worst_grad": max(grad_rel, key=grad_rel.get),
+                    "grads_compared": len(grad_rel),
+                    "unused_convs_bitwise": unused,
+                    "ranks_agree_on_metrics": ranks[0][label]["loss"]
+                    == ranks[1][label]["loss"],
+                    "step_ms_two_ranks_on_one_card":
+                        [r[label]["step_ms"] for r in ranks],
+                    "step_ms_one_process": want["step_ms"],
+                    "launches_per_rank_per_step":
+                        [r[label]["launches_last_step"] for r in ranks],
+                    "launches_one_process_step":
+                        want["launches_last_step"]}
+        ok = (loss_rel <= tol["loss"] and mse_rel <= tol["loss"]
+              and a[label]["max_grad_rel_l2"] <= tol["grad"] and same_keys
+              and unused and a[label]["ranks_agree_on_metrics"]
+              and all(all(r[label]["launches_last_step"].values())
+                      for r in ranks))
+        if not ok:
+            fail(f"15a {label}: DDP over 2 ranks disagrees with one process "
+                 f"(tol {tol}) or a rank launched a kernel no time: "
+                 f"{json.dumps(a[label])}")
+    bf16_ms = statistics.mean(a["bf16"]["step_ms_two_ranks_on_one_card"])
+    a["allreduce"] = {"ms": [r["allreduce_ms"] for r in ranks],
+                      "bytes": ranks[0]["allreduce_bytes"],
+                      "share_of_bf16_step": statistics.mean(
+                          r["allreduce_ms"] for r in ranks) / bf16_ms,
+                      "what": "a gloo all-reduce of the flagship's fp32 "
+                              "gradient bytes on cuda:0, timed alone (an "
+                              "upper bound of the step's: DDP overlaps its "
+                              "buckets with the backward)"}
+    print(f"[parallel] 15a DDP, 2 ranks over gloo on one card (two ranks on "
+          f"one card: no scaling), the flagship bf16 at {PAR['vae_batch']} "
+          f"({PAR['vae_batch'] // PAR['world']} a rank) and the fp32 "
+          f"two-level VAE at {PAR['f32_batch']}, "
+          f"{PAR['steps']} steps against one process: {json.dumps(a)} on "
+          f"{card}", flush=True)
+    for name in ("K1a", "K1b", "K2"):
+        rows[name]["launches_phase15"]["15a_per_rank_per_step"] = ranks[0][
+            "bf16"]["launches_last_step"][name]
+    result["15a"] = a
+
+    # --------------------------------------------------------- 15d gates
+    d = {}
+    models = {"replicate": lambda: build_vae(VAE_MODEL, device=dev)[0],
+              "process": lambda: build_vae(VAE_MODEL, device=dev)[0],
+              "l2": lambda: build_vae_l2(FLAGSHIP_L2["model"],
+                                         tuple(FLAGSHIP_L2["l2"][
+                                             "mlp_hidden"]), device=dev)[0]}
+    for kind, make in models.items():
+        cfg = par_cli_config(kind, root)
+        out = Path(cfg["output_dir"])
+        info = json.loads((out / "training_info.yaml").read_text())
+        ckpt = out / "checkpoints" / f"ckpt_step={PAR['cli_steps']:06d}.pt"
+        model = make()
+        load_params(ckpt, model)
+        states = [torch.load(root / f"cli_{kind}_rank{r}.pt",
+                             weights_only=True) for r in range(PAR["world"])]
+        loaded = model.state_dict()
+        bitwise = all(torch.equal(loaded[k], s[k].to(loaded[k].device))
+                      for s in states for k in loaded)
+        d[kind] = {"n_devices": info["n_devices"],
+                   "rank1_writes": ranks[1]["cli"][kind]["written"],
+                   "checkpoint_loads_bitwise_both_ranks": bitwise,
+                   "launches_per_rank": [r["cli"][kind]["launches"]
+                                         for r in ranks],
+                   "run_s": [r["cli"][kind]["run_s"] for r in ranks],
+                   "samples_per_sec": ranks[0]["cli"][kind][
+                       "samples_per_sec"]}
+        del model, states, loaded
+        ok = (info["n_devices"] == 2 and not d[kind]["rank1_writes"]
+              and bitwise and all(all(r["cli"][kind]["launches"].values())
+                                  for r in ranks))
+        if not ok:
+            fail(f"15d {kind}: {json.dumps(d[kind])}")
+        for name in ("K1a", "K1b", "K2"):
+            rows[name]["launches_phase15"][f"15d_{kind}_rank0"] = ranks[0][
+                "cli"][kind]["launches"][name]
+    print(f"[parallel] 15d the CLIs under 2 gloo ranks on one card, the "
+          f"flagship's widths, global batch {PAR['cli_batch']}, "
+          f"{PAR['cli_steps']} steps: {json.dumps(d)} on {card}",
+          flush=True)
+    result["15d"] = d
+    torch.cuda.empty_cache()
+
+    # ----------------------------- 15b, 15c: FSDP2 at world 1 over NCCL
+    t_phase = time.perf_counter()
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo", store=dist.HashStore(),
+        rank=0, world_size=1)
+    try:
+        def vae():
+            model = par_vae(dev, VAE_MODEL)
+            batches, noises = par_inputs(dev, model, PAR["vae_batch"])
+            tx = make_optimizer_from_config(PAR_OPT, n_steps=PAR["steps"])
+            return model, tx, vae_loss_fn(model), batches, noises
+
+        def k12_counted(fn):
+            torch.cuda.synchronize()
+            zero_kernel_counts()
+            fn()
+            torch.cuda.synchronize()
+            return kernel_counts()
+
+        with deterministic_cudnn():
+            result["15b"] = fsdp_vs_unwrapped(dev, vae, k12_counted, "b")
+        for name in ("K1a", "K1b", "K2"):
+            rows[name]["launches_phase15"]["15b_fsdp_step"] = result["15b"][
+                "fsdp"]["launches_last_step"][name]
+        seconds["15b"] = time.perf_counter() - t_phase
+        torch.cuda.empty_cache()
+
+        t_phase = time.perf_counter()
+        gcfg = TransformerConfig(compute_dtype="bfloat16", attn_impl="auto",
+                                 **PAR_GPT)
+        tokens = [torch.from_numpy(np.random.default_rng(SEED + i).integers(
+            0, gcfg.in_size, (TRAIN_BATCH, gcfg.block_size + 1))).to(dev)
+            for i in range(PAR["steps"])]
+
+        def gpt():
+            model = Transformer(gcfg, device=dev, seed=SEED)
+            tx = make_gpt_optimizer(model, weight_decay=0.1,
+                                    learning_rate=3e-4, betas=(0.9, 0.95))
+            return model, tx, lm_loss_fn(model), tokens, None
+
+        result["15c"] = fsdp_vs_unwrapped(
+            dev, gpt, lambda fn: count_flash(fn)[1], "c")
+        for name in ("K5f", "K5dkv", "K5dq"):
+            rows[name]["launches_phase15"]["15c_fsdp_step"] = result["15c"][
+                "fsdp"]["launches_last_step"][name]
+        seconds["15c"] = time.perf_counter() - t_phase
+    finally:
+        dist.destroy_process_group()
+    result["seconds"] = seconds
+    print(f"[time] phase 15, s: {json.dumps(seconds)}", flush=True)
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -7961,6 +8521,13 @@ def main() -> int:
     t_phase = time.perf_counter()
     connectomics = connectomics_path(dev, rows)
     seconds["14e"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+
+    # ------------- 15. data parallelism (DDP) and ZeRO-3 (FSDP2) on the card
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel = parallel_path(dev, rows, Path(tmp))
+    seconds["15"] = time.perf_counter() - t_phase
     print(f"[time] phases, s: {json.dumps(seconds)}", flush=True)
 
     for r in rows.values():
@@ -7978,6 +8545,7 @@ def main() -> int:
         "model_options": {"serving": options_serving,
                           "training": options_training},
         "lm_rest": lm_rest, "connectomics": connectomics,
+        "parallel": parallel,
         "granule_numpy_normalize_s": t_numpy_normalize,
         "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {

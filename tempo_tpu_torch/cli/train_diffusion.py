@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Train a generative model on TEMPO tiles on one GPU, variational
-diffusion (VDM) or stochastic flow matching (SFM), in pixel space or in
-the latent space of a frozen VAE; counterpart of
-tempo_tpu/cli/train_diffusion.py's single-device path.
+"""Train a generative model on TEMPO tiles on one GPU or data-parallel
+over many, variational diffusion (VDM) or stochastic flow matching (SFM),
+in pixel space or in the latent space of a frozen VAE; counterpart of
+tempo_tpu/cli/train_diffusion.py.
 
     python -m tempo_tpu_torch.cli.train_diffusion config.yaml [--overwrite] [--debug]
+    torchrun --nproc-per-node=N -m tempo_tpu_torch.cli.train_diffusion config.yaml
 
 The same config schema (``family``, ``latent``, ``score_model``,
 ``diffusion``, ``sampling`` beside train_vae's ``data``, ``optimizer`` and
@@ -31,9 +32,16 @@ dropout never drops (``dropout_prob`` builds the modules only), as in the
 JAX package. Weights come from the config's seed through the port's own
 initializer, so a run does not reproduce the JAX package's weights.
 
+Under torchrun (one process per GPU, parallel/mesh.py) the VDM, SFM or
+CUNet trains under DDP: each rank loads ``batch_size //
+LOCAL_WORLD_SIZE`` tiles from ``seed + 1000 + 1000 * rank`` (JAX splits
+its process's batch over the local devices) and draws its own times and
+noise; the frozen VAE is not wrapped (each rank encodes its own batch).
+Rank 0 writes the run's files and samples the end-of-run panel;
+training_info's ``n_devices`` is the world size.
+
 ``run(config_dict)`` is the same run from a dict: it needs no YAML reader
-and writes config.yaml and training_info.yaml as JSON. The port trains on
-one device (training_info's n_devices is 1).
+and writes config.yaml and training_info.yaml as JSON.
 ``training.checkpoint_format: async`` writes the same checkpoints on a
 background thread. Not ported (NotImplementedError):
 ``training.checkpoint_format: sharded`` and a sharded checkpoint directory
@@ -49,7 +57,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from tempo_tpu_torch.cli import run_cli
+from tempo_tpu_torch.cli import (host_batch, parallelize, run_cli,
+                                 start_run_directory)
 from tempo_tpu_torch.data.loader import TileLoader
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.models.diffusion import VDM
@@ -58,17 +67,17 @@ from tempo_tpu_torch.models.flow import SFM
 from tempo_tpu_torch.models.flow import predict as flow_predict
 from tempo_tpu_torch.models.vae import build_vae
 from tempo_tpu_torch.nn.unet import CUNet
+from tempo_tpu_torch.parallel.mesh import (is_primary, process_count,
+                                           process_group, process_index)
 from tempo_tpu_torch.train import png
 from tempo_tpu_torch.train.checkpoint import (check_format, load_params,
-                                              resolve_resume_from,
-                                              wants_auto_resume)
+                                              resolve_resume_from)
 from tempo_tpu_torch.train.state import (create_train_state,
                                          make_optimizer_from_config)
 from tempo_tpu_torch.train.step import diffusion_loss_fn, flow_loss_fn
 from tempo_tpu_torch.train.trainer import Trainer
-from tempo_tpu_torch.utils.config import (copy_config, load_config,
-                                          require_keys, save_json_yaml)
-from tempo_tpu_torch.utils.dirs import init_directory
+from tempo_tpu_torch.utils.config import (load_config, require_keys,
+                                          save_json_yaml)
 from tempo_tpu_torch.utils.figures import pyplot
 
 
@@ -224,20 +233,17 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
         config_path: Optional[str] = None) -> Tuple[Trainer, Dict, Dict]:
     """Train as the config dict says, on ``device`` (None: CUDA, raising
     without it); returns the Trainer, its throughput stats and the
-    training info. ``config_path`` is copied into the run as config.yaml;
-    without it the dict is written there."""
+    training info (None on a rank other than 0). ``config_path`` is copied
+    into the run as config.yaml; without it the dict is written there."""
     validate_config(config)
+    with process_group(config, device) as mesh:
+        return _run(config, overwrite, debug, device, config_path, mesh)
+
+
+def _run(config, overwrite, debug, device, config_path, mesh):
     dev = resolve_device(device)
-    resume_auto = wants_auto_resume(config["training"])
-    output_dir = init_directory(Path(config["output_dir"]),
-                                overwrite=overwrite,
-                                allow_existing=resume_auto)
-    for sub in ("checkpoints", "figures"):
-        (output_dir / sub).mkdir(parents=True, exist_ok=True)
-    if config_path is not None:
-        copy_config(config_path, output_dir)
-    else:
-        save_json_yaml(config, output_dir / "config.yaml")
+    output_dir = start_run_directory(config, overwrite, config_path,
+                                     subdirs=("checkpoints", "figures"))
 
     seed = config.get("seed", 42)
     if debug:
@@ -252,19 +258,19 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
 
     data_cfg = config["data"]
     print("\nLoading training data...")
+    batch_size = host_batch(data_cfg.get("batch_size", 16), mesh)
+    rank_offset = 1000 * process_index()
     train_loader = TileLoader(
-        data_dir=data_cfg["train_dir"],
-        batch_size=data_cfg.get("batch_size", 16),
+        data_dir=data_cfg["train_dir"], batch_size=batch_size,
         min_buffer_size=data_cfg.get("min_buffer_size", 200),
-        seed=seed + 1000, prefetch=data_cfg.get("prefetch", 2),
+        seed=seed + 1000 + rank_offset, prefetch=data_cfg.get("prefetch", 2),
         num_threads=data_cfg.get("loader_threads", 2), verbose=True)
     val_loader = None
     if "val_dir" in data_cfg:
         val_loader = TileLoader(
-            data_dir=data_cfg["val_dir"],
-            batch_size=data_cfg.get("batch_size", 16),
+            data_dir=data_cfg["val_dir"], batch_size=batch_size,
             min_buffer_size=data_cfg.get("val_min_buffer_size", 100),
-            seed=seed + 1001, num_threads=1, verbose=True)
+            seed=seed + 1001 + rank_offset, num_threads=1, verbose=True)
 
     try:
         probe = next(iter(train_loader))
@@ -287,7 +293,8 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
         tx = make_optimizer_from_config(
             config.get("optimizer", {}),
             n_steps=int(train_cfg.get("n_steps", 10_000)))
-        state = create_train_state(model, tx, seed + 2)
+        state = parallelize(create_train_state(model, tx, seed + 2), tx,
+                            mesh, fsdp=False)
         if family == "sfm":
             # a flow has no denoising round trip: no recon figures; the
             # end-of-run sample panel is the visual artifact
@@ -322,6 +329,8 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
         train_loader.close()
         if val_loader is not None:
             val_loader.close()
+    if not is_primary():
+        return trainer, stats, None
 
     # the end-of-run sample panel, decoded to pixels in latent mode
     samp_cfg = dict(config.get("sampling", {}))
@@ -340,7 +349,7 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
     info = {
         "seed": seed,
         "family": family,
-        "n_devices": 1,
+        "n_devices": process_count(),
         "n_params": int(n_params),
         "latent_space": "latent" in config,
         "model_shape": [int(s) for s in model_shape],

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Train a GPT (dense or mixture-of-experts) on a token stream, or LoRA
-fine-tune one, on one GPU; counterpart of tempo_tpu/cli/train_gpt.py's
-single-device path.
+fine-tune one, on one GPU or sharded over many; counterpart of
+tempo_tpu/cli/train_gpt.py.
 
     python -m tempo_tpu_torch.cli.train_gpt config.yaml [--overwrite] [--debug]
+    torchrun --nproc-per-node=N -m tempo_tpu_torch.cli.train_gpt config.yaml
 
 The same config schema, directory contract and artifacts: config.yaml
 copied into output_dir, checkpoints/ckpt_step=NNNNNN.pt, metrics.json,
@@ -36,9 +37,21 @@ or ``training.profile_steps``.
 and writes config.yaml and training_info.yaml as JSON, which YAML readers
 read.
 
+``parallel.fsdp: true`` shards the parameters and AdamW's moments with
+FSDP2 (parallel/fsdp.py) over the run's processes (torchrun or
+``distributed:``, parallel/mesh.py; one process alone is a mesh of one, as
+JAX's one-device mesh); several processes without it train under DDP.
+``data.batch_size`` is the global batch, as JAX's: every rank draws it
+from the shared seed and trains its contiguous slice. Rank 0 writes the
+run's files and the generation (from the gathered weights under FSDP2).
+As in JAX, FSDP composes with no other axis and not with LoRA
+(ValueError); an MoE model under FSDP or over several processes raises
+NotImplementedError: JAX's expert capacity and Switch loss are over the
+global batch, which waits for the expert-parallel slice.
+
 Not ported (NotImplementedError from validate_config): ``parallel.*``
-(pipeline, tensor, expert, context, fsdp) and
-``training.checkpoint_format: sharded`` (M13).
+pipeline, tensor, expert and context, and ``training.checkpoint_format:
+sharded`` (M13).
 """
 
 from __future__ import annotations
@@ -50,24 +63,25 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from tempo_tpu_torch.cli import run_cli
+from tempo_tpu_torch.cli import parallelize, run_cli, start_run_directory
 from tempo_tpu_torch.data.tokens import TokenLoader, make_token_stream
 from tempo_tpu_torch.nn.transformer import (Transformer, TransformerConfig,
                                            generate, make_gpt_optimizer,
                                            num_params)
 from tempo_tpu_torch.nn.lora import LoRA, init_lora, num_lora_params
+from tempo_tpu_torch.parallel.fsdp import full_state_dict
+from tempo_tpu_torch.parallel.mesh import (RankSlice, batch_sharding,
+                                           is_primary, process_count,
+                                           process_group)
 from tempo_tpu_torch.train.checkpoint import (check_format,
                                               latest_checkpoint, load_params,
-                                              resolve_resume_from,
-                                              wants_auto_resume)
+                                              resolve_resume_from)
 from tempo_tpu_torch.train.schedules import lr_schedule
 from tempo_tpu_torch.train.state import create_train_state
 from tempo_tpu_torch.train.step import lm_loss_fn
 from tempo_tpu_torch.train.trainer import Trainer
-from tempo_tpu_torch.utils.config import (copy_config, load_config,
-                                          require_keys, save_json_yaml,
-                                          save_yaml)
-from tempo_tpu_torch.utils.dirs import init_directory
+from tempo_tpu_torch.utils.config import (load_config, require_keys,
+                                          save_json_yaml, save_yaml)
 
 # parallel.* keys and the values that mean "not parallel"
 _SERIAL = {"pipeline": 1, "tensor": 1, "expert": 1, "context": 1,
@@ -82,6 +96,18 @@ def build_transformer_config(model_cfg: dict) -> TransformerConfig:
         for k, v in model_cfg.items()})
 
 
+def refuse_sharded_moe(config) -> None:
+    """An MoE model (n_experts > 0) trains on one process only: JAX's
+    expert capacity ceil(k*n/E*cf) and Switch aux loss are over the global
+    batch, and a rank's own batch gives other numbers."""
+    if int(config["model"].get("n_experts", 0)) > 0:
+        raise NotImplementedError(
+            "an MoE model (n_experts > 0) under parallel.fsdp or over "
+            "several processes is not ported: JAX's expert capacity and "
+            "Switch loss are over the global batch, which waits for the "
+            "expert-parallel slice (ROADMAP Queue 1, M13 item 2.2)")
+
+
 def validate_config(config) -> None:
     require_keys(config, ["output_dir", "data", "model", "training"])
     data = config["data"]
@@ -90,19 +116,28 @@ def validate_config(config) -> None:
                          "'synthetic' ({vocab_size, length})")
     if "tokens" in data and not Path(data["tokens"]).exists():
         raise ValueError(f"FATAL: token stream doesn't exist: {data['tokens']}")
-    for key, value in dict(config.get("parallel", {})).items():
+    parallel = dict(config.get("parallel") or {})
+    for key, value in parallel.items():
         if key not in _SERIAL:
             raise ValueError(f"FATAL: unknown parallel.{key}")
-        if _SERIAL[key] is not None and value != _SERIAL[key]:
+        if (key != "fsdp" and _SERIAL[key] is not None
+                and value != _SERIAL[key]):
             raise NotImplementedError(
-                f"parallel.{key}={value!r} is not ported: the port trains on "
-                f"one device")
+                f"parallel.{key}={value!r} is not ported: it waits for its "
+                f"parallelism (ROADMAP Queue 1, M13)")
+    fsdp = bool(parallel.get("fsdp", False))
     ft = dict(config.get("finetune", {}))
-    if int(ft.get("lora_rank", 0)) > 0 and ("base_checkpoint" not in ft
-                                            and "base_run" not in ft):
-        raise ValueError("FATAL: finetune.lora_rank needs "
-                         "finetune.base_checkpoint (ckpt path) or "
-                         "finetune.base_run (train_gpt output dir)")
+    if int(ft.get("lora_rank", 0)) > 0:
+        if "base_checkpoint" not in ft and "base_run" not in ft:
+            raise ValueError("FATAL: finetune.lora_rank needs "
+                             "finetune.base_checkpoint (ckpt path) or "
+                             "finetune.base_run (train_gpt output dir)")
+        if fsdp:
+            raise ValueError("FATAL: finetune.lora_rank is the dense "
+                             "data-parallel path — adapters are tiny, "
+                             "model-sharding them buys nothing")
+    if fsdp:
+        refuse_sharded_moe(config)
     check_format(config["training"].get("checkpoint_format", "msgpack"))
 
 
@@ -114,15 +149,17 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
     ``config_path`` is copied into the run as config.yaml; without it the
     dict is written there, and training_info.yaml too, as JSON."""
     validate_config(config)
-    resume_auto = wants_auto_resume(config["training"])
-    output_dir = init_directory(Path(config["output_dir"]),
-                                overwrite=overwrite,
-                                allow_existing=resume_auto)
-    (output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
-    if config_path is not None:
-        copy_config(config_path, output_dir)
-    else:
-        save_json_yaml(config, output_dir / "config.yaml")
+    fsdp = bool(dict(config.get("parallel") or {}).get("fsdp", False))
+    with process_group(config, device, single=fsdp) as mesh:
+        if process_count() > 1:
+            refuse_sharded_moe(config)
+        return _run(config, overwrite, debug, device, config_path, mesh,
+                    fsdp)
+
+
+def _run(config, overwrite, debug, device, config_path, mesh, fsdp: bool):
+    output_dir = start_run_directory(config, overwrite, config_path,
+                                     subdirs=("checkpoints",))
 
     seed = config.get("seed", 42)
     if debug:
@@ -158,10 +195,14 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
         trained = _lora_model(config["finetune"], model, seed)
 
     batch_size = int(data_cfg.get("batch_size", 16))
-    train_loader = TokenLoader(stream, batch_size, tconfig.block_size,
-                               seed=seed + 1)
-    val_loader = TokenLoader(stream, batch_size, tconfig.block_size,
-                             seed=seed + 2)
+    shard = batch_sharding(mesh)
+    shard.local_size(batch_size)  # the global batch divides over the ranks
+    train_loader = RankSlice(TokenLoader(stream, batch_size,
+                                         tconfig.block_size, seed=seed + 1),
+                             shard)
+    val_loader = RankSlice(TokenLoader(stream, batch_size,
+                                       tconfig.block_size, seed=seed + 2),
+                           shard)
 
     opt_cfg = dict(config.get("optimizer", {}))
     train_cfg = config["training"]
@@ -171,7 +212,8 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
                                                              10_000))),
         betas=tuple(opt_cfg.get("betas", (0.9, 0.95))),
         moments_dtype=opt_cfg.get("moments_dtype"))
-    state = create_train_state(trained, tx, seed + 3)
+    state = parallelize(create_train_state(trained, tx, seed + 3), tx, mesh,
+                        fsdp)
     aux_weight = float(train_cfg.get("moe_aux_weight", 0.01))
     trainer = Trainer(
         loss_fn=lm_loss_fn(model, aux_weight), tx=tx, state=state,
@@ -195,6 +237,13 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
                           val_iter_factory=lambda: iter(val_loader),
                           n_steps=n_steps)
     end_time = datetime.now()
+    if fsdp:  # every rank gathers; rank 0 generates from a plain copy
+        gathered = full_state_dict(model)
+        if is_primary():
+            model = trained = Transformer(tconfig, device=device)
+            model.load_state_dict(gathered)
+    if not is_primary():
+        return trainer, stats
     write = save_yaml if config_path is not None else save_json_yaml
     write({
         "seed": seed,

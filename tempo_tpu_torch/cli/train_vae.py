@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Train the TEMPO spectral VAE on one GPU; counterpart of
-tempo_tpu/cli/train_vae.py's single-device path.
+"""Train the TEMPO spectral VAE on one GPU or data-parallel over many;
+counterpart of tempo_tpu/cli/train_vae.py.
 
     python -m tempo_tpu_torch.cli.train_vae config.yaml [--overwrite] [--debug]
+    torchrun --nproc-per-node=N -m tempo_tpu_torch.cli.train_vae config.yaml
 
 The same config schema, directory contract and artifacts: config.yaml
 copied into output_dir, checkpoints/ckpt_step=NNNNNN.pt, figures/
@@ -25,14 +26,24 @@ through ``end`` into profile/ (torch.profiler's Chrome trace);
 ``training.checkpoint_format: async`` writes the same checkpoints on a
 background thread while training goes on.
 
+Parallelism, one process per GPU (parallel/mesh.py): under torchrun, or
+with an enabled ``distributed:`` section (``coordinator_address``,
+``num_processes``, ``process_id: auto``), every rank trains its local
+batch under DDP; ``parallel.fsdp: true`` shards the parameters and
+AdamW's moments with FSDP2 instead (parallel/fsdp.py; at world 1 too, as
+JAX's one-device mesh). The host loader gives each rank
+``batch_size // LOCAL_WORLD_SIZE`` tiles from ``seed + 1000 * rank``
+(JAX's per-host batch and seed, one process per device); the device
+buffer takes ``batch_size`` as the global batch and ``data.partition``
+(``replicate`` or ``process``: data/device_buffer.py). Rank 0 alone writes
+the run's files; training_info.yaml's ``n_devices`` is the world size.
+
 ``run(config_dict)`` is the same run from a dict: it needs no YAML reader,
 and writes config.yaml and training_info.yaml as JSON, which YAML readers
 read.
 
-Not ported (NotImplementedError from validate_config): ``distributed``
-(multi-host), ``parallel.tensor`` > 1 and ``parallel.fsdp``,
-``data.partition: process`` and ``training.checkpoint_format: sharded``
-(M13).
+Not ported (NotImplementedError from validate_config): ``parallel.tensor``
+> 1 and ``training.checkpoint_format: sharded`` (M13).
 """
 
 from __future__ import annotations
@@ -43,24 +54,24 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from tempo_tpu_torch.cli import run_cli
+from tempo_tpu_torch.cli import (host_batch, parallelize, run_cli,
+                                 start_run_directory)
 from tempo_tpu_torch.data.device_buffer import DeviceTileBuffer
 from tempo_tpu_torch.data.loader import TileLoader
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.models.vae import build_vae
+from tempo_tpu_torch.parallel.mesh import (is_primary, process_count,
+                                           process_group, process_index)
 from tempo_tpu_torch.train.checkpoint import (check_format,
-                                              resolve_resume_from,
-                                              wants_auto_resume)
+                                              resolve_resume_from)
 from tempo_tpu_torch.train.metrics import JsonlSink
 from tempo_tpu_torch.train.schedules import sqrt_save_steps
 from tempo_tpu_torch.train.state import (create_train_state,
                                          make_optimizer_from_config)
 from tempo_tpu_torch.train.step import vae_loss_fn
 from tempo_tpu_torch.train.trainer import Trainer
-from tempo_tpu_torch.utils.config import (copy_config, load_config,
-                                          require_keys, save_json_yaml,
-                                          save_yaml)
-from tempo_tpu_torch.utils.dirs import init_directory
+from tempo_tpu_torch.utils.config import (load_config, require_keys,
+                                          save_json_yaml, save_yaml)
 
 
 def validate_config(config) -> None:
@@ -77,50 +88,48 @@ def refuse_unported(config) -> None:
     """NotImplementedError for what the port's trainers do not do,
     ValueError for unknown choices."""
     data, train = config["data"], config["training"]
-    if dict(config.get("distributed", {})).get("enabled", False):
-        raise NotImplementedError("distributed (multi-host) training is not "
-                                  "ported: the port trains on one device")
-    parallel = dict(config.get("parallel", {}))
+    parallel = dict(config.get("parallel") or {})
     if int(parallel.get("tensor", 1)) != 1:
-        raise NotImplementedError("parallel.tensor > 1 is not ported: the "
-                                  "port trains on one device")
-    if parallel.get("fsdp", False):
-        raise NotImplementedError("parallel.fsdp is not ported: the port "
-                                  "trains on one device")
+        raise NotImplementedError("parallel.tensor > 1 is not ported: it "
+                                  "waits for tensor parallelism (ROADMAP "
+                                  "Queue 1, M13)")
     loader = data.get("loader", "host")
     if loader not in ("host", "device"):
         raise ValueError(f"FATAL: data.loader must be 'host' or 'device', "
                          f"got {loader!r}")
-    if loader == "device" and data.get("partition") == "process":
-        raise NotImplementedError("data.partition: process (a buffer per "
-                                  "host process) is not ported: the port "
-                                  "trains on one device")
+    partition = data.get("partition", "replicate")
+    if loader == "device" and partition not in ("replicate", "process"):
+        raise ValueError(f"FATAL: data.partition must be 'replicate' or "
+                         f"'process', got {partition!r}")
     check_format(train.get("checkpoint_format", "msgpack"))
 
 
 def _metric_sinks(train_cfg, output_dir):
     """``training.metrics_jsonl: true``: every train and val record to
     logs/metrics.jsonl; counterpart of the JAX CLI's ``_metric_sinks``."""
-    if not train_cfg.get("metrics_jsonl"):
+    if not train_cfg.get("metrics_jsonl") or not is_primary():
         return None
     return [JsonlSink(Path(output_dir) / "logs" / "metrics.jsonl")]
 
 
 def make_train_loader(data_cfg, train_dir, batch_size: int, seed: int,
-                      device, l2_products=None):
+                      device, l2_products=None, mesh=None):
     """The training stream ``data.loader`` asks for: the host TileLoader
-    or the DeviceTileBuffer on ``device``."""
+    or the DeviceTileBuffer on ``device``. Over a ``mesh`` the buffer
+    takes the global ``batch_size`` and ``data.partition``; the host
+    loader this rank's share and ``seed + 1000 * rank``."""
     if data_cfg.get("loader", "host") == "device":
         return DeviceTileBuffer(
             train_dir, batch_size=batch_size,
             slots=data_cfg.get("buffer_slots", 4),
             swap_every=data_cfg.get("swap_every", 16), seed=seed,
             dtype=data_cfg.get("buffer_dtype", "float32"), device=device,
-            l2_products=l2_products)
+            mesh=mesh, l2_products=l2_products,
+            partition=data_cfg.get("partition", "replicate"))
     return TileLoader(
-        data_dir=train_dir, batch_size=batch_size,
+        data_dir=train_dir, batch_size=host_batch(batch_size, mesh),
         min_buffer_size=data_cfg.get("min_buffer_size", 200),
-        l2_products=l2_products, seed=seed,
+        l2_products=l2_products, seed=seed + 1000 * process_index(),
         prefetch=data_cfg.get("prefetch", 2),
         num_threads=data_cfg.get("loader_threads",
                                  data_cfg.get("num_workers", 2)),
@@ -131,21 +140,20 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
         device: Union[str, torch.device, None] = None,
         config_path: Optional[str] = None):
     """Train as the config dict says, on ``device`` (None: CUDA, raising
-    without it); returns the Trainer and its throughput stats.
-    ``config_path`` is copied into the run as config.yaml; without it the
-    dict is written there, and training_info.yaml too, as JSON."""
+    without it; ``cuda:LOCAL_RANK`` under torchrun); returns the Trainer
+    and its throughput stats. ``config_path`` is copied into the run as
+    config.yaml; without it the dict is written there, and
+    training_info.yaml too, as JSON."""
     validate_config(config)
+    fsdp = bool(dict(config.get("parallel") or {}).get("fsdp", False))
+    with process_group(config, device, single=fsdp) as mesh:
+        return _run(config, overwrite, debug, device, config_path, mesh,
+                    fsdp)
+
+
+def _run(config, overwrite, debug, device, config_path, mesh, fsdp: bool):
     dev = resolve_device(device)
-    resume_auto = wants_auto_resume(config["training"])
-    output_dir = init_directory(Path(config["output_dir"]),
-                                overwrite=overwrite,
-                                allow_existing=resume_auto)
-    for sub in ("checkpoints", "figures", "logs"):
-        (output_dir / sub).mkdir(parents=True, exist_ok=True)
-    if config_path is not None:
-        copy_config(config_path, output_dir)
-    else:
-        save_json_yaml(config, output_dir / "config.yaml")
+    output_dir = start_run_directory(config, overwrite, config_path)
 
     seed = config.get("seed", 42)
     if debug:
@@ -162,15 +170,16 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
     batch_size = data_cfg.get("batch_size", 16)
     print("\nLoading training data...")
     train_loader = make_train_loader(data_cfg, data_cfg["train_dir"],
-                                     batch_size, seed, dev)
+                                     batch_size, seed, dev, mesh=mesh)
     val_loader = None
     if "val_dir" in data_cfg:
         print("\nLoading validation data...")
         val_loader = TileLoader(
-            data_dir=data_cfg["val_dir"], batch_size=batch_size,
+            data_dir=data_cfg["val_dir"],
+            batch_size=host_batch(batch_size, mesh),
             min_buffer_size=data_cfg.get("val_min_buffer_size", 100),
-            seed=seed + 1, num_threads=data_cfg.get("val_num_workers", 1),
-            verbose=True)
+            seed=seed + 1000 * process_index() + 1,
+            num_threads=data_cfg.get("val_num_workers", 1), verbose=True)
 
     print("\nInitializing model...")
     model, model_cfg = build_vae(config.get("model", {}), device=dev,
@@ -182,7 +191,8 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
     tx = make_optimizer_from_config(
         config.get("optimizer", {}),
         n_steps=int(train_cfg.get("n_steps", 10_000)))
-    state = create_train_state(model, tx, seed + 2)
+    state = parallelize(create_train_state(model, tx, seed + 2), tx, mesh,
+                        fsdp)
     save_steps = None
     if train_cfg.get("save_schedule") == "sqrt":
         save_steps = sqrt_save_steps(train_cfg["n_steps"],
@@ -222,13 +232,15 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
         if val_loader is not None:
             val_loader.close()
     end_time = datetime.now()
+    if not is_primary():
+        return trainer, stats
     write = save_yaml if config_path is not None else save_json_yaml
     write({
         "seed": seed,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else str(dev)),
-        "n_devices": 1,
-        "n_processes": 1,
+        "n_devices": process_count(),
+        "n_processes": process_count(),
         "n_params": int(n_params),
         "compute_dtype": model_cfg.compute_dtype,
         "training_time": str(end_time - start_time),

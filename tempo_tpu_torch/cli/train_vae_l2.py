@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Train the VAE with multi-task L2 product supervision on one GPU;
-counterpart of tempo_tpu/cli/train_vae_l2.py's single-device path.
+"""Train the VAE with multi-task L2 product supervision on one GPU or
+data-parallel over many; counterpart of tempo_tpu/cli/train_vae_l2.py.
 
     python -m tempo_tpu_torch.cli.train_vae_l2 config.yaml [--overwrite] [--debug]
+    torchrun --nproc-per-node=N -m tempo_tpu_torch.cli.train_vae_l2 config.yaml
 
 Dict batches of spectral tiles and the L2 products' fields from
 ``data.data_dir``/train (and /val when it exists), through the host
@@ -22,6 +23,12 @@ JAX CLI reads none. The artifacts are train_vae's plus
 summary/l2_losses.png, the L2 panels of the figures, and the products and
 weights in training_info.yaml.
 
+Parallelism as in the port's train_vae (torchrun or ``distributed:``,
+DDP over the ranks, the loaders' local batches and seeds, ``data.partition``
+for the device buffer, rank 0 writing), without FSDP: as the JAX CLI, it
+reads no ``parallel.fsdp``. The L2 losses divide by the valid positions of
+the global batch (models/vae_l2.py ``masked_mse``), as JAX's mesh step.
+
 ``run(config_dict)`` is the same run from a dict: it needs no YAML
 reader, and writes config.yaml and training_info.yaml as JSON, which
 YAML readers read. Not ported: as train_vae.
@@ -35,22 +42,23 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from tempo_tpu_torch.cli import run_cli
+from tempo_tpu_torch.cli import (host_batch, parallelize, run_cli,
+                                 start_run_directory)
 from tempo_tpu_torch.cli.train_vae import (_metric_sinks, make_train_loader,
                                            refuse_unported)
 from tempo_tpu_torch.data.loader import TileLoader
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.models.vae_l2 import L2_PRODUCTS, build_vae_l2
+from tempo_tpu_torch.parallel.mesh import (is_primary, process_count,
+                                           process_group, process_index)
 from tempo_tpu_torch.train.checkpoint import (load_params,
-                                              resolve_resume_from,
-                                              wants_auto_resume)
+                                              resolve_resume_from)
 from tempo_tpu_torch.train.state import (create_train_state,
                                          make_optimizer_from_config)
 from tempo_tpu_torch.train.step import vae_l2_loss_fn
 from tempo_tpu_torch.train.trainer import Trainer
-from tempo_tpu_torch.utils.config import (copy_config, load_config,
-                                          require_keys, save_json_yaml)
-from tempo_tpu_torch.utils.dirs import init_directory
+from tempo_tpu_torch.utils.config import (load_config, require_keys,
+                                          save_json_yaml)
 
 
 def validate_config(config: Dict[str, Any]) -> None:
@@ -77,17 +85,13 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
     ``config_path`` is copied into the run as config.yaml; without it the
     dict is written there."""
     validate_config(config)
+    with process_group(config, device) as mesh:
+        return _run(config, overwrite, debug, device, config_path, mesh)
+
+
+def _run(config, overwrite, debug, device, config_path, mesh):
     dev = resolve_device(device)
-    resume_auto = wants_auto_resume(config["training"])
-    output_dir = init_directory(Path(config["output_dir"]),
-                                overwrite=overwrite,
-                                allow_existing=resume_auto)
-    for sub in ("checkpoints", "figures", "logs"):
-        (output_dir / sub).mkdir(parents=True, exist_ok=True)
-    if config_path is not None:
-        copy_config(config_path, output_dir)
-    else:
-        save_json_yaml(config, output_dir / "config.yaml")
+    output_dir = start_run_directory(config, overwrite, config_path)
 
     seed = config.get("seed", 42)
     if debug:
@@ -111,14 +115,16 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
     batch_size = data_cfg.get("batch_size", 32)
     print("\nLoading training data...")
     train_loader = make_train_loader(data_cfg, data_dir / "train", batch_size,
-                                     seed, dev, l2_products=products)
+                                     seed, dev, l2_products=products,
+                                     mesh=mesh)
     val_loader = None
     if (data_dir / "val").exists():
         print("\nLoading validation data...")
         val_loader = TileLoader(
-            data_dir=data_dir / "val", batch_size=batch_size,
+            data_dir=data_dir / "val",
+            batch_size=host_batch(batch_size, mesh),
             min_buffer_size=data_cfg.get("val_min_buffer_size", 100),
-            l2_products=products, seed=seed + 1,
+            l2_products=products, seed=seed + 1 + 1000 * process_index(),
             num_threads=data_cfg.get("val_num_workers", 1), verbose=True)
 
     try:
@@ -136,7 +142,8 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
         tx = make_optimizer_from_config(
             config.get("optimizer", {}),
             n_steps=int(train_cfg.get("n_steps", 10_000)))
-        state = create_train_state(model, tx, seed + 2)
+        state = parallelize(create_train_state(model, tx, seed + 2), tx,
+                            mesh, fsdp=False)
         trainer = Trainer(
             loss_fn=vae_l2_loss_fn(model, l2_weights), tx=tx, state=state,
             output_dir=output_dir,
@@ -166,12 +173,14 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
         train_loader.close()
         if val_loader is not None:
             val_loader.close()
+    if not is_primary():
+        return trainer, stats
     save_json_yaml({
         "seed": seed,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else str(dev)),
-        "n_devices": 1,
-        "n_processes": 1,
+        "n_devices": process_count(),
+        "n_processes": process_count(),
         "n_params": int(n_params),
         "compute_dtype": model_cfg.compute_dtype,
         "l2_products": products,

@@ -27,8 +27,20 @@ the seed alone and equals the JAX module's for it. Without one, a finished
 swap is applied at the next batch and none waits.
 
 ``device=None`` is CUDA (raising without it); ``device='cpu'`` runs the
-same schedule synchronously, with no thread or stream, for tests. A mesh
-(data-parallel batches) and ``partition='process'`` are not ported.
+same schedule synchronously, with no thread or stream, for tests.
+
+Data parallelism (a ``mesh`` of W > 1 processes, parallel/mesh.py; a
+``BatchShard`` names one rank of W directly) follows the JAX module's
+multi-process semantics with one process per device:
+``partition='replicate'`` (default): every rank holds the whole pool,
+draws the same global indices from the shared seed (``batch_size`` is the
+global batch) and gathers its contiguous slice of them, rows
+[rank B/W, (rank+1) B/W); the slices side by side are the JAX module's
+batch. ``partition='process'``: rank r owns ``files[r::W]``, draws its
+indices from ``default_rng(seed + 1_000_003 r)`` and its shards from
+``default_rng(seed + 7919 + 1_000_003 r)``, and gathers its local batch,
+``batch_size // W``, from its own pool. One process (or no mesh) is the
+one-device buffer under either partition, as JAX's single process.
 """
 
 from __future__ import annotations
@@ -43,10 +55,12 @@ import torch
 from tempo_tpu_torch.data.loader import _find_shards
 from tempo_tpu_torch.data.tiles import find_l2_shard, load_tile_shard
 from tempo_tpu_torch.device import resolve_device
+from tempo_tpu_torch.parallel.mesh import batch_sharding
 
 DTYPES = {"float32": (np.float32, torch.float32),
           "float16": (np.float16, torch.float16)}
 SWAP_SEED_OFFSET = 7919
+RANK_SEED_STRIDE = 1_000_003
 
 
 class DeviceTileBuffer:
@@ -71,11 +85,6 @@ class DeviceTileBuffer:
             raise ValueError(
                 f"FATAL: partition must be 'replicate' or 'process', "
                 f"got {partition!r}")
-        if mesh is not None or partition == "process":
-            raise NotImplementedError(
-                "DeviceTileBuffer over a mesh (batches sharded for "
-                "data-parallel training, partition='process') is not "
-                "ported: it comes with parallelism (ROADMAP Queue 1, M13)")
         if dtype not in DTYPES:
             raise ValueError(f"FATAL: buffer dtype must be one of "
                              f"{sorted(DTYPES)}, got {dtype!r}")
@@ -94,9 +103,27 @@ class DeviceTileBuffer:
                 raise FileNotFoundError(
                     f"FATAL: L2 directory not found: {l2_dir}")
             self.l2_dirs[product] = l2_dir
-        self._rng = np.random.default_rng(seed)
+        shard = batch_sharding(mesh)
+        self._rows = None  # this rank's rows of the global draw
+        rank_seed = seed
+        if shard.world > 1:
+            if seed is None:
+                raise ValueError(
+                    "FATAL: DeviceTileBuffer over several processes needs a "
+                    "seed: the ranks' draws must be coordinated")
+            if partition == "process":
+                if len(self.files) < shard.world:
+                    raise ValueError(
+                        f"FATAL: {len(self.files)} shard files cannot be "
+                        f"partitioned over {shard.world} processes")
+                self.files = self.files[shard.rank::shard.world]
+                rank_seed = seed + RANK_SEED_STRIDE * shard.rank
+                self.batch_size = shard.local_size(batch_size)
+            else:
+                self._rows = shard.rows(batch_size)
+        self._rng = np.random.default_rng(rank_seed)
         self._swap_rng = np.random.default_rng(
-            None if seed is None else seed + SWAP_SEED_OFFSET)
+            None if seed is None else rank_seed + SWAP_SEED_OFFSET)
         self._deterministic = seed is not None
         self._cuda = self.device.type == "cuda"
         self._batches_since_swap = 0
@@ -239,7 +266,10 @@ class DeviceTileBuffer:
         n = self.batch_size
         slot_idx = self._rng.integers(0, self.slots, size=n)
         tile_idx = self._rng.integers(0, self.tiles_per_shard, size=n)
-        flat = torch.from_numpy(slot_idx * self.tiles_per_shard + tile_idx)
+        flat = slot_idx * self.tiles_per_shard + tile_idx
+        if self._rows is not None:
+            flat = flat[self._rows]
+        flat = torch.from_numpy(flat)
         if self._cuda:
             flat = flat.pin_memory().to(self.device, non_blocking=True)
         batch = {k: p.flatten(0, 1).index_select(0, flat)

@@ -28,6 +28,18 @@ from tempo_tpu_torch.data.native import gather_batch
 from tempo_tpu_torch.data.tiles import find_l2_shard, load_tile_shard
 
 
+def local_batch_size(batch_size: int, local_world: int) -> int:
+    """A rank's share of the per-host ``batch_size``: JAX splits a host
+    process's batch over its local devices, the port runs one process per
+    device, so each of the host's ``local_world`` ranks loads
+    ``batch_size // local_world`` (the global batch is ``batch_size`` x
+    hosts). Raises ValueError unless it divides."""
+    if batch_size % local_world:
+        raise ValueError(f"FATAL: data.batch_size {batch_size} must divide "
+                         f"evenly over the host's {local_world} processes")
+    return batch_size // local_world
+
+
 def _find_shards(data_dir: Union[str, Path]) -> List[str]:
     data_dir = Path(data_dir)
     files = sorted(glob.glob(str(data_dir / "*.npy")))

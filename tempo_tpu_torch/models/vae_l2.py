@@ -25,6 +25,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from tempo_tpu_torch.device import resolve_device
@@ -105,11 +106,13 @@ class VAEWithL2Head(nn.Module):
 
     def compute_loss(self, batch: Dict[str, torch.Tensor],
                      generator: torch.Generator,
-                     l2_weights: Optional[Dict[str, float]] = None
+                     l2_weights: Optional[Dict[str, float]] = None,
+                     group: Optional[dist.ProcessGroup] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """batch: {'spectral': [B,H,W,C], '<PRODUCT>': [B,H,W]} (NaN =
         invalid). The decoded sample and the head's sample are two draws
-        from ``generator``, in that order."""
+        from ``generator``, in that order. ``group``: the data-parallel
+        ranks this batch is a slice of (see ``masked_mse``)."""
         if l2_weights is None:
             l2_weights = DEFAULT_L2_WEIGHTS
         x = batch["spectral"]
@@ -123,7 +126,7 @@ class VAEWithL2Head(nn.Module):
             if product not in batch:
                 continue
             target = avg_pool_4x_nan(batch[product].float())
-            l2_mse = masked_mse(l2_all[..., i], target)
+            l2_mse = masked_mse(l2_all[..., i], target, group)
             metrics[f"{product}_loss"] = l2_mse
             total_l2 = total_l2 + l2_weights[product] * l2_mse
         total = loss + total_l2
@@ -138,15 +141,30 @@ def avg_pool_4x_nan(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, h // 4, 4, w // 4, 4).mean(dim=(2, 4))
 
 
-def masked_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def masked_mse(pred: torch.Tensor, target: torch.Tensor,
+               group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """MSE over the positions where the target is not NaN; 0 when none
     is. The mask acts before the square, so masked positions give a
-    gradient of exactly 0."""
+    gradient of exactly 0.
+
+    ``group``: the W ranks whose slices make up the batch (data
+    parallelism; the train step passes it). The count is then the global
+    one, as JAX's mesh step divides by the valid positions of the whole
+    batch: the counts are summed over the group (an all-reduce, so every
+    rank of it must call this in step), and each rank returns W * its
+    squared sum / the global count.
+    The mean over the ranks of that (the metrics' all-reduce and DDP's
+    gradient average) is the global ratio; a mean of the ranks' own
+    ratios is not, once their NaN counts differ."""
     mask = ~torch.isnan(target)
     safe_target = torch.where(mask, target, torch.zeros_like(target))
     sq = torch.where(mask, (pred - safe_target).square(),
                      torch.zeros_like(pred))
     total, count = sq.sum(), mask.sum()
+    if group is not None:
+        count = count.to(total.dtype)
+        dist.all_reduce(count, group=group)
+        total = total * dist.get_world_size(group)
     return torch.where(count > 0, total / count.clamp(min=1),
                        torch.zeros_like(total))
 

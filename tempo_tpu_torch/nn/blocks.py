@@ -46,6 +46,8 @@ class Conv2d(nn.Conv2d):
     ``packed_for_export`` (None otherwise, and then not in the state
     dict)."""
 
+    cache_packed = True  # False under FSDP2 (see packed_weight)
+
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  zero_init: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
@@ -64,9 +66,12 @@ class Conv2d(nn.Conv2d):
         weight changes (in place, or moved) or another type is asked for.
         A weight made under torch.inference_mode() keeps no version count,
         so an in-place change could not be seen: it is packed anew on every
-        call and never cached."""
+        call and never cached. So is the weight of a conv under FSDP2
+        (``cache_packed`` False, set by parallel/fsdp.py): the gathered
+        weight a forward sees keeps version 0 while its values change, and
+        the allocator may hand it the same address every step."""
         w = self.weight
-        if w.is_inference():
+        if w.is_inference() or not self.cache_packed:
             self._packed = None
             return cuda_gn_conv.pack_conv3x3_weight(w, dtype)
         key = (w.device, w.data_ptr(), w._version, dtype)

@@ -15,6 +15,17 @@ parameters, for inference and analysis, from the port's ``.pt``
 checkpoints, reference torch checkpoints and the JAX package's
 ``.msgpack`` ones (interop/jax_ckpt.py). The sharded format is not
 ported.
+
+Over a process group every rank joins a save and rank 0 alone writes the
+file, in the single-device format with the single-device keys: under DDP
+the plain module's state dicts are those; under FSDP2 the shards are
+gathered first (parallel/fsdp.py ``full_state_dict``,
+``full_optimizer_state``: collectives, on the calling thread, also for the
+async writer). A multi-rank file also holds ``rank_generators``, every
+rank's generator state, so a resume at the same world size draws as the
+run would have. ``load_checkpoint`` and ``load_params`` read a file on one
+device and under DDP or FSDP2 (a sharded model takes its shards of the
+full tensors).
 """
 
 from __future__ import annotations
@@ -26,7 +37,11 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
+from tempo_tpu_torch.parallel import fsdp
+from tempo_tpu_torch.parallel.mesh import (barrier, is_primary,
+                                           process_count, process_index)
 from tempo_tpu_torch.train.state import TrainState
 
 CKPT_PREFIX = "ckpt_step="
@@ -94,25 +109,47 @@ def _to_host(obj: Any, memo: Dict[tuple, torch.Tensor],
     return obj
 
 
+def _is_sharded(model: torch.nn.Module) -> bool:
+    return any(fsdp.is_sharded(p) for p in model.parameters())
+
+
 def _host_payload(state: TrainState,
                   train_metrics: Optional[List[Dict]],
                   val_metrics: Optional[List[Dict]],
-                  staging: Optional[Staging] = None) -> Dict[str, Any]:
+                  staging: Optional[Staging] = None
+                  ) -> Optional[Dict[str, Any]]:
     """Everything a checkpoint stores, copied to the host before this
     returns (``staging``: see ``_host_copy``; its copies are waited on
     here). The train step updates the parameters and AdamW's moments in
     place, so a payload that still referenced them would change under a
-    write in flight."""
+    write in flight. Over a process group every rank calls this (the
+    gathers are collectives) and only rank 0 gets the payload; the others
+    get None."""
+    if _is_sharded(state.model):
+        model_sd = fsdp.full_state_dict(state.model)
+        opt_sd = fsdp.full_optimizer_state(state.optimizer)
+        staging = None  # the gathered tensors are new at every save
+    else:
+        model_sd = state.model.state_dict()
+        opt_sd = state.optimizer.state_dict()
+    generators = None
+    if process_count() > 1:
+        generators = [None] * process_count()
+        dist.all_gather_object(generators, state.generator.get_state())
+    if not is_primary():
+        return None
     memo: Dict[tuple, torch.Tensor] = {}
     payload = {
         "step": int(state.step),
-        "model": _to_host(state.model.state_dict(), memo, staging),
-        "optimizer": _to_host(state.optimizer.state_dict(), memo, staging),
+        "model": _to_host(model_sd, memo, staging),
+        "optimizer": _to_host(opt_sd, memo, staging),
         "generator": state.generator.get_state(),
         "ema": {k: float(v) for k, v in (state.ema or {}).items()},
         "train_metrics": json.dumps(train_metrics or []),
         "val_metrics": json.dumps(val_metrics or []),
     }
+    if generators is not None:
+        payload["rank_generators"] = generators
     device = next(state.model.parameters()).device
     if staging is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -130,10 +167,15 @@ def _write_payload(ckpt_dir: Path, payload: Dict[str, Any]) -> Path:
 def save_checkpoint(ckpt_dir: Union[str, Path], state: TrainState,
                     train_metrics: Optional[List[Dict]] = None,
                     val_metrics: Optional[List[Dict]] = None) -> Path:
-    ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
-    return _write_payload(ckpt_dir,
-                          _host_payload(state, train_metrics, val_metrics))
+    """Write the state's checkpoint; over a process group every rank calls
+    this, rank 0 writes, and all return once the file is there."""
+    payload = _host_payload(state, train_metrics, val_metrics)
+    path = checkpoint_path(ckpt_dir, state.step)
+    if payload is not None:
+        Path(ckpt_dir).mkdir(parents=True, exist_ok=True)
+        _write_payload(Path(ckpt_dir), payload)
+    barrier()
+    return path
 
 
 class AsyncCheckpointer:
@@ -168,11 +210,13 @@ class AsyncCheckpointer:
              val_metrics: Optional[List[Dict]] = None) -> Path:
         self.wait()  # one in flight; surfaces the previous write's error
         ckpt_dir = Path(ckpt_dir)
-        ckpt_dir.mkdir(parents=True, exist_ok=True)
         payload = _host_payload(state, train_metrics, val_metrics,
                                 self._staging)
-        self._pending = self._pool.submit(_write_payload, ckpt_dir, payload)
-        return checkpoint_path(ckpt_dir, payload["step"])
+        if payload is not None:  # rank 0 (or no process group) writes
+            ckpt_dir.mkdir(parents=True, exist_ok=True)
+            self._pending = self._pool.submit(_write_payload, ckpt_dir,
+                                              payload)
+        return checkpoint_path(ckpt_dir, state.step)
 
     def close(self) -> None:
         try:
@@ -193,7 +237,12 @@ def load_checkpoint(path: Union[str, Path], state: TrainState
         raise NotImplementedError(
             f"{path}: sharded checkpoint directories wait for the sharded "
             f"checkpoint format (ROADMAP Queue 1, M13), which is not ported")
+    sharded = _is_sharded(state.model)
     if path.suffix == JAX_SUFFIX:
+        if sharded:
+            raise NotImplementedError(
+                f"{path}: resuming a JAX .msgpack state under FSDP2 is not "
+                f"ported; resume it on one device or under DDP")
         from tempo_tpu_torch.interop.jax_ckpt import read_jax_checkpoint
         from tempo_tpu_torch.interop.optax_state import load_jax_train_state
 
@@ -202,9 +251,19 @@ def load_checkpoint(path: Union[str, Path], state: TrainState
     # on the host: load_state_dict moves what belongs with the parameters
     # (the optimizer's step counts stay on the host, as a fresh AdamW's)
     raw = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(raw["model"])
-    state.optimizer.load_state_dict(raw["optimizer"])
-    state.generator.set_state(raw["generator"])
+    if sharded:
+        fsdp.load_full_state_dict(state.model, raw["model"])
+        fsdp.load_full_optimizer_state(state.optimizer, raw["optimizer"])
+    else:
+        state.model.load_state_dict(raw["model"])
+        state.optimizer.load_state_dict(raw["optimizer"])
+    # a rank's own draws where the file has them for this world size;
+    # without them rank 0 takes the file's and the others keep their seeds
+    generators = raw.get("rank_generators")
+    if generators is not None and len(generators) == process_count():
+        state.generator.set_state(generators[process_index()])
+    elif process_index() == 0:
+        state.generator.set_state(raw["generator"])
     if raw["ema"]:
         state.ema = {k: torch.tensor(v, dtype=torch.float32, device=device)
                      for k, v in raw["ema"].items()}
@@ -243,7 +302,10 @@ def load_params(path: Union[str, Path], model: torch.nn.Module
         nested = {k[4:]: v for k, v in state_dict.items()
                   if k.startswith("vae.")}
         state_dict = nested or state_dict
-    model.load_state_dict(state_dict)
+    if _is_sharded(model):
+        fsdp.load_full_state_dict(model, state_dict)
+    else:
+        model.load_state_dict(state_dict)
     return model
 
 

@@ -135,13 +135,18 @@ class TrainState:
     the LM loss's dropout masks, where the model has dropout); ``ema``
     holds the EMA(0.99)-smoothed metrics as 0-d fp32 tensors on the model's
     device, updated without a host sync (None before the trainer attaches
-    it)."""
+    it). ``wrapper``: the DDP replica the step runs the loss through under
+    data parallelism (parallel/mesh.py ``shard_state``), None otherwise;
+    ``model`` stays the plain module. Under FSDP2 (parallel/fsdp.py) the
+    model itself is sharded in place and the optimizer's moments are
+    DTensor shards; MuAdamW's foreach ops run on them as on tensors."""
 
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
     ema: Optional[Dict[str, torch.Tensor]] = None
+    wrapper: Optional[nn.Module] = None
 
 
 def make_optimizer(lr: Union[float, Schedule] = 1e-4, betas=(0.9, 0.95),

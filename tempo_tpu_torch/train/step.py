@@ -15,16 +15,30 @@ axis (each value's, for a dict) is split into k microbatches; gradients
 are summed over them and scaled by 1/k, and so are the metrics, so for a
 deterministic loss the update equals the one-shot step (tempo_tpu's
 lax.scan of microbatch means).
+
+Over a process group (parallel/mesh.py, parallel/fsdp.py) the step is the
+same on every rank over its local batch: under DDP (``state.wrapper``) the
+loss runs through the replica's forward and the gradients are averaged by
+its all-reduce; under FSDP2 (the model's parameters are DTensors) by its
+reduce-scatter, and the 0-d parameters FSDP2 leaves replicated are
+averaged here. With ``grad_accum`` the ranks sync only on the last
+microbatch. The gradient norm and the clip see the global norm, and the
+metrics are averaged over the ranks before the EMA, so every rank logs
+the global metrics JAX's mesh step computes.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from tempo_tpu_torch.ops.losses import lm_cross_entropy
+from tempo_tpu_torch.parallel.fsdp import is_sharded, replicated_params
+from tempo_tpu_torch.parallel.mesh import all_reduce_mean, process_count
 from tempo_tpu_torch.train.state import Optimizer, TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -46,10 +60,13 @@ def vae_loss_fn(model: nn.Module) -> LossFn:
 def vae_l2_loss_fn(model: nn.Module, l2_weights=None) -> LossFn:
     """(model, batch dict, generator) -> (loss, metrics): the
     L2-supervised VAE's ``compute_loss`` with ``l2_weights`` (None: 0.1
-    for every product)."""
+    for every product). Over a process group the ranks' valid-pixel
+    counts are summed over it (models/vae_l2.py ``masked_mse``): the step
+    runs on every rank in lock-step."""
 
     def loss_fn(model, batch, generator):
-        return model.compute_loss(batch, generator, l2_weights)
+        group = dist.group.WORLD if process_count() > 1 else None
+        return model.compute_loss(batch, generator, l2_weights, group)
 
     return loss_fn
 
@@ -140,19 +157,61 @@ def lm_loss_fn(model: nn.Module, aux_weight: float = 0.01) -> LossFn:
     return loss_fn
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (in-place ops on it change the
+    DTensor), a plain tensor as it is."""
+    return t.to_local() if is_sharded(t) else t
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """The L2 norm of all tensors together (optax.global_norm), fp32."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """The L2 norm of all tensors together (optax.global_norm), a plain
+    fp32 tensor. Over DTensor shards on more than one rank (FSDP2's
+    gradients) it is the global norm: the shards' squares summed over the
+    ranks in one all-reduce, the replicated tensors counted once; on one
+    rank the shards are the whole tensors and the sum is the
+    single-device one."""
+    tensors = list(tensors)
+    sharded = [t for t in tensors if is_sharded(t)]
+    if not sharded or sharded[0].device_mesh.size() == 1:
+        norms = torch._foreach_norm([_local(t).float() for t in tensors])
+        return torch.linalg.vector_norm(torch.stack(norms))
+    shard_sq = torch.stack(torch._foreach_norm(
+        [t.to_local().float() for t in sharded])).square().sum()
+    dist.all_reduce(shard_sq, group=sharded[0].device_mesh.get_group())
+    rest = [t.float() for t in tensors if not is_sharded(t)]
+    if rest:
+        shard_sq = shard_sq + torch.stack(
+            torch._foreach_norm(rest)).square().sum()
+    return shard_sq.sqrt()
 
 
 def clip_by_global_norm(grads, norm: torch.Tensor, max_norm: float) -> None:
     """optax.clip_by_global_norm in place: g / norm * max_norm when the
-    norm reaches max_norm, g untouched below it (no host sync)."""
+    norm reaches max_norm, g untouched below it (no host sync). A DTensor
+    gradient is scaled through its local shard."""
+    grads = [_local(g) for g in grads]
     below = norm < max_norm
     one = torch.ones((), device=norm.device)
     torch._foreach_div_(grads, torch.where(below, one, norm))
     torch._foreach_mul_(grads, torch.where(below, one, one * max_norm))
+
+
+def _average_replicated(params) -> None:
+    """Average over the ranks the gradients of the parameters FSDP2 leaves
+    replicated (one all-reduce of their concatenation)."""
+    grads = [p.grad for p in replicated_params(params) if p.grad is not None]
+    if not grads or process_count() == 1:
+        return
+    flat = all_reduce_mean(torch.cat([g.reshape(-1) for g in grads]))
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def _mean_over_ranks(metrics: Metrics) -> Metrics:
+    """Each metric averaged over the ranks (one all-reduce)."""
+    keys = list(metrics)
+    values = all_reduce_mean(torch.stack([metrics[k] for k in keys]))
+    return dict(zip(keys, values.unbind()))
 
 
 def _detached(metrics: Metrics) -> Metrics:
@@ -171,7 +230,7 @@ def make_train_step(loss_fn: LossFn, tx: Optimizer, ema_alpha: float = 0.99,
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
     def train_step(state: TrainState, batch: Batch):
-        model, opt = state.model, state.optimizer
+        model, opt, wrapper = state.model, state.optimizer, state.wrapper
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
@@ -179,18 +238,30 @@ def make_train_step(loss_fn: LossFn, tx: Optimizer, ema_alpha: float = 0.99,
         if n % grad_accum:
             raise ValueError(f"batch {n} not divisible by "
                              f"grad_accum {grad_accum}")
+        sharded = any(is_sharded(p) for p in params)
         metrics = None
-        for mb in split_batch(batch, grad_accum):
-            loss, m = loss_fn(model, mb, state.generator)
-            loss.backward()
+        for i, mb in enumerate(split_batch(batch, grad_accum)):
+            last = i == grad_accum - 1
+            if sharded and grad_accum > 1:
+                model.set_requires_gradient_sync(last)
+            with (wrapper.no_sync() if wrapper is not None and not last
+                  else contextlib.nullcontext()):
+                loss, m = (loss_fn(model, mb, state.generator)
+                           if wrapper is None
+                           else wrapper(loss_fn, mb, state.generator))
+                loss.backward()
             m = _detached(m)
             metrics = m if metrics is None else {
                 k: metrics[k] + m[k] for k in metrics}
+        if sharded:
+            _average_replicated(params)
         grads = [p.grad for p in params if p.grad is not None]
         if grad_accum > 1:
             inv = 1.0 / grad_accum
-            torch._foreach_mul_(grads, inv)
+            torch._foreach_mul_([_local(g) for g in grads], inv)
             metrics = {k: v * inv for k, v in metrics.items()}
+        if wrapper is not None or sharded:
+            metrics = _mean_over_ranks(metrics)
         metrics["grad_norm"] = global_norm(grads)
         if tx.max_grad_norm is not None:
             clip_by_global_norm(grads, metrics["grad_norm"], tx.max_grad_norm)

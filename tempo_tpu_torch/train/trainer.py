@@ -20,7 +20,14 @@ format, train/checkpoint.py: its name in the JAX package, a .pt here) or
 'async' (the same files, written by checkpoint.AsyncCheckpointer while
 training goes on); ``metric_sinks`` are called as sink(step, metrics,
 kind) with every EMA history entry ('train') and every validation
-('val'). Multi-process runs and the 'sharded' format are not ported.
+('val'). The 'sharded' format is not ported.
+
+Over a process group (parallel/mesh.py) every rank runs the loop on its
+local batches: it steps, validates (the validation sums are added over
+the ranks, so every rank holds the global means), reconstructs the
+figures' batch and joins each save (train/checkpoint.py: rank 0 writes).
+Only rank 0 prints and writes the logs, figures, plots, metric sinks,
+profiles and metrics.json; samples/s counts the global batch.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ import torch
 from torch import nn
 
 from tempo_tpu_torch.device import resolve_device
+from tempo_tpu_torch.parallel.mesh import (all_reduce_sum_, barrier,
+                                           is_primary, process_count)
 from tempo_tpu_torch.train import checkpoint as ckpt_lib
 from tempo_tpu_torch.train.metrics import save_metrics
 from tempo_tpu_torch.train.plots import (plot_per_product_losses,
@@ -103,7 +112,8 @@ class Trainer:
         self.val_every = val_every
         self.log_every = log_every
         self.plot_every = plot_every
-        self.verbose = verbose
+        self.primary = is_primary()
+        self.verbose = verbose and self.primary
         self.save_steps = set(save_steps) if save_steps is not None else None
         self.recon_fn = recon_fn
         self.l2_products = list(l2_products) if l2_products else None
@@ -112,12 +122,13 @@ class Trainer:
         self._profiler = None
         self._async_ckpt = (ckpt_lib.AsyncCheckpointer()
                             if checkpoint_format == "async" else None)
-        self.metric_sinks = list(metric_sinks or [])
+        self.metric_sinks = list(metric_sinks or []) if self.primary else []
         self.ckpt_dir = self.output_dir / "checkpoints"
         self.summary_dir = self.output_dir / "summary"
         self.figures_dir = self.output_dir / "figures"
-        for d in (self.ckpt_dir, self.summary_dir, self.figures_dir):
-            d.mkdir(parents=True, exist_ok=True)
+        if self.primary:
+            for d in (self.ckpt_dir, self.summary_dir, self.figures_dir):
+                d.mkdir(parents=True, exist_ok=True)
         self.loss_fn = loss_fn
         self.train_step = make_train_step(loss_fn, tx, grad_accum=grad_accum)
         self.eval_step = make_eval_step(loss_fn)
@@ -141,6 +152,7 @@ class Trainer:
     def load_checkpoint(self, path: Union[str, Path]) -> None:
         if self._async_ckpt is not None:
             self._async_ckpt.wait()  # never read a half-written file
+        barrier()  # nor one that rank 0 is still writing
         self.state, self.train_metrics, self.val_metrics = (
             ckpt_lib.load_checkpoint(path, self.state))
         self.step = self.state.step
@@ -162,6 +174,13 @@ class Trainer:
             totals = weighted if totals is None else {
                 k: totals[k] + weighted[k] for k in totals}
             n_samples += bsz
+        if process_count() > 1:  # the global sums (every rank validates)
+            keys = list(totals or {})
+            summed = all_reduce_sum_(torch.stack(
+                [totals[k] for k in keys]
+                + [torch.tensor(float(n_samples), device=self.device)]))
+            totals = dict(zip(keys, summed[:-1].unbind()))
+            n_samples = float(summed[-1])
         if n_samples == 0:
             return {}
         return {f"val_{k}": float(v) / n_samples for k, v in totals.items()}
@@ -181,9 +200,11 @@ class Trainer:
                        else batch)[:8])
         generator = torch.Generator(device=self.device).manual_seed(
             self.step)
-        with torch.no_grad():
+        with torch.no_grad():  # on every rank: a sharded model gathers
             out = self.recon_fn(self.state.model,
                                 to_device(x, self.device), generator)
+        if not self.primary:
+            return
         if not isinstance(out, dict):
             save_reconstruction_figure(self.figures_dir, self.step, x,
                                        _host_f32(out))
@@ -236,20 +257,21 @@ class Trainer:
         while self.step < n_steps:
             batch = next(train_iter)
             bsz = batch_size(batch)
-            if self.profile_steps and self.step == self.profile_steps[0]:
+            if (self.profile_steps and self.primary
+                    and self.step == self.profile_steps[0]):
                 self._start_profile()
             # no host sync per step: the device queue throttles the loop
             self.state, _ = self.train_step(self.state,
                                             to_device(batch, self.device))
             self.step += 1
-            samples_done += bsz
+            samples_done += bsz * process_count()
             if (self._profiler is not None
                     and self.step == self.profile_steps[1]):
                 self._stop_profile()
 
             if self.step % self.log_every == 0:
                 self._log_ema()
-            if self.step % self.plot_every == 0:
+            if self.primary and self.step % self.plot_every == 0:
                 update_summary_plots(self.summary_dir, self.train_metrics,
                                      self.val_metrics)
                 if self.l2_products:
@@ -278,7 +300,10 @@ class Trainer:
             # join the last write (and surface its error) before the run
             # reports completion: a resume or a sweep may read it at once
             self._async_ckpt.wait()
-        save_metrics(self.output_dir, self.train_metrics, self.val_metrics)
+        barrier()  # every rank returns once rank 0's files are there
+        if self.primary:
+            save_metrics(self.output_dir, self.train_metrics,
+                         self.val_metrics)
         stats = {"elapsed_s": elapsed, "steps": self.step,
                  "samples": samples_done,
                  "samples_per_sec": samples_done / max(elapsed, 1e-9)}

@@ -1,6 +1,7 @@
 """The port's DeviceTileBuffer (tempo_tpu_torch/data/device_buffer.py) on
 the CPU (``device='cpu'``: the same schedule, synchronously), mirroring the
-JAX package's buffer tests (tests/test_data.py) but the mesh case, and
+JAX package's buffer tests (tests/test_data.py) but the mesh case (in
+tests/test_torch_parallel_data.py), and
 held to the JAX package's DeviceTileBuffer bit for bit: for a seed, the
 same (slot, tile) draws and the same swap schedule give the same batches,
 plain and L2, in fp32 and fp16 pools, over several swap intervals. The
@@ -172,12 +173,18 @@ def test_a_shard_that_does_not_fit_raises_at_the_swap(tmp_path):
 
 
 def test_mesh_process_partition_and_types_are_refused(tmp_path):
+    """An unknown partition or type and a missing L2 directory are
+    refused; a mesh and partition='process', refused until the port ran
+    them, are taken (one process here: the one-device buffer;
+    tests/test_torch_parallel_data.py has the ranks)."""
+    from tempo_tpu_torch.parallel.mesh import BatchShard
+
     make_tile_shards(tmp_path, n_files=1, tiles_per_file=2, tile=4,
                      n_spectral=2)
-    with pytest.raises(NotImplementedError, match="M13"):
-        _buffer(tmp_path, mesh=object())
-    with pytest.raises(NotImplementedError, match="partition"):
-        _buffer(tmp_path, partition="process")
+    for kwargs in ({"mesh": BatchShard(0, 1)}, {"partition": "process"},
+                   {"mesh": BatchShard(0, 1), "partition": "process"}):
+        assert next(_buffer(tmp_path, batch_size=2, slots=1, seed=0,
+                            **kwargs)).shape == (2, 4, 4, 2)
     with pytest.raises(ValueError, match="partition"):
         _buffer(tmp_path, partition="shard")
     with pytest.raises(ValueError, match="dtype"):

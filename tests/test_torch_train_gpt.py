@@ -101,10 +101,15 @@ def test_train_gpt_resumes_and_plots(tmp_path):
     (lambda c: c.update(parallel={"bogus": 2}), ValueError, "bogus"),
     (lambda c: c.update(parallel={"pipeline": 2}), NotImplementedError,
      "pipeline"),
-    (lambda c: c.update(parallel={"fsdp": True}), NotImplementedError,
-     "fsdp"),
     (lambda c: c.update(parallel={"context": 2}), NotImplementedError,
      "context"),
+    (lambda c: c.update(parallel={"fsdp": True}) or c["model"].update(
+        n_experts=2), NotImplementedError, "expert-parallel"),
+    (lambda c: c.update(parallel={"fsdp": True}) or c["model"].update(
+        n_experts=1), NotImplementedError, "expert-parallel"),
+    (lambda c: c.update(parallel={"fsdp": True}, finetune={
+        "lora_rank": 2, "base_checkpoint": "ckpt.pt"}), ValueError,
+     "lora_rank"),
     (lambda c: c.update(finetune={"lora_rank": 8}), ValueError,
      "base_checkpoint"),
     (lambda c: c["training"].update(checkpoint_format="sharded"),
@@ -112,8 +117,9 @@ def test_train_gpt_resumes_and_plots(tmp_path):
     (lambda c: c["training"].update(checkpoint_format="zip"), ValueError,
      "checkpoint_format"),
 ], ids=["no_model", "no_data", "missing_stream", "unknown_parallel",
-        "pipeline", "fsdp", "context", "lora_without_base", "sharded",
-        "unknown_format"])
+        "pipeline", "context", "moe_fsdp", "moe1_fsdp", "lora_fsdp",
+        "lora_without_base",
+        "sharded", "unknown_format"])
 def test_validate_config_refuses(tmp_path, mutate, error, match):
     cfg = _base_cfg(tmp_path / "run")
     mutate(cfg)
@@ -215,6 +221,32 @@ def _same_checkpoints(a: Path, b: Path) -> None:
         for i, st in x["optimizer"]["state"].items():
             assert all(torch.equal(v, y["optimizer"]["state"][i][k])
                        for k, v in st.items())
+
+
+def test_fsdp_runs_in_one_process(tmp_path):
+    """parallel.fsdp in one process: FSDP2 over a group of one (JAX's
+    one-device mesh), the checkpoints with the one-device keys and the
+    same numbers as the unsharded run, the generation from the gathered
+    weights, and no group left behind (2 ranks:
+    tests/test_torch_parallel_cli.py)."""
+    from tempo_tpu_torch.parallel.mesh import is_active
+
+    cfgs = {}
+    for name, fsdp in (("plain", False), ("fsdp", True)):
+        cfgs[name] = _base_cfg(tmp_path / name)
+        cfgs[name]["parallel"] = {"fsdp": fsdp}
+        cfgs[name]["training"].update(n_steps=4, save_every=4, val_every=4)
+        cfgs[name]["generation"]["n_tokens"] = 4
+        train_gpt.validate_config(cfgs[name])
+        train_gpt.run(cfgs[name], device="cpu")
+    assert not is_active()
+    a, b = (torch.load(tmp_path / n / "checkpoints" / "ckpt_step=000004.pt",
+                       weights_only=True) for n in ("plain", "fsdp"))
+    assert list(a["model"]) == list(b["model"])
+    for k, v in a["model"].items():
+        torch.testing.assert_close(b["model"][k], v, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(
+        np.load(tmp_path / "fsdp" / "generation_final.npy").shape, (1, 12))
 
 
 @pytest.mark.parametrize("fmt", ["async"])

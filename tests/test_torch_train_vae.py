@@ -3,9 +3,11 @@ mirroring the train_vae cases of tests/test_e2e.py on tile shards from
 make_tile_shards: it learns and writes checkpoints, figures, summary
 plots, metrics.json and training_info.yaml; --debug reduces as JAX's does;
 resume_from (auto and explicit), save_schedule: sqrt and grad_accum work;
-metrics_jsonl, profile_steps and the async checkpoint format are accepted
-and honoured; the unported options raise (the device loader and the NO2
-probe run: tests/test_torch_train_vae_l2.py)."""
+metrics_jsonl, profile_steps, the async checkpoint format, distributed,
+parallel.fsdp and the process partition are accepted and honoured (in one
+process here; over several: tests/test_torch_parallel*.py); the unported
+options raise (the device loader and the NO2 probe run:
+tests/test_torch_train_vae_l2.py)."""
 
 from __future__ import annotations
 
@@ -152,22 +154,18 @@ def test_sqrt_schedule_and_grad_accum(tmp_path, tiles_dir):
      ValueError, "doesn't exist"),
     (lambda c: c["data"].update(val_dir="/nonexistent/val"), ValueError,
      "doesn't exist"),
-    (lambda c: c.update(distributed={"enabled": True}), NotImplementedError,
-     "multi-host"),
     (lambda c: c.update(parallel={"tensor": 2}), NotImplementedError,
      "tensor"),
-    (lambda c: c.update(parallel={"fsdp": True}), NotImplementedError,
-     "fsdp"),
-    (lambda c: c["data"].update(loader="device", partition="process"),
-     NotImplementedError, "partition"),
+    (lambda c: c.update(parallel={"tensor": 2, "fsdp": True}),
+     NotImplementedError, "tensor"),
     (lambda c: c["data"].update(loader="disk"), ValueError, "loader"),
     (lambda c: c["training"].update(checkpoint_format="sharded"),
      NotImplementedError, "sharded"),
     (lambda c: c["training"].update(checkpoint_format="zip"), ValueError,
      "checkpoint_format"),
 ], ids=["no_model", "no_train_dir", "missing_train_dir", "missing_val_dir",
-        "distributed", "tensor", "fsdp", "device_loader", "unknown_loader",
-        "sharded", "unknown_format"])
+        "tensor", "tensor_with_fsdp", "unknown_loader", "sharded",
+        "unknown_format"])
 def test_validate_config_refuses(tmp_path, tiles_dir, mutate, error, match):
     cfg = _cfg(tmp_path / "run", tiles_dir)
     mutate(cfg)
@@ -205,17 +203,51 @@ def _honours_profile_steps(out: Path) -> None:
     assert any(e.get("cat") == "cpu_op" for e in events)
 
 
+def _honours_one_process_group(out: Path) -> None:
+    """A run that joined a group of one (distributed: enabled, or FSDP2's
+    mesh of one) trained, wrote the one-device checkpoint keys and left
+    no group behind."""
+    from tempo_tpu_torch.models.vae import build_vae
+    from tempo_tpu_torch.parallel.mesh import is_active
+
+    assert _steps(out) == [3, 6] and not is_active()
+    info = yaml.safe_load((out / "training_info.yaml").read_text())
+    assert (info["n_devices"], info["n_processes"]) == (1, 1)
+    raw = torch.load(out / "checkpoints" / "ckpt_step=000006.pt",
+                     weights_only=True)
+    assert list(raw["model"]) == list(
+        build_vae(MODEL_CFG, device="cpu")[0].state_dict())
+
+
+def _honours_process_partition(out: Path) -> None:
+    """One process's buffer under partition: process is the one-device
+    buffer (JAX partitions only a multi-process mesh)."""
+    assert _steps(out) == [3, 6]
+    assert len(_history(out)["train"]) == 6
+
+
 @pytest.mark.parametrize("option, honoured", [
-    ({"checkpoint_format": "async"}, _honours_async),
-    ({"metrics_jsonl": True}, _honours_metrics_jsonl),
-    ({"profile_steps": [2, 4]}, _honours_profile_steps),
-], ids=["async", "metrics_jsonl", "profile_steps"])
+    ({"training": {"checkpoint_format": "async"}}, _honours_async),
+    ({"training": {"metrics_jsonl": True}}, _honours_metrics_jsonl),
+    ({"training": {"profile_steps": [2, 4]}}, _honours_profile_steps),
+    ({"distributed": {"enabled": True, "num_processes": 1, "process_id": 0,
+                      "coordinator_address": "tcp://127.0.0.1:0"}},
+     _honours_one_process_group),
+    ({"parallel": {"fsdp": True}}, _honours_one_process_group),
+    ({"data": {"loader": "device", "partition": "process",
+               "buffer_slots": 2}}, _honours_process_partition),
+], ids=["async", "metrics_jsonl", "profile_steps", "distributed", "fsdp",
+        "device_loader"])
 def test_validate_config_accepts(tmp_path, tiles_dir, option, honoured):
-    """The options the JAX CLI has and the port now runs: the config
-    validates, and a short run honours the option."""
+    """The options the JAX CLI has and the port now runs (each section of
+    ``option`` merged into the config): the config validates, and a short
+    run honours the option (tests/test_torch_parallel*.py run them over
+    several processes)."""
     out = tmp_path / "run"
     cfg = _cfg(out, tiles_dir, n_steps=6, save_every=3, val_every=3,
-               log_every=1, plot_every=100, **option)
+               log_every=1, plot_every=100)
+    for section, values in option.items():
+        cfg[section] = dict(cfg.get(section, {}), **values)
     train_vae.validate_config(cfg)
     train_vae.main(_write(tmp_path / "cfg.yaml", cfg), device="cpu")
     honoured(out)

@@ -186,14 +186,14 @@ def test_figures_without_matplotlib(tmp_path, tiles_dir, monkeypatch):
     (lambda c: c["data"].pop("data_dir"), ValueError, "data_dir"),
     (lambda c: c["data"].update(data_dir="/nonexistent/tiles"), ValueError,
      "doesn't exist"),
-    (lambda c: c["data"].update(partition="process"), NotImplementedError,
-     "partition"),
     (lambda c: c.update(parallel={"tensor": 2}), NotImplementedError,
      "tensor"),
+    (lambda c: c["data"].update(partition="shard"), ValueError,
+     "partition"),
     (lambda c: c["training"].update(checkpoint_format="sharded"),
      NotImplementedError, "sharded"),
     (lambda c: c["data"].update(loader="disk"), ValueError, "loader"),
-], ids=["no_data_dir", "missing_data_dir", "process_partition", "tensor",
+], ids=["no_data_dir", "missing_data_dir", "tensor", "unknown_partition",
         "sharded", "unknown_loader"])
 def test_validate_config_refuses(tmp_path, tiles_dir, mutate, error, match):
     cfg = _cfg(tmp_path / "run", tiles_dir, "device")
@@ -263,11 +263,20 @@ def _profile_steps_not_read(tmp_path, cfg, monkeypatch):
     assert not (Path(cfg["output_dir"]) / "profile").exists()
 
 
+def _honours_process_partition(tmp_path, cfg, monkeypatch):
+    cfg["data"]["partition"] = "process"  # one process: the whole buffer
+    yield
+    out = Path(cfg["output_dir"])
+    assert _steps(out) == [1, 2]
+    info = json.loads((out / "training_info.yaml").read_text())
+    assert (info["n_devices"], info["loader"]) == (1, "device")
+
+
 @pytest.mark.parametrize("option", [
     _honours_msgpack_warm_start, _honours_metrics_jsonl, _honours_async,
-    _profile_steps_not_read],
+    _profile_steps_not_read, _honours_process_partition],
     ids=["msgpack_warm_start", "metrics_jsonl", "async",
-         "profile_steps_not_read"])
+         "profile_steps_not_read", "process_partition"])
 def test_validate_config_accepts(tmp_path, tiles_dir, monkeypatch, option):
     """What the L2 CLI now takes: the config validates, and a 2-step run
     honours it."""
