@@ -37,11 +37,12 @@ Phases, each fatal on failure:
       step's eager warm-up, then replays); bitwise equal to the eager loop
       (_generate_eager), both timed in the same run, the captured one also
       under torch.profiler;
-  3b. PagedLMServer over live_paged_surface: 64 mixed requests (prompts
-      32-512, 64-128 new tokens), 8 slots, k_decode 16, chunked prefill,
-      on a roomy and a tight (preempting) pool, the K4 counter set to 0
-      before and read after; greedy outputs equal across the two pools and
-      to the same server run eagerly (whose K3/K4 calls phase 2' reads);
+  3b. PagedLMServer over live_paged_surface: the first 32 of
+      bench_workload's 64 mixed requests (prompts 32-512, 64-128 new tokens;
+      all 64 until phase 16 came), 8 slots, k_decode 16, chunked prefill, on a
+      roomy and a tight (preempting) pool, the K4 counter set to 0 before and
+      read after; greedy outputs equal across the two pools and to the same
+      server run eagerly (whose K3/K4 calls phase 2' reads);
   2'. K3/K4 against their plain versions at every recorded call and at
       edge cases (positions 0, the split length L - 1, L, L + 1, the
       longest unsplit row 2L - 1 and past it, block and page edges, the
@@ -56,12 +57,13 @@ Phases, each fatal on failure:
       decode_paged and decode_paged_k replayed against their eager calls
       at the capture's and another position and table, outputs and caches
       bitwise, 12 x K decode launches a replay, each replay timed by CUDA
-      events; (ii) the 64 requests
+      events; (ii) 3b's 32 requests
       through cli/serve_lm.py's build_server and _serve_batch with a dict
       config, bucketed, continuous (8 slots, k_decode 16) and paged (65
-      and 33 pages): tokens/s, dispatches, bursts, preemptions, the device
-      busy share under torch.profiler over the first 4 requests and the
-      decode kernels it lists against the launch count; the paged
+      and 32 pages): tokens/s, dispatches, bursts, preemptions; for the
+      paged roomy server alone (each scheduler until phase 16 came), the
+      device busy share under torch.profiler over the first 4 requests and
+      the decode kernels it lists against the launch count; the paged
       completions equal 3b's eager server's on both pools; (iii)
       _serve_http on 127.0.0.1, port 0: /healthz gives the meta, one POST
       /v1/completions equals batch mode;
@@ -143,14 +145,15 @@ Phases, each fatal on failure:
       into the base VAE): the posterior mean of 16 tiles bit for bit the
       live weights' (cuDNN deterministic) (a .msgpack full-state resume:
       14d);
-  7c. one structured_granule [131, 2048, 1028] through encode_granules'
-      encode_granule with decode_roundtrip: the device normalize within
-      1e-4 of numpy's and no farther from float64 than numpy's (+1e-5);
-      with the granule's own statistics, the latter; the latent within rel
-      L2 5e-2 of the plain path; mse/mae/psnr finite and, reduced on the
-      card in float64, within 1e-9 of numpy's; normalize ms on the card,
-      encode and decode s, reconstruct_raw's and numpy's normalize's host
-      wall; the K1/K2 launches of a granule's encode+decode;
+  7c. one structured_granule [131, 2048, 1028] (made with 7e's granules
+      by a background process while the LM phases run) through encode_granules'
+      encode_granule with decode_roundtrip: the device normalize within 1e-4 of
+      numpy's and no farther from float64 than numpy's (+1e-5); with the
+      granule's own statistics, the latter; the latent within rel L2 5e-2 of
+      the plain path; mse/mae/psnr finite and, reduced on the card in float64,
+      within 1e-9 of numpy's; normalize ms on the card, encode and decode s,
+      reconstruct_raw's and numpy's normalize's host wall; the K1/K2 launches
+      of a granule's encode+decode;
   7d. fit_pca on 256 pixels drawn as extract_pca draws them from 7c's crop
       (explained variance within 1e-4 of numpy's eigh), the PCA-RGB figure
       of the granule and its reconstruction written by train/png.py;
@@ -162,14 +165,14 @@ Phases, each fatal on failure:
   7e.
   then the export and data-preparation path:
   8a. infer/export_codec.py's export_codec of the flagship codec with 5b's
-      weights (bf16, tile 64x64, 1028 channels), on the card and on the
-      CPU, each loaded with load_exported (device None) in a fresh process
-      that imports no model code for it; encode and decode at batches 1,
-      8 and 16 within rel L2 1e-3 of the eager model (bitwise printed);
-      one exported encode+decode at batch 8 launches K1a/K1b/K2 as often
-      as the eager one; export and load s, artifact bytes, encode and
-      encode+decode ms at batch 8 by CUDA events and host wall beside the
-      eager model's;
+      weights (bf16, tile 64x64, 1028 channels), on the card and on the CPU,
+      each loaded with load_exported (device None) in a fresh process (run
+      beside 8b) that imports no model code for it; encode and decode at
+      batches 1, 8 and 16 within rel L2 1e-3 of the eager model (bitwise
+      printed); one exported encode+decode at batch 8 launches K1a/K1b/K2 as
+      often as the eager one; export and load s, artifact bytes, encode and
+      encode+decode ms at batch 8 by CUDA events and host wall beside the eager
+      model's;
   8b. on 7c's granule [131, 2048, 1028] and its four products with fill
       values: compute_stats' float64 statistics on the card within rel
       1e-6 of numpy's; prepare_tiles' tile_granule on the card against its
@@ -181,26 +184,30 @@ Phases, each fatal on failure:
   shape (6 layers, weights from SEED + 1), k_draft 4; K3 in the draft's
   captured steps, K4 in the paged pools:
   9a. serve_lm's continuous + draft and paged + draft (8 slots, 65 pages)
-      over the first 32 of the 64 requests (64 until phase 13 came) and
-      scheduler: speculative over the first 8, each
+      over the first 8 of the 64 requests (64 until phase 13 came, 32
+      until phase 15, 16 until phase 16) and
+      scheduler: speculative over the first 4 (8 until phase 16), each
       beside the same scheduler target-only: tokens/s, accept_rate, rounds,
       target passes, K3/K4 launches, greedy agreement with target-only and
       the reference's top-two logit gap at each first difference (reported:
       bf16 near-ties);
   9b. the same in fp32 (the target and the distinct draft exported in
-      fp32) over 8 greedy and 4 sampled requests of 32 new tokens: every
+      fp32) over 2 greedy and 1 sampled requests of 32 new tokens (4 and
+      2 until phase 16): every
       greedy stream equal to target-only's but at a near-tie (a top-two gap
       within F32_TOL), each exception printed;
   9c. OnlineLMServer over the continuous pool, the paged pool (K4 counted)
-      and the continuous pool with the distinct draft: 16 requests from 4
-      threads at staggered times, each response bitwise the batch mode's;
-      one request cancelled mid-flight, a flagged prefix of its stream;
-      _serve_http with online: two concurrent POST /v1/completions equal
-      batch mode.
+      and the continuous pool with the distinct draft: 8 requests (16 until
+      phase 16) from 4 threads at staggered times, each response bitwise the
+      batch mode's; one request cancelled mid-flight, a flagged prefix of its
+      stream; _serve_http with online: two concurrent POST /v1/completions
+      equal batch mode.
   then the exported serving programs (GPT-2-small, bf16, max_seq 1024,
   page 128, decode_chunk 16), exported on the card and on the CPU:
   10. each program's export seconds, the directory's bytes beside the
-      weights' (weights.pt <= 1.1x); a fresh process loads every loader
+      weights' (weights.pt <= 1.1x); a fresh process (started, with the
+      CPU artifact's check, once phase 9 has loaded its artifacts) loads
+      every loader
       with device None (first and second load s, memory_allocated across
       them <= 1.1x the weights' bytes), decodes greedily equal to generate
       and imports no tempo_tpu_torch.nn module; each of the 14 programs,
@@ -346,6 +353,26 @@ Phases, each fatal on failure:
       the run's directory, training_info's n_devices is 2, the last
       checkpoint loads through load_params on one device bitwise both
       ranks' final weights.
+  then spatial sharding (phase 16; two rank processes share the card over
+  gloo, so the halos and W gathers go through host memory):
+  16a. GranuleCodec(mesh=) at the flagship's widths, bf16, over 2 ranks on
+      7c's structured granule [131, 2048, 1028] (cropped to [128, 2048], W
+      1024 a rank, its own normalization statistics summed over the
+      ranks): the latent, the decoding of the one-process latent (as
+      tests/test_parallel.py decodes the plain latent) and reconstruct
+      (sample_posterior false, then true from the same seed) against the
+      one-process codec on the card, rel L2 within SPATIAL_BF16_REL_L2;
+      the fp32 flagship on a [128, 256] section within SPATIAL_F32_REL_L2;
+      encode and decode s, peak device memory, halo / gather / reduce
+      bytes a granule, each rank beside the one process;
+  16b. encode_granules.encode_granule with the sharded codec and
+      decode_roundtrip: its whole latent and metrics against the one
+      process's;
+  16c. K1a's sums mode against its plain version at every shard shape the
+      ranks gave it, bitwise on a repeat, timed beside its byte bound;
+      stats_from_sums(gn_sums(x)) against gn_stats(x) at world 1; K1a's
+      sums, K1b and K2 launches a rank a granule (each at least once; K1a's
+      statistics mode none).
 Prints the card's name and power limit first, each phase's seconds, each
 redesigned kernel's time against its time before the redesign
 (KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
@@ -459,8 +486,9 @@ VAE_BF16_ACC = 1.25
 # in bf16 at batch 64 (VAE_TRAIN_BATCH), the optimizer of 5a, batches from
 # a DeviceTileBuffer of fp16 flagship shards with the four products' fp32
 # fields at 5% NaN (make_tile_shards): 2 slots over 4 shards of 32 tiles
-# (~270 MB each), a swap every 5 batches. 6b compares 12 batches of a
-# buffer swapping every 3 (three swaps) with the CPU buffer's. 6c runs the
+# (~270 MB each), a swap every 5 batches. 6b compares 6 batches of a
+# buffer swapping every 3 (one swap; 12 and three swaps until phase 16)
+# with the CPU buffer's. 6c runs the
 # CLI with FLAGSHIP_L2 (the yaml's values; the card's machine has no yaml)
 # for 10 steps (20 until phase 9 came; PERF.md section 4), logging every 5
 # and plotting every 10 so that the curves are drawn, and saving at the
@@ -469,7 +497,7 @@ VAE_BF16_ACC = 1.25
 # targets are) at batch 2.
 VAE_L2_HIDDEN = (512, 512)
 VAE_L2_SHARDS, VAE_L2_TILES, VAE_L2_SLOTS, VAE_L2_SWAP = 4, 32, 2, 5
-VAE_L2_EQ_SWAP, VAE_L2_EQ_BATCHES, VAE_L2_CLI_STEPS = 3, 12, 10
+VAE_L2_EQ_SWAP, VAE_L2_EQ_BATCHES, VAE_L2_CLI_STEPS = 3, 6, 10
 FLAGSHIP_L2 = {
     "seed": 42,
     "data": {"batch_size": 64, "loader": "device", "buffer_slots": 2,
@@ -594,28 +622,33 @@ K1_EDGE = [(b, h, w, c) for b in (1, 8) for h, w in ((1, 1), (7, 9), (3, 1000))
 # The LM serving path, as tools/bench_toolkit.py measures the JAX package:
 # bench_decode(cache_len=1024) for generate, bench_workload for the server.
 LM_BATCH, LM_PROMPT, LM_NEW, LM_CACHE = 8, 64, 128, 1024
-LM_REQUESTS, LM_SLOTS, LM_K, LM_PAGE, LM_CHUNK = 64, 8, 16, 128, 128
+# The servers take the first LM_REQUESTS of bench_workload's 64 requests
+# (all 64 until phase 16 took the time; PERF.md section 4).
+LM_REQUESTS, LM_SLOTS, LM_K, LM_PAGE, LM_CHUNK = 32, 8, 16, 128, 128
 # 65 pages hold every slot's whole window. bench_workload's 41 pages do not
-# force a preemption with this mix (the roomy run's peak is 33 pages), so
-# the tight run takes 33, the largest pool that preempts: for greedy
-# requests without eos the schedule depends only on lengths and budgets.
-LM_POOLS = {"roomy": 65, "tight": 33}
+# force a preemption with this mix (the roomy run's peak is 32 pages over
+# the first 32 requests, 33 over all 64), so the tight run takes 32, the
+# largest pool that preempts (33 over all 64): for greedy requests without
+# eos the schedule depends only on lengths and budgets.
+LM_POOLS = {"roomy": 65, "tight": 32}
 # Phase 9: speculation over GPT-2-small exported (3d's model: SPEC_TARGET
 # overrides nothing) with a self-draft and a distinct draft of DistilGPT2's
 # published shape (6 layers of GPT-2-small's widths; weights from SEED + 1),
-# k_draft SPEC_K. 9a times the first SPEC_REQUESTS of the 64 requests
-# (continuous and paged pools; all 64 until phase 13 took the time, 32
-# until phase 15 did) and
-# the first SPEC_BATCH1 (the batch-1 scheduler) in bf16; 9b holds SPEC_F32
-# (greedy, sampled) requests cut to SPEC_F32_NEW new tokens in fp32; 9c
-# serves ONLINE_REQS requests from ONLINE_THREADS threads and cancels an
+# k_draft SPEC_K. 9a times the first SPEC_REQUESTS of bench_workload's
+# requests (continuous and paged pools; all 64 until phase 13 took the
+# time, 32
+# until phase 15 did, 16 until phase 16 did) and
+# the first SPEC_BATCH1 (the batch-1 scheduler; 8 until phase 16) in bf16;
+# 9b holds SPEC_F32 (greedy, sampled) requests cut to SPEC_F32_NEW new
+# tokens in fp32 ((4, 2) until phase 16); 9c serves ONLINE_REQS requests
+# (16 until phase 16) from ONLINE_THREADS threads and cancels an
 # ONLINE_CANCEL_NEW-token request after ONLINE_CANCEL_AFTER rounds.
 SPEC_TARGET: dict = {}
 SPEC_DRAFT = {"n_layer": 6}
-SPEC_K, SPEC_BATCH1, SPEC_F32, SPEC_F32_NEW = 4, 8, (4, 2), 32
-SPEC_REQUESTS = 16
+SPEC_K, SPEC_BATCH1, SPEC_F32, SPEC_F32_NEW = 4, 4, (2, 1), 32
+SPEC_REQUESTS = 8
 SPEC_ROUNDS = 10  # 9a's round breakdown: rounds timed each way
-ONLINE_REQS, ONLINE_THREADS = 16, 4
+ONLINE_REQS, ONLINE_THREADS = 8, 4
 ONLINE_CANCEL_NEW, ONLINE_CANCEL_AFTER = 256, 4
 # The LM artifacts (infer/export_lm.py's torch.export programs), each
 # exported once by a background process started with the run (its CPU work
@@ -640,10 +673,12 @@ LM_EXPORTS = {
 # Positions: caches prefilled to PROGRAMS_POS, rows PROGRAMS_POS // 30
 # apart; a row cache of PROGRAMS_POS // 6.
 PROGRAMS_BATCHES, PROGRAMS_NEW, PROGRAMS_POS = (1, 8), 32, 300
-# 3d profiles each scheduler over the first requests of the mix (prompts
-# 32-128), not all 64: the profiler's record of a whole run takes minutes
-# (8 requests until phase 9 came, ~40 s of 3d; PERF.md section 4).
+# 3d profiles the paged roomy scheduler (each scheduler until phase 16
+# came) over the first requests of the mix (prompts 32-128), not all of
+# them: the profiler's record of a whole run takes minutes (8 requests
+# until phase 9 came, ~40 s of 3d; PERF.md section 4).
 LM_PROFILED = 4
+LM_PROFILED_SCHEDULER = "paged_roomy"
 # Phase 11: the diffusion path with configs/training/
 # train_diffusion_latent.yaml's values (DIFF_LATENT; the card's machine has
 # no yaml) and train_flow_latent.yaml's (DIFF_FLOW, family sfm), and
@@ -696,8 +731,9 @@ DIFF_SHARDS, DIFF_TILES, DIFF_TIMED = 4, 16, 5
 # of the device's timestamps against the session's clock would do that. The
 # step is profiled after each lead in turn until its profile lists every
 # K1a/K1b/K2 launch that the counters gave a step; only such a profile
-# gives a busy share.
-DIFF_PROFILE_LEADS_S = (0.5, 2.0, 5.0)
+# gives a busy share. Leads of 0.5 s and 2.0 s came first until phase 16:
+# neither gave a whole profile in any cell (PERF.md section 6).
+DIFF_PROFILE_LEADS_S = (5.0,)
 # 11e's volumetric CUNet (dim=3, no mid attention): K1 on NDHWC, then the
 # 3x3x3 conv, at DIFF_VOLUME_BATCH volumes of this shape.
 DIFF_VOLUME_SHAPE, DIFF_VOLUME_BATCH = (8, 16, 16, 32), 4
@@ -829,13 +865,21 @@ def sass_counts(library_path: str, kernels: tuple) -> dict:
     return counts
 
 
+_SMI: list = []  # the card's name and power limit, read once a process
+
+
 def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    if out.returncode:
-        fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    """nvidia-smi's name and power limit of the card, read at the first
+    call (a call of nvidia-smi takes up to seconds) and reused after."""
+    if not _SMI:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        if out.returncode:
+            fail(f"nvidia-smi failed: {out.stderr.strip()}")
+        _SMI.append(out.stdout.strip().splitlines()[0])
+    return _SMI[0]
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1062,9 +1106,10 @@ def decode_bytes(q, cache_elem: int, kv: int, live) -> int:
 
 
 def lm_workload(vocab: int):
-    """bench_workload's request mix (tools/bench_toolkit.py:573-582):
-    prompts of 32 + 32 * (i % 16) tokens, budgets 64 + (i * 17) % 65, token
-    ids from the same seeded stream (after its 8 init tokens)."""
+    """The first LM_REQUESTS of bench_workload's request mix
+    (tools/bench_toolkit.py:573-582): prompts of 32 + 32 * (i % 16) tokens,
+    budgets 64 + (i * 17) % 65, token ids from the same seeded stream (after
+    its 8 init tokens)."""
     import numpy as np
 
     rng = np.random.default_rng(SEED)
@@ -1710,7 +1755,7 @@ def exported_serving(dev, model, reqs, eager_tokens: dict,
                      exports: "LMExports") -> dict:
     """3d: GPT-2-small's programs (exported on the card by a background
     process, ``exports``) loaded with device None; (i) every captured call
-    bitwise its eager call; (ii) the 64 requests through cli/serve_lm.py's
+    bitwise its eager call; (ii) 3b's requests through cli/serve_lm.py's
     functions with a dict config under each scheduler, the paged server's
     greedy completions equal to 3b's eager server's; (iii) one POST
     /v1/completions over loopback equal to batch mode. The loaded surface
@@ -1787,16 +1832,19 @@ def exported_serving(dev, model, reqs, eager_tokens: dict,
                 fail(f"3d {name}: wrong token counts")
             tokens[name] = [r["tokens"] for r in done]
             # the device busy share over a few requests, and the decode kernels
-            # the profiler lists inside the replays
-            few = reqs[:LM_PROFILED]
-            _, t_few = timed(lambda: srv.serve_requests(few, 64))
-            before = dict(cuda_decode.LAUNCHES)
-            t_prof = time.perf_counter()
-            prof = device_profile(lambda: srv.serve_requests(few, 64),
-                                  cpu=False)
-            t_prof = time.perf_counter() - t_prof
-            launched = sum(cuda_decode.LAUNCHES[k] - before[k]
-                           for k in before)
+            # the profiler lists inside the replays (one scheduler: a
+            # profile takes 6-12 s)
+            prof, t_prof, launched = None, 0.0, None
+            if name == LM_PROFILED_SCHEDULER:
+                few = reqs[:LM_PROFILED]
+                _, t_few = timed(lambda: srv.serve_requests(few, 64))
+                before = dict(cuda_decode.LAUNCHES)
+                t_prof = time.perf_counter()
+                prof = device_profile(lambda: srv.serve_requests(few, 64),
+                                      cpu=False)
+                t_prof = time.perf_counter() - t_prof
+                launched = sum(cuda_decode.LAUNCHES[k] - before[k]
+                               for k in before)
             st = info.get("scheduler_stats", {})
             stats[name] = {
                 "tokens_per_sec": info["tokens_per_sec"],
@@ -1813,11 +1861,13 @@ def exported_serving(dev, model, reqs, eager_tokens: dict,
                 "decode_launches_profiled": launched,
             }
             print(f"[3d] serve_lm {name}: {json.dumps(stats[name])} "
-                  f"(tokens_per_sec: host wall of _serve_batch over the 64 "
+                  f"(tokens_per_sec: host wall of _serve_batch over the "
+                  f"{len(reqs)} "
                   f"requests after a 2-request warm-up that captures the "
                   f"graphs; busy_share: device kernel time under "
                   f"torch.profiler over the unprofiled wall of the first "
-                  f"{LM_PROFILED} requests; {time.perf_counter() - t_run:.1f}"
+                  f"{LM_PROFILED} requests, {LM_PROFILED_SCHEDULER} only; "
+                  f"{time.perf_counter() - t_run:.1f}"
                   f" s, the profile {t_prof:.1f} s)", flush=True)
             if prof is not None and prof["decode_kernels"] != launched:
                 print(f"[3d] {name}: the profiler lists "
@@ -2201,7 +2251,7 @@ def online_http(online, cfg: dict, tmp: Path, two: list, want: list) -> dict:
 
 
 def speculative_path(dev, rows: dict, fused: dict, exports: "LMExports",
-                     after_9a=lambda: None) -> dict:
+                     after_load=lambda: None) -> dict:
     """Phase 9: speculation and the online server from exported
     GPT-2-small. 9a bf16: continuous + draft and paged + draft over the
     first SPEC_REQUESTS requests, the batch-1 speculative scheduler over
@@ -2236,6 +2286,9 @@ def speculative_path(dev, rows: dict, fused: dict, exports: "LMExports",
         # these surfaces (and their graphs) instead of loading them anew
         loaded = [export_lm.load_exported_lm(a, dev) for a in arts.values()]
         seconds["load"] = time.perf_counter() - t0 - seconds["export_wait"]
+        # phase 10's processes: host work beside 9a-9c's serving (9a's
+        # timed runs came before them until phase 16)
+        after_load()
         launches, gaps = {}, {}
 
         # ------------------------------------------------ 9a, bf16, timed
@@ -2268,7 +2321,8 @@ def speculative_path(dev, rows: dict, fused: dict, exports: "LMExports",
                     line["greedy_agreement"] = run["agreement"]
                 print(f"[9a] {pool} draft={dname} bf16: {json.dumps(line)} "
                       f"on {card} (host wall of the counted run after a "
-                      f"2-request warm-up; draft none: the same scheduler "
+                      f"2-request warm-up, beside phase 10's two loading "
+                      f"processes; draft none: the same scheduler "
                       f"target-only, per token"
                       + (", batch 1" if pool == "speculative" else "")
                       + "; agreement reported, not a gate: bf16 verify "
@@ -2293,7 +2347,6 @@ def speculative_path(dev, rows: dict, fused: dict, exports: "LMExports",
             for (p, d), r in runs.items()}
         del runs
         seconds["9a"] = time.perf_counter() - t0
-        after_9a()  # what may run beside 9b and 9c: gates, not timings
 
         # ------------------------------------------------- 9b, fp32 gate
         t0 = time.perf_counter()
@@ -2427,6 +2480,108 @@ def stop_process(proc: subprocess.Popen) -> None:
         proc.wait()
 
 
+def wait_all(procs: list, deadline: float) -> None:
+    """Wait until every process of ``procs`` has ended, one has failed
+    (the others would wait for it in a collective), or the clock passes
+    ``deadline`` (time.perf_counter()); the caller stops what still runs."""
+    while time.perf_counter() < deadline:
+        codes = [p.poll() for p in procs]
+        if all(c is not None for c in codes) or any(codes):
+            return
+        time.sleep(0.2)
+
+
+HOST_DATA_TIMEOUT = 600  # s the host data may take, counted from its start
+
+
+class HostData:
+    """The host arrays of phases 7c, 7e, 8b and 16, made by one background
+    process (``host_data_child``, numpy only, no card) while the LM phases
+    run: the structured granule ANALYSIS_GRANULE from SEED with its
+    products (7c, 8b; phase 16's ranks map the same file) and 7e's probe
+    granules. ``wait`` fails the run if the process failed; a process
+    still running when the run ends is killed."""
+
+    def __init__(self, root: Path):
+        self.root, self.result = root, None
+        self.t0 = time.perf_counter()
+        self.log = open(root / "host_data.log", "w")
+        env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.host_data_child(sys.argv[1])", str(root)],
+            cwd=Path(__file__).resolve().parent, stdout=self.log,
+            stderr=subprocess.STDOUT, env=env)
+        atexit.register(self.stop)
+
+    def wait(self) -> dict:
+        """The process's seconds (waiting for it the first time)."""
+        if self.result is None:
+            left = HOST_DATA_TIMEOUT - (time.perf_counter() - self.t0)
+            try:
+                rc = self.proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                self.stop()
+                fail(f"the host data took over {HOST_DATA_TIMEOUT} s")
+            self.log.close()
+            if rc:
+                tail = (self.root / "host_data.log").read_text()[-6000:]
+                fail(f"the host data process failed (rc {rc}):\n{tail}")
+            self.result = json.loads((self.root / "seconds.json").read_text())
+            self.result["waited_until_s"] = time.perf_counter() - self.t0
+        return self.result
+
+    def granule_path(self) -> Path:
+        self.wait()
+        return self.root / "granule.npy"
+
+    def arrays(self, name: str):
+        """(radiance, {product: field}) saved under ``name``."""
+        import numpy as np
+
+        self.wait()
+        rad = np.load(self.root / f"{name}.npy")
+        with np.load(self.root / f"{name}_fields.npz") as f:
+            return rad, {k: f[k] for k in f.files}
+
+    def stop(self) -> None:
+        stop_process(self.proc)
+        self.log.close()
+
+
+def host_data_child(root: str) -> None:
+    """HostData's process: the arrays 7c and 7e made as they would make
+    them (the same generators, draws and order), saved under ``root``."""
+    import numpy as np
+
+    from tempo_tpu_torch.data.synthetic import (structured_granule,
+                                                with_fill_values)
+
+    root = Path(root)
+    seconds = {}
+    t0 = time.perf_counter()
+    rad, fields = structured_granule(np.random.default_rng(SEED),
+                                     *ANALYSIS_GRANULE)
+    seconds["granule"] = time.perf_counter() - t0
+    np.save(root / "granule.npy", rad)
+    np.savez(root / "granule_fields.npz", **fields)
+    del rad
+    # 7e's granules, as the L2 files read back: 5% fill values -> NaN,
+    # over the scale
+    components = ANALYSIS_PROBE["components"]
+    make = np.random.default_rng(SEED + 11)
+    t0 = time.perf_counter()
+    for i in range(ANALYSIS_PROBE_GRANULES):
+        rad, fields = structured_granule(make, *ANALYSIS_PROBE_SHAPE)
+        fields = {c: np.where(with_fill_values(make, fields[c], 0.05)
+                              < -1e29, np.nan, fields[c])
+                  / np.float32(components[c]["scale"]) for c in components}
+        np.save(root / f"probe{i}.npy", rad)
+        np.savez(root / f"probe{i}_fields.npz", **fields)
+    seconds["probes"] = time.perf_counter() - t0
+    (root / "seconds.json").write_text(json.dumps(seconds))
+
+
 def export_child(spec_path: str) -> None:
     """One LM_EXPORTS entry, in a process of its own (LMExports): the model
     built from its seed on the device that traces (its weights quantized
@@ -2539,7 +2694,8 @@ class ProgramsChildren:
     loads and greedy decode of the card's artifact; ``programs_check_child``:
     the CPU's artifact held against the live model), started together
     once both artifacts exist; ``results()`` waits for them. Their loads
-    are host work, so they run beside 9b and 9c (gates, not timings)."""
+    are host work, so they run beside phase 9 once it has loaded its own
+    artifacts (beside 9b and 9c only, until phase 16)."""
 
     def __init__(self, exports: LMExports, dev):
         import numpy as np
@@ -2730,17 +2886,17 @@ def programs_path(dev, rows: dict, exports: LMExports,
     page LM_PAGE, decode_chunk LM_K), exported on the card and on the CPU
     by background processes. (a) export seconds by program, the directory's
     bytes beside the weights'; (b) a fresh process's first and second load,
-    its device memory across the loads and its greedy decode, which must
-    import no model code and equal generate's; (c) each program, through
-    both artifacts, bitwise the live model's call (the same bodies over
+    its device memory across the loads and its greedy decode, which must import
+    no model code and equal generate's; (c) each program, through both
+    artifacts, bitwise the live model's call (the same bodies over
     nn/transformer.py) at PROGRAMS_BATCHES and two positions, outputs and
-    caches, the CPU's artifact in a process of its own (b and that half of
-    c run in ``children``, started after 9a's timed runs: loading is host
-    work); (d) one captured decode_k replay (b=8, K=LM_K), exported and
-    live: device ms, kernels, cache addresses; (e) serve_lm's continuous
-    and paged schedulers over the programs beside the same over a live
-    surface: tokens/s, the same greedy tokens and K3/K4 launches. Every
-    gate is checked after all is printed."""
+    caches, the CPU's artifact in a process of its own (b and that half of c
+    run in ``children``, started once phase 9 has loaded its artifacts: loading
+    is host work); (d) one captured decode_k replay (b=8, K=LM_K), exported and
+    live: device ms, kernels, cache addresses; (e) serve_lm's continuous and
+    paged schedulers over the programs beside the same over a live surface:
+    tokens/s, the same greedy tokens and K3/K4 launches. Every gate is checked
+    after all is printed."""
     import numpy as np
     import torch
 
@@ -2785,7 +2941,7 @@ def programs_path(dev, rows: dict, exports: LMExports,
                        f"for {w_bytes} of weights")
     seconds["a"] = time.perf_counter() - t_phase
 
-    # -------- (b), (c): the two processes started after 9a, and this
+    # -------- (b), (c): the two processes started in phase 9, and this
     # process's own check
     t0 = time.perf_counter()
     cfg = TransformerConfig(compute_dtype="bfloat16", **SPEC_TARGET)
@@ -2948,8 +3104,9 @@ def programs_path(dev, rows: dict, exports: LMExports,
                 for k in ("tokens_per_sec", "elapsed_s", "K3", "K4")}
         line["tokens_equal"] = p["tokens"] == lv["tokens"]
         out[f"serve_{sched}"] = line
-        print(f"[10] serve_lm {sched} ({LM_SLOTS} slots, k {LM_K}), the 64 "
-              f"requests over the programs and over a live surface: "
+        print(f"[10] serve_lm {sched} ({LM_SLOTS} slots, k {LM_K}), the "
+              f"first {len(reqs)} requests over the programs and over a live "
+              f"surface: "
               f"{json.dumps(line)} (host wall of _serve_batch after a "
               f"2-request warm-up that captures the graphs) on {card}",
               flush=True)
@@ -4405,7 +4562,8 @@ def hold_kernels(dev, gen, calls: dict) -> list:
     return out
 
 
-def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
+def analysis_path(dev, rows: dict, keep: Path, live: dict,
+                  host: HostData) -> dict:
     """The VAE evaluation and analysis path on the flagship (phase 7):
     (a) cli/evaluate_reconstruction.run over 5b's two checkpoints and a
     shard of 32 flagship tiles, against the same sweep through the plain
@@ -4420,7 +4578,7 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     a linear probe a product. K1a, K1b and K2 held against their plain
     versions at every shape the sweep and the granules give them; their
     launches in a sweep batch and in a granule's encode+decode added to
-    their rows."""
+    their rows. The granules of (c) and (e) come from ``host``."""
     import numpy as np
     import torch
 
@@ -4429,9 +4587,7 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
                                      evaluate_reconstruction, extract_pca,
                                      probe_analysis)
     from tempo_tpu_torch.data.normalize import normalize_radiance
-    from tempo_tpu_torch.data.synthetic import (make_tile_shards,
-                                                structured_granule,
-                                                with_fill_values)
+    from tempo_tpu_torch.data.synthetic import make_tile_shards
     from tempo_tpu_torch.infer.granule_codec import GranuleCodec
     from tempo_tpu_torch.infer.sweep import (batch_metrics, compute_metrics,
                                              evaluate_checkpoints)
@@ -4570,9 +4726,9 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     # -------------------- (c) a granule through encode_granules, normalize
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    rad, fields = structured_granule(np.random.default_rng(SEED),
-                                     *ANALYSIS_GRANULE)
-    make_s = time.perf_counter() - t0
+    rad, fields = host.arrays("granule")
+    load_s = time.perf_counter() - t0
+    make_s = host.wait()["granule"]
     live["granule"] = (rad, fields)  # phase 8b prepares it
 
     def f64_normalize(raw64, spectra):
@@ -4657,7 +4813,8 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     torch.cuda.synchronize()
     raw_wall_s = time.perf_counter() - t0
     del lat_plain, latent_t
-    granule = dict(entry, make_s=make_s, numpy_normalize_s=numpy_s,
+    granule = dict(entry, make_s=make_s, load_s=load_s,
+                   numpy_normalize_s=numpy_s,
                    numpy_normalize_own_stats_s=numpy_own_s,
                    normalize_ms=normalize_ms,
                    normalize_tensor_wall_s=normalize_wall_s,
@@ -4669,7 +4826,8 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
                    device_vs_host_metrics_rel=metrics_rel,
                    launches=granule_launches)
     print(f"[analysis] 7c a structured granule {list(ANALYSIS_GRANULE)} "
-          f"(made in {make_s:.1f} s on the host) through encode_granule "
+          f"(made in {make_s:.1f} s on the host by a background process, "
+          f"loaded in {load_s:.1f} s) through encode_granule "
           f"with decode_roundtrip, the VAE of 5b's last checkpoint: "
           f"{json.dumps(granule)} (normalize: {ANALYSIS_NORM_ATOL} of "
           f"numpy and no farther from float64 + {ANALYSIS_NORM_F64_SLACK}; "
@@ -4724,19 +4882,15 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     codec = GranuleCodec(base, multiple=base_cfg.input_size,
                          seed=probe_cfg["seed"], device=dev)
     rng = np.random.default_rng(probe_cfg["seed"])
-    make = np.random.default_rng(SEED + 11)
     all_latents = {c: [] for c in components}
     all_targets = {c: [] for c in components}
     raw_samples = {c: None for c in components}
-    make_s = encode_s = 0.0
+    encode_s = 0.0
+    make_s = host.wait()["probes"]
     for i in range(ANALYSIS_PROBE_GRANULES):
-        t0 = time.perf_counter()
-        rad, fields = structured_granule(make, *ANALYSIS_PROBE_SHAPE)
-        # as the L2 files read back: 5% fill values -> NaN, over the scale
-        fields = {c: np.where(with_fill_values(make, fields[c], 0.05)
-                              < -1e29, np.nan, fields[c])
-                  / np.float32(components[c]["scale"]) for c in components}
-        make_s += time.perf_counter() - t0
+        # made by HostData: 5% fill values -> NaN, over the scale, as the
+        # L2 files read back
+        rad, fields = host.arrays(f"probe{i}")
         t0 = time.perf_counter()
         with contextlib.ExitStack() as stack:
             if i == 0:
@@ -4766,7 +4920,8 @@ def analysis_path(dev, rows: dict, keep: Path, live: dict) -> dict:
     r2 = {c: probes[c]["r2_score"] for c in components if c in probes}
     print(f"[analysis] 7e probe_granule over {ANALYSIS_PROBE_GRANULES} "
           f"structured granules {list(ANALYSIS_PROBE_SHAPE)} encoded by 6c's "
-          f"checkpoint ({make_s:.1f} s to make them on the host, "
+          f"checkpoint ({make_s:.1f} s to make them on the host by a "
+          f"background process, "
           f"{encode_s:.2f} s to encode and sample), then a linear probe a "
           f"product ({probes_s:.2f} s, figures included): R^2 "
           f"{json.dumps(r2)}; the best validation loss below the first "
@@ -4954,10 +5109,12 @@ def exported_on_card_run_on_cpu(dev, keep: Path) -> dict:
     return out
 
 
-def export_path(dev, rows: dict, keep: Path, ckpt: Path) -> dict:
+def export_path(dev, rows: dict, keep: Path, ckpt: Path):
     """Phase 8a: the flagship codec with ``ckpt``'s weights (5b's) exported
     by infer/export_codec.py on the card and on the CPU, each loaded and
-    run in a fresh process (exported_child); the gates: no model code
+    run in a fresh process (exported_child), which runs beside 8b:
+    returns a function that waits for it, checks and returns the
+    metrics (export_finish); the gates: no model code
     imported by the loads, every output within EXPORT_REL_L2 of the eager
     model at every batch, and one exported encode+decode at batch 8
     launching K1a/K1b/K2 as often as the eager one, and not zero times.
@@ -5013,18 +5170,36 @@ def export_path(dev, rows: dict, keep: Path, ckpt: Path) -> dict:
             "tile": [cfg.input_size, cfg.input_size, cfg.in_channels]}
     (keep / "child_spec.json").write_text(json.dumps(spec))
     t0 = time.perf_counter()
-    child = subprocess.run(
+    log = open(keep / "child.log", "w")
+    child = subprocess.Popen(
         [sys.executable, "-c", "import sys, chip_smoke; "
          "chip_smoke.exported_child(sys.argv[1])",
          str(keep / "child_spec.json")],
-        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-        timeout=600)
+        cwd=Path(__file__).resolve().parent, stdout=log,
+        stderr=subprocess.STDOUT)
+    atexit.register(stop_process, child)
+    on_cpu = exported_on_card_run_on_cpu(dev, keep)
+    return lambda: export_finish(rows, keep, out, on_cpu, child, log, t0)
+
+
+def export_finish(rows: dict, keep: Path, out: dict, on_cpu: dict,
+                  child: subprocess.Popen, log, t0: float) -> dict:
+    """8a's end: waits for the fresh process (``child``, started at
+    ``t0``), prints its results and holds them to 8a's gates."""
+    try:
+        rc = child.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        stop_process(child)
+        log.close()
     out["child_s"] = time.perf_counter() - t0
-    if child.returncode:
-        fail(f"the exported codec's process failed:\n{child.stdout[-4000:]}"
-             f"\n{child.stderr[-8000:]}")
+    if rc != 0:
+        fail(f"the exported codec's process failed or ran past 600 s:\n"
+             f"{(keep / 'child.log').read_text()[-8000:]}")
     res = json.loads((keep / "child.json").read_text())
-    for name in artifacts:
+    names, card = ("exported_on_cuda", "exported_on_cpu"), out["card"]
+    for name in names:
         out[name].update(res[name])
     out["eager"] = res["eager"]
     out["model_code_imported"] = res["model_code_imported"]
@@ -5032,9 +5207,9 @@ def export_path(dev, rows: dict, keep: Path, ckpt: Path) -> dict:
           f"1028 channels) exported on the card and on the CPU, loaded with "
           f"device None in a fresh process: {json.dumps(out)} (gates: rel "
           f"L2 {EXPORT_REL_L2}, launches equal the eager model's, no model "
-          f"code imported by the loads) on {card}", flush=True)
+          f"code imported by the loads; the process ran beside 8b) on "
+          f"{card}", flush=True)
     eager_n = res["eager"]["launches_b8"]
-    on_cpu = exported_on_card_run_on_cpu(dev, keep)
     out["exported_on_cuda_run_on_cpu"] = on_cpu
     print(f"[export] 8a a tiny codec ({json.dumps(EXPORT_TINY)}, tile "
           f"{EXPORT_TINY_TILE}) exported on the card, loaded on the CPU, "
@@ -5047,7 +5222,7 @@ def export_path(dev, rows: dict, keep: Path, ckpt: Path) -> dict:
                  f"disagrees with the CPU's eager model at batch {b}: {r}")
     if res["model_code_imported"]:
         fail(f"loading the artifacts imported {res['model_code_imported']}")
-    for name in artifacts:
+    for name in names:
         r = res[name]
         worst = max(max(v["encode_rel_l2"], v["decode_rel_l2"])
                     for v in r["batches"].values())
@@ -7460,7 +7635,7 @@ def connectomics_path(dev, rows: dict) -> dict:
 # train_vae with the device buffer replicated, then partitioned by
 # process, then train_vae_l2.
 PAR = {"world": 2, "steps": 3, "vae_batch": 64, "f32_batch": 4,
-       "cli_batch": 16, "cli_steps": 5, "tiles": (2, 8), "timeout": 600}
+       "cli_batch": 16, "cli_steps": 5, "tiles": (2, 8), "timeout": 240}
 PAR_OPT = {"lr": 1e-4, "betas": [0.9, 0.95], "weight_decay": 0.05}
 PAR_UNUSED = ("encoder.downs.2.down", "decoder.ups.2.up")
 PAR_L2 = {"nll_loss_type": "l2"}
@@ -7805,11 +7980,7 @@ def parallel_path(dev, rows: dict, root: Path) -> dict:
         env=dict(os.environ, PYTHONUNBUFFERED="1"))
         for r in range(PAR["world"])]
     try:
-        deadline = time.perf_counter() + PAR["timeout"]
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
-    except subprocess.TimeoutExpired:
-        pass
+        wait_all(procs, time.perf_counter() + PAR["timeout"])
     finally:
         for p in procs:
             stop_process(p)
@@ -7979,6 +8150,430 @@ def parallel_path(dev, rows: dict, root: Path) -> dict:
     return result
 
 
+# ------------------------------------------------------------------------
+# Phase 16: spatial sharding of a whole granule along W over 2 ranks that
+# share the card over gloo (parallel/spatial.py, GranuleCodec(mesh=),
+# encode_granules' per-granule function). The one-process codec on the
+# same card is the reference. fp32 differs in sum order only (the sharded
+# GroupNorm sums, the gathered attention): rel L2 1e-5. bf16 rounds
+# activations at ~30 layers, so an element may land one ulp apart and the
+# flips compound: the decoding of one latent is held to 1e-2. Everything
+# behind the encoder is held to MODEL_BF16_REL_L2, as phase 3 holds the
+# model to its plain path: a sharded GroupNorm sums its statistics in
+# another order (each rank's K1a sums, added over the ranks), so its mean
+# and rstd may differ from one process's in the last bit, K2's bf16 output
+# then differs by one ulp at some elements from the first ResNet block on,
+# and the flips compound through the encoder at the granule's full width
+# to ~1e-2 at the latent and ~2e-2 at the reconstruction
+# (tools/spatial_layers.py traces it layer by layer; 16c shows conv_in and
+# K2 over a widened share bitwise the whole's).
+SPATIAL = {"world": 2, "granule": ANALYSIS_GRANULE, "section": 256,
+           "timeout": 180}
+SPATIAL_DECODE_REL_L2 = 1e-2
+SPATIAL_BF16_REL_L2 = MODEL_BF16_REL_L2
+SPATIAL_F32_REL_L2 = 1e-5
+
+
+def spatial_ref(root: Path, dev, granule: Path) -> dict:
+    """16a/16b's one-process references on the card of the granule at
+    ``granule``, saved under ``root`` for the ranks: encode_granule (the whole
+    latent and its metrics), the decoding of the latent, reconstruct (the mode,
+    then a posterior draw from SEED), and the fp32 model's latent and
+    reconstruction of the section; encode and decode s, and the peak device
+    memory beside what the process held when the granule's forwards began."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.cli.encode_granules import encode_granule
+    from tempo_tpu_torch.infer.granule_codec import GranuleCodec
+
+    rad = np.load(granule, mmap_mode="r")
+    model = par_vae(dev, VAE_MODEL).eval()
+    tile = model.config.input_size
+    codec = GranuleCodec(model, multiple=tile, seed=SEED, device=dev)
+    encode_granule(codec, rad, True)  # warm: cuDNN's plans, K2's weights
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    latent, entry = encode_granule(codec, rad, True)
+    with torch.inference_mode():
+        gt = codec.normalize_tensor(rad)
+        lat = codec.encode(gt)
+        dec = codec.decode_tensor(lat).cpu()
+        rec_mode = torch.from_numpy(codec.reconstruct(gt, False))
+        rec_sample = torch.from_numpy(codec.reconstruct(gt, True))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    section = gt[:, :SPATIAL["section"]].cpu()
+    del model, codec, gt, lat
+    torch.cuda.empty_cache()
+    model32 = par_vae(dev, VAE_MODEL, "float32").eval()
+    codec32 = GranuleCodec(model32, multiple=tile, seed=SEED, device=dev)
+    with torch.inference_mode():
+        lat32 = codec32.encode(section).cpu()
+        rec32 = torch.from_numpy(codec32.reconstruct(section, False))
+    del model32, codec32
+    torch.cuda.empty_cache()
+    torch.save({"section": section, "latent": torch.from_numpy(latent)},
+               root / "inputs.pt")
+    torch.save({"latent": torch.from_numpy(latent), "decode": dec,
+                "rec_mode": rec_mode.bfloat16(),
+                "rec_sample": rec_sample.bfloat16(), "lat32": lat32,
+                "rec32": rec32,
+                "metrics": {k: entry[k] for k in ("mse", "mae", "psnr")}},
+               root / "ref.pt")
+    return {"encode_s": entry["encode_seconds"],
+            "decode_s": entry["decode_seconds"], "peak_gb": peak / 1e9,
+            "start_gb": start / 1e9}
+
+
+def spatial_child(spec_path: str, rank: int) -> None:
+    """One rank of phase 16, sharing cuda:0 with the other over gloo: joins
+    the group, waits for the references, then 16b (encode_granule, also
+    the warm-up), 16a (encode and decode timed, launches and exchanged
+    bytes counted, reconstruct twice, the fp32 section) and, on rank 0,
+    the gates against the references. Records the shapes and types of its
+    K1a sums calls for 16c. Writes its results to the spec's directory."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tempo_tpu_torch.cli.encode_granules import encode_granule
+    from tempo_tpu_torch.infer.granule_codec import GranuleCodec
+    from tempo_tpu_torch.ops import cuda_gn
+    from tempo_tpu_torch.parallel import spatial
+    from tempo_tpu_torch.parallel.mesh import create_mesh
+
+    spec = json.loads(Path(spec_path).read_text())
+    root = Path(spec["root"])
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{spec['store']}",
+                            rank=rank, world_size=SPATIAL["world"],
+                            timeout=datetime.timedelta(seconds=300))
+    mesh = create_mesh(dev)
+    res = {"rank": rank, "backend": dist.get_backend()}
+    # the backend's table, checked on this card: gloo and CUDA tensors
+    probe = torch.ones(4, device=dev)
+    dist.all_reduce(probe)
+    res["gloo_cuda_all_reduce"] = float(probe[0])
+    try:
+        dist.all_gather([torch.empty_like(probe) for _ in range(
+            SPATIAL["world"])], probe)
+        res["gloo_cuda_all_gather"] = "ran"
+    except RuntimeError as e:
+        res["gloo_cuda_all_gather"] = f"refused: {str(e)[:120]}"
+    while not (root / "go").exists():
+        time.sleep(0.1)
+    rad = np.load(spec["granule"], mmap_mode="r")
+    inputs = torch.load(root / "inputs.pt", weights_only=True)
+    section = inputs["section"].numpy()
+    model = par_vae(dev, VAE_MODEL).eval()
+    tile = model.config.input_size
+    codec = GranuleCodec(model, multiple=tile, seed=SEED, device=dev,
+                         mesh=mesh)
+    shapes = set()
+    plain_sums = cuda_gn.gn_sums
+
+    def recorded(x, groups):
+        shapes.add((tuple(x.shape), str(x.dtype)[6:], groups))
+        return plain_sums(x, groups)
+
+    # 16b: the per-granule function of encode_granules (and the warm-up)
+    cuda_gn.gn_sums = recorded
+    latent_b, entry = encode_granule(codec, rad, True)
+    cuda_gn.gn_sums = plain_sums
+    res["16b"] = {"latent_shape": list(latent_b.shape),
+                  "input_shape": entry["input_shape"],
+                  "first_encode_s": entry["encode_seconds"],
+                  "first_decode_s": entry["decode_seconds"],
+                  "metrics": {k: entry[k] for k in ("mse", "mae", "psnr")}}
+    res["sums_shapes"] = sorted(shapes)
+
+    # 16a: one granule's encode and decode, timed and counted
+    with torch.inference_mode():
+        gt = codec.normalize_tensor(rad)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res["start_gb"] = torch.cuda.memory_allocated() / 1e9
+        zero_kernel_counts()
+        cuda_gn.LAUNCHES["gn_sums"] = 0
+        for k in spatial.EXCHANGED:
+            spatial.EXCHANGED[k] = 0
+        t0 = time.perf_counter()
+        lat = codec.encode(gt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec = codec.decode_tensor(inputs["latent"].numpy())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res["launches"] = dict(kernel_counts(),
+                               K1a_sums=cuda_gn.LAUNCHES["gn_sums"])
+        res["exchanged_bytes"] = dict(spatial.EXCHANGED)
+        res["encode_s"], res["decode_s"] = t1 - t0, t2 - t1
+        res["gt_share"] = list(gt.shape)
+        res["latent_share"] = list(lat.shape)
+        lat_whole = torch.from_numpy(codec.to_host(lat))
+        dec_whole = torch.from_numpy(codec.to_host(dec))
+        rec_mode = torch.from_numpy(codec.reconstruct(gt, False))
+        rec_sample = torch.from_numpy(codec.reconstruct(gt, True))
+        torch.cuda.synchronize()
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del gt, lat, dec, model, codec
+        torch.cuda.empty_cache()
+        model32 = par_vae(dev, VAE_MODEL, "float32").eval()
+        codec32 = GranuleCodec(model32, multiple=tile, seed=SEED,
+                               device=dev, mesh=mesh)
+        lat32 = torch.from_numpy(codec32.to_host(codec32.encode(section)))
+        rec32 = torch.from_numpy(codec32.reconstruct(section, False))
+        del model32, codec32
+    if rank == 0:
+        ref = torch.load(root / "ref.pt", weights_only=True)
+        m, w = res["16b"]["metrics"], ref["metrics"]
+        res["rel_l2"] = {
+            "latent": rel_l2(lat_whole, ref["latent"]),
+            "decode": rel_l2(dec_whole, ref["decode"]),
+            "reconstruct_mode": rel_l2(rec_mode, ref["rec_mode"]),
+            "reconstruct_sample": rel_l2(rec_sample, ref["rec_sample"]),
+            "16b_latent": rel_l2(torch.from_numpy(latent_b), ref["latent"]),
+            "f32_latent": rel_l2(lat32, ref["lat32"]),
+            "f32_reconstruct": rel_l2(rec32, ref["rec32"])}
+        res["16b"]["metrics_rel"] = max(abs(m[k] - w[k]) / abs(w[k])
+                                        for k in m)
+        res["finite"] = all(bool(torch.isfinite(t).all()) for t in (
+            lat_whole, dec_whole, rec_mode, rec_sample, lat32, rec32))
+        res["shapes"] = {"latent": list(lat_whole.shape),
+                         "decode": list(dec_whole.shape),
+                         "reconstruct": list(rec_mode.shape)}
+    dist.barrier()
+    dist.destroy_process_group()
+    (root / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def spatial_kernels(dev, gen, shapes: list) -> dict:
+    """16c: K1a's sums mode at each shard shape the ranks gave it, against
+    gn_sums_plain (STATS_TOL), bitwise on a repeat, timed beside its byte
+    bound and its plain version; stats_from_sums(gn_sums(x)) against
+    gn_stats(x) at world 1 (max abs difference, and whether bitwise)."""
+    import torch
+
+    from tempo_tpu_torch.ops import cuda_gn
+
+    out, ok = [], True
+    with torch.inference_mode():
+        split = spatial_split_checks(dev, gen)
+        ok &= split["k2_split_bitwise"]
+        for shape, dtype, groups in shapes:
+            x = torch.randn(shape, generator=gen, device=dev).to(
+                getattr(torch, dtype)) + 0.5
+            got = cuda_gn.gn_sums(x, groups)
+            want = cuda_gn.gn_sums_plain(x, groups)
+            # sums over up to 2^17 rows a group: the STATS_TOL rule on the
+            # sums' own scale
+            scale = want.abs().amax(dim=-1, keepdim=True)
+            err = float(((got - want).abs() / scale).max())
+            repeat = torch.equal(got, cuda_gn.gn_sums(x, groups))
+            c = shape[-1]
+            n = (x.numel() // (shape[0] * c)) * (c // groups)
+            stats = cuda_gn.gn_stats(x, groups)
+            from_sums = cuda_gn.stats_from_sums(got, n, c)
+            diff = float((from_sums - stats).abs().max())
+            s_err, s_ok = max_err(from_sums, stats, STATS_TOL)
+            row = {"x": list(shape), "dtype": dtype, "groups": groups,
+                   "max_rel_err": err, "bitwise_repeat": repeat,
+                   "stats_from_sums_vs_gn_stats_max_abs": diff,
+                   "stats_from_sums_bitwise_gn_stats": torch.equal(
+                       from_sums, stats),
+                   "ms": time_ms(lambda: cuda_gn.gn_sums(x, groups)),
+                   "plain_ms": time_ms(lambda: cuda_gn.gn_sums_plain(
+                       x, groups)),
+                   "bound_ms": 1e3 * (x.numel() * x.element_size()
+                                      + got.numel() * 4) / HBM_BYTES_PER_S,
+                   "bound_by": "bytes"}
+            ok &= err <= STATS_TOL["rtol"] and repeat and s_ok
+            out.append(row)
+            del x
+    return {"shapes": out, "split": split, "ok": ok}
+
+
+def spatial_split_checks(dev, gen) -> dict:
+    """Rank 0's share of the granule's first level, run as the sharded
+    path runs it (widened by one halo column, the column cropped), against
+    the same columns of the whole: the encoder's conv_in (cuDNN, bf16,
+    1028 -> 512) and a K2 call (bf16, 512 -> 512, the whole's
+    statistics)."""
+    import torch
+
+    from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
+    from tempo_tpu_torch.ops.convs import conv2d_nhwc
+
+    h, w, c = 128, SPATIAL["granule"][1], SPATIAL["granule"][2]
+    half = w // SPATIAL["world"]
+    x = torch.randn((1, h, w, c), generator=gen, device=dev).to(
+        torch.bfloat16)
+    wt = torch.empty((512, c, 3, 3), device=dev).uniform_(
+        -c ** -0.5, c ** -0.5, generator=gen)
+    whole = conv2d_nhwc(x, wt, None, padding=1)[:, :, :half]
+    share = conv2d_nhwc(x[:, :, :half + 1].contiguous(), wt, None,
+                        padding=1)[:, :, :half]
+    differ = float((share != whole).float().mean())
+    res = {"conv_in_share_rel_l2": rel_l2(share, whole),
+           "conv_in_elements_differing": differ}
+    del x, wt, whole, share
+    x = torch.randn((1, h, w, 512), generator=gen, device=dev).to(
+        torch.bfloat16)
+    wt = torch.empty((512, 512, 3, 3), device=dev).uniform_(
+        -512 ** -0.5, 512 ** -0.5, generator=gen)
+    stats = cuda_gn.gn_stats(x, 8)
+    whole = cuda_gn_conv.conv3x3_from_stats(x, stats, None, None, wt, None)
+    share = cuda_gn_conv.conv3x3_from_stats(
+        x[:, :, :half + 1].contiguous(), stats, None, None, wt, None)
+    res["k2_split_bitwise"] = torch.equal(share[:, :, :half],
+                                          whole[:, :, :half])
+    return res
+
+
+def spatial_path(dev, gen, rows: dict, root: Path, granule: Path) -> dict:
+    """Phase 16 (see SPATIAL): the structured granule at ``granule``
+    (HostData's, 7c's), the 2 rank processes started (they join their
+    group while this process computes the one-process references), 16a/16b
+    in the ranks, 16c here;
+    adds K1a's sums mode and each kernel's phase-16 launches to its
+    row."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.models.vae import VAEConfig
+
+    card = smi_line()
+    seconds, world = {}, SPATIAL["world"]
+    t_phase = time.perf_counter()
+    rad = np.load(granule, mmap_mode="r")
+    if rad.shape != SPATIAL["granule"]:
+        fail(f"16: the granule is {rad.shape}, want {SPATIAL['granule']}")
+    del rad
+    spec = root / "spec.json"
+    spec.write_text(json.dumps({"root": str(root), "device": str(dev),
+                                "store": str(root / "store"),
+                                "granule": str(granule)}))
+    logs = [open(root / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.spatial_child(sys.argv[1], int(sys.argv[2]))",
+         str(spec), str(r)], cwd=Path(__file__).resolve().parent,
+        stdout=logs[r], stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        for r in range(world)]
+    try:
+        t0 = time.perf_counter()
+        one = spatial_ref(root, dev, granule)
+        seconds["references"] = time.perf_counter() - t0
+        (root / "go").touch()
+        t0 = time.perf_counter()
+        wait_all(procs, t0 + SPATIAL["timeout"])
+        seconds["ranks"] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            stop_process(p)
+        for f in logs:
+            f.close()
+    if any(p.returncode for p in procs):
+        tails = "\n".join((root / f"rank{r}.log").read_text()[-6000:]
+                          for r in range(world))
+        fail(f"a phase-16 rank failed or ran past {SPATIAL['timeout']} s:\n"
+             f"{tails}")
+    ranks = [json.loads((root / f"rank{r}.json").read_text())
+             for r in range(world)]
+    r0 = ranks[0]
+    vcfg = VAEConfig.from_dict(VAE_MODEL)
+    tile, f, z = vcfg.input_size, vcfg.spatial_factor, vcfg.embed_dim
+    h, w, c = (SPATIAL["granule"][0] // tile * tile,
+               SPATIAL["granule"][1] // tile * tile, SPATIAL["granule"][2])
+    per_rank = {k: [r[k] for r in ranks] for k in (
+        "encode_s", "decode_s", "peak_gb", "start_gb", "launches",
+        "exchanged_bytes",
+        "gt_share", "latent_share")}
+    a = {"rel_l2": r0["rel_l2"], "finite": r0["finite"],
+         "shapes": r0["shapes"], "per_rank": per_rank, "one_process": one,
+         "backend": r0["backend"],
+         "gloo_cuda": {"all_reduce": r0["gloo_cuda_all_reduce"],
+                       "all_gather": r0["gloo_cuda_all_gather"]},
+         "note": "two ranks share one card: no scaling number"}
+    print(f"[spatial] 16a GranuleCodec(mesh=) over {world} gloo ranks on "
+          f"one card, the flagship bf16 on a structured granule "
+          f"{list(SPATIAL['granule'])} -> [{h},{w}], against the one-process "
+          f"codec (rel L2 <= {SPATIAL_DECODE_REL_L2} the decode, <= "
+          f"{SPATIAL_BF16_REL_L2} the latent and reconstructions, bf16; <= "
+          f"{SPATIAL_F32_REL_L2} fp32 on [{h},{SPATIAL['section']}]): "
+          f"{json.dumps(a)} on {card}", flush=True)
+    rel = r0["rel_l2"]
+    bf16_ok = rel["decode"] <= SPATIAL_DECODE_REL_L2 and all(
+        rel[k] <= SPATIAL_BF16_REL_L2 for k in (
+            "latent", "reconstruct_mode", "reconstruct_sample"))
+    f32_ok = all(rel[k] <= SPATIAL_F32_REL_L2 for k in ("f32_latent",
+                                                        "f32_reconstruct"))
+    shapes_ok = r0["shapes"] == {"latent": [h // f, w // f, z],
+                                 "decode": [h, w, c],
+                                 "reconstruct": [h, w, c]}
+    shares_ok = all(r["gt_share"] == [h, w // world, c]
+                    and r["latent_share"] == [h // f, w // world // f, z]
+                    for r in ranks)
+    launched = all(r["launches"]["K1a_sums"] and r["launches"]["K1b"]
+                   and r["launches"]["K2"] and not r["launches"]["K1a"]
+                   for r in ranks)
+    if not (bf16_ok and f32_ok and shapes_ok and shares_ok and r0["finite"]
+            and launched):
+        fail(f"16a: the sharded codec disagrees with the one process, or "
+             f"a shape, a share or a launch count is wrong: {json.dumps(a)}")
+    b = {"per_rank": [r["16b"] for r in ranks],
+         "latent_rel_l2": rel["16b_latent"]}
+    print(f"[spatial] 16b encode_granules.encode_granule with the sharded "
+          f"codec, decode_roundtrip: {json.dumps(b)} (latent rel L2 <= "
+          f"{SPATIAL_BF16_REL_L2}, metrics rel <= {SPATIAL_DECODE_REL_L2}) on "
+          f"{card}", flush=True)
+    if not (rel["16b_latent"] <= SPATIAL_BF16_REL_L2
+            and r0["16b"]["metrics_rel"] <= SPATIAL_DECODE_REL_L2
+            and all(r["16b"]["latent_shape"] == [h // f, w // f, z]
+                    and r["16b"]["input_shape"] == [h, w, c]
+                    for r in ranks)):
+        fail(f"16b: encode_granule over the sharded codec: {json.dumps(b)}")
+
+    t0 = time.perf_counter()
+    k = spatial_kernels(dev, gen, [tuple(x) for x in r0["sums_shapes"]])
+    seconds["16c"] = time.perf_counter() - t0
+    calls = r0["launches"]["K1a_sums"]
+    n_shapes = len(k["shapes"])
+    sums_row = {"launches_phase16_per_rank_per_granule": calls,
+                "shapes": k["shapes"],
+                "what": "K1a's sums mode at each shard shape of phase 16 "
+                        "(one call a shape, cold L2)"}
+    rows["K1a"]["sums_mode"] = sums_row
+    for name, key in (("K1a", "K1a_sums"), ("K1b", "K1b"), ("K2", "K2")):
+        rows[name]["launches_phase16"] = {
+            "per_rank_per_granule": [r["launches"][key] for r in ranks],
+            "counted": "K1a's sums mode" if name == "K1a" else name}
+    print(f"[spatial] 16c K1a sums mode at the {n_shapes} shard shapes "
+          f"(sums within {STATS_TOL['rtol']} of plain, relative to their "
+          f"scale; bitwise on a repeat; stats_from_sums(gn_sums) against "
+          f"gn_stats within {STATS_TOL}); rank 0's widened share of level 0 "
+          f"against the whole's columns (K2 must be bitwise; conv_in is "
+          f"cuDNN's): {json.dumps(k)}; launches a rank "
+          f"a granule {json.dumps(per_rank['launches'])} on {card}",
+          flush=True)
+    if not k["ok"]:
+        fail(f"16c: K1a's sums mode disagrees with its plain version or "
+             f"with K1a's statistics: {json.dumps(k)}")
+    seconds["16"] = time.perf_counter() - t_phase
+    print(f"[time] phase 16, s: {json.dumps(seconds)}", flush=True)
+    return {"16a": a, "16b": b, "16c": k, "seconds": seconds}
+
+
 def main() -> int:
     try:
         import torch
@@ -8049,12 +8644,13 @@ def main() -> int:
         if spilled or len(path_k2) != len(cuda_gn_conv.CONFIGS):
             fail(f"a bf16 K2 configuration spills, or ptxas said nothing of "
                  f"one: {spilled or path_k2}")
-        # K1a (bf16, fp32; packs or elements) and K1b (bf16, fp32; 16-byte
-        # or one-element packs): eight instantiations, none may spill.
+        # K1a (bf16, fp32; packs or elements; statistics or sums) and K1b
+        # (bf16, fp32; 16-byte or one-element packs): twelve
+        # instantiations, none may spill.
         path_k1 = [ln for ln in lines if ln.startswith("tempo::gn ")]
         spilled = [ln for ln in path_k1 if "0 bytes spill stores, 0 bytes "
                    "spill loads" not in ln]
-        if spilled or len(path_k1) != 8:
+        if spilled or len(path_k1) != 12:
             fail(f"a K1 kernel spills, or ptxas said nothing of it: "
                  f"{spilled or path_k1}")
     else:
@@ -8398,6 +8994,9 @@ def main() -> int:
         fail("fp32 reconstruction disagrees with the plain path")
 
     seconds["3"] = time.perf_counter() - t_phase
+    # the granules of phases 7 and 16, made on the host beside the LM phases
+    host_root = tempfile.TemporaryDirectory()
+    host = HostData(Path(host_root.name))
 
     # ------------------------------------------------ the LM serving path
     t_phase = time.perf_counter()
@@ -8416,7 +9015,7 @@ def main() -> int:
     children = []
     spec = speculative_path(
         dev, rows, lm["exported"]["serve"], exports,
-        after_9a=lambda: children.append(ProgramsChildren(exports, dev)))
+        after_load=lambda: children.append(ProgramsChildren(exports, dev)))
     seconds["spec_online"] = time.perf_counter() - t_phase
 
     # ------------------------------- 10. the exported serving programs
@@ -8466,17 +9065,20 @@ def main() -> int:
 
         # ------------------------------------ 7. the VAE analysis path
         t_phase = time.perf_counter()
-        analysis = analysis_path(dev, rows, Path(keep.name), live)
+        analysis = analysis_path(dev, rows, Path(keep.name), live, host)
         seconds["analysis"] = time.perf_counter() - t_phase
 
         # ------------------ 8. the export and data-preparation path
         t_phase = time.perf_counter()
-        export = export_path(dev, rows, Path(keep.name),
-                             Path(keep.name) / "vae.pt")
+        export_finish = export_path(dev, rows, Path(keep.name),
+                                    Path(keep.name) / "vae.pt")
         seconds["export"] = time.perf_counter() - t_phase
         t_phase = time.perf_counter()
         prep = data_prep_path(dev, *live.pop("granule"))
         seconds["prep"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        export = export_finish()  # 8a's process ran beside 8b
+        seconds["export"] += time.perf_counter() - t_phase
     finally:
         keep.cleanup()
     live.clear()
@@ -8528,6 +9130,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         parallel = parallel_path(dev, rows, Path(tmp))
     seconds["15"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+
+    # ------------------ 16. spatial sharding of a granule over 2 ranks
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spatial_res = spatial_path(dev, gen, rows, Path(tmp),
+                                   host.granule_path())
+    seconds["16"] = time.perf_counter() - t_phase
+    host.stop()
+    host_root.cleanup()
     print(f"[time] phases, s: {json.dumps(seconds)}", flush=True)
 
     for r in rows.values():
@@ -8545,7 +9157,7 @@ def main() -> int:
         "model_options": {"serving": options_serving,
                           "training": options_training},
         "lm_rest": lm_rest, "connectomics": connectomics,
-        "parallel": parallel,
+        "parallel": parallel, "spatial": spatial_res,
         "granule_numpy_normalize_s": t_numpy_normalize,
         "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {

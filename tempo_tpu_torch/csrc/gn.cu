@@ -35,6 +35,12 @@
 //   is the same whatever order the blocks finish in. A sample of one block
 //   skips the partials and the counter.
 // - var = max(E[x^2] - E[x]^2, 0), rstd = rsqrt(var + eps), fp32 throughout.
+// - The sums mode (SUMS, entry point tempo_gn_sums) is the same launch, split
+//   and fold; the electing block writes the folded [Σx | Σx²] per group,
+//   [2, G] a sample, where it would write mean and rstd. A caller that holds
+//   a sample in pieces (spatial sharding: a granule split along W over
+//   ranks) adds the pieces' sums and finishes mean and rstd with the same
+//   formula (cuda_gn.stats_from_sums).
 //
 // K1b, one pass with its constants in registers. The grid is (row block,
 // sample); each thread owns one fixed 16-byte channel pack, loads its mean,
@@ -83,8 +89,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // One block of K1a: rows [r0, r0 + rows) of sample blockIdx.y. VECTOR
 // loads 16-byte packs (needs C % VEC == 0, (kThreads * VEC) % C == 0 and x
-// 16-byte aligned); otherwise one element at a time.
-template <typename T, bool VECTOR>
+// 16-byte aligned); otherwise one element at a time. SUMS writes the
+// sample's group sums [2, G] to `stats` in place of mean and rstd [2, C].
+template <typename T, bool VECTOR, bool SUMS>
 __global__ void __launch_bounds__(kThreads, 4)
     gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial,
                     int* __restrict__ counters, float* __restrict__ stats,
@@ -224,6 +231,11 @@ __global__ void __launch_bounds__(kThreads, 4)
     }
   }
   __syncthreads();
+  if constexpr (SUMS) {
+    float* out = stats + (size_t)b * 2 * groups;
+    for (int j = tid; j < 2 * groups; j += kThreads) out[j] = res[j];
+    return;
+  }
   const float denom = (float)((long long)hw * cg);
   for (int g = tid; g < groups; g += kThreads) {
     const float mean = res[g] / denom;
@@ -308,7 +320,7 @@ int stats_smem_bytes(int c, int groups) {
 // The opt-in to more than 48 KB of dynamic shared memory (static and
 // dynamic together may not pass 48 KB without it) is made once per
 // instantiation and device, for the most the instantiation can ask.
-template <typename T, bool VECTOR>
+template <typename T, bool VECTOR, bool SUMS>
 int launch_stats(const void* x, void* partial, void* counters, void* stats,
                  int b, int hw, int c, int groups, int blocks,
                  int rows_per_block, float eps, cudaStream_t stream) {
@@ -317,7 +329,7 @@ int launch_stats(const void* x, void* partial, void* counters, void* stats,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || !ready[dev]) {
-    err = cudaFuncSetAttribute(gn_stats_kernel<T, VECTOR>,
+    err = cudaFuncSetAttribute(gn_stats_kernel<T, VECTOR, SUMS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                stats_smem_bytes<T, VECTOR>(kMaxChannels,
                                                            kMaxChannels));
@@ -325,11 +337,35 @@ int launch_stats(const void* x, void* partial, void* counters, void* stats,
     if (dev < 64) ready[dev] = true;
   }
   const int smem = stats_smem_bytes<T, VECTOR>(c, groups);
-  gn_stats_kernel<T, VECTOR><<<dim3(blocks, b), kThreads, smem, stream>>>(
+  gn_stats_kernel<T, VECTOR, SUMS>
+      <<<dim3(blocks, b), kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<float*>(partial),
       static_cast<int*>(counters), static_cast<float*>(stats), hw, c, groups,
       rows_per_block, eps);
   return (int)cudaGetLastError();
+}
+
+// K1a over (dtype, vectorized) for one mode.
+template <bool SUMS>
+int dispatch_stats(const void* x, void* partial, void* counters, void* out,
+                   int dtype, int b, int hw, int c, int groups, int blocks,
+                   int rows_per_block, int vectorized, float eps,
+                   cudaStream_t s) {
+  if (c > kMaxChannels) return (int)cudaErrorInvalidValue;
+  if (dtype == DT_BF16)
+    return vectorized
+               ? launch_stats<__nv_bfloat16, true, SUMS>(
+                     x, partial, counters, out, b, hw, c, groups, blocks,
+                     rows_per_block, eps, s)
+               : launch_stats<__nv_bfloat16, false, SUMS>(
+                     x, partial, counters, out, b, hw, c, groups, blocks,
+                     rows_per_block, eps, s);
+  return vectorized ? launch_stats<float, true, SUMS>(
+                          x, partial, counters, out, b, hw, c, groups,
+                          blocks, rows_per_block, eps, s)
+                    : launch_stats<float, false, SUMS>(
+                          x, partial, counters, out, b, hw, c, groups,
+                          blocks, rows_per_block, eps, s);
 }
 
 template <typename T, int VEC>
@@ -363,22 +399,19 @@ int tempo_gn_stats(const void* x, void* partial, void* counters, void* stats,
                    int dtype, int b, int hw, int c, int groups, int blocks,
                    int rows_per_block, int vectorized, float eps,
                    void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (c > tempo::kMaxChannels) return (int)cudaErrorInvalidValue;
-  if (dtype == tempo::DT_BF16)
-    return vectorized
-               ? tempo::launch_stats<__nv_bfloat16, true>(
-                     x, partial, counters, stats, b, hw, c, groups, blocks,
-                     rows_per_block, eps, s)
-               : tempo::launch_stats<__nv_bfloat16, false>(
-                     x, partial, counters, stats, b, hw, c, groups, blocks,
-                     rows_per_block, eps, s);
-  return vectorized ? tempo::launch_stats<float, true>(
-                          x, partial, counters, stats, b, hw, c, groups,
-                          blocks, rows_per_block, eps, s)
-                    : tempo::launch_stats<float, false>(
-                          x, partial, counters, stats, b, hw, c, groups,
-                          blocks, rows_per_block, eps, s);
+  return tempo::dispatch_stats<false>(
+      x, partial, counters, stats, dtype, b, hw, c, groups, blocks,
+      rows_per_block, vectorized, eps, static_cast<cudaStream_t>(stream));
+}
+
+// K1a's sums mode: x [B, HW, C] -> sums [B, 2, G] f32 (each group's Σx,
+// then its Σx²), the same launch, split and fold as tempo_gn_stats.
+int tempo_gn_sums(const void* x, void* partial, void* counters, void* sums,
+                  int dtype, int b, int hw, int c, int groups, int blocks,
+                  int rows_per_block, int vectorized, void* stream) {
+  return tempo::dispatch_stats<true>(
+      x, partial, counters, sums, dtype, b, hw, c, groups, blocks,
+      rows_per_block, vectorized, 0.0f, static_cast<cudaStream_t>(stream));
 }
 
 // out = act((x - mean) * rstd * scale + bias), out in x's type.

@@ -27,10 +27,14 @@ from tempo_tpu_torch.train.checkpoint import (checkpoint_step,
 PSNR_MAX_VAL = 20.0  # data range [-10, 10] after clipping
 
 
-def compute_metrics(gt, recon, metrics_list: Sequence[str]
-                    ) -> Dict[str, float]:
+def compute_metrics(gt, recon, metrics_list: Sequence[str],
+                    sharding=None) -> Dict[str, float]:
     """Whole-array metrics in float64: numpy arrays on the host, tensors on
-    their device (the same reductions, in another summation order)."""
+    their device (the same reductions, in another summation order). With
+    a ``sharding`` (parallel/spatial.py) over several ranks, ``gt`` and
+    ``recon`` are this rank's shares and the sums run over the ranks."""
+    if sharding is not None and sharding.world > 1:
+        return _sharded_metrics(gt, recon, metrics_list, sharding)
     if isinstance(gt, torch.Tensor):
         diff = gt.double() - recon.to(gt.device).double()
     else:
@@ -47,6 +51,24 @@ def compute_metrics(gt, recon, metrics_list: Sequence[str]
             out["psnr"] = float(10 * np.log10(PSNR_MAX_VAL ** 2
                                               / (mse + 1e-10)))
     return out
+
+
+def _sharded_metrics(gt: torch.Tensor, recon: torch.Tensor,
+                     metrics_list: Sequence[str], sharding
+                     ) -> Dict[str, float]:
+    """``compute_metrics`` over W shares: float64 sums of squares and
+    absolute values and the count, summed over the ranks."""
+    from tempo_tpu_torch.parallel.spatial import all_reduce_sum
+
+    diff = gt.double() - recon.to(gt.device).double()
+    sums = torch.stack([diff.square().sum(), diff.abs().sum(),
+                        torch.tensor(float(diff.numel()), dtype=torch.float64,
+                                     device=diff.device)])
+    sq, ab, n = all_reduce_sum(sums, sharding).tolist()
+    mse = sq / n
+    values = {"mse": mse, "mae": ab / n,
+              "psnr": float(10 * np.log10(PSNR_MAX_VAL ** 2 / (mse + 1e-10)))}
+    return {m: values[m] for m in metrics_list if m in values}
 
 
 def batch_metrics(model, batch: torch.Tensor, generator: torch.Generator,

@@ -14,6 +14,13 @@ Counterpart of tempo_tpu/nn/blocks.py with the same math:
   volumetric (dim=3) CUNet, plain torch (the JAX package computes them
   outside any Pallas kernel); ``norm_act_conv`` runs K1, then a Conv3d.
 
+While a spatial plan is active (parallel/spatial.py ``sharded_forward``:
+a granule split along W over ranks), the blocks make the exchanges XLA
+inserts in JAX: Conv2d and each K2 call take their neighbours' halo
+columns, every GroupNorm takes statistics from K1a's sums over the ranks,
+and AttnBlock gathers K and V along W. The stride-2 resamples and Dense
+need none.
+
 Modules and parameters carry the reference PyTorch model's names
 (``resnet_blocks.{j}.net1.0`` ...), so its state_dicts load as they are.
 Parameters stay fp32; activations are cast to ``compute_dtype`` where the
@@ -30,7 +37,8 @@ from typing import Callable, Iterator, Optional, Sequence
 import torch
 from torch import nn
 
-from tempo_tpu_torch.ops import cuda_gn_conv
+from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
+from tempo_tpu_torch.parallel import spatial
 from tempo_tpu_torch.ops.convs import (conv2d_nhwc, conv3d_ndhwc,
                                        conv_transpose2x_ndhwc,
                                        conv_transpose2x_nhwc, dense)
@@ -58,8 +66,14 @@ class Conv2d(nn.Conv2d):
         self.register_buffer("export_packed", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_nhwc(x.to(self.compute_dtype), self.weight, self.bias,
-                           padding=self.padding[0])
+        x = x.to(self.compute_dtype)
+        pad = self.padding[0]
+
+        def conv(t: torch.Tensor) -> torch.Tensor:
+            return conv2d_nhwc(t, self.weight, self.bias, padding=pad)
+
+        plan = spatial.active()
+        return conv(x) if plan is None else plan.halo_conv(x, conv, pad)
 
     def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
         """The weight as K2's [9, C, F] in ``dtype``, cached until the
@@ -161,8 +175,20 @@ class GroupNorm(nn.GroupNorm):
     caller passes this module's parameters to ``norm_act_conv``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm_act(x, self.num_groups, self.weight, self.bias,
-                              self.eps)
+        return norm_act(self, x)
+
+
+def norm_act(norm: GroupNorm, x: torch.Tensor,
+             act: Optional[str] = None) -> torch.Tensor:
+    """act(norm(x)) through K1; under a spatial plan, K1b from the
+    statistics of the whole sample (K1a's sums over the ranks)."""
+    plan = spatial.active()
+    if plan is None:
+        return group_norm_act(x, norm.num_groups, norm.weight, norm.bias,
+                              norm.eps, act_name=act)
+    return cuda_gn.gn_apply(x, plan.group_stats(x, norm.num_groups,
+                                                norm.eps),
+                            norm.weight, norm.bias, act)
 
 
 def _convs_after_norm(model: nn.Module) -> Iterator[Conv2d]:
@@ -208,14 +234,21 @@ def norm_act_conv(norm: GroupNorm, act: str, conv: nn.Module,
     tracing, so it must run inside ``packed_for_export``."""
     x = x.to(conv.compute_dtype)
     if conv.kernel_size != (3, 3):
-        return conv(group_norm_act(x, norm.num_groups, norm.weight,
-                                   norm.bias, norm.eps, act_name=act))
+        return conv(norm_act(norm, x, act))
     packed = conv.export_packed
     if packed is None and torch.compiler.is_compiling():
         raise RuntimeError("trace the model inside nn.blocks."
                            "packed_for_export, which packs K2's weights once")
     if packed is None and x.is_cuda:
         packed = conv.packed_weight(x.dtype)
+    plan = spatial.active()
+    if plan is not None:
+        # the whole sample's statistics; K2 over the shard widened by the
+        # raw halo columns, which are cropped from its output
+        stats = plan.group_stats(x, norm.num_groups, norm.eps)
+        return plan.halo_conv(x, lambda t: cuda_gn_conv.conv3x3_from_stats(
+            t, stats, norm.weight, norm.bias, conv.weight, conv.bias, act,
+            packed), 1)
     return cuda_gn_conv.gn_act_conv3x3(
         x, norm.weight, norm.bias, conv.weight, conv.bias, norm.num_groups,
         norm.eps, act, packed=packed)
@@ -261,8 +294,7 @@ class ResNetBlock(nn.Module):
         if deterministic or self.dropout_prob == 0.0:
             h = norm_act_conv(norm2, self.act, conv2, h)
         else:
-            h = group_norm_act(h, norm2.num_groups, norm2.weight, norm2.bias,
-                               norm2.eps, act_name=self.act)
+            h = norm_act(norm2, h, self.act)
             h = conv2(nn.functional.dropout(h, self.dropout_prob,
                                             training=True))
         if self.skip_conv is not None:
@@ -273,7 +305,9 @@ class ResNetBlock(nn.Module):
 class AttnBlock(nn.Module):
     """Channel-major multi-head self-attention over the spatial grid: the
     channel index is c_idx * n_heads + head (tempo_tpu/nn/blocks.py
-    AttnBlock), computed in fp32 with matmuls and softmax."""
+    AttnBlock), computed in fp32 with matmuls and softmax. Under a spatial
+    plan each rank's queries attend to the keys and values of every rank,
+    gathered along W."""
 
     def __init__(self, channels: int, n_heads: int = 4, num_groups: int = 8,
                  norm_eps: float = 1e-6, norm_affine: bool = True,
@@ -297,9 +331,13 @@ class AttnBlock(nn.Module):
 
         def heads(t: torch.Tensor) -> torch.Tensor:
             # [B, HW, c_per_head, n_heads] -> [B, n_heads, HW, c_per_head]
-            return t.reshape(b, hh * ww, ch, n).float().permute(0, 3, 1, 2)
+            return t.reshape(b, -1, ch, n).float().permute(0, 3, 1, 2)
 
-        q, k, v = heads(self.q(h)), heads(self.k(h)), heads(self.v(h))
+        k, v = self.k(h), self.v(h)
+        plan = spatial.active()
+        if plan is not None:
+            k, v = plan.gather_w(k), plan.gather_w(v)
+        q, k, v = heads(self.q(h)), heads(k), heads(v)
         scores = torch.matmul(q, k.transpose(-1, -2)) * (float(ch) ** -0.5)
         out = torch.matmul(torch.softmax(scores, dim=-1), v)
         out = out.permute(0, 2, 3, 1).reshape(b, hh, ww, c)

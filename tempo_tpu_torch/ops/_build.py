@@ -38,6 +38,7 @@ SIGNATURES = {
     "tempo_flash_bwd_dkv": [_P] * 8 + _FLASH_TAIL,
     "tempo_flash_bwd_dq": [_P] * 7 + _FLASH_TAIL,
     "tempo_gn_stats": [_P] * 4 + [_I] * 8 + [_F, _P],
+    "tempo_gn_sums": [_P] * 4 + [_I] * 8 + [_P],
     "tempo_gn_apply": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "tempo_gn_conv3x3": [_P] * 8 + [_I] * 9 + [_P],
     "tempo_decode_split_len": [],

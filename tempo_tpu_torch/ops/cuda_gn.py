@@ -9,13 +9,19 @@ blocks from (HW, C, dtype) alone, each block writes its per-group partial
 sums, and the last block of a sample to arrive (a per-sample counter, kept
 per stream at zero between calls) folds them in block order.
 
-K1a and K1b are the ``torch.library`` ops ``tempo::gn_stats`` and
-``tempo::gn_apply``: their CPU kernel is the plain PyTorch version beside
-it, their CUDA kernel launches the hand-written kernel or raises, and
-their fake gives the output's shape and type from the inputs' alone, so
-``torch.export`` traces them with a symbolic batch. Everything that reads
-a concrete value (pointers, the stream, the split) stays inside the CUDA
-kernel. The wrappers ``gn_stats`` and ``gn_apply`` call the ops; the CUDA
+K1a's sums mode is the same launch, split and fold writing each group's
+[Σx, Σx²] instead of mean and rstd (``tempo::gn_sums``): a sample held in
+pieces (spatial sharding, parallel/spatial.py) adds its pieces' sums over
+the ranks and finishes them with ``stats_from_sums``, K1a's own formula.
+
+K1a, its sums mode and K1b are the ``torch.library`` ops
+``tempo::gn_stats``, ``tempo::gn_sums`` and ``tempo::gn_apply``: their CPU
+kernel is the plain PyTorch version beside it, their CUDA kernel launches
+the hand-written kernel or raises, and their fake gives the output's shape
+and type from the inputs' alone, so ``torch.export`` traces them with a
+symbolic batch. Everything that reads a concrete value (pointers, the
+stream, the split) stays inside the CUDA kernel. The wrappers
+``gn_stats``, ``gn_sums`` and ``gn_apply`` call the ops; the CUDA
 kernels count their launches in ``LAUNCHES``. The ops have no backward:
 with grad mode on and an input that requires grad, their kernels raise
 NotImplementedError on either device. ``fused_group_norm_act`` builds a
@@ -49,7 +55,7 @@ BLOCK_BYTES = 64 << 10
 MIN_BLOCKS, MIN_BLOCK_BYTES = 16, 16 << 10
 MAX_BLOCKS = 4 * 132
 # Launches of each kernel, counted by its wrapper where it launches it.
-LAUNCHES = {"gn_stats": 0, "gn_apply": 0}
+LAUNCHES = {"gn_stats": 0, "gn_apply": 0, "gn_sums": 0}
 _COUNTERS: dict = {}
 
 
@@ -61,22 +67,38 @@ def accumulation_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def gn_stats_plain(x: torch.Tensor, num_groups: int,
-                   eps: float = 1e-6) -> torch.Tensor:
-    """x [B, ..., C] -> [B, 2, C] fp32: each channel's group mean and rstd."""
+def gn_sums_plain(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """x [B, ..., C] -> [B, 2, G] (fp32 for bf16 and fp32 x): each group's
+    sum of x, then its sum of x², over the rows x holds."""
     b, c = x.shape[0], x.shape[-1]
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
     cg = c // num_groups
     x32 = x.to(accumulation_dtype(x)).reshape(b, -1, c)
-    n = x32.shape[1] * cg
     sum_g = x32.sum(1).view(b, num_groups, cg).sum(-1)
     sumsq_g = x32.square().sum(1).view(b, num_groups, cg).sum(-1)
-    mean = sum_g / n
-    var = torch.clamp(sumsq_g / n - mean.square(), min=0.0)
+    return torch.stack([sum_g, sumsq_g], dim=1)
+
+
+def stats_from_sums(sums: torch.Tensor, n: int, c: int,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """Group sums [B, 2, G] over ``n`` elements a group (rows x C/G) -> [B,
+    2, C]: each channel's group mean and rstd, by K1a's formula: var =
+    max(E[x²] - E[x]², 0), rstd = rsqrt(var + eps)."""
+    cg = c // sums.shape[-1]
+    mean = sums[:, 0] / n
+    var = torch.clamp(sums[:, 1] / n - mean.square(), min=0.0)
     rstd = torch.rsqrt(var + eps)
     return torch.stack([mean.repeat_interleave(cg, 1),
                         rstd.repeat_interleave(cg, 1)], dim=1)
+
+
+def gn_stats_plain(x: torch.Tensor, num_groups: int,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """x [B, ..., C] -> [B, 2, C] fp32: each channel's group mean and rstd."""
+    b, c = x.shape[0], x.shape[-1]
+    n = (x.numel() // (b * c)) * (c // num_groups)
+    return stats_from_sums(gn_sums_plain(x, num_groups), n, c, eps)
 
 
 def gn_apply_plain(x: torch.Tensor, stats: torch.Tensor,
@@ -189,9 +211,10 @@ def _counters(device: torch.device, stream: int, numel: int) -> torch.Tensor:
     return cnt
 
 
-def _gn_stats_cuda(x: torch.Tensor, num_groups: int, eps: float
-                   ) -> torch.Tensor:
-    """tempo::gn_stats's CUDA kernel: one launch of K1a."""
+def _launch_k1a(x: torch.Tensor, num_groups: int, out: torch.Tensor,
+                eps: Optional[float]) -> torch.Tensor:
+    """One launch of K1a into ``out``: mean and rstd [B, 2, C], or with
+    ``eps`` None the sums mode's [B, 2, G]."""
     check_cuda_input(x, "x")
     refuse_grad(x)
     b, c = x.shape[0], x.shape[-1]
@@ -204,16 +227,48 @@ def _gn_stats_cuda(x: torch.Tensor, num_groups: int, eps: float
     blocks, rows = choose_stats_split(hw, c, x.dtype)
     partial = torch.empty(b * blocks * 2 * num_groups, dtype=torch.float32,
                           device=x.device)
-    stats = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _build.library().tempo_gn_stats(
-        x.data_ptr(), partial.data_ptr(),
-        _counters(x.device, stream, b).data_ptr(), stats.data_ptr(),
-        DTYPE_CODES[x.dtype], b, hw, c, num_groups, blocks, rows,
-        int(stats_vectorized(c, x.dtype, x.data_ptr())), float(eps), stream)
-    _build.check(err, "tempo_gn_stats")
-    count_launch(__name__, "gn_stats")
-    return stats
+    args = (x.data_ptr(), partial.data_ptr(),
+            _counters(x.device, stream, b).data_ptr(), out.data_ptr(),
+            DTYPE_CODES[x.dtype], b, hw, c, num_groups, blocks, rows,
+            int(stats_vectorized(c, x.dtype, x.data_ptr())))
+    if eps is None:
+        _build.check(_build.library().tempo_gn_sums(*args, stream),
+                     "tempo_gn_sums")
+        count_launch(__name__, "gn_sums")
+    else:
+        _build.check(_build.library().tempo_gn_stats(*args, float(eps),
+                                                     stream),
+                     "tempo_gn_stats")
+        count_launch(__name__, "gn_stats")
+    return out
+
+
+def _gn_stats_cuda(x: torch.Tensor, num_groups: int, eps: float
+                   ) -> torch.Tensor:
+    """tempo::gn_stats's CUDA kernel: one launch of K1a."""
+    out = torch.empty((x.shape[0], 2, x.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    return _launch_k1a(x, num_groups, out, eps)
+
+
+def _gn_sums_cuda(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """tempo::gn_sums's CUDA kernel: one launch of K1a's sums mode."""
+    out = torch.empty((x.shape[0], 2, num_groups), dtype=torch.float32,
+                      device=x.device)
+    return _launch_k1a(x, num_groups, out, None)
+
+
+def _gn_sums_cpu(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """tempo::gn_sums's CPU kernel: the plain version, refusing a graph as
+    the CUDA kernel does."""
+    refuse_grad(x)
+    return gn_sums_plain(x, num_groups)
+
+
+def _gn_sums_fake(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    return x.new_empty((x.shape[0], 2, num_groups),
+                       dtype=accumulation_dtype(x))
 
 
 def _gn_stats_cpu(x: torch.Tensor, num_groups: int, eps: float
@@ -295,6 +350,8 @@ def register(name: str, schema: str, cpu, cuda, fake) -> None:
 
 register("gn_stats", "gn_stats(Tensor x, int num_groups, float eps) -> Tensor",
          _gn_stats_cpu, _gn_stats_cuda, _gn_stats_fake)
+register("gn_sums", "gn_sums(Tensor x, int num_groups) -> Tensor",
+         _gn_sums_cpu, _gn_sums_cuda, _gn_sums_fake)
 register("gn_apply", "gn_apply(Tensor x, Tensor stats, Tensor? scale, "
          "Tensor? bias, str? act) -> Tensor",
          _gn_apply_cpu, _gn_apply_cuda, _gn_apply_fake)
@@ -305,6 +362,12 @@ def gn_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-6
     """K1a: x [B, ..., C] -> [B, 2, C] fp32 per-channel (mean, rstd),
     through ``tempo::gn_stats``."""
     return torch.ops.tempo.gn_stats(x, num_groups, eps)
+
+
+def gn_sums(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """K1a's sums mode: x [B, ..., C] -> [B, 2, G] fp32, each group's Σx
+    and Σx² over the rows x holds, through ``tempo::gn_sums``."""
+    return torch.ops.tempo.gn_sums(x, num_groups)
 
 
 def gn_apply(x: torch.Tensor, stats: torch.Tensor,

@@ -1,24 +1,38 @@
 """Parallelism over processes; counterpart of tempo_tpu/parallel.
 
-Ported: the mesh and data parallelism (mesh.py, DDP) and ZeRO-3 (fsdp.py,
-FSDP2). Tensor, pipeline, expert, context and spatial parallelism are not
-ported yet (ROADMAP Queue 1, M13)."""
+Ported: the mesh and data parallelism (mesh.py, DDP), ZeRO-3 (fsdp.py,
+FSDP2) and spatial sharding of a whole granule along W (spatial.py: conv
+halos, GroupNorm sums over the ranks, the mid attention's K/V gathered).
+Tensor, pipeline, expert and context parallelism are not ported yet
+(ROADMAP Queue 1, M13).
 
-from tempo_tpu_torch.parallel.fsdp import shard_params_fsdp, shard_state_fsdp
-from tempo_tpu_torch.parallel.mesh import (
-    batch_sharding,
-    create_mesh,
-    make_place_fn,
-    replicate_sharding,
-    shard_state,
-)
+The names below load their module at first use, so that importing a
+submodule (nn/blocks.py reads spatial.py's plan) does not load FSDP2's
+DTensor machinery."""
 
-__all__ = [
-    "create_mesh",
-    "batch_sharding",
-    "replicate_sharding",
-    "make_place_fn",
-    "shard_state",
-    "shard_state_fsdp",
-    "shard_params_fsdp",
-]
+import importlib
+
+_EXPORTS = {
+    "create_mesh": "mesh",
+    "batch_sharding": "mesh",
+    "replicate_sharding": "mesh",
+    "make_place_fn": "mesh",
+    "shard_state": "mesh",
+    "shard_state_fsdp": "fsdp",
+    "shard_params_fsdp": "fsdp",
+    "spatial_sharding": "spatial",
+    "shard_w": "spatial",
+    "gather_w": "spatial",
+    "sharded_forward": "spatial",
+    "encode_spatially_sharded": "spatial",
+    "decode_spatially_sharded": "spatial",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name in _EXPORTS:
+        module = importlib.import_module(f"{__name__}.{_EXPORTS[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

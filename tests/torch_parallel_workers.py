@@ -374,3 +374,73 @@ def cli_run(rank, world, module: str, config: dict, env=None):
                     for k, v in model.state_dict().items()})
     return {"written": list(written), "step": trainer.step,
             "params": params}
+
+
+def spatial_run(rank, world, cfg, state_dict, x, granule, latent, raw,
+                spectra, cli_configs=()):
+    """The tiny VAE's encode and decode through parallel/spatial.py, and a
+    GranuleCodec(mesh=) over the group: encode, reconstruct (the mode, then
+    two posterior draws), decode of ``latent`` and normalize of ``raw``
+    (its own statistics, then ``spectra``'s), each assembled whole; then
+    each config of ``cli_configs`` through ``encode_granules.run`` (rank 1
+    records what it writes under the run's directory)."""
+    from tempo_tpu_torch.infer.granule_codec import GranuleCodec
+    from tempo_tpu_torch.parallel import spatial
+    from tempo_tpu_torch.parallel.mesh import create_mesh
+
+    model = vae(cfg, state_dict).eval()
+    mesh = create_mesh("cpu")
+    sharding = spatial.spatial_sharding(mesh)
+    lat = spatial.encode_spatially_sharded(model, x, mesh)
+    out = {"sharding": (sharding.rank, sharding.world),
+           "encode_share": tuple(lat.shape),
+           "encode": spatial.gather_w(lat, sharding)}
+    dec = spatial.decode_spatially_sharded(model, out["encode"].numpy(), mesh)
+    out["decode_share"] = tuple(dec.shape)
+    out["decode"] = spatial.gather_w(dec, sharding, host=True)
+    codec = GranuleCodec(model, multiple=16, seed=0, device="cpu", mesh=mesh)
+    share = codec.encode(granule)
+    out["codec_latent_share"] = tuple(share.shape)
+    out["codec_latent"] = codec.to_host(share)
+    out["codec_rec"] = codec.reconstruct(granule, sample_posterior=False)
+    out["codec_rec_sampled"] = [codec.reconstruct(granule) for _ in range(2)]
+    out["codec_dec"] = codec.decode(latent)
+    out["normalized_own"] = codec.normalize(raw)
+    out["normalized_spectra"] = GranuleCodec(
+        model, *spectra, multiple=16, device="cpu", mesh=mesh).normalize(raw)
+    out["exchanged"] = dict(spatial.EXCHANGED)
+    out["cli"] = [cli_encode(rank, config) for config in cli_configs]
+    return out
+
+
+def cli_encode(rank, config):
+    """``encode_granules.run(config, device='cpu')`` in the live group; a
+    rank other than 0 records every file it opens for writing, and every
+    directory it makes, under the run's output directory."""
+    from tempo_tpu_torch.cli import encode_granules
+
+    root, written = [os.path.realpath(config["output_dir"])], []
+
+    def audit(event, args):
+        if root[0] is not None and written_under(event, args, root[0]):
+            written.append(f"{event} {args[0]}")
+
+    if rank != 0:
+        sys.addaudithook(audit)  # it stays for the process's life
+    try:
+        summary = encode_granules.run(config, device="cpu")
+    finally:
+        root[0] = None
+    return {"summary": summary, "written": written}
+
+
+def written_under(event, args, root: str) -> bool:
+    """Whether an audit event writes a file or makes or renames a
+    directory entry under ``root``."""
+    if event == "open":
+        if args[0] is None or args[1] is None or not any(
+                c in str(args[1]) for c in "wax+"):
+            return False
+    elif event not in ("os.mkdir", "os.rename"):
+        return False
+    return os.path.realpath(str(args[0])).startswith(root)
