@@ -75,7 +75,7 @@ Phases, each fatal on failure:
       wd 0.1, betas (0.9, 0.95), the decay mask): 3 warm, then 10 timed,
       the K5 counters set to 0 before and read after (12 x 10 each); step
       ms, tokens/s, MFU, peak memory, a profiled step; the loss falls;
-  4b. Trainer.train for 30 steps on a TokenLoader (batch 8, block 1024)
+  4b. Trainer.train for 20 steps on a TokenLoader (batch 8, block 1024)
       into a temporary directory: checkpoint and metrics.json written; one
       more step from the reloaded checkpoint equals one from the live
       state, bit for bit;
@@ -98,7 +98,7 @@ Phases, each fatal on failure:
       (peak memory of each);
   2'''. the K1 and K2 autograd Functions' backward at every shape the step
       records against autograd through the plain chain, same inputs;
-  5b. Trainer.train for 30 steps at batch 8 over a TileLoader of
+  5b. Trainer.train for 20 steps at batch 8 over a TileLoader of
       make_tile_shards' flagship fp16 shards: a validation of 10 batches,
       checkpoint and metrics.json written; one more step from the reloaded
       checkpoint equals one from the live state, bit for bit (cuDNN
@@ -184,21 +184,22 @@ Phases, each fatal on failure:
   shape (6 layers, weights from SEED + 1), k_draft 4; K3 in the draft's
   captured steps, K4 in the paged pools:
   9a. serve_lm's continuous + draft and paged + draft (8 slots, 65 pages)
-      over the first 8 of the 64 requests (64 until phase 13 came, 32
-      until phase 15, 16 until phase 16) and
-      scheduler: speculative over the first 4 (8 until phase 16), each
+      over the first 4 of the 64 requests (64 until phase 13 came, 32
+      until phase 15, 16 until phase 16, 8 until phase 17) and
+      scheduler: speculative over the first 2 (8 until phase 16, 4 until
+      phase 17), each
       beside the same scheduler target-only: tokens/s, accept_rate, rounds,
       target passes, K3/K4 launches, greedy agreement with target-only and
       the reference's top-two logit gap at each first difference (reported:
       bf16 near-ties);
   9b. the same in fp32 (the target and the distinct draft exported in
-      fp32) over 2 greedy and 1 sampled requests of 32 new tokens (4 and
-      2 until phase 16): every
+      fp32) over 2 greedy and 1 sampled requests of 16 new tokens (4 and
+      2 until phase 16, of 32 tokens until phase 17): every
       greedy stream equal to target-only's but at a near-tie (a top-two gap
       within F32_TOL), each exception printed;
   9c. OnlineLMServer over the continuous pool, the paged pool (K4 counted)
-      and the continuous pool with the distinct draft: 8 requests (16 until
-      phase 16) from 4 threads at staggered times, each response bitwise the
+      and the continuous pool with the distinct draft: 4 requests (16 until
+      phase 16, 8 until phase 17) from 4 threads at staggered times, each response bitwise the
       batch mode's; one request cancelled mid-flight, a flagged prefix of its
       stream; _serve_http with online: two concurrent POST /v1/completions
       equal batch mode.
@@ -249,7 +250,7 @@ Phases, each fatal on failure:
   then the trainers' options and the JAX checkpoint bridge (the flagship in
   bf16; K1a, K1b and K2 in the forward):
   12a. cli/train_vae.run in a fresh process over 5 fp16 shards of 8
-      flagship tiles at batch 8 for 6 steps, with metrics_jsonl,
+      flagship tiles at batch 8 for 4 steps, with metrics_jsonl,
       profile_steps [2, 4], async checkpoints every 2 steps, the EMA logged
       every step and a validation of 2 batches every 3: the K1a/K1b/K2
       counters set to 0 before the run and read after (each non-zero), and
@@ -275,7 +276,7 @@ Phases, each fatal on failure:
   before a run and read just after:
   13a. MoE training at bench_gpt(n_experts=4)'s shape (4 experts, top-1,
       capacity factor 1.25, [8, 1025] tokens, AdamW 3e-4 / 0.1 / (0.9,
-      0.95)): 3 warm, then 5 timed steps, K5f/K5dkv/K5dq 12 a step each;
+      0.95)): 2 warm, then 3 timed steps, K5f/K5dkv/K5dq 12 a step each;
       step ms, tokens/s, MFU on all and on the active parameters, peak
       memory, the mean moe_aux; the loss falls on the fixed batch; one
       step through K5 against the plain attention, and one top-2 step at 4
@@ -285,7 +286,7 @@ Phases, each fatal on failure:
       differently (bf16 rounding flips routes; fp32 flips none);
   13b. MoE serving: generate of 8 x (64 + 128) tokens captured, K3 12 x
       127, bitwise the eager loop; PagedLMServer over live_paged_surface on
-      16 of 3b's requests, K4 counted (no batch-independence gate: the
+      8 of 3b's requests (16 until phase 17), K4 counted (no batch-independence gate: the
       capacity depends on the call's token count, JAX's semantics);
   13c. int8: quantize_lm_params of GPT-2-small, the weights' bytes against
       bf16; generate at 3a's shape captured (K3 counted, bitwise eager),
@@ -299,7 +300,8 @@ Phases, each fatal on failure:
       request through _serve_batch and one through _serve_http's POST
       /generate equal to beam_batch of its prompt alone; the host
       scoring's share of the call;
-  13e. cli/train_gpt.run at GPT-2-small's widths, 5 steps at batch 8 each:
+  13e. cli/train_gpt.run at GPT-2-small's widths and 4 layers (12 until
+      phase 17), 3 steps at batch 8 each:
       LoRA rank 8 over a seeded base checkpoint (the base file unchanged,
       the checkpoint only the adapters, merged_final.pt bitwise the base
       plus s a @ b, K5 counted); dropout 0.1 (finite losses, zero K5: the
@@ -322,7 +324,8 @@ Phases, each fatal on failure:
       stand-in .config): logits bitwise the source's, greedy generate from
       the HF import launches K3 and gives the source's tokens;
   14d. JAX-layout full states (written with pack_flax): GPT-2-small's
-      masked AdamW after 3 steps, fp32 and bf16 first moments, and the
+      widths at 4 layers (12 until phase 17), masked AdamW after 3 steps,
+      fp32 and bf16 first moments, and the
       flagship VAE's chain(clip, adamw) at batch 64, resumed through
       train_gpt.run / train_vae.run: parameters, moments and step counts
       bitwise the state written, the next step bitwise the live state's
@@ -349,7 +352,7 @@ Phases, each fatal on failure:
   15c. the same for GPT-2-small at 8 x 1024, K5 launches counted;
   15d. train_vae.run (device buffer, partition replicate, then process)
       and train_vae_l2.run under the 2 rank processes at the flagship's
-      widths, a global batch of 16, 5 steps: rank 1 writes nothing under
+      widths, a global batch of 16, 3 steps: rank 1 writes nothing under
       the run's directory, training_info's n_devices is 2, the last
       checkpoint loads through load_params on one device bitwise both
       ranks' final weights.
@@ -373,6 +376,21 @@ Phases, each fatal on failure:
       stats_from_sums(gn_sums(x)) against gn_stats(x) at world 1; K1a's
       sums, K1b and K2 launches a rank a granule (each at least once; K1a's
       statistics mode none).
+  then tensor parallelism and the sharded checkpoint (phase 17; two rank
+  processes share the card over gloo as a ('data', 'model') mesh of 1 x 2,
+  so every gather of output channels goes through host memory):
+  17a. the flagship VAE (bf16, L2 loss) at batch 8 and the fp32 two-level
+      VAE at 4, 3 steps each under TP against this process's on the same
+      draws (STEP_BF16_TOL / STEP_F32_TOL, each first-step gradient
+      gathered); each rank's parameter + moment bytes at most 0.55 of one
+      process's; K1a/K1b/K2 launches a step a rank those of one process;
+  17b. GPT-2-small (bf16) at 2 x 1024 tokens, 3 steps under TP against
+      one process (4c's tolerances), K5 launches those of one process;
+  17c. 17a's bf16 state written as ckpt_step=NNNNNN.shards/ by both ranks,
+      load_params on one device bitwise the gathered weights, a TP resume's
+      next step bitwise the live one's, a .pt written under TP loading on
+      one device; write and read s, bytes exchanged a step by kind, a lone
+      gloo all-gather's share of a step.
 Prints the card's name and power limit first, each phase's seconds, each
 redesigned kernel's time against its time before the redesign
 (KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
@@ -450,18 +468,18 @@ STEP_BF16_TOL = {"loss": 1e-2, "grad": 5e-2}
 STEP_F32_TOL = {"loss": 1e-4, "grad": 1e-4}
 # The training path, as tools/bench_toolkit.py bench_gpt measures the JAX
 # package: GPT-2-small, batch 8 x 1024 tokens, AdamW lr 3e-4, wd 0.1.
-TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS, TRAINER_STEPS = 8, 3, 10, 30
+TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS, TRAINER_STEPS = 8, 3, 10, 20
 # The VAE training path, as bench.py bench_train measures the JAX package:
 # the flagship (VAE_MODEL = {}: build_vae's defaults) at batch 64 of
 # [64,64,1028] tiles, the optimizer of configs/training/
 # train_vae_default.yaml (AdamW lr 1e-4, betas (0.9, 0.95), weight decay
 # 0.05) after the VAE recipe's global-norm clip at 1.0; 3 warm steps, then
-# 10 timed. The Trainer takes 30 steps at batch 8 over a TileLoader of 5
+# 10 timed. The Trainer takes 20 steps at batch 8 over a TileLoader of 5
 # shards of 8 flagship tiles in fp16 (336 MB), a buffer of 24. The fp32
 # step check (5c) cuts the depth to two levels of three, at batch 2.
 VAE_MODEL: dict = {}
 VAE_F32_MODEL = {"chs": [512, 256]}
-VAE_TRAIN_BATCH, VAE_TRAINER_BATCH, VAE_TRAINER_STEPS = 64, 8, 30
+VAE_TRAIN_BATCH, VAE_TRAINER_BATCH, VAE_TRAINER_STEPS = 64, 8, 20
 VAE_SHARDS, VAE_TILES_PER_SHARD, VAE_BUFFER = 5, 8, 24
 # The K1/K2 Functions' backward against autograd through the plain chain
 # from the same inputs: the same recompute (cuDNN deterministic), so the
@@ -637,18 +655,20 @@ LM_POOLS = {"roomy": 65, "tight": 32}
 # k_draft SPEC_K. 9a times the first SPEC_REQUESTS of bench_workload's
 # requests (continuous and paged pools; all 64 until phase 13 took the
 # time, 32
-# until phase 15 did, 16 until phase 16 did) and
-# the first SPEC_BATCH1 (the batch-1 scheduler; 8 until phase 16) in bf16;
-# 9b holds SPEC_F32 (greedy, sampled) requests cut to SPEC_F32_NEW new
-# tokens in fp32 ((4, 2) until phase 16); 9c serves ONLINE_REQS requests
-# (16 until phase 16) from ONLINE_THREADS threads and cancels an
+# until phase 15 did, 16 until phase 16 did, 8 until phase 17) and
+# the first SPEC_BATCH1 (the batch-1 scheduler; 8 until phase 16, 4 until
+# phase 17) in bf16; SPEC_ROUNDS rounds each way in the round breakdown
+# (10 until phase 17); 9b holds SPEC_F32 (greedy, sampled) requests cut to
+# SPEC_F32_NEW new tokens in fp32 ((4, 2) until phase 16; 32 tokens until
+# phase 17); 9c serves ONLINE_REQS requests (16 until phase 16, 8 until
+# phase 17) from ONLINE_THREADS threads and cancels an
 # ONLINE_CANCEL_NEW-token request after ONLINE_CANCEL_AFTER rounds.
 SPEC_TARGET: dict = {}
 SPEC_DRAFT = {"n_layer": 6}
-SPEC_K, SPEC_BATCH1, SPEC_F32, SPEC_F32_NEW = 4, 4, (2, 1), 32
-SPEC_REQUESTS = 8
-SPEC_ROUNDS = 10  # 9a's round breakdown: rounds timed each way
-ONLINE_REQS, ONLINE_THREADS = 8, 4
+SPEC_K, SPEC_BATCH1, SPEC_F32, SPEC_F32_NEW = 4, 2, (2, 1), 16
+SPEC_REQUESTS = 4
+SPEC_ROUNDS = 6  # 9a's round breakdown: rounds timed each way
+ONLINE_REQS, ONLINE_THREADS = 4, 4
 ONLINE_CANCEL_NEW, ONLINE_CANCEL_AFTER = 256, 4
 # The LM artifacts (infer/export_lm.py's torch.export programs), each
 # exported once by a background process started with the run (its CPU work
@@ -761,7 +781,7 @@ DIFF_LOSS_BATCH = 8
 # every flagship state-dict tensor, a bfloat16 leaf, scalars, an empty dict
 # and a chunked leaf as flax lays them out and reads them back through
 # interop/msgpack_reader.py.
-OPTS = {"batch": 8, "steps": 6, "profile": [2, 4], "save_every": 2,
+OPTS = {"batch": 8, "steps": 4, "profile": [2, 4], "save_every": 2,
         "val_every": 3, "n_val": 2, "rounds": 3}
 # Phase 13, the GPT family's options at GPT-2-small's widths (OPT_MODEL
 # overrides TransformerConfig's GPT-2-small defaults: none on the card),
@@ -782,11 +802,12 @@ OPTS = {"batch": 8, "steps": 6, "profile": [2, 4], "save_every": 2,
 # OPT_BATCH on a synthetic stream of OPT_STREAM tokens.
 OPT_MODEL: dict = {}
 MOE_MODEL = {"n_experts": 4, "expert_top_k": 1, "expert_capacity_factor": 1.25}
-MOE_WARM, MOE_STEPS, MOE_TOP2_LAYERS = 3, 5, 4
+MOE_WARM, MOE_STEPS, MOE_TOP2_LAYERS = 2, 3, 4
 INT8_DEQ_REL_L2 = 5e-2
-OPT_REQUESTS = 16
+OPT_REQUESTS = 8
 BEAM_BATCH, BEAM_WIDTH, BEAM_NEW = 8, 4, 32
-OPT_STEPS, OPT_BATCH, OPT_LORA_RANK, OPT_DROPOUT = 5, 8, 8, 0.1
+OPT_STEPS, OPT_BATCH, OPT_LORA_RANK, OPT_DROPOUT = 3, 8, 8, 0.1
+OPT_TRAIN_LAYERS = 4  # 13e's depth (GPT-2-small's 12 until phase 17)
 OPT_STREAM = 200_000
 
 
@@ -3427,8 +3448,9 @@ def train_path(dev, gen, rows: dict) -> dict:
     val = TokenLoader(stream, TRAIN_BATCH, cfg.block_size, seed=SEED + 2)
     model, tx, state = fresh()
     with tempfile.TemporaryDirectory() as out:
-        trainer = Trainer(lm_loss_fn(model), tx, state, out, save_every=30,
-                          val_every=30, log_every=10,
+        trainer = Trainer(lm_loss_fn(model), tx, state, out,
+                          save_every=TRAINER_STEPS,
+                          val_every=TRAINER_STEPS, log_every=10,
                           plot_every=TRAINER_STEPS + 1, device=dev,
                           verbose=False)
         stats = trainer.train(loader, lambda: iter(val), TRAINER_STEPS)
@@ -6636,8 +6658,8 @@ def moe_step_vs_plain(dev, cfg, tokens) -> dict:
 def gpt_run_config(out: Path, **extra) -> dict:
     """train_gpt's config at GPT-2-small's widths for 13e: OPT_STEPS steps
     at batch OPT_BATCH on a synthetic stream, one validation and one
-    checkpoint at the end."""
-    cfg = opt_config()
+    checkpoint at the end; OPT_TRAIN_LAYERS layers."""
+    cfg = opt_config(n_layer=OPT_TRAIN_LAYERS)
     model = {"n_layer": cfg.n_layer, "n_head": cfg.n_head,
              "n_embd": cfg.n_embd, "block_size": cfg.block_size,
              "in_size": cfg.in_size, "compute_dtype": "bfloat16"}
@@ -6744,7 +6766,8 @@ def options_training_path(dev, rows: dict, root: Path) -> dict:
     torch.cuda.empty_cache()
 
     # ------------------------------------------- 13e LoRA through train_gpt
-    base = Transformer(opt_config(), device=dev, seed=SEED)
+    base = Transformer(opt_config(n_layer=OPT_TRAIN_LAYERS), device=dev,
+                       seed=SEED)
     base_path = root / "base.pt"
     torch.save({"model": {k: v.cpu() for k, v in base.state_dict().items()}},
                base_path)
@@ -6880,7 +6903,7 @@ def options_training_path(dev, rows: dict, root: Path) -> dict:
 
 TAPS_BATCH, TAPS_PATCH_LAYER = 2, 6
 UNTOK = {"in_size": 1028, "batch": 8, "cond": 16, "dict_layers": 4}
-RESUME = {"steps": 3, "gpt_batch": 8, "vae_batch": 64,
+RESUME = {"steps": 3, "gpt_batch": 8, "gpt_layers": 4, "vae_batch": 64,
           "key": (SEED, 14), "stream": 20_000}
 MEMBRANE = {"size": 1024, "cells": 600, "levels": 3, "rel_l2": 1e-4,
             "rescan_frac": 0.1}
@@ -7168,107 +7191,36 @@ def gpt_import_path(dev, rows: dict) -> dict:
 # inverse of interop/jax_params.py for the GPT and the VAE (test
 # scaffolding; the port only reads this format)
 
-def _t(a):
-    return a.T
-
-
-def _conv_hwio(w):  # OIHW -> HWIO
-    return w.transpose(2, 3, 1, 0)
-
-
-def _dense_io(w):  # [out, in, 1, 1] -> [in, out]
-    return w[:, :, 0, 0].T
-
-
-def _down_io(w):  # Conv2d [out, in, 2, 2] -> [(kh, kw, cin), cout]
-    return _conv_hwio(w).reshape(-1, w.shape[0])
-
-
-def _up_io(w):  # ConvTranspose2d [in, out, 2, 2] -> [cin, (di, dj, cout)]
-    return w.transpose(0, 2, 3, 1).reshape(w.shape[0], -1)
-
-
-def _put(tree: dict, path: list, value) -> None:
+def _put(tree: dict, path, value) -> None:
     for key in path[:-1]:
         tree = tree.setdefault(key, {})
     tree[path[-1]] = value
 
 
-def gpt_jax_tree(sd: dict) -> dict:
-    """The port GPT's state dict (numpy) as tempo_tpu's params tree."""
+def _jax_tree(sd: dict, layout: dict) -> dict:
+    """A port state dict (numpy) as tempo_tpu's params tree, each leaf
+    where and as interop/jax_layout.py's ``layout`` puts it."""
+    from tempo_tpu_torch.interop.jax_layout import to_jax
+
     tree = {}
     for name, w in sd.items():
-        parts = name.split(".")
-        if parts[0] == "transformer":
-            parts = parts[1:]
-        if parts[0] == "h":
-            parts = [f"h_{parts[1]}"] + parts[2:]
-        leaf, mod = parts[-1], parts[:-1]
-        if mod[-1] in ("wte", "wpe"):
-            _put(tree, mod, w)
-        elif mod[-1].startswith("ln"):
-            _put(tree, mod + ["scale" if leaf == "weight" else "bias"], w)
-        else:
-            _put(tree, mod + ["kernel" if leaf == "weight" else "bias"],
-                 _t(w) if leaf == "weight" else w)
+        _put(tree, layout[name].path, to_jax(layout[name].kind, w))
     return tree
 
 
-_RES = {"net1.0": ("norm1", None), "net1.2": ("conv1", _conv_hwio),
-        "net2.0": ("norm2", None), "net2.2": ("conv2", _conv_hwio),
-        "net2.3": ("conv2", _conv_hwio), "skip_conv": ("skip", _dense_io)}
+def gpt_jax_tree(sd: dict) -> dict:
+    """The port GPT's state dict (numpy) as tempo_tpu's params tree."""
+    from tempo_tpu_torch.interop.jax_layout import gpt_layout
 
-
-def _vae_leaf(path: list, leaf: str, w, kernel_map):
-    if kernel_map is None:  # a norm
-        return path + ["scale" if leaf == "weight" else "bias"], w
-    if leaf == "weight":
-        return path + ["kernel"], kernel_map(w)
-    return path + ["bias"], w
+    return _jax_tree(sd, gpt_layout(sd))
 
 
 def vae_jax_tree(sd: dict) -> dict:
     """The port AutoencoderKL's state dict (numpy) as tempo_tpu's params
     tree (the inverse of jax_params.state_dict_from_jax_params)."""
-    tree = {}
-    for name, w in sd.items():
-        p = name.split(".")
-        leaf = p[-1]
-        if name == "logvar":
-            _put(tree, ["logvar"], w)
-            continue
-        if p[0] in ("quant_conv", "post_quant_conv"):
-            _put(tree, *_vae_leaf([p[0]], leaf, w, _dense_io))
-            continue
-        coder, rest = p[0], p[1:-1]
-        if rest[0] in ("conv_in", "conv_out"):
-            path, kmap = [coder, rest[0]], _conv_hwio
-        elif rest[0] == "norm_out":
-            path, kmap = [coder, "norm_out"], None
-        elif rest[0] in ("downs", "ups"):
-            lvl = [coder, ("down" if rest[0] == "downs" else "up") + rest[1]]
-            if rest[2] in ("down", "up"):
-                key = f"{rest[2]}_{'kernel' if leaf == 'weight' else 'bias'}"
-                kmap = _down_io if rest[2] == "down" else _up_io
-                _put(tree, lvl + [key], kmap(w) if leaf == "weight" else w)
-                continue
-            kind = "res" if rest[2] == "resnet_blocks" else "attn"
-            path, sub = lvl + [f"{kind}{rest[3]}"], rest[4:]
-            if kind == "res":
-                mod, kmap = _RES[".".join(sub)]
-            else:
-                mod, kmap = sub[0], (None if sub[0] == "norm" else _dense_io)
-            path = path + [mod]
-        elif rest[0] in ("mid1", "mid2"):
-            mod, kmap = _RES[".".join(rest[1:])]
-            path = [coder, rest[0], mod]
-        elif rest[0] == "mid_attn1":
-            kmap = None if rest[1] == "norm" else _dense_io
-            path = [coder, "mid_attn1", rest[1]]
-        else:
-            raise KeyError(f"no JAX layout for {name}")
-        _put(tree, *_vae_leaf(path, leaf, w, kmap))
-    return tree
+    from tempo_tpu_torch.interop.jax_layout import vae_layout
+
+    return _jax_tree(sd, vae_layout(sd))
 
 
 def _contiguous(tree):
@@ -7428,7 +7380,8 @@ def resume_path(dev, rows: dict, root: Path) -> dict:
 
     # ---------------- GPT-2-small, masked AdamW, fp32 and bf16 moments
     g = torch.Generator().manual_seed(SEED + 18)
-    gpt_cfg = pt.TransformerConfig(compute_dtype="bfloat16")
+    gpt_cfg = pt.TransformerConfig(compute_dtype="bfloat16",
+                                   n_layer=RESUME["gpt_layers"])
     batches = [torch.randint(0, gpt_cfg.in_size, (RESUME["gpt_batch"],
                                                   gpt_cfg.block_size + 1),
                              generator=g).to(dev) for _ in range(steps + 1)]
@@ -7451,7 +7404,8 @@ def resume_path(dev, rows: dict, root: Path) -> dict:
                                           "length": RESUME["stream"]},
                             "batch_size": RESUME["gpt_batch"]},
                    "model": {"compute_dtype": "bfloat16",
-                             "in_size": gpt_cfg.in_size},
+                             "in_size": gpt_cfg.in_size,
+                             "n_layer": gpt_cfg.n_layer},
                    "optimizer": opt_cfg,
                    "training": {"n_steps": steps, "save_every": 1000,
                                 "val_every": 1000, "log_every": 1000,
@@ -7635,7 +7589,7 @@ def connectomics_path(dev, rows: dict) -> dict:
 # train_vae with the device buffer replicated, then partitioned by
 # process, then train_vae_l2.
 PAR = {"world": 2, "steps": 3, "vae_batch": 64, "f32_batch": 4,
-       "cli_batch": 16, "cli_steps": 5, "tiles": (2, 8), "timeout": 240}
+       "cli_batch": 16, "cli_steps": 3, "tiles": (2, 8), "timeout": 240}
 PAR_OPT = {"lr": 1e-4, "betas": [0.9, 0.95], "weight_decay": 0.05}
 PAR_UNUSED = ("encoder.downs.2.down", "decoder.ups.2.up")
 PAR_L2 = {"nll_loss_type": "l2"}
@@ -7686,11 +7640,15 @@ def fed_posterior(noises, rows: slice):
         DiagonalGaussian.sample = saved
 
 
-def par_steps(dev, state, step, batches, noises, rows: slice) -> dict:
+def par_steps(dev, state, step, batches, noises, rows: slice,
+              whole=None) -> dict:
     """The steps on ``rows`` of each global batch: every step's loss and
-    pixel MSE, the first step's gradients (fp32, on the host), the K1a/
+    pixel MSE, the first step's gradients (fp32, on the host; ``whole(p)``
+    gives a parameter's whole gradient, ``p.grad`` by default), the K1a/
     K1b/K2 launches of the last step, and the last two steps' ms."""
     import torch
+
+    whole = whole or (lambda p: p.grad)
 
     out = {"loss": [], "pixel_mse": []}
     with fed_posterior(noises, rows):
@@ -7704,7 +7662,7 @@ def par_steps(dev, state, step, batches, noises, rows: slice) -> dict:
             state, m = step(state, x[rows])
             if i == 0:
                 out["grads"] = {
-                    k: p.grad.detach().float().cpu()
+                    k: whole(p).detach().float().cpu()
                     for k, p in state.model.named_parameters()
                     if p.grad is not None}
             out["loss"].append(float(m["loss"]))
@@ -8574,6 +8532,450 @@ def spatial_path(dev, gen, rows: dict, root: Path, granule: Path) -> dict:
     return {"16a": a, "16b": b, "16c": k, "seconds": seconds}
 
 
+
+# ------------------------------------------------------------------------
+# Phase 17: tensor parallelism (parallel/tensor.py: output channels over a
+# ('data', 'model') mesh of 1 x 2) and the sharded checkpoint
+# (train/sharded_checkpoint.py) over 2 rank processes that share the card
+# over gloo, so every gather of output channels goes through host memory.
+# Two ranks on one card share its time: no number here is a scaling
+# number. 17a: the flagship VAE (bf16, the L2 loss as 15a) at batch 8, 3
+# steps, against this process's 3 steps on the same draws (STEP_BF16_TOL:
+# K2 at a rank's F share may pick another tile configuration, an ulp
+# apart); the fp32 two-level VAE at batch 4 (STEP_F32_TOL); each rank's
+# parameter + AdamW-moment bytes at most TP["bytes_ratio"] of one
+# process's; K1a, K1b and K2 launched a step a rank as often as by one
+# process. 17b: GPT-2-small (bf16) at 2 x 1024 tokens, 3 steps, against
+# one process (4c's tolerances, STEP_BF16_TOL), K5 launched as by one
+# process. 17c: 17a's bf16 state written as ckpt_step=NNNNNN.shards/ (each
+# rank its bytes, index.json last) and as a .pt (the state gathered, rank 0
+# writes), both loaded by load_params on one process, bitwise alike; a TP
+# resume's next step bitwise the live one's on each rank's slices (cuDNN
+# deterministic).
+TP = {"world": 2, "steps": 3, "vae_batch": 8, "f32_batch": 4,
+      "gpt_batch": 2, "timeout": 300, "bytes_ratio": 0.55}
+
+
+def tp_whole_grad(p):
+    """A parameter's whole gradient under TP (a collective for a shard)."""
+    from tempo_tpu_torch.parallel import tensor
+
+    if tensor.is_shard(p):
+        return tensor.full_of(p.grad, p.tp_kind, p.tp_axis)
+    return p.grad
+
+
+def tp_gpt_inputs(dev, cfg) -> list:
+    """17b's token batches, from SEED (the same in every process)."""
+    import numpy as np
+    import torch
+
+    return [torch.from_numpy(np.random.default_rng(SEED + 17 + i).integers(
+        0, cfg.in_size, (TP["gpt_batch"], cfg.block_size + 1))).to(dev)
+        for i in range(TP["steps"])]
+
+
+# 17b compares the first step's gradients of these parameters (the first
+# and last blocks, the tables and the last norm: 1/5 of GPT-2-small's)
+TP_GPT_GRADS = ("transformer.h.0.", "transformer.h.11.", "transformer.wte",
+                "transformer.wpe", "transformer.ln_f")
+
+
+def tp_gpt_steps(dev, state, step, tokens, whole=None) -> dict:
+    """17b's steps: each step's loss, the first step's gradients of
+    TP_GPT_GRADS (whole, fp32, on the host), the last step's K5 launches,
+    the mean ms of the last two steps."""
+    import torch
+
+    whole = whole or (lambda p: p.grad)
+    out = {"loss": []}
+    for i, x in enumerate(tokens):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if i == len(tokens) - 1:
+            (_, m), out["launches_last_step"] = count_flash(
+                lambda: step(state, x))
+        else:
+            _, m = step(state, x)
+        if i == 0:
+            out["grads"] = {k: whole(p).detach().float().cpu()
+                            for k, p in state.model.named_parameters()
+                            if p.grad is not None
+                            and k.startswith(TP_GPT_GRADS)}
+        out["loss"].append(float(m["loss"]))
+    torch.cuda.synchronize()
+    out["step_ms"] = 1e3 * (time.perf_counter() - t0) / (len(tokens) - 1)
+    return out
+
+
+def tp_compare(got: dict, want: dict, tol: dict) -> dict:
+    """A TP run against one process's: the worst step's loss (and pixel
+    MSE) rel difference, each first-step gradient's rel L2 (the attention's
+    key biases left out: their exact gradient is 0, so a relative error of
+    theirs is rounding noise)."""
+    res = {}
+    for key in ("loss", "pixel_mse"):
+        if key in want:
+            res[f"{key}_rel"] = max(abs(g - w) / abs(w) for g, w in
+                                    zip(got[key], want[key]))
+    grad_rel = {k: rel_l2(got["grads"][k], g)
+                for k, g in want["grads"].items()
+                if not k.endswith("attn1.k.bias")}
+    res.update(max_grad_rel_l2=max(grad_rel.values()),
+               worst_grad=max(grad_rel, key=grad_rel.get),
+               grads_compared=len(grad_rel),
+               same_keys=set(got["grads"]) == set(want["grads"]))
+    res["ok"] = (all(v <= tol["loss"] for k, v in res.items()
+                     if k.endswith("_rel"))
+                 and res["max_grad_rel_l2"] <= tol["grad"]
+                 and res["same_keys"])
+    return res
+
+
+def tp_child(spec_path: str, rank: int) -> None:
+    """One rank of phase 17, sharing cuda:0 with the other over gloo: joins
+    the group, makes the ('data', 'model') mesh, waits for the references,
+    times a lone gloo all-gather (the main process idle), then 17a (and
+    17c on its bf16 state) and 17b; rank 0 compares with the references.
+    Writes its results to the spec's directory."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from tempo_tpu_torch.nn.transformer import (Transformer,
+                                                TransformerConfig,
+                                                make_gpt_optimizer)
+    from tempo_tpu_torch.parallel import tensor
+    from tempo_tpu_torch.train.checkpoint import load_checkpoint, \
+        save_checkpoint
+    from tempo_tpu_torch.train.sharded_checkpoint import \
+        save_checkpoint_sharded
+    from tempo_tpu_torch.train.state import (create_train_state,
+                                             make_optimizer_from_config)
+    from tempo_tpu_torch.train.step import (lm_loss_fn, make_train_step,
+                                            vae_loss_fn)
+
+    spec = json.loads(Path(spec_path).read_text())
+    root = Path(spec["root"])
+    # started beside phase 16: the imports above overlap it, the card and
+    # the group wait for phase 17
+    while not (root / "start").exists():
+        time.sleep(0.1)
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{spec['store']}",
+                            rank=rank, world_size=TP["world"],
+                            timeout=datetime.timedelta(seconds=240))
+    mesh = tensor.create_tp_mesh(TP["world"], dev)
+    tp = tensor.tensor_parallel(mesh)
+    res = {"rank": rank, "axes": [tp.rank, tp.world, tp.data_rank,
+                                  tp.data_world]}
+    while not (root / "go").exists():
+        time.sleep(0.1)
+    refs = torch.load(root / "refs.pt", weights_only=False)
+    # a lone gloo all-gather of the largest gathered activation, a
+    # [8, 64, 64, 1028] bf16 conv_out output (each rank's half), once the
+    # main process has finished its references and only waits
+    half = torch.ones((TP["vae_batch"], 64, 64, 514), dtype=torch.bfloat16,
+                      device=dev)
+    tensor.gather(half, tp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        tensor.gather(half, tp)
+    torch.cuda.synchronize()
+    res["lone_gather"] = {"ms": 1e3 * (time.perf_counter() - t0) / 3,
+                          "bytes_each_rank_sends": half.numel() * 2}
+    del half
+
+    def vae_state(model_cfg, dtype):
+        model = par_vae(dev, model_cfg, dtype)
+        tx = make_optimizer_from_config(PAR_OPT, n_steps=TP["steps"])
+        state = tensor.shard_state_tp(create_train_state(model, tx, SEED),
+                                      mesh, tx)
+        return model, state, make_train_step(vae_loss_fn(model), tx)
+
+    for label, model_cfg, dtype, n, tol in (
+            ("bf16", dict(VAE_MODEL, **PAR_L2), None, TP["vae_batch"],
+             STEP_BF16_TOL),
+            ("f32_2level", dict(VAE_F32_MODEL, **PAR_L2), "float32",
+             TP["f32_batch"], STEP_F32_TOL)):
+        model, state, step = vae_state(model_cfg, dtype)
+        batches, noises = par_inputs(dev, model, n)
+        tensor.EXCHANGED.update(dict.fromkeys(tensor.EXCHANGED, 0))
+        out = par_steps(dev, state, step, batches, noises, slice(None),
+                        whole=tp_whole_grad)
+        res[label] = {k: out[k] for k in ("loss", "pixel_mse", "step_ms",
+                                          "launches_last_step")}
+        res[label]["bytes"] = tensor.param_bytes(model, state.optimizer)
+        res[label]["sharded_params"] = sum(
+            tensor.is_shard(p) for p in model.parameters())
+        # the rank's slices of the convs no loss reaches, against the
+        # same slices of one process's (no gather)
+        params = dict(model.named_parameters())
+        res[label]["unused_bitwise"] = all(
+            torch.equal(v, refs[label]["unused"][k] if not tensor.is_shard(
+                params[k]) else tensor.local_of(
+                    refs[label]["unused"][k], params[k].tp_kind, tp))
+            for k, v in out["unused"].items())
+        if rank == 0:
+            res[label]["vs_one_process"] = tp_compare(out, refs[label], tol)
+        del out
+        if label == "bf16":  # 17c on this state
+            c, sample = {}, batches[0]
+            t0 = time.perf_counter()
+            path = save_checkpoint_sharded(root / "ckpt", state,
+                                           [{"step": TP["steps"]}])
+            c["write_s"] = time.perf_counter() - t0
+            c["path"] = str(path)
+            # the same state gathered and written by rank 0 as a .pt
+            c["pt"] = str(save_checkpoint(root / "pt", state))
+            with deterministic_cudnn(), fed_posterior(noises[:1] * 2,
+                                                      slice(None)):
+                tensor.EXCHANGED.update(dict.fromkeys(tensor.EXCHANGED, 0))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, sample)
+                torch.cuda.synchronize()
+                c["live_step_ms"] = 1e3 * (time.perf_counter() - t0)
+                c["exchanged_bytes_a_step"] = dict(tensor.EXCHANGED)
+                live = [p.detach().clone() for p in model.parameters()]
+                model2, again, step2 = vae_state(model_cfg, dtype)
+                t0 = time.perf_counter()
+                load_checkpoint(path, again)
+                torch.cuda.synchronize()
+                c["read_s"] = time.perf_counter() - t0
+                c["resumed_shards_kept"] = all(
+                    tuple(p.shape) == tuple(q.shape) for p, q in zip(
+                        model.parameters(), model2.parameters()))
+                step2(again, sample)
+            # each rank's own slices, live and resumed (no gather)
+            c["resume_bitwise"] = all(torch.equal(p, q) for p, q in zip(
+                live, model2.parameters()))
+            res["17c"] = c
+            del model2, again, step2, live
+        del model, state, step, batches, noises
+        torch.cuda.empty_cache()
+
+    gcfg = TransformerConfig(compute_dtype="bfloat16", attn_impl="auto")
+    model = Transformer(gcfg, device=dev, seed=SEED)
+    tx = make_gpt_optimizer(model, weight_decay=0.1, learning_rate=3e-4,
+                            betas=(0.9, 0.95))
+    state = tensor.shard_state_tp(create_train_state(model, tx, SEED), mesh,
+                                  tx)
+    tensor.EXCHANGED.update(dict.fromkeys(tensor.EXCHANGED, 0))
+    out = tp_gpt_steps(dev, state, make_train_step(lm_loss_fn(model), tx),
+                       tp_gpt_inputs(dev, gcfg), whole=tp_whole_grad)
+    res["gpt"] = {k: out[k] for k in ("loss", "step_ms",
+                                      "launches_last_step")}
+    res["gpt"]["exchanged_bytes_3_steps"] = dict(tensor.EXCHANGED)
+    res["gpt"]["bytes"] = tensor.param_bytes(model, state.optimizer)
+    if rank == 0:
+        res["gpt"]["vs_one_process"] = tp_compare(out, refs["gpt"],
+                                                  STEP_BF16_TOL)
+    del model, state, out
+    dist.barrier()
+    dist.destroy_process_group()
+    (root / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def tp_start(dev, root: Path) -> tuple:
+    """Start phase 17's 2 rank processes under ``root`` (before phase 16:
+    they import while it runs and wait for ``root / "start"``); returns
+    (processes, their logs), each process stopped at exit."""
+    spec = root / "spec.json"
+    spec.write_text(json.dumps({"root": str(root), "device": str(dev),
+                                "store": str(root / "store")}))
+    logs = [open(root / f"rank{r}.log", "w") for r in range(TP["world"])]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.tp_child(sys.argv[1], int(sys.argv[2]))",
+         str(spec), str(r)], cwd=Path(__file__).resolve().parent,
+        stdout=logs[r], stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        for r in range(TP["world"])]
+    for p in procs:
+        atexit.register(stop_process, p)
+    return procs, logs
+
+
+def tp_path(dev, rows: dict, root: Path, started=None) -> dict:
+    """Phase 17 (see TP): the 2 rank processes (``started`` by tp_start,
+    else started here) join their group while this process computes the
+    one-process references, the gates here; adds each kernel's phase-17
+    launches to its row."""
+    import torch
+
+    from tempo_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from tempo_tpu_torch.nn.transformer import (Transformer,
+                                                TransformerConfig,
+                                                make_gpt_optimizer)
+    from tempo_tpu_torch.parallel import tensor
+    from tempo_tpu_torch.train.checkpoint import load_params
+    from tempo_tpu_torch.train.state import (create_train_state,
+                                             make_optimizer_from_config)
+    from tempo_tpu_torch.train.step import (lm_loss_fn, make_train_step,
+                                            vae_loss_fn)
+
+    card = smi_line()
+    t_phase = time.perf_counter()
+    for r in rows.values():
+        r["launches_phase17"] = {}
+    procs, logs = started or tp_start(dev, root)
+    (root / "start").touch()
+    try:
+        refs = {}
+        for label, model_cfg, dtype, n in (
+                ("bf16", dict(VAE_MODEL, **PAR_L2), None, TP["vae_batch"]),
+                ("f32_2level", dict(VAE_F32_MODEL, **PAR_L2), "float32",
+                 TP["f32_batch"])):
+            model = par_vae(dev, model_cfg, dtype)
+            batches, noises = par_inputs(dev, model, n)
+            tx = make_optimizer_from_config(PAR_OPT, n_steps=TP["steps"])
+            state = create_train_state(model, tx, SEED)
+            refs[label] = par_steps(dev, state, make_train_step(
+                vae_loss_fn(model), tx), batches, noises, slice(None))
+            refs[label]["bytes"] = tensor.param_bytes(model, state.optimizer)
+            del model, state, batches, noises
+            torch.cuda.empty_cache()
+        gcfg = TransformerConfig(compute_dtype="bfloat16", attn_impl="auto")
+        model = Transformer(gcfg, device=dev, seed=SEED)
+        tx = make_gpt_optimizer(model, weight_decay=0.1, learning_rate=3e-4,
+                                betas=(0.9, 0.95))
+        state = create_train_state(model, tx, SEED)
+        refs["gpt"] = tp_gpt_steps(dev, state, make_train_step(
+            lm_loss_fn(model), tx), tp_gpt_inputs(dev, gcfg))
+        refs["gpt"]["bytes"] = tensor.param_bytes(model, state.optimizer)
+        del model, state
+        torch.cuda.empty_cache()
+        torch.save(refs, root / "refs.pt")
+        t_refs = time.perf_counter() - t_phase
+        (root / "go").touch()
+        wait_all(procs, time.perf_counter() + TP["timeout"])
+    finally:
+        for p in procs:
+            stop_process(p)
+        for f in logs:
+            f.close()
+    if any(p.returncode for p in procs):
+        tails = "\n".join((root / f"rank{r}.log").read_text()[-6000:]
+                          for r in range(TP["world"]))
+        fail(f"a phase-17 rank failed or ran past {TP['timeout']} s:\n"
+             f"{tails}")
+    ranks = [json.loads((root / f"rank{r}.json").read_text())
+             for r in range(TP["world"])]
+    t_ranks = time.perf_counter() - t_phase - t_refs
+
+    res = {"card": card, "note": "two ranks on one card: no scaling",
+           "axes": [r["axes"] for r in ranks]}
+    for label in ("bf16", "f32_2level"):
+        r0, want = ranks[0][label], refs[label]
+        ratio = max(r[label]["bytes"] for r in ranks) / want["bytes"]
+        launched = all(r[label]["launches_last_step"] ==
+                       want["launches_last_step"]
+                       and all(v > 0 for v in
+                               r[label]["launches_last_step"].values())
+                       for r in ranks)
+        res[f"17a_{label}"] = {
+            "vs_one_process": r0["vs_one_process"],
+            "ranks_agree_on_metrics": ranks[0][label]["loss"]
+            == ranks[1][label]["loss"],
+            "unused_convs_bitwise": all(r[label]["unused_bitwise"]
+                                        for r in ranks),
+            "param_moment_bytes_rank_over_one_process": ratio,
+            "sharded_params": r0["sharded_params"],
+            "step_ms_rank": [r[label]["step_ms"] for r in ranks],
+            "step_ms_one_process": want["step_ms"],
+            "launches_a_step_rank": [r[label]["launches_last_step"]
+                                     for r in ranks],
+            "launches_a_step_one_process": want["launches_last_step"]}
+        a = res[f"17a_{label}"]
+        if not (a["vs_one_process"]["ok"] and a["ranks_agree_on_metrics"]
+                and a["unused_convs_bitwise"] and launched
+                and ratio <= TP["bytes_ratio"]):
+            fail(f"17a {label}: TP over 2 ranks disagrees with one process, "
+                 f"or holds more than {TP['bytes_ratio']} of its bytes, or "
+                 f"launched K1a/K1b/K2 other counts than one process or none:"
+                 f" {json.dumps(a)}")
+    for name in ("K1a", "K1b", "K2"):
+        rows[name]["launches_phase17"]["17a_per_rank_per_step"] = ranks[0][
+            "bf16"]["launches_last_step"][name]
+
+    g = {"vs_one_process": ranks[0]["gpt"]["vs_one_process"],
+         "step_ms_rank": [r["gpt"]["step_ms"] for r in ranks],
+         "step_ms_one_process": refs["gpt"]["step_ms"],
+         "launches_last_step_rank": [r["gpt"]["launches_last_step"]
+                                     for r in ranks],
+         "launches_last_step_one_process": refs["gpt"]["launches_last_step"],
+         "exchanged_bytes_a_step_rank0": {
+             k: v / TP["steps"] for k, v in
+             ranks[0]["gpt"]["exchanged_bytes_3_steps"].items()},
+         "param_moment_bytes_rank_over_one_process": max(
+             r["gpt"]["bytes"] for r in ranks) / refs["gpt"]["bytes"]}
+    res["17b_gpt"] = g
+    if not (g["vs_one_process"]["ok"] and all(
+            r["gpt"]["launches_last_step"] == refs["gpt"][
+                "launches_last_step"] for r in ranks)
+            and all(v > 0 for v in
+                    refs["gpt"]["launches_last_step"].values())):
+        fail(f"17b: GPT-2-small under TP disagrees with one process, or K5 "
+             f"launched other counts: {json.dumps(g)}")
+    for name in ("K5f", "K5dkv", "K5dq"):
+        rows[name]["launches_phase17"]["17b_per_rank_last_step"] = ranks[0][
+            "gpt"]["launches_last_step"][name]
+
+    # the directory (each rank's bytes) and the .pt (the state gathered)
+    # of one TP state, each loaded on one process from its own seed
+    c = ranks[0]["17c"]
+    cfg17 = VAEConfig.from_dict(dict(VAE_MODEL, **PAR_L2))
+    model = load_params(c["path"], AutoencoderKL(cfg17, device=dev,
+                                                 seed=SEED + 1))
+    model_pt = load_params(c["pt"], AutoencoderKL(cfg17, device=dev,
+                                                  seed=SEED + 2))
+    one_dir = all(
+        torch.equal(v, w) for v, w in zip(model.state_dict().values(),
+                                          model_pt.state_dict().values()))
+    index = json.loads((Path(c["path"]) / "index.json").read_text())
+    c17 = {"write_s": [r["17c"]["write_s"] for r in ranks],
+           "read_s": [r["17c"]["read_s"] for r in ranks],
+           "bytes": sum((Path(c["path"]) / e["file"]).stat().st_size
+                        for e in index["leaves"]),
+           "leaves": len(index["leaves"]),
+           "load_params_one_process_bitwise_the_gathered_pt": one_dir,
+           "resume_bitwise": [r["17c"]["resume_bitwise"] for r in ranks],
+           "resumed_shards_kept": [r["17c"]["resumed_shards_kept"]
+                                   for r in ranks],
+           "bf16_step_ms_rank": [r["17c"]["live_step_ms"] for r in ranks],
+           "exchanged_bytes_a_bf16_step_rank0":
+               ranks[0]["17c"]["exchanged_bytes_a_step"]}
+    del model, model_pt
+    lone = statistics.mean(r["lone_gather"]["ms"] for r in ranks)
+    c17["lone_gloo_gather"] = {
+        "ms": [r["lone_gather"]["ms"] for r in ranks],
+        "bytes_each_rank_sends": ranks[0]["lone_gather"][
+            "bytes_each_rank_sends"],
+        "share_of_bf16_step": lone / statistics.mean(
+            c17["bf16_step_ms_rank"]),
+        "what": "one all-gather of conv_out's [8,64,64,1028] bf16 output "
+                "(514 channels a rank) over gloo on cuda:0, timed while "
+                "the main process waits"}
+    res["17c"] = c17
+    res["seconds"] = {"refs": t_refs, "ranks": t_ranks}
+    print(f"[tp] phase 17, TP over 2 ranks on one card (two ranks on one "
+          f"card: no scaling): {json.dumps(res)} on {card}", flush=True)
+    if not (one_dir and all(c17["resume_bitwise"])
+            and all(c17["resumed_shards_kept"])):
+        fail(f"17c: the sharded checkpoint does not round-trip: "
+             f"{json.dumps(c17)}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -9132,6 +9534,10 @@ def main() -> int:
     seconds["15"] = time.perf_counter() - t_phase
     torch.cuda.empty_cache()
 
+    # phase 17's rank processes import beside phase 16
+    tp_root = tempfile.TemporaryDirectory()
+    tp_started = tp_start(dev, Path(tp_root.name))
+
     # ------------------ 16. spatial sharding of a granule over 2 ranks
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -9140,6 +9546,13 @@ def main() -> int:
     seconds["16"] = time.perf_counter() - t_phase
     host.stop()
     host_root.cleanup()
+    torch.cuda.empty_cache()
+
+    # -------- 17. tensor parallelism and the sharded checkpoint, 2 ranks
+    t_phase = time.perf_counter()
+    tensor_res = tp_path(dev, rows, Path(tp_root.name), tp_started)
+    tp_root.cleanup()
+    seconds["17"] = time.perf_counter() - t_phase
     print(f"[time] phases, s: {json.dumps(seconds)}", flush=True)
 
     for r in rows.values():
@@ -9158,6 +9571,7 @@ def main() -> int:
                           "training": options_training},
         "lm_rest": lm_rest, "connectomics": connectomics,
         "parallel": parallel, "spatial": spatial_res,
+        "tensor": tensor_res,
         "granule_numpy_normalize_s": t_numpy_normalize,
         "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {

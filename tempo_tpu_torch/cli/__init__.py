@@ -12,6 +12,7 @@ when called, so a script that needs none of them loads no torch.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from pathlib import Path
 from typing import Callable
 
@@ -52,25 +53,110 @@ def start_run_directory(config, overwrite: bool, config_path,
     return output_dir
 
 
+# parallel.<key>: the value that means "not parallel", and the trainers
+# that read the key (a trainer ignores the keys it does not read, as the
+# JAX CLIs do; train_gpt refuses an unknown key)
+SERIAL = {"pipeline": 1, "tensor": 1, "expert": 1, "context": 1,
+          "context_zigzag": False, "fsdp": False, "n_micro": None}
+READS = {"train_vae": ("tensor", "fsdp"), "train_vae_l2": ("tensor",),
+         "train_diffusion": (), "train_gpt": tuple(SERIAL)}
+# the keys a trainer reads that the port does not run: NotImplementedError
+UNPORTED = ("pipeline", "expert", "context", "context_zigzag")
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelPlan:
+    """What a run's ``parallel:`` section asks of the port: FSDP2, or
+    tensor parallelism over ``n_model`` ranks (data parallelism over the
+    rest), or neither (DDP over several processes)."""
+
+    fsdp: bool = False
+    n_model: int = 1
+
+
+def parallel_plan(config, trainer: str) -> ParallelPlan:
+    """The ``parallel:`` section validated for ``trainer``, in one table:
+    an unknown key (train_gpt) raises ValueError; ``tensor`` > 1 together
+    with ``fsdp``, ``pipeline``, ``expert`` or ``context`` raises ValueError,
+    as the JAX CLIs do (tensor parallelism composes with data parallelism
+    only); a parallelism the port does not have raises
+    NotImplementedError."""
+    parallel = dict(config.get("parallel") or {})
+    reads = READS[trainer]
+    if trainer == "train_gpt":
+        for key in parallel:
+            if key not in SERIAL:
+                raise ValueError(f"FATAL: unknown parallel.{key}")
+
+    def set_(key: str) -> bool:
+        return (key in reads and key in parallel
+                and SERIAL[key] is not None
+                and parallel[key] != SERIAL[key])
+
+    n_model = int(parallel.get("tensor", 1)) if "tensor" in reads else 1
+    if n_model > 1:
+        for key in ("fsdp", "pipeline", "expert", "context"):
+            if set_(key):
+                raise ValueError(
+                    f"FATAL: parallel.tensor composes with data parallelism "
+                    f"only, not with parallel.{key}")
+    for key in UNPORTED:
+        if set_(key):
+            raise NotImplementedError(
+                f"parallel.{key}={parallel[key]!r} is not ported: it waits "
+                f"for its parallelism (ROADMAP Queue 1, M13)")
+    return ParallelPlan(fsdp=set_("fsdp"), n_model=n_model)
+
+
 def host_batch(batch_size: int, mesh) -> int:
     """A rank's host-loader batch: ``batch_size`` without a mesh, its share
-    of the host's batch over one."""
+    of the host's batch over one: the host's processes split it over their
+    data-axis ranks (the model-axis peers of tensor parallelism load the
+    same rows)."""
     from tempo_tpu_torch.data.loader import local_batch_size
-    from tempo_tpu_torch.parallel.mesh import local_world_size
+    from tempo_tpu_torch.parallel.mesh import (BatchShard, data_axis,
+                                               local_world_size)
 
-    return (batch_size if mesh is None
-            else local_batch_size(batch_size, local_world_size()))
+    if mesh is None:
+        return batch_size
+    n_model = (1 if isinstance(mesh, BatchShard)
+               else mesh.size() // data_axis(mesh)[1])
+    return local_batch_size(batch_size, max(1, local_world_size() // n_model))
 
 
-def parallelize(state, tx, mesh, fsdp: bool):
-    """The state sharded as the run asks: FSDP2 over the mesh, DDP over a
-    mesh of more than one process, as it is otherwise."""
+def loader_seed(seed: int, mesh) -> int:
+    """A host loader's seed: ``seed + 1000 * rank``, the rank on the data
+    axis (model-axis peers draw the same rows)."""
+    from tempo_tpu_torch.parallel.mesh import data_axis
+
+    return seed + 1000 * data_axis(mesh)[0]
+
+
+def parallel_group(config, device, plan: ParallelPlan):
+    """``process_group`` for the run: a group of this process alone where
+    FSDP2 or tensor parallelism needs a mesh without a launcher, the
+    ('data', 'model') mesh under tensor parallelism."""
+    from tempo_tpu_torch.parallel.mesh import process_group
+
+    return process_group(config, device, single=plan.fsdp or plan.n_model > 1,
+                         n_model=plan.n_model)
+
+
+def parallelize(state, tx, mesh, plan: ParallelPlan):
+    """The state sharded as the run asks: FSDP2 over the mesh, tensor
+    parallelism over its model axis, DDP over a mesh of more than one
+    process, as it is otherwise."""
     from tempo_tpu_torch.parallel.fsdp import shard_state_fsdp
     from tempo_tpu_torch.parallel.mesh import process_count, shard_state
+    from tempo_tpu_torch.parallel.tensor import shard_state_tp
 
-    if fsdp:
+    if plan.fsdp:
         print(f"FSDP (ZeRO-3) over {process_count()} process(es)")
         return shard_state_fsdp(state, mesh, tx)
+    if plan.n_model > 1:
+        print(f"Tensor-parallel over {plan.n_model} ranks x data-parallel "
+              f"over {process_count() // plan.n_model}")
+        return shard_state_tp(state, mesh, tx)
     if mesh is not None and process_count() > 1:
         print(f"Data-parallel over {process_count()} processes")
         return shard_state(state, mesh)

@@ -20,8 +20,9 @@ training_info.yaml with the JAX CLI's keys.
 The score (or velocity) model is a CUNet (nn/unet.py) over the tile or
 latent shape; its GroupNorms run through K1 and K2 in fp32. With
 ``latent:`` the VAE of ``latent.vae_model`` is loaded from
-``latent.vae_checkpoint`` (a .pt of the port's train_vae or the JAX
-package's .msgpack, through train/checkpoint.py ``load_params``) and
+``latent.vae_checkpoint`` (a .pt of the port's train_vae, the JAX
+package's .msgpack, or either package's ``.shards`` directory, through
+train/checkpoint.py ``load_params``) and
 frozen: it is no submodule of the trained model, its parameters do not
 require grad, and it stays out of the optimizer, the checkpoints and the
 parameter count. Its
@@ -43,9 +44,8 @@ training_info's ``n_devices`` is the world size.
 ``run(config_dict)`` is the same run from a dict: it needs no YAML reader
 and writes config.yaml and training_info.yaml as JSON.
 ``training.checkpoint_format: async`` writes the same checkpoints on a
-background thread. Not ported (NotImplementedError):
-``training.checkpoint_format: sharded`` and a sharded checkpoint directory
-as ``latent.vae_checkpoint`` (M13).
+background thread, ``sharded`` ``ckpt_step=NNNNNN.shards/`` directories in
+the JAX package's format (train/sharded_checkpoint.py).
 """
 
 from __future__ import annotations
@@ -57,7 +57,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from tempo_tpu_torch.cli import (host_batch, parallelize, run_cli,
+from tempo_tpu_torch.cli import (ParallelPlan, host_batch, parallelize,
+                                 run_cli,
                                  start_run_directory)
 from tempo_tpu_torch.data.loader import TileLoader
 from tempo_tpu_torch.device import resolve_device
@@ -93,12 +94,6 @@ def validate_config(config: Dict[str, Any]) -> None:
         ckpt = Path(config["latent"]["vae_checkpoint"])
         if not ckpt.exists():
             raise ValueError(f"FATAL: VAE checkpoint doesn't exist: {ckpt}")
-        if ckpt.is_dir():
-            raise NotImplementedError(
-                f"latent.vae_checkpoint {ckpt}: sharded checkpoint "
-                f"directories wait for the sharded checkpoint format "
-                f"(ROADMAP Queue 1, M13), which is not ported; give a .pt "
-                f"or .msgpack checkpoint")
     check_format(config["training"].get("checkpoint_format", "msgpack"))
 
 
@@ -294,7 +289,7 @@ def _run(config, overwrite, debug, device, config_path, mesh):
             config.get("optimizer", {}),
             n_steps=int(train_cfg.get("n_steps", 10_000)))
         state = parallelize(create_train_state(model, tx, seed + 2), tx,
-                            mesh, fsdp=False)
+                            mesh, ParallelPlan())
         if family == "sfm":
             # a flow has no denoising round trip: no recon figures; the
             # end-of-run sample panel is the visual artifact

@@ -43,15 +43,21 @@ FSDP2 (parallel/fsdp.py) over the run's processes (torchrun or
 JAX's one-device mesh); several processes without it train under DDP.
 ``data.batch_size`` is the global batch, as JAX's: every rank draws it
 from the shared seed and trains its contiguous slice. Rank 0 writes the
-run's files and the generation (from the gathered weights under FSDP2).
-As in JAX, FSDP composes with no other axis and not with LoRA
-(ValueError); an MoE model under FSDP or over several processes raises
-NotImplementedError: JAX's expert capacity and Switch loss are over the
-global batch, which waits for the expert-parallel slice.
+run's files and the generation (from the gathered weights under FSDP2
+or tensor parallelism). ``parallel.tensor: N`` shards the parameters'
+output features over N ranks of a ('data', 'model') mesh
+(parallel/tensor.py; ``wte`` and ``wpe`` on ``n_embd``), data parallelism
+over the rest. As in JAX, tensor parallelism composes with data
+parallelism only, and FSDP with no other axis and not with LoRA
+(ValueError; LoRA under tensor parallelism too); an MoE model under FSDP,
+tensor parallelism or over several processes raises NotImplementedError:
+JAX's expert capacity and Switch loss are over the global batch, which
+waits for the expert-parallel slice. ``training.checkpoint_format:
+sharded`` writes ``ckpt_step=NNNNNN.shards/`` directories in the JAX
+package's format (train/sharded_checkpoint.py).
 
 Not ported (NotImplementedError from validate_config): ``parallel.*``
-pipeline, tensor, expert and context, and ``training.checkpoint_format:
-sharded`` (M13).
+pipeline, expert and context (M13).
 """
 
 from __future__ import annotations
@@ -63,16 +69,17 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from tempo_tpu_torch.cli import parallelize, run_cli, start_run_directory
+from tempo_tpu_torch.cli import (parallel_group, parallel_plan, parallelize,
+                                 run_cli, start_run_directory)
 from tempo_tpu_torch.data.tokens import TokenLoader, make_token_stream
 from tempo_tpu_torch.nn.transformer import (Transformer, TransformerConfig,
                                            generate, make_gpt_optimizer,
                                            num_params)
 from tempo_tpu_torch.nn.lora import LoRA, init_lora, num_lora_params
-from tempo_tpu_torch.parallel.fsdp import full_state_dict
+from tempo_tpu_torch.parallel import fsdp as pfsdp
+from tempo_tpu_torch.parallel import tensor as ptensor
 from tempo_tpu_torch.parallel.mesh import (RankSlice, batch_sharding,
-                                           is_primary, process_count,
-                                           process_group)
+                                           is_primary, process_count)
 from tempo_tpu_torch.train.checkpoint import (check_format,
                                               latest_checkpoint, load_params,
                                               resolve_resume_from)
@@ -82,11 +89,6 @@ from tempo_tpu_torch.train.step import lm_loss_fn
 from tempo_tpu_torch.train.trainer import Trainer
 from tempo_tpu_torch.utils.config import (load_config, require_keys,
                                           save_json_yaml, save_yaml)
-
-# parallel.* keys and the values that mean "not parallel"
-_SERIAL = {"pipeline": 1, "tensor": 1, "expert": 1, "context": 1,
-           "context_zigzag": False, "fsdp": False, "n_micro": None}
-
 
 def build_transformer_config(model_cfg: dict) -> TransformerConfig:
     """`model:` config section -> TransformerConfig (lists become
@@ -102,8 +104,9 @@ def refuse_sharded_moe(config) -> None:
     batch, and a rank's own batch gives other numbers."""
     if int(config["model"].get("n_experts", 0)) > 0:
         raise NotImplementedError(
-            "an MoE model (n_experts > 0) under parallel.fsdp or over "
-            "several processes is not ported: JAX's expert capacity and "
+            "an MoE model (n_experts > 0) under parallel.fsdp, "
+            "parallel.tensor or over several processes is not ported: "
+            "JAX's expert capacity and "
             "Switch loss are over the global batch, which waits for the "
             "expert-parallel slice (ROADMAP Queue 1, M13 item 2.2)")
 
@@ -116,27 +119,19 @@ def validate_config(config) -> None:
                          "'synthetic' ({vocab_size, length})")
     if "tokens" in data and not Path(data["tokens"]).exists():
         raise ValueError(f"FATAL: token stream doesn't exist: {data['tokens']}")
-    parallel = dict(config.get("parallel") or {})
-    for key, value in parallel.items():
-        if key not in _SERIAL:
-            raise ValueError(f"FATAL: unknown parallel.{key}")
-        if (key != "fsdp" and _SERIAL[key] is not None
-                and value != _SERIAL[key]):
-            raise NotImplementedError(
-                f"parallel.{key}={value!r} is not ported: it waits for its "
-                f"parallelism (ROADMAP Queue 1, M13)")
-    fsdp = bool(parallel.get("fsdp", False))
+    plan = parallel_plan(config, "train_gpt")
+    sharded = plan.fsdp or plan.n_model > 1
     ft = dict(config.get("finetune", {}))
     if int(ft.get("lora_rank", 0)) > 0:
         if "base_checkpoint" not in ft and "base_run" not in ft:
             raise ValueError("FATAL: finetune.lora_rank needs "
                              "finetune.base_checkpoint (ckpt path) or "
                              "finetune.base_run (train_gpt output dir)")
-        if fsdp:
+        if sharded:
             raise ValueError("FATAL: finetune.lora_rank is the dense "
                              "data-parallel path — adapters are tiny, "
                              "model-sharding them buys nothing")
-    if fsdp:
+    if sharded:
         refuse_sharded_moe(config)
     check_format(config["training"].get("checkpoint_format", "msgpack"))
 
@@ -149,15 +144,15 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
     ``config_path`` is copied into the run as config.yaml; without it the
     dict is written there, and training_info.yaml too, as JSON."""
     validate_config(config)
-    fsdp = bool(dict(config.get("parallel") or {}).get("fsdp", False))
-    with process_group(config, device, single=fsdp) as mesh:
+    plan = parallel_plan(config, "train_gpt")
+    with parallel_group(config, device, plan) as mesh:
         if process_count() > 1:
             refuse_sharded_moe(config)
         return _run(config, overwrite, debug, device, config_path, mesh,
-                    fsdp)
+                    plan)
 
 
-def _run(config, overwrite, debug, device, config_path, mesh, fsdp: bool):
+def _run(config, overwrite, debug, device, config_path, mesh, plan):
     output_dir = start_run_directory(config, overwrite, config_path,
                                      subdirs=("checkpoints",))
 
@@ -213,7 +208,7 @@ def _run(config, overwrite, debug, device, config_path, mesh, fsdp: bool):
         betas=tuple(opt_cfg.get("betas", (0.9, 0.95))),
         moments_dtype=opt_cfg.get("moments_dtype"))
     state = parallelize(create_train_state(trained, tx, seed + 3), tx, mesh,
-                        fsdp)
+                        plan)
     aux_weight = float(train_cfg.get("moe_aux_weight", 0.01))
     trainer = Trainer(
         loss_fn=lm_loss_fn(model, aux_weight), tx=tx, state=state,
@@ -237,8 +232,10 @@ def _run(config, overwrite, debug, device, config_path, mesh, fsdp: bool):
                           val_iter_factory=lambda: iter(val_loader),
                           n_steps=n_steps)
     end_time = datetime.now()
-    if fsdp:  # every rank gathers; rank 0 generates from a plain copy
-        gathered = full_state_dict(model)
+    if plan.fsdp or plan.n_model > 1:
+        # every rank gathers; rank 0 generates from a plain copy
+        gathered = (pfsdp.full_state_dict(model) if plan.fsdp
+                    else ptensor.full_state_dict(model))
         if is_primary():
             model = trained = Transformer(tconfig, device=device)
             model.load_state_dict(gathered)

@@ -24,26 +24,30 @@ streams every train and val record to logs/metrics.jsonl;
 ``training.profile_steps: [start, end]`` traces the steps after ``start``
 through ``end`` into profile/ (torch.profiler's Chrome trace);
 ``training.checkpoint_format: async`` writes the same checkpoints on a
-background thread while training goes on.
+background thread while training goes on, ``sharded`` writes
+``ckpt_step=NNNNNN.shards/`` directories in the JAX package's format, each
+rank its own bytes (train/sharded_checkpoint.py).
 
 Parallelism, one process per GPU (parallel/mesh.py): under torchrun, or
 with an enabled ``distributed:`` section (``coordinator_address``,
 ``num_processes``, ``process_id: auto``), every rank trains its local
 batch under DDP; ``parallel.fsdp: true`` shards the parameters and
 AdamW's moments with FSDP2 instead (parallel/fsdp.py; at world 1 too, as
-JAX's one-device mesh). The host loader gives each rank
+JAX's one-device mesh); ``parallel.tensor: N`` shards every output channel
+that divides over N ranks of a ('data', 'model') mesh instead, data
+parallelism over the rest (parallel/tensor.py), and with ``parallel.fsdp``
+raises ValueError, as JAX's CLI does. The host loader gives each rank
 ``batch_size // LOCAL_WORLD_SIZE`` tiles from ``seed + 1000 * rank``
-(JAX's per-host batch and seed, one process per device); the device
-buffer takes ``batch_size`` as the global batch and ``data.partition``
-(``replicate`` or ``process``: data/device_buffer.py). Rank 0 alone writes
-the run's files; training_info.yaml's ``n_devices`` is the world size.
+(JAX's per-host batch and seed, one process per device; under tensor
+parallelism the rank on the data axis, so the model-axis peers load the
+same rows); the device buffer takes ``batch_size`` as the global batch and
+``data.partition`` (``replicate`` or ``process``: data/device_buffer.py).
+Rank 0 alone writes the run's files; training_info.yaml's ``n_devices``
+is the world size.
 
 ``run(config_dict)`` is the same run from a dict: it needs no YAML reader,
 and writes config.yaml and training_info.yaml as JSON, which YAML readers
 read.
-
-Not ported (NotImplementedError from validate_config): ``parallel.tensor``
-> 1 and ``training.checkpoint_format: sharded`` (M13).
 """
 
 from __future__ import annotations
@@ -54,14 +58,14 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from tempo_tpu_torch.cli import (host_batch, parallelize, run_cli,
+from tempo_tpu_torch.cli import (host_batch, loader_seed, parallel_group,
+                                 parallel_plan, parallelize, run_cli,
                                  start_run_directory)
 from tempo_tpu_torch.data.device_buffer import DeviceTileBuffer
 from tempo_tpu_torch.data.loader import TileLoader
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.models.vae import build_vae
-from tempo_tpu_torch.parallel.mesh import (is_primary, process_count,
-                                           process_group, process_index)
+from tempo_tpu_torch.parallel.mesh import is_primary, process_count
 from tempo_tpu_torch.train.checkpoint import (check_format,
                                               resolve_resume_from)
 from tempo_tpu_torch.train.metrics import JsonlSink
@@ -84,15 +88,12 @@ def validate_config(config) -> None:
     refuse_unported(config)
 
 
-def refuse_unported(config) -> None:
+def refuse_unported(config, trainer: str = "train_vae") -> None:
     """NotImplementedError for what the port's trainers do not do,
-    ValueError for unknown choices."""
+    ValueError for unknown choices and the parallel compositions JAX
+    refuses (cli/__init__.py ``parallel_plan``)."""
     data, train = config["data"], config["training"]
-    parallel = dict(config.get("parallel") or {})
-    if int(parallel.get("tensor", 1)) != 1:
-        raise NotImplementedError("parallel.tensor > 1 is not ported: it "
-                                  "waits for tensor parallelism (ROADMAP "
-                                  "Queue 1, M13)")
+    parallel_plan(config, trainer)
     loader = data.get("loader", "host")
     if loader not in ("host", "device"):
         raise ValueError(f"FATAL: data.loader must be 'host' or 'device', "
@@ -129,7 +130,7 @@ def make_train_loader(data_cfg, train_dir, batch_size: int, seed: int,
     return TileLoader(
         data_dir=train_dir, batch_size=host_batch(batch_size, mesh),
         min_buffer_size=data_cfg.get("min_buffer_size", 200),
-        l2_products=l2_products, seed=seed + 1000 * process_index(),
+        l2_products=l2_products, seed=loader_seed(seed, mesh),
         prefetch=data_cfg.get("prefetch", 2),
         num_threads=data_cfg.get("loader_threads",
                                  data_cfg.get("num_workers", 2)),
@@ -145,13 +146,13 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
     config.yaml; without it the dict is written there, and
     training_info.yaml too, as JSON."""
     validate_config(config)
-    fsdp = bool(dict(config.get("parallel") or {}).get("fsdp", False))
-    with process_group(config, device, single=fsdp) as mesh:
+    plan = parallel_plan(config, "train_vae")
+    with parallel_group(config, device, plan) as mesh:
         return _run(config, overwrite, debug, device, config_path, mesh,
-                    fsdp)
+                    plan)
 
 
-def _run(config, overwrite, debug, device, config_path, mesh, fsdp: bool):
+def _run(config, overwrite, debug, device, config_path, mesh, plan):
     dev = resolve_device(device)
     output_dir = start_run_directory(config, overwrite, config_path)
 
@@ -178,7 +179,7 @@ def _run(config, overwrite, debug, device, config_path, mesh, fsdp: bool):
             data_dir=data_cfg["val_dir"],
             batch_size=host_batch(batch_size, mesh),
             min_buffer_size=data_cfg.get("val_min_buffer_size", 100),
-            seed=seed + 1000 * process_index() + 1,
+            seed=loader_seed(seed, mesh) + 1,
             num_threads=data_cfg.get("val_num_workers", 1), verbose=True)
 
     print("\nInitializing model...")
@@ -192,7 +193,7 @@ def _run(config, overwrite, debug, device, config_path, mesh, fsdp: bool):
         config.get("optimizer", {}),
         n_steps=int(train_cfg.get("n_steps", 10_000)))
     state = parallelize(create_train_state(model, tx, seed + 2), tx, mesh,
-                        fsdp)
+                        plan)
     save_steps = None
     if train_cfg.get("save_schedule") == "sqrt":
         save_steps = sqrt_save_steps(train_cfg["n_steps"],

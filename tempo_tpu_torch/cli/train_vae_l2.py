@@ -17,7 +17,7 @@ of the port's train_vae or the JAX package's (a ``.msgpack``, through
 train/checkpoint.py ``load_params``; the optimizer starts fresh, over every
 parameter). The config, --overwrite, --debug, ``training.resume_from``
 (auto or a path), ``training.grad_accum``, ``training.metrics_jsonl`` and
-``training.checkpoint_format`` (msgpack or async) behave as in the port's
+``training.checkpoint_format`` (msgpack, async or sharded) behave as in the port's
 train_vae; ``training.profile_steps`` is neither read nor refused, as the
 JAX CLI reads none. The artifacts are train_vae's plus
 summary/l2_losses.png, the L2 panels of the figures, and the products and
@@ -26,8 +26,10 @@ weights in training_info.yaml.
 Parallelism as in the port's train_vae (torchrun or ``distributed:``,
 DDP over the ranks, the loaders' local batches and seeds, ``data.partition``
 for the device buffer, rank 0 writing), without FSDP: as the JAX CLI, it
-reads no ``parallel.fsdp``. The L2 losses divide by the valid positions of
-the global batch (models/vae_l2.py ``masked_mse``), as JAX's mesh step.
+reads no ``parallel.fsdp``; ``parallel.tensor: N`` as in train_vae. The
+L2 losses divide by the valid positions of the global batch
+(models/vae_l2.py ``masked_mse``, the counts summed over the data axis),
+as JAX's mesh step.
 
 ``run(config_dict)`` is the same run from a dict: it needs no YAML
 reader, and writes config.yaml and training_info.yaml as JSON, which
@@ -42,15 +44,15 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from tempo_tpu_torch.cli import (host_batch, parallelize, run_cli,
+from tempo_tpu_torch.cli import (host_batch, loader_seed, parallel_group,
+                                 parallel_plan, parallelize, run_cli,
                                  start_run_directory)
 from tempo_tpu_torch.cli.train_vae import (_metric_sinks, make_train_loader,
                                            refuse_unported)
 from tempo_tpu_torch.data.loader import TileLoader
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.models.vae_l2 import L2_PRODUCTS, build_vae_l2
-from tempo_tpu_torch.parallel.mesh import (is_primary, process_count,
-                                           process_group, process_index)
+from tempo_tpu_torch.parallel.mesh import is_primary, process_count
 from tempo_tpu_torch.train.checkpoint import (load_params,
                                               resolve_resume_from)
 from tempo_tpu_torch.train.state import (create_train_state,
@@ -67,7 +69,7 @@ def validate_config(config: Dict[str, Any]) -> None:
     data_dir = Path(config["data"]["data_dir"])
     if not data_dir.exists():
         raise ValueError(f"FATAL: data directory doesn't exist: {data_dir}")
-    refuse_unported(config)
+    refuse_unported(config, "train_vae_l2")
 
 
 def warm_start_vae(model, path: Union[str, Path]) -> None:
@@ -85,11 +87,13 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
     ``config_path`` is copied into the run as config.yaml; without it the
     dict is written there."""
     validate_config(config)
-    with process_group(config, device) as mesh:
-        return _run(config, overwrite, debug, device, config_path, mesh)
+    plan = parallel_plan(config, "train_vae_l2")
+    with parallel_group(config, device, plan) as mesh:
+        return _run(config, overwrite, debug, device, config_path, mesh,
+                    plan)
 
 
-def _run(config, overwrite, debug, device, config_path, mesh):
+def _run(config, overwrite, debug, device, config_path, mesh, plan):
     dev = resolve_device(device)
     output_dir = start_run_directory(config, overwrite, config_path)
 
@@ -124,7 +128,7 @@ def _run(config, overwrite, debug, device, config_path, mesh):
             data_dir=data_dir / "val",
             batch_size=host_batch(batch_size, mesh),
             min_buffer_size=data_cfg.get("val_min_buffer_size", 100),
-            l2_products=products, seed=seed + 1 + 1000 * process_index(),
+            l2_products=products, seed=loader_seed(seed, mesh) + 1,
             num_threads=data_cfg.get("val_num_workers", 1), verbose=True)
 
     try:
@@ -143,7 +147,7 @@ def _run(config, overwrite, debug, device, config_path, mesh):
             config.get("optimizer", {}),
             n_steps=int(train_cfg.get("n_steps", 10_000)))
         state = parallelize(create_train_state(model, tx, seed + 2), tx,
-                            mesh, fsdp=False)
+                            mesh, plan)
         trainer = Trainer(
             loss_fn=vae_l2_loss_fn(model, l2_weights), tx=tx, state=state,
             output_dir=output_dir,

@@ -40,7 +40,10 @@ batch. ``partition='process'``: rank r owns ``files[r::W]``, draws its
 indices from ``default_rng(seed + 1_000_003 r)`` and its shards from
 ``default_rng(seed + 7919 + 1_000_003 r)``, and gathers its local batch,
 ``batch_size // W``, from its own pool. One process (or no mesh) is the
-one-device buffer under either partition, as JAX's single process.
+one-device buffer under either partition, as JAX's single process. Under
+a ('data', 'model') mesh (tensor parallelism, parallel/tensor.py) W and
+r are the data axis's: the model-axis peers of a data row hold the same
+pool and gather the same rows.
 """
 
 from __future__ import annotations

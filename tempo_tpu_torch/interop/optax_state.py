@@ -70,17 +70,21 @@ def generator_seed(key: Any) -> int:
     return sum(int(w) << (32 * i) for i, w in enumerate(words))
 
 
-def load_jax_train_state(raw: Mapping[str, Any], state
-                         ) -> Tuple[Any, List[Dict], List[Dict]]:
+def load_jax_train_state(raw: Mapping[str, Any], state,
+                         load_full=None) -> Tuple[Any, List[Dict], List[Dict]]:
     """Restore ``state`` (train/state.py TrainState of the port model
     and optimizer matching the JAX run) in place from a decoded JAX
     checkpoint ``raw`` (interop/jax_ckpt.py ``read_jax_checkpoint``);
     returns it with the train and validation metric histories. The
-    moments take the optimizer's types (MuAdamW's first moment bf16)."""
+    moments take the optimizer's types (MuAdamW's first moment bf16).
+    ``load_full(state, model_sd, opt_sd)`` loads the one-device state
+    dicts (train/checkpoint.py ``load_full_state``, which gives each
+    shard its slice under FSDP2 or tensor parallelism); None loads them
+    as they are."""
     from tempo_tpu_torch.interop.jax_ckpt import jax_state_dict_for
 
     model, opt = state.model, state.optimizer
-    model.load_state_dict(jax_state_dict_for(model, raw["params"]))
+    model_sd = jax_state_dict_for(model, raw["params"])
     adam = adam_state(raw["opt_state"])
     mu = jax_state_dict_for(model, adam["mu"])
     nu = jax_state_dict_for(model, adam["nu"])
@@ -96,7 +100,11 @@ def load_jax_train_state(raw: Mapping[str, Any], state
                           "exp_avg": mu[name], "exp_avg_sq": nu[name]}
             i += 1
     torch_sd["state"] = moments
-    opt.load_state_dict(torch_sd)
+    if load_full is None:
+        model.load_state_dict(model_sd)
+        opt.load_state_dict(torch_sd)
+    else:
+        load_full(state, model_sd, torch_sd)
     state.generator.manual_seed(generator_seed(raw["rng"]))
     if raw.get("ema"):
         device = next(model.parameters()).device

@@ -30,9 +30,8 @@ from torch import nn
 
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.models.vae import AutoencoderKL, VAEConfig, vae_loss
-from tempo_tpu_torch.nn.blocks import Dense, GroupNorm, init_weights
+from tempo_tpu_torch.nn.blocks import Dense, GroupNorm, init_weights, norm_act
 from tempo_tpu_torch.nn.distributions import DiagonalGaussian
-from tempo_tpu_torch.ops.norms import group_norm_act
 
 L2_PRODUCTS: Tuple[str, ...] = ("NO2", "O3TOT", "HCHO", "CLDO4")
 DEFAULT_L2_WEIGHTS: Dict[str, float] = {p: 0.1 for p in L2_PRODUCTS}
@@ -61,9 +60,7 @@ class L2PredictionHead(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         h = z.to(self.compute_dtype)
         for i in range(0, len(self.mlp) - 1, 3):
-            norm = self.mlp[i + 1]
-            h = group_norm_act(self.mlp[i](h), norm.num_groups, norm.weight,
-                               norm.bias, norm.eps, act_name="gelu")
+            h = norm_act(self.mlp[i + 1], self.mlp[i](h), "gelu")
         return self.mlp[-1](h)
 
 
@@ -148,8 +145,10 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor,
     gradient of exactly 0.
 
     ``group``: the W ranks whose slices make up the batch (data
-    parallelism; the train step passes it). The count is then the global
-    one, as JAX's mesh step divides by the valid positions of the whole
+    parallelism, or the data axis under tensor parallelism, whose
+    model-axis peers hold the same rows; the train step passes it). The
+    count is then the global one, as JAX's mesh step divides by the valid
+    positions of the whole
     batch: the counts are summed over the group (an all-reduce, so every
     rank of it must call this in step), and each rank returns W * its
     squared sum / the global count.

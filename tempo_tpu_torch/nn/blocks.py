@@ -21,6 +21,13 @@ columns, every GroupNorm takes statistics from K1a's sums over the ranks,
 and AttnBlock gathers K and V along W. The stride-2 resamples and Dense
 need none.
 
+Under tensor parallelism (parallel/tensor.py ``shard_params_tp``: output
+channels sharded over the model axis) a layer whose weight is a shard
+takes the whole input, computes its rank's output channels (a K2 call
+its share of F) and gathers them; the norms gather their sharded affines
+and run whole (K1). ``Upsample2x`` then holds its shard in JAX's matmul
+layout and computes as JAX's: matmul, gather, depth-to-space, bias.
+
 Modules and parameters carry the reference PyTorch model's names
 (``resnet_blocks.{j}.net1.0`` ...), so its state_dicts load as they are.
 Parameters stay fp32; activations are cast to ``compute_dtype`` where the
@@ -38,7 +45,7 @@ import torch
 from torch import nn
 
 from tempo_tpu_torch.ops import cuda_gn, cuda_gn_conv
-from tempo_tpu_torch.parallel import spatial
+from tempo_tpu_torch.parallel import spatial, tensor
 from tempo_tpu_torch.ops.convs import (conv2d_nhwc, conv3d_ndhwc,
                                        conv_transpose2x_ndhwc,
                                        conv_transpose2x_nhwc, dense)
@@ -73,7 +80,12 @@ class Conv2d(nn.Conv2d):
             return conv2d_nhwc(t, self.weight, self.bias, padding=pad)
 
         plan = spatial.active()
-        return conv(x) if plan is None else plan.halo_conv(x, conv, pad)
+        if plan is not None and tensor.of_layer(self) is not None:
+            raise NotImplementedError("spatial sharding of a tensor-parallel "
+                                      "model is not ported")
+        if plan is not None:
+            return plan.halo_conv(x, conv, pad)
+        return tensor.sharded_call(self, conv, x)
 
     def packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
         """The weight as K2's [9, C, F] in ``dtype``, cached until the
@@ -104,7 +116,9 @@ class Dense(nn.Conv2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x.to(self.compute_dtype), self.weight, self.bias)
+        return tensor.sharded_call(
+            self, lambda t: dense(t, self.weight, self.bias),
+            x.to(self.compute_dtype))
 
 
 class Downsample2x(nn.Conv2d):
@@ -116,8 +130,9 @@ class Downsample2x(nn.Conv2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_nhwc(x.to(self.compute_dtype), self.weight, self.bias,
-                           stride=2)
+        return tensor.sharded_call(
+            self, lambda t: conv2d_nhwc(t, self.weight, self.bias, stride=2),
+            x.to(self.compute_dtype))
 
 
 class Upsample2x(nn.ConvTranspose2d):
@@ -129,8 +144,17 @@ class Upsample2x(nn.ConvTranspose2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_transpose2x_nhwc(x.to(self.compute_dtype), self.weight,
-                                     self.bias)
+        x = x.to(self.compute_dtype)
+        if tensor.of_layer(self) is None:
+            return conv_transpose2x_nhwc(x, self.weight, self.bias)
+        # the shard is [in, (di, dj, out) / n], JAX's matmul kernel
+        h = tensor.sharded_call(
+            self, lambda t: torch.matmul(t, self.weight.to(t.dtype)), x)
+        b, hh, ww, _ = h.shape
+        h = h.reshape(b, hh, ww, 2, 2, -1).permute(0, 1, 3, 2, 4, 5)
+        h = h.reshape(b, 2 * hh, 2 * ww, -1)
+        bias = tensor.whole(self, "bias")
+        return h if bias is None else h + bias.to(h.dtype)
 
 
 class Conv3d(nn.Conv3d):
@@ -183,12 +207,13 @@ def norm_act(norm: GroupNorm, x: torch.Tensor,
     """act(norm(x)) through K1; under a spatial plan, K1b from the
     statistics of the whole sample (K1a's sums over the ranks)."""
     plan = spatial.active()
+    weight, bias = tensor.affine(norm)
     if plan is None:
-        return group_norm_act(x, norm.num_groups, norm.weight, norm.bias,
-                              norm.eps, act_name=act)
+        return group_norm_act(x, norm.num_groups, weight, bias, norm.eps,
+                              act_name=act)
     return cuda_gn.gn_apply(x, plan.group_stats(x, norm.num_groups,
                                                 norm.eps),
-                            norm.weight, norm.bias, act)
+                            weight, bias, act)
 
 
 def _convs_after_norm(model: nn.Module) -> Iterator[Conv2d]:
@@ -249,9 +274,14 @@ def norm_act_conv(norm: GroupNorm, act: str, conv: nn.Module,
         return plan.halo_conv(x, lambda t: cuda_gn_conv.conv3x3_from_stats(
             t, stats, norm.weight, norm.bias, conv.weight, conv.bias, act,
             packed), 1)
-    return cuda_gn_conv.gn_act_conv3x3(
-        x, norm.weight, norm.bias, conv.weight, conv.bias, norm.num_groups,
-        norm.eps, act, packed=packed)
+    scale, shift = tensor.affine(norm)
+    tp = tensor.of_layer(conv)
+    if tp is not None:  # this rank's F share from the whole input
+        x, scale, shift = tensor.enter(tp, x, scale, shift)
+    out = cuda_gn_conv.gn_act_conv3x3(
+        x, scale, shift, conv.weight, conv.bias, norm.num_groups, norm.eps,
+        act, packed=packed)
+    return out if tp is None else tensor.gather(out, tp)
 
 
 class ResNetBlock(nn.Module):

@@ -87,6 +87,7 @@ from torch import nn
 from tempo_tpu_torch.device import resolve_device
 from tempo_tpu_torch.ops import cuda_decode, flash_attention
 from tempo_tpu_torch.ops.norms import gelu_exact
+from tempo_tpu_torch.parallel import tensor
 from tempo_tpu_torch.train.state import Optimizer
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -227,7 +228,9 @@ class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         b = None if self.bias is None else cast_param(self, self.bias, dt)
-        return F.linear(cast(x, dt), cast_param(self, self.weight, dt), b)
+        return tensor.sharded_call(
+            self, lambda t: F.linear(t, cast_param(self, self.weight, dt), b),
+            cast(x, dt))
 
 
 def make_linear(cin: int, cout: int, bias: bool, cfg: TransformerConfig
@@ -267,8 +270,9 @@ class LayerNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.layer_norm(cast(x, torch.float32), x.shape[-1:], self.weight,
-                         self.bias, 1e-5)
+        weight, bias = tensor.affine(self)
+        h = F.layer_norm(cast(x, torch.float32), x.shape[-1:], weight, bias,
+                         1e-5)
         return cast(h, self.dtype)
 
 
@@ -733,8 +737,9 @@ class Transformer(nn.Module):
             out = self.lm_head(h)
         elif cfg.quantize == "int8":
             out = wte.head(h, cfg.dtype)
-        else:
-            out = h @ cast_param(self, wte.weight, cfg.dtype).T
+        else:  # under TP the n_embd-sharded table is gathered for it
+            out = h @ tensor.gather_output(
+                wte, cast_param(self, wte.weight, cfg.dtype), "weights").T
         result = (out,) if cache is None else (out, tuple(new_caches))
         if with_aux:
             from tempo_tpu_torch.nn.moe import moe_aux_mean
@@ -764,18 +769,22 @@ class Transformer(nn.Module):
         elif cfg.quantize == "int8":
             h = wte.embed(x, cfg.dtype)
         else:
-            h = cast(F.embedding(x, wte.weight), cfg.dtype)
+            h = tensor.gather_output(
+                wte, cast(F.embedding(x, wte.weight), cfg.dtype))
         h = _tap(tap, h, "tok_emb")
         if cfg.pos_embed:
-            wpe = self.transformer["wpe"].weight
+            wpe = self.transformer["wpe"]
             pos = _token_positions(input_pos, b, t, dev)
+
+            def pos_emb(p: torch.Tensor) -> torch.Tensor:
+                return _tap(tap, tensor.gather_output(wpe, cast(
+                    F.embedding(p, wpe.weight), cfg.dtype)), "pos_emb")
+
             if pos is None or input_pos.ndim == 0:
                 pos = torch.arange(t, device=dev) if pos is None else pos[0]
-                h = h + _tap(tap, cast(F.embedding(pos, wpe), cfg.dtype),
-                             "pos_emb")[None]
+                h = h + pos_emb(pos)[None]
             else:
-                h = h + _tap(tap, cast(F.embedding(pos, wpe), cfg.dtype),
-                             "pos_emb")
+                h = h + pos_emb(pos)
         return h
 
     def _embed_dict(self, x, dev: torch.device) -> torch.Tensor:

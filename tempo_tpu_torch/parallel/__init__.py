@@ -1,10 +1,11 @@
 """Parallelism over processes; counterpart of tempo_tpu/parallel.
 
 Ported: the mesh and data parallelism (mesh.py, DDP), ZeRO-3 (fsdp.py,
-FSDP2) and spatial sharding of a whole granule along W (spatial.py: conv
-halos, GroupNorm sums over the ranks, the mid attention's K/V gathered).
-Tensor, pipeline, expert and context parallelism are not ported yet
-(ROADMAP Queue 1, M13).
+FSDP2), spatial sharding of a whole granule along W (spatial.py: conv
+halos, GroupNorm sums over the ranks, the mid attention's K/V gathered)
+and tensor parallelism (tensor.py: output channels over a ('data',
+'model') mesh, their gathers made by the layers). Pipeline, expert and
+context parallelism are not ported yet (ROADMAP Queue 1, M13).
 
 The names below load their module at first use, so that importing a
 submodule (nn/blocks.py reads spatial.py's plan) does not load FSDP2's
@@ -26,6 +27,11 @@ _EXPORTS = {
     "sharded_forward": "spatial",
     "encode_spatially_sharded": "spatial",
     "decode_spatially_sharded": "spatial",
+    "MODEL_AXIS": "tensor",
+    "create_tp_mesh": "tensor",
+    "tp_sharding_rule": "tensor",
+    "shard_state_tp": "tensor",
+    "shard_params_tp": "tensor",
 }
 
 __all__ = list(_EXPORTS)

@@ -51,6 +51,10 @@ from torch import nn
 from tempo_tpu_torch.device import resolve_device
 
 DATA_AXIS = "data"
+# The collectives each backend runs on CUDA tensors (torch.distributed's
+# table): gloo takes CUDA tensors for broadcast and all-reduce only.
+_CUDA_COLLECTIVES = {"nccl": {"all_reduce", "all_gather", "broadcast", "p2p"},
+                     "gloo": {"all_reduce", "broadcast"}}
 RANK_VARS = ("JAX_PROCESS_ID", "SLURM_PROCID", "PMI_RANK", "RANK")
 RENDEZVOUS_TIMEOUT_S = 600.0  # and each collective's
 
@@ -79,6 +83,17 @@ def local_world_size() -> int:
     """Processes on this host (torchrun's LOCAL_WORLD_SIZE; 1 without
     it: one process per host, as JAX runs)."""
     return int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+
+
+def comm_device(t: torch.Tensor, op: str, group=None) -> torch.device:
+    """Where collective ``op`` of ``group`` moves ``t``: on t's device
+    where the backend takes it there, else through host memory (a CUDA
+    tensor's all-gather over gloo)."""
+    if t.device.type == "cpu":
+        return t.device
+    return (t.device if op in _CUDA_COLLECTIVES.get(dist.get_backend(group),
+                                                    ())
+            else torch.device("cpu"))
 
 
 def barrier() -> None:
@@ -152,12 +167,15 @@ def maybe_initialize_distributed(config: dict, device=None):
 
 
 @contextlib.contextmanager
-def process_group(config: dict, device=None,
-                  single: bool = False) -> Iterator[Any]:
+def process_group(config: dict, device=None, single: bool = False,
+                  n_model: int = 1) -> Iterator[Any]:
     """``maybe_initialize_distributed`` for the length of a run: yields the
     mesh (None without a group) and destroys on exit the group it joined
     (never one the caller joined). ``single``: with no group to join, join
-    a group of this process alone (FSDP2 needs a mesh even at world 1)."""
+    a group of this process alone (FSDP2 needs a mesh even at world 1).
+    ``n_model`` > 1: the mesh is the ('data', 'model') one
+    (parallel/tensor.py ``create_tp_mesh``; ValueError where the process
+    count does not divide)."""
     joined = not is_active()
     mesh = maybe_initialize_distributed(config, device)
     if mesh is None and single:
@@ -167,6 +185,10 @@ def process_group(config: dict, device=None,
             rank=0, world_size=1)
         mesh = create_mesh(dev)
     try:
+        if n_model > 1:
+            from tempo_tpu_torch.parallel.tensor import create_tp_mesh
+
+            mesh = create_tp_mesh(n_model, device)
         yield mesh
     finally:
         if joined and is_active():
@@ -207,14 +229,25 @@ class BatchShard:
         return batch[self.rows(batch.shape[0])]
 
 
-def batch_sharding(mesh=None) -> BatchShard:
-    """This rank's slice of a global batch (the whole batch without a
-    mesh; a BatchShard is its own)."""
+def data_axis(mesh) -> tuple:
+    """(this rank's index, size) of the mesh's 'data' axis: of the whole
+    mesh for the one-axis mesh, of its outer axis for the ('data',
+    'model') one (the model-axis peers share an index); a BatchShard's
+    own."""
     if mesh is None:
-        return BatchShard(0, 1)
+        return 0, 1
+    if isinstance(mesh, BatchShard):
+        return mesh.rank, mesh.world
+    return mesh.get_local_rank(DATA_AXIS), mesh[DATA_AXIS].size()
+
+
+def batch_sharding(mesh=None) -> BatchShard:
+    """This rank's slice of a global batch, cut over the mesh's 'data'
+    axis only (the whole batch without a mesh; a BatchShard is its
+    own)."""
     if isinstance(mesh, BatchShard):
         return mesh
-    return BatchShard(mesh.get_local_rank(DATA_AXIS), mesh.size())
+    return BatchShard(*data_axis(mesh))
 
 
 class RankSlice:
@@ -292,10 +325,13 @@ def replicate_sharding(model: nn.Module, mesh=None):
         process_group=None if mesh is None else mesh.get_group())
 
 
-def rank_seed(generator: torch.Generator) -> None:
-    """Reseed a generator to initial_seed + 1000 * rank: each rank draws
-    its own posterior, time and noise samples (rank 0 keeps the seed)."""
-    rank = process_index()
+def rank_seed(generator: torch.Generator,
+              rank: Optional[int] = None) -> None:
+    """Reseed a generator to initial_seed + 1000 * rank (the world rank by
+    default; the data rank under tensor parallelism, so model-axis peers
+    draw alike): each rank draws its own posterior, time and noise
+    samples (rank 0 keeps the seed)."""
+    rank = process_index() if rank is None else rank
     if rank:
         generator.manual_seed(generator.initial_seed() + 1000 * rank)
 

@@ -56,14 +56,12 @@ import torch
 import torch.distributed as dist
 
 from tempo_tpu_torch.ops import cuda_gn
+from tempo_tpu_torch.parallel.mesh import comm_device
 
 SPATIAL_AXIS = "data"  # the mesh's one axis (parallel/mesh.py)
 # Bytes brought to this rank by each exchange: halo columns, W gathers (the
 # attention's K/V, the assembly of outputs), all-reduced GroupNorm sums.
 EXCHANGED = {"halo": 0, "gather": 0, "reduce": 0}
-# The collectives each backend runs on CUDA tensors.
-_CUDA_COLLECTIVES = {"nccl": {"all_reduce", "all_gather", "broadcast", "p2p"},
-                     "gloo": {"all_reduce", "broadcast"}}
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar("spatial_plan",
                                                          default=None)
 
@@ -96,13 +94,8 @@ class SpatialSharding:
         return lo, lo + w[self.rank]
 
     def comm_device(self, t: torch.Tensor, op: str) -> torch.device:
-        """Where ``op`` moves ``t``: on t's device where the backend takes
-        it there, else through host memory."""
-        if t.device.type == "cpu":
-            return t.device
-        backend = dist.get_backend(self.group)
-        return (t.device if op in _CUDA_COLLECTIVES.get(backend, ())
-                else torch.device("cpu"))
+        """Where ``op`` moves ``t`` (parallel/mesh.py ``comm_device``)."""
+        return comm_device(t, op, self.group)
 
     def peer(self, rank: int) -> int:
         """The global rank of ``rank`` of the group."""

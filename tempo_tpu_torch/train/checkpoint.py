@@ -13,19 +13,25 @@ files and from the JAX package's ``.msgpack`` full states
 (interop/optax_state.py). ``load_params`` restores only the model's
 parameters, for inference and analysis, from the port's ``.pt``
 checkpoints, reference torch checkpoints and the JAX package's
-``.msgpack`` ones (interop/jax_ckpt.py). The sharded format is not
-ported.
+``.msgpack`` ones (interop/jax_ckpt.py). ``checkpoint_format: sharded``
+writes ``ckpt_step=NNNNNN.shards/`` directories in the JAX package's
+format (train/sharded_checkpoint.py), which ``load_checkpoint``,
+``load_params`` and ``list_checkpoints`` take as well as files.
 
 Over a process group every rank joins a save and rank 0 alone writes the
 file, in the single-device format with the single-device keys: under DDP
 the plain module's state dicts are those; under FSDP2 the shards are
 gathered first (parallel/fsdp.py ``full_state_dict``,
 ``full_optimizer_state``: collectives, on the calling thread, also for the
-async writer). A multi-rank file also holds ``rank_generators``, every
-rank's generator state, so a resume at the same world size draws as the
-run would have. ``load_checkpoint`` and ``load_params`` read a file on one
-device and under DDP or FSDP2 (a sharded model takes its shards of the
-full tensors).
+async writer), and so are tensor-parallel slices (parallel/tensor.py's
+functions of the same names). A multi-rank file also holds
+``rank_generators``, every rank's generator state, so a resume at the
+same world size draws as the run would have (``restore_generator``; under
+tensor parallelism the model-axis peers then take their model rank 0's,
+whatever layout wrote the file). ``load_checkpoint`` and ``load_params``
+read a file on one device and under DDP, FSDP2 or tensor parallelism (a
+sharded model takes its shards of the full tensors); so does a JAX
+``.msgpack`` full state.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
-from tempo_tpu_torch.parallel import fsdp
+from tempo_tpu_torch.parallel import fsdp, tensor
 from tempo_tpu_torch.parallel.mesh import (barrier, is_primary,
                                            process_count, process_index)
 from tempo_tpu_torch.train.state import TrainState
@@ -51,14 +57,10 @@ JAX_SUFFIX = ".msgpack"  # the JAX package's checkpoints, read by load_params
 
 def check_format(fmt: str) -> None:
     """A ``checkpoint_format`` the port writes: 'msgpack' (the JAX
-    package's name of its single-file format; the port's files are .pt)
-    or 'async' (the same files, written by AsyncCheckpointer). 'sharded'
-    raises NotImplementedError, anything else ValueError."""
-    if fmt == "sharded":
-        raise NotImplementedError(
-            "checkpoint_format 'sharded' is not ported: it waits for the "
-            "sharded checkpoint format (ROADMAP Queue 1, M13)")
-    if fmt not in ("msgpack", "async"):
+    package's name of its single-file format; the port's files are .pt),
+    'async' (the same files, written by AsyncCheckpointer) or 'sharded'
+    (train/sharded_checkpoint.py); anything else raises ValueError."""
+    if fmt not in ("msgpack", "async", "sharded"):
         raise ValueError(f"FATAL: unknown checkpoint_format {fmt!r} "
                          f"(msgpack | async | sharded)")
 
@@ -113,6 +115,37 @@ def _is_sharded(model: torch.nn.Module) -> bool:
     return any(fsdp.is_sharded(p) for p in model.parameters())
 
 
+def _full_views(state: TrainState) -> tuple:
+    """The model's and optimizer's state dicts as one device's: gathered
+    under FSDP2 or tensor parallelism (collectives), as they are
+    otherwise; and whether they were gathered."""
+    if _is_sharded(state.model):
+        return (fsdp.full_state_dict(state.model),
+                fsdp.full_optimizer_state(state.optimizer), True)
+    if tensor.of(state.model) is not None:
+        return (tensor.full_state_dict(state.model),
+                tensor.full_optimizer_state(state.optimizer), True)
+    return state.model.state_dict(), state.optimizer.state_dict(), False
+
+
+def load_full_state(state: TrainState, model_sd: Dict[str, torch.Tensor],
+                    opt_sd: Optional[dict] = None) -> None:
+    """Load one device's state dicts into ``state``: each shard takes its
+    slice under FSDP2 or tensor parallelism."""
+    if _is_sharded(state.model):
+        fsdp.load_full_state_dict(state.model, model_sd)
+        if opt_sd is not None:
+            fsdp.load_full_optimizer_state(state.optimizer, opt_sd)
+    elif tensor.of(state.model) is not None:
+        tensor.load_full_state_dict(state.model, model_sd)
+        if opt_sd is not None:
+            tensor.load_full_optimizer_state(state.optimizer, opt_sd)
+    else:
+        state.model.load_state_dict(model_sd)
+        if opt_sd is not None:
+            state.optimizer.load_state_dict(opt_sd)
+
+
 def _host_payload(state: TrainState,
                   train_metrics: Optional[List[Dict]],
                   val_metrics: Optional[List[Dict]],
@@ -125,13 +158,9 @@ def _host_payload(state: TrainState,
     write in flight. Over a process group every rank calls this (the
     gathers are collectives) and only rank 0 gets the payload; the others
     get None."""
-    if _is_sharded(state.model):
-        model_sd = fsdp.full_state_dict(state.model)
-        opt_sd = fsdp.full_optimizer_state(state.optimizer)
+    model_sd, opt_sd, gathered = _full_views(state)
+    if gathered:
         staging = None  # the gathered tensors are new at every save
-    else:
-        model_sd = state.model.state_dict()
-        opt_sd = state.optimizer.state_dict()
     generators = None
     if process_count() > 1:
         generators = [None] * process_count()
@@ -225,45 +254,48 @@ class AsyncCheckpointer:
             self._pool.shutdown(wait=True)
 
 
+def restore_generator(state: TrainState, generators: Optional[list],
+                      first: Optional[torch.Tensor]) -> None:
+    """The generator of a resumed run: a rank's own state where the file
+    has every rank's (``generators``, by world rank) for this world size;
+    otherwise rank 0 takes ``first`` (the file's rank-0 state; None keeps
+    it) and the others keep their seeds. Under tensor parallelism the
+    model-axis peers then take their model rank 0's state, so that they
+    draw alike whatever layout wrote the file."""
+    if generators is not None and len(generators) == process_count():
+        state.generator.set_state(generators[process_index()])
+    elif first is not None and process_index() == 0:
+        state.generator.set_state(first)
+    tensor.share_generator(state.model, state.generator)
+
+
 def load_checkpoint(path: Union[str, Path], state: TrainState
                     ) -> Tuple[TrainState, List[Dict], List[Dict]]:
     """Restore ``state`` (a state of the same model and optimizer layout)
-    from ``path`` in place; returns it with the metric histories. A JAX
-    ``.msgpack`` full state (parameters, optax's AdamW moments and count,
-    the EMA, the histories) is mapped by interop/optax_state.py; its PRNG
-    key seeds the generator (``generator_seed``)."""
+    from ``path`` in place; returns it with the metric histories. A
+    ``.shards`` directory (either package's) goes through
+    train/sharded_checkpoint.py. A JAX ``.msgpack`` full state
+    (parameters, optax's AdamW moments and count, the EMA, the histories)
+    is mapped by interop/optax_state.py; its PRNG key seeds the generator
+    (``generator_seed``)."""
     path = Path(path)
     if path.is_dir():
-        raise NotImplementedError(
-            f"{path}: sharded checkpoint directories wait for the sharded "
-            f"checkpoint format (ROADMAP Queue 1, M13), which is not ported")
-    sharded = _is_sharded(state.model)
+        from tempo_tpu_torch.train.sharded_checkpoint import (
+            load_checkpoint_sharded)
+
+        return load_checkpoint_sharded(path, state)
     if path.suffix == JAX_SUFFIX:
-        if sharded:
-            raise NotImplementedError(
-                f"{path}: resuming a JAX .msgpack state under FSDP2 is not "
-                f"ported; resume it on one device or under DDP")
         from tempo_tpu_torch.interop.jax_ckpt import read_jax_checkpoint
         from tempo_tpu_torch.interop.optax_state import load_jax_train_state
 
-        return load_jax_train_state(read_jax_checkpoint(path), state)
+        return load_jax_train_state(read_jax_checkpoint(path), state,
+                                    load_full_state)
     device = next(state.model.parameters()).device
     # on the host: load_state_dict moves what belongs with the parameters
     # (the optimizer's step counts stay on the host, as a fresh AdamW's)
     raw = torch.load(path, map_location="cpu", weights_only=True)
-    if sharded:
-        fsdp.load_full_state_dict(state.model, raw["model"])
-        fsdp.load_full_optimizer_state(state.optimizer, raw["optimizer"])
-    else:
-        state.model.load_state_dict(raw["model"])
-        state.optimizer.load_state_dict(raw["optimizer"])
-    # a rank's own draws where the file has them for this world size;
-    # without them rank 0 takes the file's and the others keep their seeds
-    generators = raw.get("rank_generators")
-    if generators is not None and len(generators) == process_count():
-        state.generator.set_state(generators[process_index()])
-    elif process_index() == 0:
-        state.generator.set_state(raw["generator"])
+    load_full_state(state, raw["model"], raw["optimizer"])
+    restore_generator(state, raw.get("rank_generators"), raw["generator"])
     if raw["ema"]:
         state.ema = {k: torch.tensor(v, dtype=torch.float32, device=device)
                      for k, v in raw["ema"].items()}
@@ -283,13 +315,15 @@ def load_params(path: Union[str, Path], model: torch.nn.Module
     dict, or the trainer schema's ``model_state_dict``): the port's
     parameter names are the reference's; and the JAX package's ``.msgpack``
     checkpoints, their ``params`` converted by the model's class
-    (interop/jax_ckpt.py). A model without an L2 head takes the ``vae``
-    half of an L2-supervised checkpoint."""
+    (interop/jax_ckpt.py), and either package's ``.shards`` directories.
+    A model without an L2 head takes the ``vae`` half of an L2-supervised
+    checkpoint."""
     path = Path(path)
     if path.is_dir():
-        raise NotImplementedError(
-            f"{path}: sharded checkpoint directories wait for the sharded "
-            f"checkpoint format (ROADMAP Queue 1, M13), which is not ported")
+        from tempo_tpu_torch.train.sharded_checkpoint import (
+            load_params_sharded)
+
+        return load_params_sharded(path, model)
     if path.suffix == JAX_SUFFIX:
         from tempo_tpu_torch.interop.jax_ckpt import load_jax_params
 
@@ -304,6 +338,8 @@ def load_params(path: Union[str, Path], model: torch.nn.Module
         state_dict = nested or state_dict
     if _is_sharded(model):
         fsdp.load_full_state_dict(model, state_dict)
+    elif tensor.of(model) is not None:
+        tensor.load_full_state_dict(model, state_dict)
     else:
         model.load_state_dict(state_dict)
     return model
@@ -311,10 +347,17 @@ def load_params(path: Union[str, Path], model: torch.nn.Module
 
 def list_checkpoints(ckpt_dir: Union[str, Path]) -> List[Path]:
     """Every checkpoint in a directory (the port's and reference ``.pt``
-    files, and the JAX package's ``.msgpack`` ones), sorted by step."""
-    return sorted((p for suffix in (CKPT_SUFFIX, JAX_SUFFIX)
-                   for p in Path(ckpt_dir).glob(f"{CKPT_PREFIX}*{suffix}")),
-                  key=checkpoint_step)
+    files, the JAX package's ``.msgpack`` ones, and either package's
+    ``.shards`` directories that hold an ``index.json``), sorted by
+    step."""
+    from tempo_tpu_torch.train.sharded_checkpoint import (
+        SHARDED_SUFFIX, is_sharded_checkpoint)
+
+    found = [p for suffix in (CKPT_SUFFIX, JAX_SUFFIX)
+             for p in Path(ckpt_dir).glob(f"{CKPT_PREFIX}*{suffix}")]
+    found += [p for p in Path(ckpt_dir).glob(
+        f"{CKPT_PREFIX}*{SHARDED_SUFFIX}") if is_sharded_checkpoint(p)]
+    return sorted(found, key=checkpoint_step)
 
 
 def latest_checkpoint(ckpt_dir: Union[str, Path]) -> Optional[Path]:

@@ -52,13 +52,31 @@ def _join(first, second, boundary: int) -> Callable[[int], float]:
                           else second(count - boundary))
 
 
+class Constant:
+    """A constant learning rate as a schedule (a float where optax takes
+    one: its optimizer state then holds no schedule count)."""
+
+    def __init__(self, lr: float):
+        self.lr = lr
+
+    def __call__(self, count: int) -> float:
+        return self.lr
+
+
+def is_scheduled(learning_rate) -> bool:
+    """Whether optax would count updates for this learning rate: a
+    function of the count that is not ``Constant``."""
+    return callable(learning_rate) and not isinstance(learning_rate,
+                                                      Constant)
+
+
 def lr_schedule(optimizer_cfg: Dict[str, Any],
                 n_steps: int) -> Callable[[int], float]:
     cfg = optimizer_cfg or {}
     lr = float(cfg.get("lr", 1e-4))
     kind = str(cfg.get("schedule", "constant"))
     if kind == "constant":
-        return lambda count: lr
+        return Constant(lr)
     warmup = int(cfg.get("warmup_steps", 0))
     min_lr = float(cfg.get("min_lr", 0.0))
     decay_steps = int(cfg.get("decay_steps", n_steps))

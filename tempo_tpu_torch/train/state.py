@@ -139,7 +139,11 @@ class TrainState:
     data parallelism (parallel/mesh.py ``shard_state``), None otherwise;
     ``model`` stays the plain module. Under FSDP2 (parallel/fsdp.py) the
     model itself is sharded in place and the optimizer's moments are
-    DTensor shards; MuAdamW's foreach ops run on them as on tensors."""
+    DTensor shards; MuAdamW's foreach ops run on them as on tensors. Under
+tensor parallelism (parallel/tensor.py) the sharded parameters are the
+rank's slices and the optimizer holds their moments: AdamW is elementwise,
+so each rank steps its own slices. ``tx``: the recipe the optimizer was
+built from (the sharded checkpoint reads optax's layout off it)."""
 
     step: int
     model: nn.Module
@@ -147,6 +151,7 @@ class TrainState:
     generator: torch.Generator
     ema: Optional[Dict[str, torch.Tensor]] = None
     wrapper: Optional[nn.Module] = None
+    tx: Optional[Optimizer] = None
 
 
 def make_optimizer(lr: Union[float, Schedule] = 1e-4, betas=(0.9, 0.95),
@@ -189,4 +194,4 @@ def create_train_state(model: nn.Module, tx: Optimizer,
     device = next(model.parameters()).device
     return TrainState(step=0, model=model, optimizer=tx.build(model),
                       generator=torch.Generator(device=device).manual_seed(
-                          seed))
+                          seed), tx=tx)

@@ -24,7 +24,11 @@ reduce-scatter, and the 0-d parameters FSDP2 leaves replicated are
 averaged here. With ``grad_accum`` the ranks sync only on the last
 microbatch. The gradient norm and the clip see the global norm, and the
 metrics are averaged over the ranks before the EMA, so every rank logs
-the global metrics JAX's mesh step computes.
+the global metrics JAX's mesh step computes. Under tensor parallelism
+(parallel/tensor.py) the loss is computed whole on every rank of a data
+row; the gradients and metrics are averaged over the data axis only, and
+the gradient norm counts each shard's squares once over the model axis
+and each whole parameter once.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from torch import nn
 
 from tempo_tpu_torch.ops.losses import lm_cross_entropy
 from tempo_tpu_torch.parallel.fsdp import is_sharded, replicated_params
+from tempo_tpu_torch.parallel import tensor
 from tempo_tpu_torch.parallel.mesh import all_reduce_mean, process_count
 from tempo_tpu_torch.train.state import Optimizer, TrainState
 
@@ -65,8 +70,8 @@ def vae_l2_loss_fn(model: nn.Module, l2_weights=None) -> LossFn:
     runs on every rank in lock-step."""
 
     def loss_fn(model, batch, generator):
-        group = dist.group.WORLD if process_count() > 1 else None
-        return model.compute_loss(batch, generator, l2_weights, group)
+        return model.compute_loss(batch, generator, l2_weights,
+                                  tensor.data_group(model))
 
     return loss_fn
 
@@ -231,6 +236,7 @@ def make_train_step(loss_fn: LossFn, tx: Optimizer, ema_alpha: float = 0.99,
 
     def train_step(state: TrainState, batch: Batch):
         model, opt, wrapper = state.model, state.optimizer, state.wrapper
+        tp = tensor.of(model)
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
@@ -255,14 +261,21 @@ def make_train_step(loss_fn: LossFn, tx: Optimizer, ema_alpha: float = 0.99,
                 k: metrics[k] + m[k] for k in metrics}
         if sharded:
             _average_replicated(params)
+        if tp is not None:
+            tensor.average_over_data(params, tp)
         grads = [p.grad for p in params if p.grad is not None]
         if grad_accum > 1:
             inv = 1.0 / grad_accum
             torch._foreach_mul_([_local(g) for g in grads], inv)
             metrics = {k: v * inv for k, v in metrics.items()}
-        if wrapper is not None or sharded:
+        if tp is not None:
+            keys = list(metrics)
+            metrics = dict(zip(keys, tensor.mean_over_data(
+                torch.stack([metrics[k] for k in keys]), tp).unbind()))
+        elif wrapper is not None or sharded:
             metrics = _mean_over_ranks(metrics)
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = (global_norm(grads) if tp is None
+                                else tensor.global_norm(params, tp))
         if tx.max_grad_norm is not None:
             clip_by_global_norm(grads, metrics["grad_norm"], tx.max_grad_norm)
         lr = tx.lr(state.step)

@@ -16,11 +16,13 @@ prediction. Options as the JAX trainer's: ``profile_steps`` (start, end)
 traces the steps after ``start`` through ``end`` with torch.profiler (CPU
 and, on the card, CUDA activities) into a Chrome trace under
 output_dir/profile/; ``checkpoint_format`` 'msgpack' (the single-file
-format, train/checkpoint.py: its name in the JAX package, a .pt here) or
+format, train/checkpoint.py: its name in the JAX package, a .pt here),
 'async' (the same files, written by checkpoint.AsyncCheckpointer while
-training goes on); ``metric_sinks`` are called as sink(step, metrics,
-kind) with every EMA history entry ('train') and every validation
-('val'). The 'sharded' format is not ported.
+training goes on) or 'sharded' (``ckpt_step=NNNNNN.shards/`` directories
+in the JAX package's format, each rank writing its own bytes:
+train/sharded_checkpoint.py); ``metric_sinks`` are called as sink(step,
+metrics, kind) with every EMA history entry ('train') and every
+validation ('val').
 
 Over a process group (parallel/mesh.py) every rank runs the loop on its
 local batches: it steps, validates (the validation sums are added over
@@ -122,6 +124,7 @@ class Trainer:
         self._profiler = None
         self._async_ckpt = (ckpt_lib.AsyncCheckpointer()
                             if checkpoint_format == "async" else None)
+        self.sharded_ckpt = checkpoint_format == "sharded"
         self.metric_sinks = list(metric_sinks or []) if self.primary else []
         self.ckpt_dir = self.output_dir / "checkpoints"
         self.summary_dir = self.output_dir / "summary"
@@ -141,8 +144,12 @@ class Trainer:
     # ------------------------------------------------------------------ io
 
     def save_checkpoint(self) -> Path:
-        save = (ckpt_lib.save_checkpoint if self._async_ckpt is None
-                else self._async_ckpt.save)
+        from tempo_tpu_torch.train.sharded_checkpoint import (
+            save_checkpoint_sharded)
+
+        save = (self._async_ckpt.save if self._async_ckpt is not None
+                else save_checkpoint_sharded if self.sharded_ckpt
+                else ckpt_lib.save_checkpoint)
         path = save(self.ckpt_dir, self.state, self.train_metrics,
                     self.val_metrics)
         if self.verbose:

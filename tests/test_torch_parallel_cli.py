@@ -9,7 +9,11 @@ alone writes the run's files (rank 1 records every write it makes under
 the output directory: none), training_info.yaml says ``n_devices: 2``,
 both ranks end with the same parameters, and the last checkpoint has the
 one-device keys and loads on one device through ``load_params`` bit for
-bit."""
+bit. train_vae, train_vae_l2 and train_gpt also run with ``parallel.tensor:
+2`` over the 2 ranks (tensor_parallel, a data axis of one): rank 1 writes
+only its bytes of sharded leaves (the sharded format's), and the last
+checkpoint, loaded on one device, equals a one-process run's at JAX's
+parameter tolerances."""
 
 from __future__ import annotations
 
@@ -184,3 +188,106 @@ def test_train_gpt_refuses_moe_over_two_ranks_without_fsdp(tmp_path):
         workers.launch(workers.cli_run, 2, tmp_path / "work", "train_gpt",
                        cfg, ENV, join=False)
     assert not (tmp_path / "run").exists()
+
+
+# ------------------------------------------------- tensor parallelism
+
+def _tp_run(tmp_path, module, cfg, one_cfg):
+    """The CLI with ``parallel.tensor: 2`` on 2 ranks and the same config
+    on one process (no group): both runs' last checkpoints, loaded on one
+    device. Rank 1 writes nothing but its own bytes of sharded leaves."""
+    results = workers.launch(workers.cli_run, 2, tmp_path / "work", module,
+                             cfg, ENV, join=False)
+    assert all(Path(w).name.startswith("leaf_") and ".shards" in w
+               for w in results[1]["written"]), results[1]["written"]
+    assert results[0]["step"] == results[1]["step"]
+    import importlib
+
+    importlib.import_module(f"tempo_tpu_torch.cli.{module}").run(
+        one_cfg, device="cpu")
+    return [list_checkpoints(Path(c["output_dir"]) / "checkpoints")[-1]
+            for c in (cfg, one_cfg)]
+
+
+def _close_runs(tp_path, one_path, model_a, model_b) -> None:
+    """The TP run's last checkpoint against the one-process run's, loaded
+    on one device: JAX's parameter tolerances (atol 1e-5, rtol 1e-4); the
+    attention's key biases, of exact gradient 0, within the steps' lr."""
+    got = load_params(tp_path, model_a).state_dict()
+    want = load_params(one_path, model_b).state_dict()
+    for k, v in want.items():
+        if k.endswith("k.bias"):
+            assert float((got[k] - v).abs().max()) <= 2 * 2 * 1e-3, k
+            continue
+        np.testing.assert_allclose(got[k], v, atol=1e-5, rtol=1e-4,
+                                   err_msg=k)
+
+
+def _tp_cfgs(tmp_path, base: dict) -> tuple:
+    tp = dict(base, output_dir=str(tmp_path / "tp"),
+              distributed=_distributed(tmp_path), parallel={"tensor": 2})
+    one = dict(base, output_dir=str(tmp_path / "one"))
+    return tp, json.loads(json.dumps(one))
+
+
+def test_train_vae_tensor_parallel_matches_one_process(tmp_path, tiles):
+    """train_vae with parallel.tensor 2 over 2 ranks (the device buffer's
+    draws the same on both, a data axis of one) against one process: the
+    .pt checkpoint, gathered under TP, loads on one device and equals the
+    one-process run's."""
+    base = {"seed": 3,
+            "data": {"train_dir": str(tiles / "train"), "batch_size": 4,
+                     "loader": "device", "buffer_slots": 2,
+                     "swap_every": 2},
+            "model": dict(MODEL), "optimizer": {"lr": 1e-3},
+            "training": _training(n_steps=2, val_every=100)}
+    tp, one = _tp_cfgs(tmp_path, base)
+    a, b = _tp_run(tmp_path, "train_vae", tp, one)
+    assert a.suffix == ".pt"
+    _close_runs(a, b, build_vae(MODEL, device="cpu", seed=8)[0],
+                build_vae(MODEL, device="cpu", seed=9)[0])
+
+
+def test_train_vae_l2_tensor_parallel_matches_one_process(tmp_path, tiles):
+    from tempo_tpu_torch.models.vae_l2 import build_vae_l2
+
+    base = {"seed": 3,
+            "data": {"data_dir": str(tiles), "batch_size": 4,
+                     "loader": "device", "buffer_slots": 2, "swap_every": 2,
+                     "val_min_buffer_size": 8},
+            "model": dict(MODEL),
+            "l2": {"components": PRODUCTS, "mlp_hidden": [16, 16]},
+            "optimizer": {"lr": 1e-3},
+            "training": _training(n_steps=2, val_every=100,
+                                  checkpoint_format="sharded")}
+    tp, one = _tp_cfgs(tmp_path, base)
+    a, b = _tp_run(tmp_path, "train_vae_l2", tp, one)
+    assert a.name == "ckpt_step=000002.shards"
+    _close_runs(a, b, build_vae_l2(MODEL, (16, 16), device="cpu", seed=8)[0],
+                build_vae_l2(MODEL, (16, 16), device="cpu", seed=9)[0])
+
+
+def test_train_gpt_tensor_parallel_matches_one_process(tmp_path):
+    """train_gpt with parallel.tensor 2 and the sharded format: rank 1
+    writes only its bytes of the leaves, and the last directory loads on
+    one device equal to the one-process run's."""
+    model_cfg = {"n_layer": 2, "n_head": 2, "n_embd": 32, "block_size": 32,
+                 "in_size": 17}
+    base = {"seed": 7,
+            "data": {"synthetic": {"vocab_size": 17, "length": 4000},
+                     "batch_size": 8},
+            "model": dict(model_cfg), "optimizer": {"lr": 3e-3},
+            "training": _training(n_steps=2, val_every=100,
+                                  checkpoint_format="sharded"),
+            "generation": {"n_tokens": 4}}
+    tp, one = _tp_cfgs(tmp_path, base)
+    a, b = _tp_run(tmp_path, "train_gpt", tp, one)
+    assert a.name == "ckpt_step=000002.shards"
+
+    def model(seed):
+        return pt.Transformer(pt.TransformerConfig(**model_cfg),
+                              device="cpu", seed=seed)
+
+    _close_runs(a, b, model(8), model(9))
+    assert np.load(Path(tp["output_dir"]) / "generation_final.npy").shape \
+        == (1, 12)

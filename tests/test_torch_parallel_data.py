@@ -142,7 +142,7 @@ def test_host_loader_local_batch_and_rank_seed(tmp_path, monkeypatch):
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
     lone = train_vae.make_train_loader({}, tmp_path, 4, 42, "cpu")
     assert (lone["batch_size"], lone["seed"]) == (4, 42)
-    monkeypatch.setattr(train_vae, "process_index", lambda: 1)
+    # the rank is the mesh's data-axis rank (model-axis peers share it)
     got = train_vae.make_train_loader({}, tmp_path, 4, 42, "cpu",
                                       mesh=BatchShard(1, 2))
     assert (got["batch_size"], got["seed"]) == (2, 42 + 1000)

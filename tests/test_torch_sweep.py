@@ -216,8 +216,18 @@ def test_load_params_formats(tmp_path):
                                               device="cpu", seed=5))
     assert same(l2_jax, l2_state_dict_from_jax(
         {"vae": params, "l2_head": head}, (16,)))
+    # a sharded directory loads (the L2 state's, its vae half into the
+    # base VAE); one without an index.json is no checkpoint
+    from tempo_tpu_torch.train.sharded_checkpoint import (
+        save_checkpoint_sharded)
+
+    shards = save_checkpoint_sharded(tmp_path / "sharded",
+                                     create_train_state(l2, make_optimizer()))
+    assert same(load_params(shards, fresh()), sd)
+    assert same(load_params(shards, VAEWithL2Head(
+        VAEConfig(**TINY), (16, 16), device="cpu", seed=5)), l2_sd)
     (tmp_path / "ckpt_step=000002.sharded").mkdir()
-    with pytest.raises(NotImplementedError, match="M13"):
+    with pytest.raises(FileNotFoundError, match="index.json"):
         load_params(tmp_path / "ckpt_step=000002.sharded", fresh())
     with pytest.raises(RuntimeError, match="in loading state_dict"):
         load_params(tmp_path / "bare.pt", AutoencoderKL(

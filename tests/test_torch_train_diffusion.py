@@ -22,6 +22,8 @@ tensor's largest, and every element within 2 lr of JAX's."""
 
 from __future__ import annotations
 
+import copy
+
 import json
 from pathlib import Path
 
@@ -402,15 +404,13 @@ def test_sample_diffusion_reads_a_jax_checkpoint(tmp_path, tiles_dir):
 
 def test_unported_and_unknown_options_raise(tmp_path, tiles_dir, vae_ckpt,
                                            monkeypatch):
-    """sharded and an unknown family raise; checkpoint_format: async
-    writes, byte for byte, what a sync save of the run's last state writes
-    (the loader's threads order batches freely, so two runs may differ);
-    the JAX package's
-    .msgpack of the VAE serves as latent.vae_checkpoint (the frozen VAE
-    gets its weights), a sharded directory does not."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_diffusion.run(_cfg(tmp_path / "sharded", tiles_dir, training={
-            "checkpoint_format": "sharded"}), device="cpu")
+    """An unknown family raises; checkpoint_format: async writes, byte for
+    byte, what a sync save of the run's last state writes (the loader's
+    threads order batches freely, so two runs may differ), sharded writes
+    .shards directories that load back; the JAX package's .msgpack of the
+    VAE and a sharded directory serve as latent.vae_checkpoint (the
+    frozen VAE gets its weights), a directory without an index.json does
+    not."""
     with pytest.raises(ValueError, match="unknown family"):
         train_diffusion.run(_cfg(tmp_path / "fam", tiles_dir,
                                  family="ddpm"), device="cpu")
@@ -426,6 +426,22 @@ def test_unported_and_unknown_options_raise(tmp_path, tiles_dir, vae_ckpt,
                               trainer.train_metrics, trainer.val_metrics)
     assert resaved.read_bytes() == (
         tmp_path / "async" / "checkpoints" / resaved.name).read_bytes()
+    # sharded: ckpt_step=NNNNNN.shards directories, which load back
+    from tempo_tpu_torch.train.checkpoint import load_params
+    from tempo_tpu_torch.train.sharded_checkpoint import (
+        save_checkpoint_sharded)
+
+    sharded, _, _ = train_diffusion.run(_cfg(
+        tmp_path / "sharded", tiles_dir, training=dict(
+            short, checkpoint_format="sharded")), device="cpu")
+    assert sorted(p.name for p in (tmp_path / "sharded" / "checkpoints")
+                  .iterdir()) == ["ckpt_step=000001.shards",
+                                  "ckpt_step=000002.shards"]
+    last = sharded.state.model.state_dict()
+    again = load_params(tmp_path / "sharded" / "checkpoints" /
+                        "ckpt_step=000002.shards", copy.deepcopy(
+                            sharded.state.model))
+    assert all(torch.equal(again.state_dict()[k], v) for k, v in last.items())
 
     saved = torch.load(vae_ckpt, weights_only=True)["model"]
     vae = AutoencoderKL(VAEConfig.from_dict(VAE_CFG), device="cpu")
@@ -442,8 +458,19 @@ def test_unported_and_unknown_options_raise(tmp_path, tiles_dir, vae_ckpt,
                              training=short), device="cpu")
     got = codecs[0][3].state_dict()
     assert all(torch.equal(got[k], v) for k, v in saved.items())
+    # a sharded directory of the VAE serves as well; one without an
+    # index.json does not
+    from tempo_tpu_torch.train.state import create_train_state, make_optimizer
+
+    vae_dir = save_checkpoint_sharded(tmp_path / "vae_shards",
+                                      create_train_state(vae, make_optimizer()))
+    codecs.clear()
+    train_diffusion.run(_cfg(tmp_path / "sh_ok", tiles_dir, vae_dir,
+                             training=short), device="cpu")
+    got = codecs[0][3].state_dict()
+    assert all(torch.equal(got[k], v) for k, v in saved.items())
     (tmp_path / "ckpt_step=000003.sharded").mkdir()
-    with pytest.raises(NotImplementedError, match="M13"):
+    with pytest.raises(FileNotFoundError, match="index.json"):
         train_diffusion.run(_cfg(tmp_path / "sh", tiles_dir,
                                  tmp_path / "ckpt_step=000003.sharded"),
                             device="cpu")

@@ -444,3 +444,249 @@ def written_under(event, args, root: str) -> bool:
     elif event not in ("os.mkdir", "os.rename"):
         return False
     return os.path.realpath(str(args[0])).startswith(root)
+
+
+# ------------------------------------------------- tensor parallelism
+
+def tp_cases(rank, world, n_model, cases):
+    """The cases of ``cases`` ({name: args}, names from TP_CASES) under
+    tensor parallelism over a ('data', 'model') mesh of world / n_model x
+    n_model ranks; returns this rank's axes and {name: result}."""
+    from tempo_tpu_torch.parallel import tensor
+
+    mesh = tensor.create_tp_mesh(n_model, "cpu")
+    tp = tensor.tensor_parallel(mesh)
+    out = {"axes": (tp.rank, tp.world, tp.data_rank, tp.data_world)}
+    for name, args in cases.items():
+        out[name] = TP_CASES[name.split(":")[0]](mesh, *args)
+    return out
+
+
+def _local_state(model, optimizer) -> dict:
+    """{name: (layout kind or None, the rank's parameter, exp_avg,
+    exp_avg_sq)}."""
+    out = {}
+    for name, p in model.named_parameters():
+        st = optimizer.state.get(p, {})
+        out[name] = (getattr(p, "tp_kind", None), p.detach().clone(),
+                     st.get("exp_avg"), st.get("exp_avg_sq"))
+    return out
+
+
+def tp_vae(mesh, cfg, state_dict, batches, noises, x_encode):
+    """The VAE recipe's steps under TP on this rank's data rows (the
+    posterior fed them); the encode of ``x_encode`` before them. Returns
+    the metrics, the gathered parameters, the rank's own parameters and
+    moments, the encode and the rank's parameter + moment bytes."""
+    from tempo_tpu_torch.parallel import mesh as pmesh
+    from tempo_tpu_torch.parallel import tensor
+    from tempo_tpu_torch.train import state as pstate
+    from tempo_tpu_torch.train import step as pstep
+
+    sl = pmesh.batch_sharding(mesh).rows(len(batches[0]))
+    feed_posterior(noises, sl)
+    model = vae(cfg, state_dict)
+    tx = pstate.make_optimizer(lr=1e-3, weight_decay=0.05)
+    state = tensor.shard_state_tp(pstate.create_train_state(model, tx, 3),
+                                  mesh, tx)
+    with torch.no_grad():
+        encoded = model.encode(torch.from_numpy(x_encode)).mean
+    step = pstep.make_train_step(pstep.vae_loss_fn(model), tx)
+    metrics = []
+    for b in batches:
+        state, m = step(state, take(b, sl))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics,
+            "params": _whole(tensor.full_state_dict(model)),
+            "local": _local_state(model, state.optimizer),
+            "encode": encoded,
+            "bytes": tensor.param_bytes(model, state.optimizer)}
+
+
+def tp_l2(mesh, cfg, hidden, state_dict, batch, noises):
+    """One L2 step under TP on this rank's data rows, both posterior
+    draws fed. Returns the metrics and the gathered parameters."""
+    from tempo_tpu_torch.parallel import mesh as pmesh
+    from tempo_tpu_torch.parallel import tensor
+    from tempo_tpu_torch.train import state as pstate
+    from tempo_tpu_torch.train import step as pstep
+
+    sl = pmesh.batch_sharding(mesh).rows(len(batch["spectral"]))
+    feed_posterior(noises, sl)
+    model = vae(cfg, state_dict, "l2", hidden)
+    tx = pstate.make_optimizer(lr=1e-3, weight_decay=0.05)
+    state = tensor.shard_state_tp(pstate.create_train_state(model, tx, 3),
+                                  mesh, tx)
+    step = pstep.make_train_step(pstep.vae_l2_loss_fn(model), tx)
+    state, m = step(state, take(batch, sl))
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "params": _whole(tensor.full_state_dict(model))}
+
+
+def tp_gpt(mesh, cfg, state_dict, tokens, targets):
+    """The mean next-token NLL of the whole batch and its gradients under
+    TP (a data axis of one), the gradients gathered."""
+    from tempo_tpu_torch.nn import transformer as pt
+    from tempo_tpu_torch.ops.losses import lm_cross_entropy
+    from tempo_tpu_torch.parallel import tensor
+
+    model = pt.Transformer(pt.TransformerConfig(**cfg), device="cpu", seed=0)
+    model.load_state_dict(state_dict)
+    tensor.shard_params_tp(model, mesh)
+    loss = lm_cross_entropy(model(torch.from_numpy(tokens)),
+                            torch.from_numpy(targets))
+    loss.backward()
+    grads = {n: (tensor.full_of(p.grad, p.tp_kind, p.tp_axis)
+                 if tensor.is_shard(p) else p.grad)
+             for n, p in model.named_parameters()}
+    return {"loss": float(loss), "grads": grads,
+            "exchanged": dict(tensor.EXCHANGED)}
+
+
+TP_CASES = {"vae": tp_vae, "l2": tp_l2, "gpt": tp_gpt}
+
+
+def _guard_gathers():
+    """Make every whole-tensor gather of the port raise (a sharded save
+    must not call one)."""
+    from tempo_tpu_torch.parallel import fsdp, tensor
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a whole-leaf gather in a sharded save")
+
+    saved = {}
+    for mod, names in ((tensor, ("_all_gather_last", "full_of",
+                                 "full_state_dict", "full_optimizer_state")),
+                       (fsdp, ("full_state_dict", "full_optimizer_state",
+                               "_full"))):
+        for name in names:
+            saved[(mod, name)] = getattr(mod, name)
+            setattr(mod, name, refuse)
+    return saved
+
+
+def _unguard(saved) -> None:
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, fn)
+
+
+def _whole_moments(model, optimizer, full) -> dict:
+    """{name: (exp_avg, exp_avg_sq)} of a gathered optimizer state."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {names[id(params[int(i)])]: (st["exp_avg"].clone(),
+                                        st["exp_avg_sq"].clone())
+            for i, st in full["state"].items()}
+
+
+def _whole(state_dict: dict) -> dict:
+    """Copies of a gathered state dict's tensors (its whole parameters
+    are the live ones)."""
+    return {k: v.detach().clone() for k, v in state_dict.items()}
+
+
+def sharded_checkpoints(rank, world, cfg, jax_dir, msgpack, batch, workdir,
+                        one_process):
+    """The sharded checkpoint under TP over all ranks (a data axis of
+    one): JAX's directory loaded into a fresh TP state (its state
+    gathered, the rank's shapes); a step, the port's own save with every
+    whole-leaf gather refused, the next step live and from a fresh state
+    that loads the save (gathered, to compare); a ``.pt`` save under TP;
+    one process's files ({format: path}) each resumed and stepped. Then a
+    JAX ``.msgpack`` full state resumed under FSDP2 (gathered)."""
+    from tempo_tpu_torch.parallel import fsdp, tensor
+    from tempo_tpu_torch.parallel.mesh import create_mesh
+    from tempo_tpu_torch.train import checkpoint as ckpt
+    from tempo_tpu_torch.train import state as pstate
+    from tempo_tpu_torch.train import step as pstep
+    from tempo_tpu_torch.train.sharded_checkpoint import (
+        save_checkpoint_sharded)
+
+    mesh = tensor.create_tp_mesh(world, "cpu")
+    tx = pstate.make_optimizer(lr=1e-3)
+
+    def fresh(seed):
+        state = tensor.shard_state_tp(pstate.create_train_state(
+            _vae_seeded(cfg, seed), tx, seed), mesh, tx)
+        state.ema = {}
+        return state, pstep.make_train_step(
+            pstep.vae_loss_fn(state.model), tx)
+
+    out = {}
+    state, step = fresh(5)
+    state, train_m, _ = ckpt.load_checkpoint(jax_dir, state)
+    out["loaded"] = _whole(tensor.full_state_dict(state.model))
+    out["loaded_moments"] = _whole_moments(
+        state.model, state.optimizer,
+        tensor.full_optimizer_state(state.optimizer))
+    out["local_shapes"] = {n: tuple(p.shape)
+                           for n, p in state.model.named_parameters()}
+    out["loaded_step"], out["train_metrics"] = state.step, train_m
+    out["ema"] = {k: float(v) for k, v in state.ema.items()}
+    x = torch.from_numpy(batch)
+    state, _ = step(state, x)
+    saved = _guard_gathers()
+    try:
+        path = save_checkpoint_sharded(Path(workdir) / "ckpt", state,
+                                       [{"step": 2, "loss": 1.0}])
+    finally:
+        _unguard(saved)
+    out["path"] = str(path)
+    out["saved"] = _whole(tensor.full_state_dict(state.model))
+    out["saved_moments"] = _whole_moments(
+        state.model, state.optimizer,
+        tensor.full_optimizer_state(state.optimizer))
+    state, m = step(state, x)
+    out["live"] = _whole(tensor.full_state_dict(state.model))
+    out["live_metrics"] = {k: float(v) for k, v in m.items()}
+    again, step2 = fresh(9)
+    again, _, _ = ckpt.load_checkpoint(path, again)
+    out["resumed_local_shapes"] = {
+        n: tuple(p.shape) for n, p in again.model.named_parameters()}
+    again, m2 = step2(again, x)
+    out["resumed"] = _whole(tensor.full_state_dict(again.model))
+    out["resumed_metrics"] = {k: float(v) for k, v in m2.items()}
+    out["pt"] = str(ckpt.save_checkpoint(Path(workdir) / "pt", state))
+    out["one_process"] = {}
+    for fmt, one in one_process.items():
+        st, stp = fresh(9)
+        st, _, _ = ckpt.load_checkpoint(one, st)
+        st, m = stp(st, x)
+        out["one_process"][fmt] = {
+            "loss": float(m["loss"]),
+            "params": _whole(tensor.full_state_dict(st.model))}
+
+    # a JAX .msgpack full state under FSDP2
+    model = vae(cfg)
+    fs = fsdp.shard_state_fsdp(pstate.create_train_state(model, tx, 3),
+                               create_mesh("cpu"), tx)
+    fs, _, _ = ckpt.load_checkpoint(msgpack, fs)
+    out["fsdp_params"] = _whole(fsdp.full_state_dict(model))
+    out["fsdp_moments"] = _whole_moments(
+        model, fs.optimizer, fsdp.full_optimizer_state(fs.optimizer))
+    out["fsdp_step"] = fs.step
+    # FSDP2's dim-0 shards written as the sharded format and read back
+    fs, _ = pstep.make_train_step(pstep.vae_loss_fn(model), tx)(fs, x)
+    saved = _guard_gathers()
+    try:
+        fpath = save_checkpoint_sharded(Path(workdir) / "fsdp_ckpt", fs)
+    finally:
+        _unguard(saved)
+    out["fsdp_path"] = str(fpath)
+    out["fsdp_saved"] = _whole(fsdp.full_state_dict(model))
+    out["fsdp_saved_moments"] = _whole_moments(
+        model, fs.optimizer, fsdp.full_optimizer_state(fs.optimizer))
+    model2 = _vae_seeded(cfg, 11)
+    fs2 = fsdp.shard_state_fsdp(pstate.create_train_state(model2, tx, 3),
+                                create_mesh("cpu"), tx)
+    fs2, _, _ = ckpt.load_checkpoint(fpath, fs2)
+    out["fsdp_loaded"] = _whole(fsdp.full_state_dict(model2))
+    out["fsdp_loaded_moments"] = _whole_moments(
+        model2, fs2.optimizer, fsdp.full_optimizer_state(fs2.optimizer))
+    return out
+
+
+def _vae_seeded(cfg: dict, seed: int):
+    from tempo_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+    return AutoencoderKL(VAEConfig(**cfg), device="cpu", seed=seed)
