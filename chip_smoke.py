@@ -75,7 +75,7 @@ Phases, each fatal on failure:
       wd 0.1, betas (0.9, 0.95), the decay mask): 3 warm, then 10 timed,
       the K5 counters set to 0 before and read after (12 x 10 each); step
       ms, tokens/s, MFU, peak memory, a profiled step; the loss falls;
-  4b. Trainer.train for 20 steps on a TokenLoader (batch 8, block 1024)
+  4b. Trainer.train for 10 steps on a TokenLoader (batch 8, block 1024)
       into a temporary directory: checkpoint and metrics.json written; one
       more step from the reloaded checkpoint equals one from the live
       state, bit for bit;
@@ -98,7 +98,7 @@ Phases, each fatal on failure:
       (peak memory of each);
   2'''. the K1 and K2 autograd Functions' backward at every shape the step
       records against autograd through the plain chain, same inputs;
-  5b. Trainer.train for 20 steps at batch 8 over a TileLoader of
+  5b. Trainer.train for 10 steps at batch 8 over a TileLoader of
       make_tile_shards' flagship fp16 shards: a validation of 10 batches,
       checkpoint and metrics.json written; one more step from the reloaded
       checkpoint equals one from the live state, bit for bit (cuDNN
@@ -123,7 +123,7 @@ Phases, each fatal on failure:
   6b. 12 batches of the buffer on the card, swapping every 3, bit for bit
       those of the same buffer on the CPU (spectral and every product);
   6c. cli/train_vae_l2.py ``run`` with configs/demo/flagship_train_l2.yaml's
-      values (FLAGSHIP_L2) for 10 steps, once with the device buffer and
+      values (FLAGSHIP_L2) for 5 steps, once with the device buffer and
       once with the TileLoader, the VAE warm-started from 5b's checkpoint:
       checkpoint, summary/l2_losses.png (drawn by train/png.py: the card's
       machine has no matplotlib), the figure and metrics.json written;
@@ -352,7 +352,7 @@ Phases, each fatal on failure:
   15c. the same for GPT-2-small at 8 x 1024, K5 launches counted;
   15d. train_vae.run (device buffer, partition replicate, then process)
       and train_vae_l2.run under the 2 rank processes at the flagship's
-      widths, a global batch of 16, 3 steps: rank 1 writes nothing under
+      widths, a global batch of 16, 2 steps: rank 1 writes nothing under
       the run's directory, training_info's n_devices is 2, the last
       checkpoint loads through load_params on one device bitwise both
       ranks' final weights.
@@ -391,6 +391,23 @@ Phases, each fatal on failure:
       next step bitwise the live one's, a .pt written under TP loading on
       one device; write and read s, bytes exchanged a step by kind, a lone
       gloo all-gather's share of a step.
+  then expert and pipeline parallelism (phase 18; two rank processes share
+  the card over gloo, so the expert exchanges, the stages' sends and the
+  gradient sums go through host memory; see PPEP):
+  18a. GPT-2-small's MoE (13a's, bf16, 8 x 1025 tokens) with 2 of the 4
+      experts a rank, each rank training its 4 rows routed over the global
+      batch, then the same model under DDP, 3 steps each against one
+      process on the same batches (STEP_BF16_TOL, the flipped top-1 routes
+      counted; fp32 at 2 layers within STEP_F32_TOL_PP and 1e-4 rel L2 on
+      every gradient); K5 12 each a rank a step;
+  18b. the dense model and the MoE model as 2 stages x 6 layers, 4
+      microbatches, against one process accumulating the same 4
+      microbatches (the pipeline's LM loss), bf16 and fp32 as 18a; K5 24
+      each a stage a step (6 layers x 4 microbatches);
+  18c. the fp32 pipeline's state as a .pt and a .shards directory, each
+      resumed on both ranks bitwise and read by load_params on a stage;
+      both read on one device (equal), exported (prefill, decode_step) and
+      one greedy prompt through the programs equal to generate.
 Prints the card's name and power limit first, each phase's seconds, each
 redesigned kernel's time against its time before the redesign
 (KERNEL_PREV, K1_PREV), one {"kernels": [...]} line, and as the last line
@@ -468,18 +485,20 @@ STEP_BF16_TOL = {"loss": 1e-2, "grad": 5e-2}
 STEP_F32_TOL = {"loss": 1e-4, "grad": 1e-4}
 # The training path, as tools/bench_toolkit.py bench_gpt measures the JAX
 # package: GPT-2-small, batch 8 x 1024 tokens, AdamW lr 3e-4, wd 0.1.
-TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS, TRAINER_STEPS = 8, 3, 10, 20
+TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS, TRAINER_STEPS = 8, 3, 10, 10  # 4b 20
+# until phase 18
 # The VAE training path, as bench.py bench_train measures the JAX package:
 # the flagship (VAE_MODEL = {}: build_vae's defaults) at batch 64 of
 # [64,64,1028] tiles, the optimizer of configs/training/
 # train_vae_default.yaml (AdamW lr 1e-4, betas (0.9, 0.95), weight decay
 # 0.05) after the VAE recipe's global-norm clip at 1.0; 3 warm steps, then
-# 10 timed. The Trainer takes 20 steps at batch 8 over a TileLoader of 5
+# 10 timed. The Trainer takes 10 steps (20 until phase 18) at batch 8 over
+# a TileLoader of 5
 # shards of 8 flagship tiles in fp16 (336 MB), a buffer of 24. The fp32
 # step check (5c) cuts the depth to two levels of three, at batch 2.
 VAE_MODEL: dict = {}
 VAE_F32_MODEL = {"chs": [512, 256]}
-VAE_TRAIN_BATCH, VAE_TRAINER_BATCH, VAE_TRAINER_STEPS = 64, 8, 20
+VAE_TRAIN_BATCH, VAE_TRAINER_BATCH, VAE_TRAINER_STEPS = 64, 8, 10
 VAE_SHARDS, VAE_TILES_PER_SHARD, VAE_BUFFER = 5, 8, 24
 # The K1/K2 Functions' backward against autograd through the plain chain
 # from the same inputs: the same recompute (cuDNN deterministic), so the
@@ -508,14 +527,15 @@ VAE_BF16_ACC = 1.25
 # buffer swapping every 3 (one swap; 12 and three swaps until phase 16)
 # with the CPU buffer's. 6c runs the
 # CLI with FLAGSHIP_L2 (the yaml's values; the card's machine has no yaml)
-# for 10 steps (20 until phase 9 came; PERF.md section 4), logging every 5
-# and plotting every 10 so that the curves are drawn, and saving at the
+# for 5 steps (20 until phase 9 came, 10 until phase 18; PERF.md section
+# 4), logging every 2 and plotting every 4 so that the curves are drawn
+# (two points), and saving at the
 # last step. 6d's fp32 check keeps the three
 # levels (the head reads a latent 4x smaller than the tile, as the pooled
 # targets are) at batch 2.
 VAE_L2_HIDDEN = (512, 512)
 VAE_L2_SHARDS, VAE_L2_TILES, VAE_L2_SLOTS, VAE_L2_SWAP = 4, 32, 2, 5
-VAE_L2_EQ_SWAP, VAE_L2_EQ_BATCHES, VAE_L2_CLI_STEPS = 3, 6, 10
+VAE_L2_EQ_SWAP, VAE_L2_EQ_BATCHES, VAE_L2_CLI_STEPS = 3, 6, 5  # 10 until 18
 FLAGSHIP_L2 = {
     "seed": 42,
     "data": {"batch_size": 64, "loader": "device", "buffer_slots": 2,
@@ -4215,7 +4235,7 @@ def vae_l2_path(dev, rows: dict, warm_ckpt: Path, keep: Path,
             cfg["model"]["init_from_vae_checkpoint"] = str(warm_ckpt)
             cfg["training"].update(n_steps=VAE_L2_CLI_STEPS,
                                    save_every=VAE_L2_CLI_STEPS,
-                                   log_every=5, plot_every=10)
+                                   log_every=2, plot_every=4)
             timed = []
 
             def timed_loader(*args, **kwargs):
@@ -7589,7 +7609,8 @@ def connectomics_path(dev, rows: dict) -> dict:
 # train_vae with the device buffer replicated, then partitioned by
 # process, then train_vae_l2.
 PAR = {"world": 2, "steps": 3, "vae_batch": 64, "f32_batch": 4,
-       "cli_batch": 16, "cli_steps": 3, "tiles": (2, 8), "timeout": 240}
+       "cli_batch": 16, "cli_steps": 2, "tiles": (2, 8), "timeout": 240}
+# (15d's cli_steps 3 until phase 18)
 PAR_OPT = {"lr": 1e-4, "betas": [0.9, 0.95], "weight_decay": 0.05}
 PAR_UNUSED = ("encoder.downs.2.down", "decoder.ups.2.up")
 PAR_L2 = {"nll_loss_type": "l2"}
@@ -8805,11 +8826,12 @@ def tp_start(dev, root: Path) -> tuple:
     return procs, logs
 
 
-def tp_path(dev, rows: dict, root: Path, started=None) -> dict:
+def tp_path(dev, rows: dict, root: Path, started=None, beside=None) -> dict:
     """Phase 17 (see TP): the 2 rank processes (``started`` by tp_start,
     else started here) join their group while this process computes the
     one-process references, the gates here; adds each kernel's phase-17
-    launches to its row."""
+    launches to its row. ``beside()`` runs once the ranks have their
+    references, while they work (phase 18's references and start)."""
     import torch
 
     from tempo_tpu_torch.models.vae import AutoencoderKL, VAEConfig
@@ -8857,6 +8879,8 @@ def tp_path(dev, rows: dict, root: Path, started=None) -> dict:
         torch.save(refs, root / "refs.pt")
         t_refs = time.perf_counter() - t_phase
         (root / "go").touch()
+        if beside is not None:
+            beside()
         wait_all(procs, time.perf_counter() + TP["timeout"])
     finally:
         for p in procs:
@@ -8966,13 +8990,535 @@ def tp_path(dev, rows: dict, root: Path, started=None) -> dict:
                 "(514 channels a rank) over gloo on cuda:0, timed while "
                 "the main process waits"}
     res["17c"] = c17
-    res["seconds"] = {"refs": t_refs, "ranks": t_ranks}
+    res["seconds"] = {"refs": t_refs, "ranks": t_ranks,
+                      "after_phase_17": time.perf_counter() - t_phase}
     print(f"[tp] phase 17, TP over 2 ranks on one card (two ranks on one "
           f"card: no scaling): {json.dumps(res)} on {card}", flush=True)
     if not (one_dir and all(c17["resume_bitwise"])
             and all(c17["resumed_shards_kept"])):
         fail(f"17c: the sharded checkpoint does not round-trip: "
              f"{json.dumps(c17)}")
+    return res
+
+
+# Phase 18: expert and pipeline parallelism over 2 rank processes sharing
+# cuda:0 over gloo, at GPT-2-small's widths (TransformerConfig's defaults),
+# bf16, bench_gpt's global batch of PPEP["batch"] x 1025 tokens, weights
+# from SEED. 18a: bench_gpt(n_experts=4) (13a's MOE_MODEL) with 2 experts a
+# rank, then the same model under DDP routing over the global batch; 18b:
+# the dense model as 2 stages x 6 layers, PPEP["n_micro"] microbatches,
+# then the MoE model through the pipeline (each microbatch routed by
+# itself, the LM loss only: its one-process reference accumulates the
+# microbatches' NLL gradients); PPEP["steps"] steps each, against this
+# process's steps on the same global batches (STEP_BF16_TOL; the routes
+# whose top-1 expert differs from one process's counted), and each again in
+# fp32 at PPEP["f32_layers"] layers (STEP_F32_TOL_PP on the loss, every
+# gradient within STEP_F32_TOL's 1e-4 rel L2). 18c: the fp32 pipeline's
+# state saved as a .pt and a .shards directory, each resumed bitwise on
+# both ranks and read by load_params on a stage, then on one device here
+# and exported (infer/export_lm.py, prefill and decode_step) while the
+# ranks run 18a and 18b: one greedy prompt through the programs equals
+# generate of the live model.
+PPEP = {"world": 2, "steps": 3, "batch": 8, "n_micro": 4, "f32_layers": 2,
+        "timeout": 600, "prompt": 8, "new": 8}
+STEP_F32_TOL_PP = {"loss": 1e-5, "grad": 1e-4}
+PPEP_GRADS = TP_GPT_GRADS
+
+
+def ppep_inputs(dev, cfg) -> list:
+    """18's token batches, from SEED (the same in every process)."""
+    import numpy as np
+    import torch
+
+    return [torch.from_numpy(np.random.default_rng(SEED + 18 + i).integers(
+        0, cfg.in_size, (PPEP["batch"], cfg.block_size + 1))).to(dev)
+        for i in range(PPEP["steps"])]
+
+
+def ppep_config(kind: str, dtype: str):
+    """GPT-2-small (bf16) or its fp32 twin at PPEP["f32_layers"] layers,
+    dense or MoE."""
+    from tempo_tpu_torch.nn.transformer import TransformerConfig
+
+    kw = dict(MOE_MODEL) if kind == "moe" else {}
+    if dtype == "float32":
+        kw["n_layer"] = PPEP["f32_layers"]
+    return TransformerConfig(compute_dtype=dtype, attn_impl="auto", **kw)
+
+
+def ppep_model(cfg, dev):
+    """A GPT of ``cfg`` with Transformer.init_weights's distributions
+    (normal 0.02, the residual projections' 0.02 / sqrt(2 L), zero biases,
+    LayerNorm ones) drawn on ``dev`` from SEED: the same weights in every
+    process, in milliseconds rather than the host generator's seconds."""
+    import torch
+
+    from tempo_tpu_torch.nn.transformer import LayerNorm, Transformer
+
+    model = Transformer(cfg, device="meta").to_empty(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    resid_std = 0.02 / math.sqrt(2 * cfg.n_layer)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            mod, leaf = name.rsplit(".", 1)
+            if isinstance(model.get_submodule(mod), LayerNorm):
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif leaf in ("bias", "b1", "b2"):
+                p.zero_()
+            else:
+                resid = name.endswith("c_proj.weight") or leaf == "w2"
+                p.normal_(0.0, resid_std if resid else 0.02, generator=gen)
+    return model
+
+
+def nll_loss_fn():
+    """The next-token NLL alone (the pipeline's loss, MoE or not)."""
+    from tempo_tpu_torch.ops.losses import lm_cross_entropy
+
+    def loss_fn(model, batch, generator):
+        nll = lm_cross_entropy(model(batch[:, :-1]), batch[:, 1:])
+        return nll, {"loss": nll}
+
+    return loss_fn
+
+
+@contextlib.contextmanager
+def recording_routes(model, out: dict):
+    """The top-1 expert of every token each MoE block routes, appended by
+    block name to ``out`` while active (a microbatch's after another's)."""
+    from tempo_tpu_torch.nn.moe import MoEBlock
+
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, res, name=name: out.setdefault(name, []).append(
+            mod.router(inp[0].reshape(-1, inp[0].shape[-1]).float())
+            .argmax(-1).cpu()))
+        for name, m in model.named_modules() if isinstance(m, MoEBlock)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def ppep_steps(state, step, batches, whole, names, routes=None) -> dict:
+    """18's steps: each step's loss, the first step's gradients of the
+    parameters ``names`` selects (whole, fp32, on the host), the first
+    step's routes, the last step's K5 launches, the mean ms of the steps
+    after the first."""
+    import torch
+
+    out = {"loss": []}
+    for i, x in enumerate(batches):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if i == len(batches) - 1:
+            (_, m), out["launches_last_step"] = count_flash(
+                lambda: step(state, x))
+        elif i == 0 and routes is not None:
+            with recording_routes(state.model, routes):
+                _, m = step(state, x)
+        else:
+            _, m = step(state, x)
+        if i == 0:
+            out["grads"] = {k: whole(k, p).detach().float().cpu()
+                            for k, p in state.model.named_parameters()
+                            if p.grad is not None and names(k)}
+        out["loss"].append(float(m["loss"]))
+    torch.cuda.synchronize()
+    out["step_ms"] = 1e3 * (time.perf_counter() - t0) / (len(batches) - 1)
+    if routes is not None:
+        out["routes"] = routes
+    return out
+
+
+def ppep_compare(got: dict, want: dict, tol: dict, rows=None) -> dict:
+    """A rank's run against one process's: the worst step's loss rel
+    difference, each of the rank's first-step gradients' rel L2, and the
+    routes (of the rank's ``rows`` of the batch) whose top-1 expert
+    differs, by block."""
+    res = {"loss_rel": max(abs(g - w) / abs(w) for g, w in
+                           zip(got["loss"], want["loss"]))}
+    grad_rel = {}
+    for k, g in got["grads"].items():
+        w = want["grads"][k]
+        grad_rel[k] = (rel_l2(g, w) if float(w.norm()) > 0
+                       else float((g - w).abs().max()))
+    res.update(max_grad_rel_l2=max(grad_rel.values()),
+               worst_grad=max(grad_rel, key=grad_rel.get),
+               grads_compared=len(grad_rel))
+    if "routes" in got:
+        import torch
+
+        flips = {}
+        for name, parts in got["routes"].items():
+            mine = torch.cat(parts)
+            ref = torch.cat(want["routes"][name])
+            ref = ref if rows is None else ref[rows]
+            flips[name] = int((mine != ref).sum())
+        res["route_flips"] = sum(flips.values())
+        res["route_flips_by_block"] = flips
+    res["ok"] = (res["loss_rel"] <= tol["loss"]
+                 and res["max_grad_rel_l2"] <= tol["grad"])
+    return res
+
+
+def ppep_reference(dev, kind: str, dtype: str, parallel: str) -> dict:
+    """One process's PPEP["steps"] steps on the global batches: GPT's
+    two-group AdamW; the MoE loss (NLL + 0.01 x Switch) for 18a, the NLL
+    for the pipeline, accumulated over its microbatches."""
+    import torch
+
+    from tempo_tpu_torch.nn.transformer import make_gpt_optimizer
+    from tempo_tpu_torch.train.state import create_train_state
+    from tempo_tpu_torch.train.step import lm_loss_fn, make_train_step
+
+    cfg = ppep_config(kind, dtype)
+    model = ppep_model(cfg, dev)
+    tx = make_gpt_optimizer(model, weight_decay=0.1, learning_rate=3e-4,
+                            betas=(0.9, 0.95))
+    state = create_train_state(model, tx, SEED)
+    pipe = parallel == "pp"
+    step = make_train_step(nll_loss_fn() if pipe else lm_loss_fn(model), tx,
+                           grad_accum=PPEP["n_micro"] if pipe else 1)
+    f32 = dtype == "float32"
+    out = ppep_steps(state, step, ppep_inputs(dev, cfg),
+                     lambda k, p: p.grad,
+                     (lambda k: True) if f32 else
+                     (lambda k: k.startswith(PPEP_GRADS)),
+                     {} if kind == "moe" else None)
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+PPEP_RUNS = (("moe", "bfloat16", "ep"), ("moe", "bfloat16", "ddp"),
+             ("gpt", "bfloat16", "pp"), ("moe", "bfloat16", "pp"),
+             ("moe", "float32", "ep"), ("moe", "float32", "ddp"),
+             ("gpt", "float32", "pp"), ("moe", "float32", "pp"))
+
+
+def ppep_child(spec_path: str, rank: int) -> None:
+    """One rank of phase 18, sharing cuda:0 with the other over gloo: joins
+    the group, waits for the references, runs 18c's fp32 pipeline and its
+    checkpoints first (the main process then exports them), then 18a and
+    18b in bf16 and fp32; rank 0 compares with the references. Writes its
+    results to the spec's directory."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from tempo_tpu_torch.nn.transformer import (Transformer,
+                                                make_gpt_optimizer)
+    from tempo_tpu_torch.parallel import expert, pipeline
+    from tempo_tpu_torch.parallel import mesh as pmesh
+    from tempo_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                  load_params,
+                                                  save_checkpoint)
+    from tempo_tpu_torch.train.sharded_checkpoint import \
+        save_checkpoint_sharded
+    from tempo_tpu_torch.train.state import create_train_state
+    from tempo_tpu_torch.train.step import (lm_loss_fn, make_train_step,
+                                            pipeline_lm_loss_fn)
+
+    spec = json.loads(Path(spec_path).read_text())
+    root = Path(spec["root"])
+    while not (root / "start").exists():  # imported beside phase 17
+        time.sleep(0.1)
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{spec['store']}",
+                            rank=rank, world_size=PPEP["world"],
+                            timeout=datetime.timedelta(seconds=300))
+    world = PPEP["world"]
+    res = {"rank": rank}
+    while not (root / "go").exists():
+        time.sleep(0.1)
+    refs = torch.load(root / "refs.pt", weights_only=False)
+
+    def build(kind, dtype, parallel):
+        cfg = ppep_config(kind, dtype)
+        model = ppep_model(cfg, dev)
+        tx = make_gpt_optimizer(model, weight_decay=0.1, learning_rate=3e-4,
+                                betas=(0.9, 0.95))
+        state = create_train_state(model, tx, SEED)
+        if parallel == "ep":
+            state = expert.shard_state_ep(
+                state, expert.create_ep_mesh(world, dev), tx)
+        elif parallel == "ddp":
+            state = pmesh.shard_state(state, pmesh.create_mesh(dev))
+        else:
+            state = pipeline.shard_state_pp(
+                state, pipeline.create_pp_mesh(world, dev), tx)
+        if parallel == "pp":
+            loss_fn = pipeline_lm_loss_fn(pipeline.make_pp_loss_fn(
+                cfg, world, PPEP["n_micro"]))
+        else:
+            loss_fn = lm_loss_fn(model)
+        return cfg, model, tx, state, make_train_step(loss_fn, tx)
+
+    def whole(k, p):
+        return (expert.full_of(p.grad, p.ep_axis) if expert.is_shard(p)
+                else p.grad)
+
+    def run(kind, dtype, parallel):
+        cfg, model, tx, state, step = build(kind, dtype, parallel)
+        f32 = dtype == "float32"
+        batches = ppep_inputs(dev, cfg)
+        rows = (slice(None) if parallel == "pp" else
+                slice(rank * PPEP["batch"] // world,
+                      (rank + 1) * PPEP["batch"] // world))
+        routes = {} if kind == "moe" else None
+        pipeline.EXCHANGED.update(dict.fromkeys(pipeline.EXCHANGED, 0))
+        out = ppep_steps(state, step, [b[rows] for b in batches], whole,
+                         (lambda k: True) if f32 else
+                         (lambda k: k.startswith(PPEP_GRADS)), routes)
+        key = f"{kind}_{dtype}_{parallel}"
+        tok_rows = (None if parallel == "pp" else
+                    slice(rows.start * cfg.block_size,
+                          rows.stop * cfg.block_size))
+        r = {"loss": out["loss"], "step_ms": out["step_ms"],
+             "launches_last_step": out["launches_last_step"],
+             "vs_one_process": ppep_compare(
+                 out, refs[key], STEP_F32_TOL_PP if f32 else STEP_BF16_TOL,
+                 tok_rows),
+             "bytes_sent_3_steps": dict(pipeline.EXCHANGED),
+             "params": sum(p.numel() for p in model.parameters())}
+        return r, (cfg, model, tx, state)
+
+    # ---- 18c first: the fp32 pipeline's state, saved and resumed
+    res["gpt_float32_pp"], (cfg, model, tx, state) = run("gpt", "float32",
+                                                         "pp")
+
+    def local(st):
+        return {n: (p.detach().clone(),
+                    *(st.optimizer.state.get(p, {}).get(k)
+                      for k in ("exp_avg", "exp_avg_sq")))
+                for n, p in st.model.named_parameters()}
+
+    live = local(state)
+    c = {}
+    t0 = time.perf_counter()
+    c["pt"] = str(save_checkpoint(root / "ckpt_pt", state))
+    c["pt_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c["shards"] = str(save_checkpoint_sharded(root / "ckpt_shards", state))
+    c["shards_write_s"] = time.perf_counter() - t0
+    if rank == 0:
+        (root / "ckpt.json").write_text(json.dumps(c))
+    for fmt in ("pt", "shards"):
+        _, _, _, fresh, _ = build("gpt", "float32", "pp")
+        t0 = time.perf_counter()
+        load_checkpoint(c[fmt], fresh)
+        c[f"{fmt}_read_s"] = time.perf_counter() - t0
+        again = local(fresh)
+        c[f"{fmt}_resume_bitwise"] = all(
+            all(torch.equal(a, b) for a, b in zip(live[n], again[n])
+                if a is not None or b is not None) for n in live)
+        c[f"{fmt}_resume_step"] = fresh.step
+        placed = pipeline.place_pipeline_params(
+            pipeline.create_pp_mesh(world, dev),
+            Transformer(cfg, device="meta").to_empty(device=dev))
+        load_params(c[fmt], placed)
+        c[f"{fmt}_load_params_bitwise"] = all(
+            torch.equal(p, live[n][0]) for n, p in placed.named_parameters())
+        del fresh, placed
+    res["18c"] = c
+    del model, state, live
+    torch.cuda.empty_cache()
+
+    for kind, dtype, parallel in PPEP_RUNS:
+        key = f"{kind}_{dtype}_{parallel}"
+        if key in res:
+            continue
+        res[key], held = run(kind, dtype, parallel)
+        del held
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    (root / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def ppep_start(dev, root: Path) -> tuple:
+    """Start phase 18's 2 rank processes under ``root`` (before phase 17:
+    they import while it runs and wait for ``root / "start"``); returns
+    (processes, their logs), each process stopped at exit."""
+    spec = root / "spec.json"
+    spec.write_text(json.dumps({"root": str(root), "device": str(dev),
+                                "store": str(root / "store")}))
+    logs = [open(root / f"rank{r}.log", "w") for r in range(PPEP["world"])]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.ppep_child(sys.argv[1], int(sys.argv[2]))",
+         str(spec), str(r)], cwd=Path(__file__).resolve().parent,
+        stdout=logs[r], stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        for r in range(PPEP["world"])]
+    for p in procs:
+        atexit.register(stop_process, p)
+    return procs, logs
+
+
+def ppep_export(dev, c: dict) -> dict:
+    """18c on one device: the .pt and the .shards directory of the
+    pipelined fp32 state read by load_params into one model each (equal);
+    the merged model exported (prefill and decode_step) and one greedy
+    prompt through the programs against generate of the live model."""
+    import numpy as np
+    import torch
+
+    from tempo_tpu_torch.infer.export_lm import (export_lm,
+                                                 greedy_decode_exported)
+    from tempo_tpu_torch.nn.transformer import Transformer, generate
+    from tempo_tpu_torch.train.checkpoint import load_params
+
+    cfg = ppep_config("gpt", "float32")
+    one_pt = load_params(c["pt"], Transformer(cfg, device="meta").to_empty(
+        device=dev))
+    one_dir = load_params(c["shards"], Transformer(
+        cfg, device="meta").to_empty(device=dev))
+    res = {"pt_equals_shards": all(
+        torch.equal(a, b) for a, b in zip(one_pt.state_dict().values(),
+                                          one_dir.state_dict().values()))}
+    limit = PPEP["prompt"] + PPEP["new"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = export_lm({k: v.detach() for k, v in
+                         one_dir.state_dict().items()}, cfg,
+                        Path(tmp) / "lm", max_seq=limit, decode_chunk=0)
+        res["export_s"] = time.perf_counter() - t0
+        prompt = np.random.default_rng(SEED + 18).integers(
+            0, cfg.in_size, (1, PPEP["prompt"]))
+        got = greedy_decode_exported(out, prompt, PPEP["new"], device=dev)
+    want = generate(one_dir, prompt, PPEP["new"], temperature=0.0,
+                    cache_dtype=cfg.dtype, cache_len=limit).cpu().numpy()
+    res["greedy_equal"] = bool(np.array_equal(got, want))
+    res["tokens"] = got[0, PPEP["prompt"]:].tolist()
+    del one_pt, one_dir
+    torch.cuda.empty_cache()
+    return res
+
+
+def ppep_go(dev, root: Path) -> dict:
+    """Phase 18's first part: its ranks (started by ppep_start) join their
+    group while this process computes the one-process references, then
+    start on them; returns the references, the seconds they took and when
+    the ranks began."""
+    import torch
+
+    t0 = time.perf_counter()
+    (root / "start").touch()
+    refs = {}
+    for k, d, p in PPEP_RUNS:  # EP and DDP: one process's same steps
+        one = "ep" if p == "ddp" else p
+        refs[f"{k}_{d}_{p}"] = (refs[f"{k}_{d}_{one}"] if one != p else
+                                ppep_reference(dev, k, d, p))
+    torch.save(refs, root / "refs.pt")
+    (root / "go").touch()
+    return {"refs": refs, "refs_s": time.perf_counter() - t0,
+            "go": time.perf_counter()}
+
+
+def ppep_path(dev, rows: dict, root: Path, started=None,
+              begun=None) -> dict:
+    """Phase 18 (see PPEP): the references here and the 2 rank processes
+    (``started`` by ppep_start; ``begun`` by ppep_go, beside phase 17's
+    ranks in the whole script), 18c's export here while the ranks run 18a
+    and 18b, then the gates; adds K5's phase-18 launches to its rows."""
+    card = smi_line()
+    t_phase = time.perf_counter()
+    for name in ("K5f", "K5dkv", "K5dq"):
+        rows[name]["launches_phase18"] = {}
+    procs, logs = started or ppep_start(dev, root)
+    try:
+        begun = begun or ppep_go(dev, root)
+        refs, t_refs = begun["refs"], begun["refs_s"]
+        deadline = begun["go"] + PPEP["timeout"]
+        while not (root / "ckpt.json").exists():
+            if (time.perf_counter() > deadline
+                    or any(p.poll() for p in procs)):
+                break
+            time.sleep(0.2)
+        export = (ppep_export(dev, json.loads(
+            (root / "ckpt.json").read_text()))
+            if (root / "ckpt.json").exists() else None)
+        wait_all(procs, deadline)
+    finally:
+        for p in procs:
+            stop_process(p)
+        for f in logs:
+            f.close()
+    if any(p.returncode for p in procs) or export is None:
+        tails = "\n".join((root / f"rank{r}.log").read_text()[-6000:]
+                          for r in range(PPEP["world"]))
+        fail(f"a phase-18 rank failed or ran past {PPEP['timeout']} s:\n"
+             f"{tails}")
+    ranks = [json.loads((root / f"rank{r}.json").read_text())
+             for r in range(PPEP["world"])]
+    t_ranks = time.perf_counter() - begun["go"]
+
+    res = {"card": card, "note": "two ranks on one card: no scaling"}
+    bad = []
+    for kind, dtype, parallel in PPEP_RUNS:
+        key = f"{kind}_{dtype}_{parallel}"
+        want = refs[key]
+        # a stage runs its half of the layers on each microbatch (one
+        # process accumulates the microbatches over every layer); EP and
+        # DDP run every layer once a step, as one process
+        per_rank = ({k: v // PPEP["world"] for k, v in
+                     want["launches_last_step"].items()}
+                    if parallel == "pp" else None)
+        r = {"vs_one_process": [x[key]["vs_one_process"] for x in ranks],
+             "loss_rank0": ranks[0][key]["loss"], "loss_one": want["loss"],
+             "step_ms_rank": [x[key]["step_ms"] for x in ranks],
+             "step_ms_one_process": want["step_ms"],
+             "launches_last_step_rank": [x[key]["launches_last_step"]
+                                         for x in ranks],
+             "launches_last_step_one_process": want["launches_last_step"],
+             "bytes_sent_3_steps_rank0": ranks[0][key]["bytes_sent_3_steps"],
+             "params_rank": [x[key]["params"] for x in ranks]}
+        launched = all(
+            all(v > 0 for v in x[key]["launches_last_step"].values())
+            and (x[key]["launches_last_step"] == want["launches_last_step"]
+                 if per_rank is None else
+                 x[key]["launches_last_step"] == per_rank)
+            for x in ranks)
+        agree = ranks[0][key]["loss"] == ranks[1][key]["loss"]
+        r["ranks_agree_on_loss"] = agree
+        res[key] = r
+        if not (all(v["ok"] for v in r["vs_one_process"]) and launched
+                and agree):
+            bad.append(key)
+        if dtype == "bfloat16":
+            for name in ("K5f", "K5dkv", "K5dq"):
+                rows[name]["launches_phase18"][f"{parallel}_{kind}_per_rank"
+                                               f"_last_step"] = ranks[0][
+                    key]["launches_last_step"][name]
+    c = ranks[0]["18c"]
+    c18 = {k: [x["18c"][k] for x in ranks] for k in c
+           if k.endswith(("_s", "_bitwise", "_step"))}
+    c18["export"] = export
+    res["18c"] = c18
+    res["seconds"] = {"refs": t_refs, "ranks": t_ranks,
+                      "after_phase_17": time.perf_counter() - t_phase}
+    print(f"[ppep] phase 18, expert and pipeline parallelism over 2 ranks on "
+          f"one card (two ranks on one card: no scaling): {json.dumps(res)} "
+          f"on {card}", flush=True)
+    if bad:
+        fail(f"18a/18b: {bad} disagree with one process, the ranks with "
+             f"each other, or K5 launched other counts")
+    ok18c = (all(all(v) for k, v in c18.items() if k.endswith("_bitwise"))
+             and all(s == PPEP["steps"] for k, v in c18.items()
+                     if k.endswith("_step") for s in v)
+             and export["pt_equals_shards"] and export["greedy_equal"])
+    if not ok18c:
+        fail(f"18c: the pipeline's checkpoints do not round-trip or its "
+             f"export disagrees: {json.dumps(c18)}")
     return res
 
 
@@ -9534,7 +10080,7 @@ def main() -> int:
     seconds["15"] = time.perf_counter() - t_phase
     torch.cuda.empty_cache()
 
-    # phase 17's rank processes import beside phase 16
+    # phase 17's rank processes import beside phase 16, phase 18's beside 17
     tp_root = tempfile.TemporaryDirectory()
     tp_started = tp_start(dev, Path(tp_root.name))
 
@@ -9550,9 +10096,23 @@ def main() -> int:
 
     # -------- 17. tensor parallelism and the sharded checkpoint, 2 ranks
     t_phase = time.perf_counter()
-    tensor_res = tp_path(dev, rows, Path(tp_root.name), tp_started)
+    # phase 18's ranks start on their references while phase 17's work
+    ppep_root = tempfile.TemporaryDirectory()
+    ppep_started = ppep_start(dev, Path(ppep_root.name))
+    ppep_begun = {}
+    tensor_res = tp_path(dev, rows, Path(tp_root.name), tp_started,
+                         beside=lambda: ppep_begun.update(ppep_go(
+                             dev, Path(ppep_root.name))))
     tp_root.cleanup()
     seconds["17"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+
+    # ------------- 18. expert and pipeline parallelism over 2 ranks
+    t_phase = time.perf_counter()
+    ppep_res = ppep_path(dev, rows, Path(ppep_root.name), ppep_started,
+                         ppep_begun)
+    ppep_root.cleanup()
+    seconds["18"] = time.perf_counter() - t_phase
     print(f"[time] phases, s: {json.dumps(seconds)}", flush=True)
 
     for r in rows.values():
@@ -9571,7 +10131,7 @@ def main() -> int:
                           "training": options_training},
         "lm_rest": lm_rest, "connectomics": connectomics,
         "parallel": parallel, "spatial": spatial_res,
-        "tensor": tensor_res,
+        "tensor": tensor_res, "expert_pipeline": ppep_res,
         "granule_numpy_normalize_s": t_numpy_normalize,
         "seconds": seconds}}))
     print(json.dumps({"ok": True, "device": {

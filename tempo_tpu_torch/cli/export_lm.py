@@ -23,8 +23,10 @@ and their scales, and meta.json says ``quantize: int8``); the round-trip
 check then holds the programs to the live int8 model. An MoE run is
 refused (NotImplementedError from export_lm: the expert capacity needs the
 batch, which the programs keep symbolic; the JAX package's export fails
-there too). Not ported (NotImplementedError): pipeline-parallel stage
-stacks.
+there too). A pipeline run's checkpoint is merged back to one model's
+blocks, as JAX's export merges it: the port's ``.pt`` holds one device's
+keys, and JAX's ``.msgpack`` and either package's ``.shards`` their
+(rest, stage_stack) trees, which ``load_params`` merges.
 
 Config:
   run_dir: <train_gpt output dir>
@@ -89,9 +91,10 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
     if quantize not in ("none", "int8"):
         raise ValueError(f"FATAL: unknown quantize mode {quantize!r} "
                          "(none | int8)")
-    if int(train_config.get("parallel", {}).get("pipeline", 1)) > 1:
-        raise NotImplementedError("pipeline-parallel checkpoints (stage "
-                                  "stacks) are not ported")
+    # a pipeline run's checkpoint: the port's .pt holds one device's keys;
+    # JAX's .msgpack and either package's .shards hold (rest, stage_stack),
+    # which load_params merges back to the blocks the serving graph runs
+    stages = int(train_config.get("parallel", {}).get("pipeline", 1))
 
     ckpt = config.get("checkpoint")
     if ckpt is None:
@@ -138,7 +141,7 @@ def main(config_path: str, overwrite: bool = False, debug: bool = False,
     save_yaml({"checkpoint": str(ckpt), "quantize": quantize,
                "vocab_size": int(tconfig.in_size),
                "n_params": int(num_params(model)),
-               "max_seq": limit, "pipeline_stages_merged": 1},
+               "max_seq": limit, "pipeline_stages_merged": stages},
               output_dir / "export_info.yaml")
     print("\nDone!")
 

@@ -43,21 +43,29 @@ FSDP2 (parallel/fsdp.py) over the run's processes (torchrun or
 JAX's one-device mesh); several processes without it train under DDP.
 ``data.batch_size`` is the global batch, as JAX's: every rank draws it
 from the shared seed and trains its contiguous slice. Rank 0 writes the
-run's files and the generation (from the gathered weights under FSDP2
-or tensor parallelism). ``parallel.tensor: N`` shards the parameters'
-output features over N ranks of a ('data', 'model') mesh
-(parallel/tensor.py; ``wte`` and ``wpe`` on ``n_embd``), data parallelism
-over the rest. As in JAX, tensor parallelism composes with data
-parallelism only, and FSDP with no other axis and not with LoRA
-(ValueError; LoRA under tensor parallelism too); an MoE model under FSDP,
-tensor parallelism or over several processes raises NotImplementedError:
-JAX's expert capacity and Switch loss are over the global batch, which
-waits for the expert-parallel slice. ``training.checkpoint_format:
-sharded`` writes ``ckpt_step=NNNNNN.shards/`` directories in the JAX
-package's format (train/sharded_checkpoint.py).
+run's files and the generation (from the gathered weights under FSDP2,
+tensor, expert or pipeline parallelism). ``parallel.tensor: N`` shards
+the parameters' output features over N ranks of a ('data', 'model') mesh
+(parallel/tensor.py; ``wte`` and ``wpe`` on ``n_embd``, an MoE block's
+expert hidden and output channels), data parallelism over the rest.
+``parallel.expert: N`` shards the stacked expert weights over the N
+processes of the run (parallel/expert.py), each training its slice of
+the batch; ``parallel.pipeline: S`` splits the blocks into S stages over
+the S processes of the run, ``parallel.n_micro`` (default 4)
+microbatches a step through the GPipe schedule (parallel/pipeline.py),
+on the LM loss only and without dropout (a NOTE says so for an MoE or
+dropout model), as JAX's. Either axis spans the world (ValueError naming
+both numbers otherwise). An MoE model routes over the global batch under
+DDP, FSDP2, tensor and expert parallelism (nn/moe.py), JAX's capacity,
+Switch loss and slot order. As in JAX, tensor parallelism composes with
+data parallelism only, FSDP with no other axis, experts not with the
+pipeline, and LoRA with none of them (ValueError).
+``training.checkpoint_format: sharded`` writes ``ckpt_step=NNNNNN.shards/``
+directories in the JAX package's format (train/sharded_checkpoint.py; a
+pipeline's as JAX's (rest, stage_stack) leaves).
 
 Not ported (NotImplementedError from validate_config): ``parallel.*``
-pipeline, expert and context (M13).
+context and context_zigzag (M13).
 """
 
 from __future__ import annotations
@@ -76,16 +84,20 @@ from tempo_tpu_torch.nn.transformer import (Transformer, TransformerConfig,
                                            generate, make_gpt_optimizer,
                                            num_params)
 from tempo_tpu_torch.nn.lora import LoRA, init_lora, num_lora_params
+from tempo_tpu_torch.nn.moe import route_globally
+from tempo_tpu_torch.parallel import expert as pexpert
 from tempo_tpu_torch.parallel import fsdp as pfsdp
+from tempo_tpu_torch.parallel import pipeline as ppipeline
 from tempo_tpu_torch.parallel import tensor as ptensor
 from tempo_tpu_torch.parallel.mesh import (RankSlice, batch_sharding,
-                                           is_primary, process_count)
+                                           is_primary)
+from tempo_tpu_torch.parallel.pipeline import make_pp_loss_fn
 from tempo_tpu_torch.train.checkpoint import (check_format,
                                               latest_checkpoint, load_params,
                                               resolve_resume_from)
 from tempo_tpu_torch.train.schedules import lr_schedule
 from tempo_tpu_torch.train.state import create_train_state
-from tempo_tpu_torch.train.step import lm_loss_fn
+from tempo_tpu_torch.train.step import lm_loss_fn, pipeline_lm_loss_fn
 from tempo_tpu_torch.train.trainer import Trainer
 from tempo_tpu_torch.utils.config import (load_config, require_keys,
                                           save_json_yaml, save_yaml)
@@ -98,19 +110,6 @@ def build_transformer_config(model_cfg: dict) -> TransformerConfig:
         for k, v in model_cfg.items()})
 
 
-def refuse_sharded_moe(config) -> None:
-    """An MoE model (n_experts > 0) trains on one process only: JAX's
-    expert capacity ceil(k*n/E*cf) and Switch aux loss are over the global
-    batch, and a rank's own batch gives other numbers."""
-    if int(config["model"].get("n_experts", 0)) > 0:
-        raise NotImplementedError(
-            "an MoE model (n_experts > 0) under parallel.fsdp, "
-            "parallel.tensor or over several processes is not ported: "
-            "JAX's expert capacity and "
-            "Switch loss are over the global batch, which waits for the "
-            "expert-parallel slice (ROADMAP Queue 1, M13 item 2.2)")
-
-
 def validate_config(config) -> None:
     require_keys(config, ["output_dir", "data", "model", "training"])
     data = config["data"]
@@ -119,20 +118,34 @@ def validate_config(config) -> None:
                          "'synthetic' ({vocab_size, length})")
     if "tokens" in data and not Path(data["tokens"]).exists():
         raise ValueError(f"FATAL: token stream doesn't exist: {data['tokens']}")
+    parallel = dict(config.get("parallel") or {})
+    stages = int(parallel.get("pipeline", 1))
+    n_layer = int(config["model"].get("n_layer", 12))
+    if stages > 1 and n_layer % stages != 0:
+        raise ValueError(f"FATAL: n_layer={n_layer} must divide by "
+                         f"parallel.pipeline={stages}")
+    n_expert = int(parallel.get("expert", 1))
+    n_experts = int(config["model"].get("n_experts", 0))
+    if n_expert > 1 and stages <= 1 and (n_experts == 0
+                                         or n_experts % n_expert != 0):
+        raise ValueError(f"FATAL: model.n_experts={n_experts} must be a "
+                         f"positive multiple of parallel.expert={n_expert}")
     plan = parallel_plan(config, "train_gpt")
-    sharded = plan.fsdp or plan.n_model > 1
+    if plan.n_pipe > 1:
+        batch = int(data.get("batch_size", 16))
+        if batch % plan.n_micro:
+            raise ValueError(f"FATAL: data.batch_size={batch} must divide "
+                             f"by parallel.n_micro={plan.n_micro}")
     ft = dict(config.get("finetune", {}))
     if int(ft.get("lora_rank", 0)) > 0:
         if "base_checkpoint" not in ft and "base_run" not in ft:
             raise ValueError("FATAL: finetune.lora_rank needs "
                              "finetune.base_checkpoint (ckpt path) or "
                              "finetune.base_run (train_gpt output dir)")
-        if sharded:
+        if plan.single:
             raise ValueError("FATAL: finetune.lora_rank is the dense "
                              "data-parallel path — adapters are tiny, "
                              "model-sharding them buys nothing")
-    if sharded:
-        refuse_sharded_moe(config)
     check_format(config["training"].get("checkpoint_format", "msgpack"))
 
 
@@ -146,8 +159,6 @@ def run(config: Dict[str, Any], overwrite: bool = False, debug: bool = False,
     validate_config(config)
     plan = parallel_plan(config, "train_gpt")
     with parallel_group(config, device, plan) as mesh:
-        if process_count() > 1:
-            refuse_sharded_moe(config)
         return _run(config, overwrite, debug, device, config_path, mesh,
                     plan)
 
@@ -190,7 +201,7 @@ def _run(config, overwrite, debug, device, config_path, mesh, plan):
         trained = _lora_model(config["finetune"], model, seed)
 
     batch_size = int(data_cfg.get("batch_size", 16))
-    shard = batch_sharding(mesh)
+    shard = batch_sharding(mesh)  # the stages of a pipeline read it whole
     shard.local_size(batch_size)  # the global batch divides over the ranks
     train_loader = RankSlice(TokenLoader(stream, batch_size,
                                          tconfig.block_size, seed=seed + 1),
@@ -210,8 +221,19 @@ def _run(config, overwrite, debug, device, config_path, mesh, plan):
     state = parallelize(create_train_state(trained, tx, seed + 3), tx, mesh,
                         plan)
     aux_weight = float(train_cfg.get("moe_aux_weight", 0.01))
+    loss_fn = lm_loss_fn(model, aux_weight)
+    if plan.n_pipe > 1:
+        if tconfig.n_experts > 0:
+            print("NOTE: pipeline path trains with the LM loss only "
+                  "(the MoE aux loss is not collected through the "
+                  "pipeline)")
+        if tconfig.dropout > 0.0:
+            print("NOTE: pipeline path trains deterministically "
+                  "(dropout is not threaded through the pipeline)")
+        loss_fn = pipeline_lm_loss_fn(make_pp_loss_fn(
+            tconfig, plan.n_pipe, plan.n_micro, mesh))
     trainer = Trainer(
-        loss_fn=lm_loss_fn(model, aux_weight), tx=tx, state=state,
+        loss_fn=loss_fn, tx=tx, state=state,
         output_dir=output_dir,
         save_every=train_cfg.get("save_every", 1000),
         val_every=train_cfg.get("val_every", 100),
@@ -232,9 +254,11 @@ def _run(config, overwrite, debug, device, config_path, mesh, plan):
                           val_iter_factory=lambda: iter(val_loader),
                           n_steps=n_steps)
     end_time = datetime.now()
-    if plan.fsdp or plan.n_model > 1:
+    if plan.single:
         # every rank gathers; rank 0 generates from a plain copy
         gathered = (pfsdp.full_state_dict(model) if plan.fsdp
+                    else ppipeline.full_state_dict(model) if plan.n_pipe > 1
+                    else pexpert.full_state_dict(model) if plan.n_expert > 1
                     else ptensor.full_state_dict(model))
         if is_primary():
             model = trained = Transformer(tconfig, device=device)
@@ -247,7 +271,7 @@ def _run(config, overwrite, debug, device, config_path, mesh, plan):
         "vocab_size": vocab,
         "n_params_non_embedding": int(n_params),
         "n_experts": tconfig.n_experts,
-        "pipeline_stages": 1,
+        "pipeline_stages": plan.n_pipe,
         "training_time": str(end_time - start_time),
         "samples_per_sec": float(stats["samples_per_sec"]),
     }, output_dir / "training_info.yaml")
@@ -274,6 +298,7 @@ def _run(config, overwrite, debug, device, config_path, mesh, plan):
               f"{tconfig.block_size})")
         n_tokens = room
     if n_tokens > 0:
+        route_globally(model, None)  # rank 0 generates alone
         prompt = np.asarray(stream[:prompt_len])[None].astype(np.int64)
         continuation = generate(model, prompt, n_tokens,
                                 temperature=0.0).cpu().numpy()

@@ -13,7 +13,9 @@ through interop/jax_params.py:
 - ``VDM`` and ``SFM``: ``vdm_state_dict_from_jax`` (a CUNet or CMLP score
   model, a learned schedule, an SFM's velocity model);
 - ``Transformer``: ``gpt_state_dict_from_jax`` with the model's config
-  (untokenized and embedder-mode trees too);
+  (untokenized and embedder-mode trees too; a pipeline run's (rest,
+  stage_stack), flax's {"0", "1"}, merged back to h_0 ... first:
+  parallel/pipeline.py ``merge_pipeline_params``);
 - ``LoRA`` (nn/lora.py): ``lora_state_dict_from_jax``, the adapters as
   ``adapters.<name with / for .>.{a, b}``.
 
@@ -78,6 +80,11 @@ def jax_state_dict_for(model: nn.Module, params: Mapping[str, Any]
     if isinstance(model, (VDM, SFM)):
         return vdm_state_dict_from_jax(tree, dropout)
     if isinstance(model, Transformer):
+        if set(tree) == {"0", "1"}:  # a pipeline run's (rest, stage_stack)
+            from tempo_tpu_torch.parallel.pipeline import (
+                merge_pipeline_params)
+
+            tree = merge_pipeline_params(tree["0"], tree["1"])
         return gpt_state_dict_from_jax(tree, model.config)
     raise TypeError(f"no JAX checkpoint converter for "
                     f"{type(model).__name__} (AutoencoderKL, VAEWithL2Head, "
@@ -86,7 +93,10 @@ def jax_state_dict_for(model: nn.Module, params: Mapping[str, Any]
 
 def load_jax_params(path: Union[str, Path], model: nn.Module) -> nn.Module:
     """Load a JAX checkpoint's parameters into ``model`` (in place,
-    strict) and return it."""
+    strict; each shard or pipeline stage taking its part) and return
+    it."""
+    from tempo_tpu_torch.train.checkpoint import load_full_params
+
     params = read_jax_checkpoint(path)["params"]
-    model.load_state_dict(jax_state_dict_for(model, params))
+    load_full_params(model, jax_state_dict_for(model, params))
     return model

@@ -432,17 +432,17 @@ def model_rules(model: nn.Module) -> Tuple[Tuple[Rule, ...], dict]:
 
 def jax_layout(model: nn.Module) -> Dict[str, Leaf]:
     """{parameter name: Leaf} for every parameter of ``model`` (a GPT
-    only tokenized, without experts or int8 weights: the layouts the
-    sharded format takes)."""
+    only tokenized, without int8 weights: the layouts the sharded format
+    takes)."""
     from tempo_tpu_torch.nn.transformer import Transformer
 
     if isinstance(model, Transformer):
         cfg = model.config
-        if (cfg.n_experts > 0 or cfg.quantize != "none" or not cfg.tokenized
+        if (cfg.quantize != "none" or not cfg.tokenized
                 or model.embedders is not None):
             raise NotImplementedError(
                 "the JAX layout table covers the tokenized GPT without "
-                "experts or int8 weights")
+                "int8 weights")
     rules, fixed = model_rules(model)
     return _layout(rules, _names(model), **fixed)
 

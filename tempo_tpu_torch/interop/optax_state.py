@@ -38,6 +38,8 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
+from tempo_tpu_torch.parallel import pipeline
+
 ADAM_FIELDS = frozenset({"count", "mu", "nu"})
 
 
@@ -89,17 +91,17 @@ def load_jax_train_state(raw: Mapping[str, Any], state,
     mu = jax_state_dict_for(model, adam["mu"])
     nu = jax_state_dict_for(model, adam["nu"])
     count = int(np.asarray(adam["count"]))
-    names = {id(p): n for n, p in model.named_parameters()}
     torch_sd = opt.state_dict()
-    moments, i = {}, 0
-    for group in opt.param_groups:
-        for p in group["params"]:
-            name = names[id(p)]
-            moments[i] = {"step": torch.tensor(float(count),
-                                               dtype=torch.float32),
-                          "exp_avg": mu[name], "exp_avg_sq": nu[name]}
-            i += 1
-    torch_sd["state"] = moments
+    pp = pipeline.of(model)
+    if pp is None:
+        names = {id(p): n for n, p in model.named_parameters()}
+        order = [names[id(p)] for g in opt.param_groups for p in g["params"]]
+    else:  # one device's optimizer indices, over every stage's parameters
+        order = pipeline.one_device_order(model, state.tx)
+    torch_sd["state"] = {
+        i: {"step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+        for i, name in enumerate(order)}
     if load_full is None:
         model.load_state_dict(model_sd)
         opt.load_state_dict(torch_sd)

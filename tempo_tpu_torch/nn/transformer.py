@@ -725,21 +725,7 @@ class Transformer(nn.Module):
             h = _tap(tap, h, f"x_{i + 1}")
             new_caches.append(layer_cache)
             auxes.append(aux)
-        if cfg.ln:
-            h = self.transformer["ln_f"](h)
-        h = _tap(tap, h, "x_ln_f")
-        wte = self.transformer["wte"] if "wte" in self.transformer else None
-        if self.unembedders is not None:
-            out = _apply(self.unembedders["x"], h)
-        elif not cfg.tokenized:
-            out = wte.transposed(h)
-        elif not cfg.tie_emb:
-            out = self.lm_head(h)
-        elif cfg.quantize == "int8":
-            out = wte.head(h, cfg.dtype)
-        else:  # under TP the n_embd-sharded table is gathered for it
-            out = h @ tensor.gather_output(
-                wte, cast_param(self, wte.weight, cfg.dtype), "weights").T
+        out = self.unembed(h, tap)
         result = (out,) if cache is None else (out, tuple(new_caches))
         if with_aux:
             from tempo_tpu_torch.nn.moe import moe_aux_mean
@@ -749,6 +735,28 @@ class Transformer(nn.Module):
         if capture:
             result += (taps_.hiddens,)
         return result[0] if len(result) == 1 else result
+
+    def unembed(self, h: torch.Tensor, tap: Optional[Tap] = None
+                ) -> torch.Tensor:
+        """The final LayerNorm and the head on the last block's output (the
+        tied table's transpose, ``lm_head``, the int8 table, the
+        untokenized TiedLinear's transpose, or the unembedder)."""
+        cfg = self.config
+        if cfg.ln:
+            h = self.transformer["ln_f"](h)
+        h = _tap(tap, h, "x_ln_f")
+        wte = self.transformer["wte"] if "wte" in self.transformer else None
+        if self.unembedders is not None:
+            return _apply(self.unembedders["x"], h)
+        if not cfg.tokenized:
+            return wte.transposed(h)
+        if not cfg.tie_emb:
+            return self.lm_head(h)
+        if cfg.quantize == "int8":
+            return wte.head(h, cfg.dtype)
+        # under TP the n_embd-sharded table is gathered for it
+        return h @ tensor.gather_output(
+            wte, cast_param(self, wte.weight, cfg.dtype), "weights").T
 
     def _embed(self, x, input_pos: Optional[torch.Tensor],
                dev: torch.device, tap: Optional[Tap]) -> torch.Tensor:

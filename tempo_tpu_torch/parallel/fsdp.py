@@ -92,9 +92,11 @@ def shard_state_fsdp(state, mesh, tx):
     optimizer rebuilt by ``tx`` (train/state.py Optimizer) over the sharded
     parameters, and the generator drawing per rank. Call on a fresh state
     (a checkpoint is loaded after)."""
-    from tempo_tpu_torch.parallel.mesh import rank_seed
+    from tempo_tpu_torch.parallel.mesh import (rank_seed,
+                                               route_experts_globally)
 
     shard_params_fsdp(state.model, mesh)
+    route_experts_globally(state.model)
     state.optimizer = tx.build(state.model)
     rank_seed(state.generator)
     return state

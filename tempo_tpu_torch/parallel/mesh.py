@@ -30,10 +30,11 @@ Each rank reads its LOCAL batch: the host loaders give each rank
 ``batch_size // LOCAL_WORLD_SIZE`` (the global batch is batch_size x
 hosts, as JAX's per-host batch), and a source that yields the global
 batch (the replicated device buffer, the token loader) is cut to the
-rank's contiguous slice by ``batch_sharding``. Losses that are means over
-the batch average across ranks to the global mean; the one that is not,
-the L2 head's masked MSE, sums its count over the group the train step
-hands it (models/vae_l2.py ``masked_mse``).
+rank's contiguous slice by ``batch_sharding``. An MoE model routes over
+the global batch (``route_experts_globally``), as JAX's one program does.
+Losses that are means over the batch average across ranks to the global
+mean; the one that is not, the L2 head's masked MSE, sums its count over
+the group the train step hands it (models/vae_l2.py ``masked_mse``).
 """
 
 from __future__ import annotations
@@ -232,13 +233,19 @@ class BatchShard:
 def data_axis(mesh) -> tuple:
     """(this rank's index, size) of the mesh's 'data' axis: of the whole
     mesh for the one-axis mesh, of its outer axis for the ('data',
-    'model') one (the model-axis peers share an index); a BatchShard's
+    'model') and pipeline ones (the model-axis peers and a pipeline's
+    stages share an index), of the ('expert',) axis; a BatchShard's
     own."""
     if mesh is None:
         return 0, 1
     if isinstance(mesh, BatchShard):
         return mesh.rank, mesh.world
-    return mesh.get_local_rank(DATA_AXIS), mesh[DATA_AXIS].size()
+    names = mesh.mesh_dim_names
+    if DATA_AXIS in names:
+        return mesh.get_local_rank(DATA_AXIS), mesh[DATA_AXIS].size()
+    if names == ("expert",):  # each expert rank trains its slice
+        return mesh.get_local_rank(), mesh.size()
+    return 0, 1  # the stages of one pipeline read the same rows
 
 
 def batch_sharding(mesh=None) -> BatchShard:
@@ -342,8 +349,23 @@ def shard_state(state, mesh=None):
     draws per rank. The optimizer keeps the parameters it holds (DDP does
     not replace them)."""
     state.wrapper = replicate_sharding(state.model, mesh)
+    route_experts_globally(state.model)
     rank_seed(state.generator)
     return state
+
+
+def route_experts_globally(model: nn.Module, group=None) -> None:
+    """An MoE model's blocks route over the global batch of ``group``'s
+    ranks (nn/moe.py ``route_globally``): a new group over the world by
+    default, apart from the one DDP's and FSDP2's gradient exchanges run
+    on, whose order the routing's backward all-reduce would then have to
+    follow. A model without experts, or one process, is left as it
+    is."""
+    from tempo_tpu_torch.nn.moe import has_experts, route_globally
+
+    if not has_experts(model) or process_count() == 1:
+        return
+    route_globally(model, dist.new_group() if group is None else group)
 
 
 def all_reduce_mean(values: torch.Tensor) -> torch.Tensor:
@@ -360,3 +382,125 @@ def all_reduce_sum_(values: torch.Tensor) -> torch.Tensor:
     if process_count() > 1:
         dist.all_reduce(values)
     return values
+
+
+# ------------------------------------------- exchanges along a leading axis
+
+def all_gather_dim0(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` concatenated along dim 0 in group
+    rank order, on t's device (through host memory where the backend
+    takes no CUDA tensor for an all-gather: gloo)."""
+    world = dist.get_world_size(group)
+    if world == 1:
+        return t
+    dev = comm_device(t, "all_gather", group)
+    buf = t.detach().to(dev).contiguous()
+    if dev.type == "cuda":
+        out = torch.empty((world * buf.shape[0],) + tuple(buf.shape[1:]),
+                          dtype=buf.dtype, device=dev)
+        dist.all_gather_into_tensor(out, buf, group=group)
+    else:
+        bufs = [torch.empty_like(buf) for _ in range(world)]
+        dist.all_gather(bufs, buf, group=group)
+        out = torch.cat(bufs)
+    return out.to(t.device)
+
+
+def reduce_scatter_dim0(t: torch.Tensor, group) -> torch.Tensor:
+    """This rank's chunk along dim 0 of the sum over ``group`` of every
+    rank's ``t`` (dim 0 a multiple of the group's size): NCCL's
+    reduce-scatter, an all-reduce and the rank's slice over gloo, which
+    has no reduce-scatter of CUDA tensors."""
+    world = dist.get_world_size(group)
+    if world == 1:
+        return t
+    n = t.shape[0] // world
+    rank = dist.get_rank(group)
+    if t.is_cuda and dist.get_backend(group) == "nccl":
+        out = torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        dist.reduce_scatter_tensor(out, t.detach().contiguous(),
+                                   group=group)
+        return out
+    buf = t.detach().to(comm_device(t, "all_reduce", group), copy=True)
+    dist.all_reduce(buf, group=group)
+    return buf[rank * n:(rank + 1) * n].to(t.device).contiguous()
+
+
+def all_reduce_flat_(tensors, group, divisor: int = 1) -> None:
+    """Sum each tensor of ``tensors`` over ``group`` in place, divided by
+    ``divisor`` (the group's size: the mean): one all-reduce of their
+    concatenation (of one dtype and device)."""
+    tensors = [t for t in tensors if t is not None]
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    if dist.get_world_size(group) > 1:
+        buf = flat.to(comm_device(flat, "all_reduce", group))
+        dist.all_reduce(buf, group=group)
+        flat = buf.to(flat.device)
+    if divisor != 1:
+        flat = flat / divisor
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over a group; the backward sums the incoming gradients over
+    it too (each rank's output feeds its own loss)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        buf = t.detach().to(comm_device(t, "all_reduce", group), copy=True)
+        dist.all_reduce(buf, group=group)
+        return buf.to(t.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad, ctx.group), None
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group`` (differentiable: the backward is
+    the sum of the ranks' gradients)."""
+    return _AllReduceSum.apply(t, group)
+
+
+class _GatherDim0(torch.autograd.Function):
+    """All-gather along dim 0; the backward is the reduce-scatter (each
+    rank's slice of the sum of the ranks' gradients)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_gather_dim0(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ScatterDim0.apply(grad, ctx.group), None
+
+
+class _ScatterDim0(torch.autograd.Function):
+    """Reduce-scatter along dim 0; the backward is the all-gather."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return reduce_scatter_dim0(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherDim0.apply(grad, ctx.group), None
+
+
+def gather_dim0(t: torch.Tensor, group) -> torch.Tensor:
+    """``all_gather_dim0``, differentiable (its backward reduce-scatters
+    the gradient)."""
+    return _GatherDim0.apply(t, group)
+
+
+def scatter_dim0(t: torch.Tensor, group) -> torch.Tensor:
+    """``reduce_scatter_dim0``, differentiable (its backward all-gathers
+    the gradient)."""
+    return _ScatterDim0.apply(t, group)

@@ -61,7 +61,8 @@ import torch.distributed as dist
 from torch import nn
 
 from tempo_tpu_torch.interop import jax_layout
-from tempo_tpu_torch.parallel.mesh import DATA_AXIS, comm_device
+from tempo_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce_flat_,
+                                           comm_device)
 
 MODEL_AXIS = "model"
 # Bytes brought to this rank: gathered output channels, summed input
@@ -291,10 +292,11 @@ def is_shard(p: torch.Tensor) -> bool:
 def _sharded_modules() -> tuple:
     from tempo_tpu_torch.nn.blocks import (Conv2d, Dense, Downsample2x,
                                            GroupNorm, Upsample2x)
+    from tempo_tpu_torch.nn.moe import MoEBlock
     from tempo_tpu_torch.nn.transformer import LayerNorm, Linear
 
     return (Conv2d, Dense, Downsample2x, Upsample2x, GroupNorm, Linear,
-            LayerNorm, nn.Embedding)
+            LayerNorm, nn.Embedding, MoEBlock)
 
 
 def local_of(full: torch.Tensor, kind: str,
@@ -322,8 +324,9 @@ def shard_params_tp(model: nn.Module, mesh) -> nn.Module:
     JAX's rule on their JAX leaves: each sharded parameter is replaced by
     its rank's slice (``tp_kind`` set on it), and its module computes its
     output channels and gathers them. Raises NotImplementedError for a
-    sharded parameter of a module the TP plan does not cover (an MoE, an
-    int8 or LoRA layer, the untokenized head). Build the optimizer after
+    sharded parameter of a module the TP plan does not cover (an int8 or
+    LoRA layer, the untokenized head). An MoE block's ``w1``/``b1`` shard on
+    the hidden axis and ``w2``/``b2`` on ``n_embd`` (nn/moe.py). Build the optimizer after
     this, over the slices."""
     tp = mesh if isinstance(mesh, TensorParallel) else tensor_parallel(mesh)
     layout = jax_layout.jax_layout(model)
@@ -336,7 +339,8 @@ def shard_params_tp(model: nn.Module, mesh) -> nn.Module:
             continue
         mod_name, _, attr = name.rpartition(".")
         module = model.get_submodule(mod_name)
-        if not isinstance(module, supported):
+        if not isinstance(module, supported) or getattr(
+                getattr(module, "config", None), "quantize", "none") != "none":
             raise NotImplementedError(
                 f"tensor parallelism over {type(module).__name__} "
                 f"({name}) is not ported")
@@ -356,10 +360,13 @@ def shard_state_tp(state, mesh, tx):
     so AdamW's moments are slices too, and the generator seeded by the
     data rank (model-axis peers draw alike). Call on a fresh state (a
     checkpoint is loaded after)."""
-    from tempo_tpu_torch.parallel.mesh import rank_seed
+    from tempo_tpu_torch.parallel.mesh import (rank_seed,
+                                               route_experts_globally)
 
     tp = mesh if isinstance(mesh, TensorParallel) else tensor_parallel(mesh)
     shard_params_tp(state.model, tp)
+    if tp.data_world > 1:  # the model-axis peers route the same tokens
+        route_experts_globally(state.model, tp.data_group)
     state.optimizer = tx.build(state.model)
     rank_seed(state.generator, tp.data_rank)
     return state
@@ -486,15 +493,9 @@ def average_over_data(params, tp: TensorParallel) -> None:
     """Average the gradients of ``params`` over the data axis (the
     model-axis peers' shards differ; the data-axis peers' match): one
     all-reduce of their concatenation."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if tp.data_world == 1 or not grads:
-        return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    buf = flat.to(comm_device(flat, "all_reduce", tp.data_group))
-    dist.all_reduce(buf, group=tp.data_group)
-    flat = buf.to(flat.device) / tp.data_world
-    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-        g.copy_(part.view_as(g))
+    if tp.data_world > 1:
+        all_reduce_flat_([p.grad for p in params], tp.data_group,
+                         tp.data_world)
 
 
 def mean_over_data(values: torch.Tensor, tp: TensorParallel) -> torch.Tensor:

@@ -23,15 +23,20 @@ file, in the single-device format with the single-device keys: under DDP
 the plain module's state dicts are those; under FSDP2 the shards are
 gathered first (parallel/fsdp.py ``full_state_dict``,
 ``full_optimizer_state``: collectives, on the calling thread, also for the
-async writer), and so are tensor-parallel slices (parallel/tensor.py's
-functions of the same names). A multi-rank file also holds
+async writer), and so are tensor-parallel slices and expert shards
+(parallel/tensor.py's and parallel/expert.py's functions of the same
+names) and a pipeline's stages (parallel/pipeline.py: the stages' blocks
+and moments brought to the first stage, under one device's keys and
+optimizer indices). A multi-rank file also holds
 ``rank_generators``, every rank's generator state, so a resume at the
 same world size draws as the run would have (``restore_generator``; under
 tensor parallelism the model-axis peers then take their model rank 0's,
 whatever layout wrote the file). ``load_checkpoint`` and ``load_params``
-read a file on one device and under DDP, FSDP2 or tensor parallelism (a
-sharded model takes its shards of the full tensors); so does a JAX
-``.msgpack`` full state.
+read a file on one device and under DDP, FSDP2, tensor, expert or pipeline
+parallelism (a sharded model takes its shards of the full tensors, a stage
+its own parameters); so does a JAX ``.msgpack`` full state, also one of a
+JAX pipeline run, whose (rest, stage_stack) trees are merged
+(interop/jax_ckpt.py).
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
-from tempo_tpu_torch.parallel import fsdp, tensor
+from tempo_tpu_torch.parallel import expert, fsdp, pipeline, tensor
 from tempo_tpu_torch.parallel.mesh import (barrier, is_primary,
                                            process_count, process_index)
 from tempo_tpu_torch.train.state import TrainState
@@ -117,33 +122,60 @@ def _is_sharded(model: torch.nn.Module) -> bool:
 
 def _full_views(state: TrainState) -> tuple:
     """The model's and optimizer's state dicts as one device's: gathered
-    under FSDP2 or tensor parallelism (collectives), as they are
-    otherwise; and whether they were gathered."""
-    if _is_sharded(state.model):
-        return (fsdp.full_state_dict(state.model),
+    under FSDP2, tensor, expert or pipeline parallelism (collectives), as
+    they are otherwise; and whether they were gathered."""
+    model = state.model
+    if _is_sharded(model):
+        return (fsdp.full_state_dict(model),
                 fsdp.full_optimizer_state(state.optimizer), True)
-    if tensor.of(state.model) is not None:
-        return (tensor.full_state_dict(state.model),
+    if pipeline.of(model) is not None:
+        return (pipeline.full_state_dict(model),
+                pipeline.full_optimizer_state(state), True)
+    if tensor.of(model) is not None:
+        return (tensor.full_state_dict(model),
                 tensor.full_optimizer_state(state.optimizer), True)
-    return state.model.state_dict(), state.optimizer.state_dict(), False
+    if expert.of(model) is not None:
+        return (expert.full_state_dict(model),
+                expert.full_optimizer_state(state.optimizer), True)
+    return model.state_dict(), state.optimizer.state_dict(), False
+
+
+def load_full_params(model: torch.nn.Module,
+                     state_dict: Dict[str, torch.Tensor]) -> None:
+    """Load one device's state dict into ``model``: each shard takes its
+    slice under FSDP2, tensor or expert parallelism, each pipeline stage
+    its own parameters."""
+    if _is_sharded(model):
+        fsdp.load_full_state_dict(model, state_dict)
+    elif pipeline.of(model) is not None:
+        pipeline.load_full_state_dict(model, state_dict)
+    elif tensor.of(model) is not None:
+        tensor.load_full_state_dict(model, state_dict)
+    elif expert.of(model) is not None:
+        expert.load_full_state_dict(model, state_dict)
+    else:
+        model.load_state_dict(state_dict)
 
 
 def load_full_state(state: TrainState, model_sd: Dict[str, torch.Tensor],
                     opt_sd: Optional[dict] = None) -> None:
     """Load one device's state dicts into ``state``: each shard takes its
-    slice under FSDP2 or tensor parallelism."""
-    if _is_sharded(state.model):
-        fsdp.load_full_state_dict(state.model, model_sd)
-        if opt_sd is not None:
-            fsdp.load_full_optimizer_state(state.optimizer, opt_sd)
-    elif tensor.of(state.model) is not None:
-        tensor.load_full_state_dict(state.model, model_sd)
-        if opt_sd is not None:
-            tensor.load_full_optimizer_state(state.optimizer, opt_sd)
+    slice under FSDP2, tensor or expert parallelism, each pipeline stage
+    its own parameters and moments."""
+    model, opt = state.model, state.optimizer
+    load_full_params(model, model_sd)
+    if opt_sd is None:
+        return
+    if _is_sharded(model):
+        fsdp.load_full_optimizer_state(opt, opt_sd)
+    elif pipeline.of(model) is not None:
+        pipeline.load_full_optimizer_state(state, opt_sd)
+    elif tensor.of(model) is not None:
+        tensor.load_full_optimizer_state(opt, opt_sd)
+    elif expert.of(model) is not None:
+        expert.load_full_optimizer_state(opt, opt_sd)
     else:
-        state.model.load_state_dict(model_sd)
-        if opt_sd is not None:
-            state.optimizer.load_state_dict(opt_sd)
+        opt.load_state_dict(opt_sd)
 
 
 def _host_payload(state: TrainState,
@@ -325,9 +357,12 @@ def load_params(path: Union[str, Path], model: torch.nn.Module
 
         return load_params_sharded(path, model)
     if path.suffix == JAX_SUFFIX:
-        from tempo_tpu_torch.interop.jax_ckpt import load_jax_params
+        from tempo_tpu_torch.interop.jax_ckpt import (jax_state_dict_for,
+                                                      read_jax_checkpoint)
 
-        return load_jax_params(path, model)
+        load_full_params(model, jax_state_dict_for(
+            model, read_jax_checkpoint(path)["params"]))
+        return model
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if "model" in raw and isinstance(raw["model"], dict):
         raw = raw["model"]
@@ -336,12 +371,7 @@ def load_params(path: Union[str, Path], model: torch.nn.Module
         nested = {k[4:]: v for k, v in state_dict.items()
                   if k.startswith("vae.")}
         state_dict = nested or state_dict
-    if _is_sharded(model):
-        fsdp.load_full_state_dict(model, state_dict)
-    elif tensor.of(model) is not None:
-        tensor.load_full_state_dict(model, state_dict)
-    else:
-        model.load_state_dict(state_dict)
+    load_full_params(model, state_dict)
     return model
 
 

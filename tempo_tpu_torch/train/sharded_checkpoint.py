@@ -19,7 +19,12 @@ stored as JAX stores it, its 2-byte words under the '<V2' descriptor.
 Each rank writes only its own bytes. A rank's tensor of a leaf is a box
 of the JAX-layout leaf: a tensor-parallel shard (parallel/tensor.py) is
 its last-axis chunk, an FSDP2 shard (parallel/fsdp.py) its dim-0 rows
-mapped through the layout, a whole tensor the whole leaf. It goes into
+mapped through the layout, an expert shard (parallel/expert.py) its rows
+of the expert axis, a whole tensor the whole leaf. A pipeline run's
+parameters are JAX's (rest, stage_stack), flax's {"0", "1"}: a stage's
+block i of L/S a stage is the [stage, i mod L/S] box of the stacked
+[S, L/S, ...] leaf (parallel/pipeline.py); ``load_params`` reads such a
+directory into an unsplit model too. It goes into
 its region of the file through ``np.lib.format.open_memmap(mode="r+")``,
 a strided write; no leaf is gathered. The protocol is JAX's: rank 0
 creates every .npy (header and zeros), all ranks sync, each writes the
@@ -49,7 +54,7 @@ import torch
 import torch.distributed as dist
 
 from tempo_tpu_torch.interop import jax_layout
-from tempo_tpu_torch.parallel import fsdp, tensor
+from tempo_tpu_torch.parallel import expert, fsdp, pipeline, tensor
 from tempo_tpu_torch.parallel.mesh import (barrier, is_primary,
                                            process_count)
 
@@ -86,12 +91,14 @@ class _Region:
     hi: int
     jax_local: bool
     owner: bool
+    lead: tuple = ()  # a stacked leaf's [stage, layer] (pipeline)
 
     def index(self, ndim: int) -> tuple:
         if self.axis is None:
-            return (Ellipsis,)
-        return tuple(slice(self.lo, self.hi) if a == self.axis
-                     else slice(None) for a in range(ndim))
+            return self.lead + (Ellipsis,)
+        return self.lead + tuple(
+            slice(self.lo, self.hi) if a == self.axis else slice(None)
+            for a in range(ndim - len(self.lead)))
 
     def to_jax(self, local: torch.Tensor) -> np.ndarray:
         t = local if self.jax_local else jax_layout.to_jax(self.kind, local)
@@ -112,10 +119,34 @@ class _Region:
         return t.to(like.device, like.dtype).contiguous()
 
 
-def _region(p: torch.Tensor, kind: str) -> _Region:
+def _region(p: torch.Tensor, kind: str, pp=None,
+            rest: bool = False) -> _Region:
     """Where this rank's ``p`` (a parameter; its moments share it) lies in
-    its JAX leaf, and whether this rank writes it."""
+    its JAX leaf, and whether this rank writes it. On a pipeline stage
+    (``pp``; ``rest``: a parameter outside the blocks) a region is written
+    by data rank 0, of the first stage for ``rest``, of model rank 0
+    where it is whole over 'model'."""
+    if pp is not None:
+        whole_rank = pp.tp is None or pp.tp.rank == 0
+        if pipeline.is_fsdp_expert(p):
+            if tensor.is_shard(p):
+                raise NotImplementedError(
+                    "a sharded checkpoint of fsdp_experts under tensor "
+                    "parallelism is not ported")
+            rows = p.shape[0]
+            return _Region(kind, jax_layout.jax_axis(kind, 0, p.ndim),
+                           pp.data_rank * rows, (pp.data_rank + 1) * rows,
+                           False, whole_rank)
+        return dataclasses.replace(
+            _region(p, kind), owner=pp.data_rank == 0
+            and (pp.stage == 0 or not rest)
+            and (tensor.is_shard(p) or whole_rank))
     jax_ndim = len(jax_layout.jax_shape(kind, _shape(p)))
+    if expert.is_shard(p):
+        ep = p.ep_axis
+        lo, hi = ep.bounds(p.shape[0] * ep.world)
+        return _Region(kind, jax_layout.jax_axis(kind, 0, p.ndim), lo, hi,
+                       False, True)
     if tensor.is_shard(p):
         tp = p.tp_axis
         width = (p.shape[-1] if kind == "up" else
@@ -143,7 +174,26 @@ def _shape(p: torch.Tensor) -> tuple:
         shape = list(p.shape)
         shape[d] *= tp.world
         return tuple(shape)
+    if expert.is_shard(p):
+        return (p.shape[0] * p.ep_axis.world,) + tuple(p.shape[1:])
+    if pipeline.is_fsdp_expert(p):
+        return (p.shape[0] * p.fsdp_expert,) + tuple(p.shape[1:])
     return tuple(p.shape)
+
+
+def _staged(leaf, shape: tuple, staging) -> tuple:
+    """(JAX path, shape, leading index) of a parameter's leaf; in a
+    pipeline's (rest, stage_stack) tree where ``staging`` is (stages,
+    layers a stage): a block's leaf stacked to [S, L/S, ...] under "1",
+    the rest under "0"."""
+    if staging is None:
+        return leaf.path, shape, ()
+    n_stages, per = staging
+    if leaf.path[0].startswith("h_"):
+        i = int(leaf.path[0][2:])
+        return (("1",) + leaf.path[1:], (n_stages, per) + tuple(shape),
+                (i // per, i % per))
+    return ("0",) + leaf.path, shape, ()
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -177,17 +227,23 @@ def _entries(state) -> List[_Entry]:
         scheduled=tx is not None and is_scheduled(tx.learning_rate))
     adam = ("opt_state",) + paths.adam
     mu_dtype = "bfloat16" if isinstance(opt, MuAdamW) else "float32"
+    pp = pipeline.of(model)
+    staging = (None if pp is None else
+               (pp.n_stages, len(model.transformer["h"])))
     out = []
     for name, p in model.named_parameters():
         leaf = layout[name]
-        shape = jax_layout.jax_shape(leaf.kind, _shape(p))
-        region = _region(p, leaf.kind)
+        path, shape, lead = _staged(
+            leaf, jax_layout.jax_shape(leaf.kind, _shape(p)), staging)
+        region = dataclasses.replace(
+            _region(p, leaf.kind, pp, not leaf.path[0].startswith("h_")),
+            lead=lead)
         st = opt.state.get(p, {})
-        out.append(_Entry(("params",) + leaf.path, shape, "float32", region,
+        out.append(_Entry(("params",) + path, shape, "float32", region,
                           p, name))
-        out.append(_Entry(adam + ("mu",) + leaf.path, shape, mu_dtype,
+        out.append(_Entry(adam + ("mu",) + path, shape, mu_dtype,
                           region, st.get("exp_avg"), name, "mu"))
-        out.append(_Entry(adam + ("nu",) + leaf.path, shape, "float32",
+        out.append(_Entry(adam + ("nu",) + path, shape, "float32",
                           region, st.get("exp_avg_sq"), name, "nu"))
     counts = [adam + ("count",)]
     if paths.schedule_count is not None:
@@ -215,9 +271,13 @@ def save_checkpoint_sharded(ckpt_dir: Union[str, Path], state,
     path = sharded_checkpoint_path(ckpt_dir, step)
     primary = is_primary()
     entries = _entries(state)
-    table = [{"key": keystr(e.path), "file": f"leaf_{i:04d}.npy",
-              "shape": list(e.shape), "dtype": e.dtype}
-             for i, e in enumerate(entries)]
+    table, files = [], {}  # a stage's blocks share their stacked leaves
+    for e in entries:
+        key = keystr(e.path)
+        if key not in files:
+            files[key] = f"leaf_{len(table):04d}.npy"
+            table.append({"key": key, "file": files[key],
+                          "shape": list(e.shape), "dtype": e.dtype})
     if primary:  # phase 1: every file with its header, zero-filled
         path.mkdir(parents=True, exist_ok=True)
         for row in table:
@@ -226,17 +286,18 @@ def save_checkpoint_sharded(ckpt_dir: Union[str, Path], state,
                 shape=tuple(row["shape"]))
             del mm
     barrier()
-    for row, e in zip(table, entries):  # phase 2: this rank's regions
+    for e in entries:  # phase 2: this rank's regions
+        file = path / files[keystr(e.path)]
         if e.role == "count":
             if primary:
-                mm = np.lib.format.open_memmap(path / row["file"], mode="r+")
+                mm = np.lib.format.open_memmap(file, mode="r+")
                 mm[...] = np.int32(step)
                 mm.flush()
                 del mm
             continue
         if not e.region.owner or e.tensor is None:
             continue  # another rank's, or never stepped: optax's zeros
-        mm = np.lib.format.open_memmap(path / row["file"], mode="r+")
+        mm = np.lib.format.open_memmap(file, mode="r+")
         mm[e.region.index(mm.ndim)] = e.region.to_jax(_local(e.tensor))
         mm.flush()
         del mm
@@ -366,9 +427,28 @@ def load_params_sharded(path: Union[str, Path], model):
     if first not in keys and keystr(prefix + ("vae",) + next(
             iter(layout.values())).path) in keys:
         prefix = ("params", "vae")
-    entries = [_Entry(prefix + layout[name].path,
-                      jax_layout.jax_shape(layout[name].kind, _shape(p)),
-                      "float32", _region(p, layout[name].kind), p, name)
-               for name, p in model.named_parameters()]
+    pp = pipeline.of(model)
+    staging = _staging(index) if keystr(prefix + ("0",) + next(
+        iter(layout.values())).path) in keys else None
+    entries = []
+    for name, p in model.named_parameters():
+        leaf = layout[name]
+        leaf_path, shape, lead = _staged(
+            leaf, jax_layout.jax_shape(leaf.kind, _shape(p)), staging)
+        region = dataclasses.replace(
+            _region(p, leaf.kind, pp, not leaf.path[0].startswith("h_")),
+            lead=lead)
+        entries.append(_Entry(prefix + leaf_path, shape, "float32", region,
+                              p, name))
     _restore_params(model, entries, _reader(path, index))
     return model
+
+
+def _staging(index: Dict[str, Any]) -> tuple:
+    """(stages, layers a stage) of a pipeline run's directory: the leading
+    axes of its stacked block leaves."""
+    for row in index["leaves"]:
+        if row["key"].startswith("['params']['1']"):
+            return tuple(row["shape"][:2])
+    raise ValueError("FATAL: a (rest, stage_stack) checkpoint without "
+                     "stacked blocks")

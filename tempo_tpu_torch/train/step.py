@@ -28,7 +28,12 @@ the global metrics JAX's mesh step computes. Under tensor parallelism
 (parallel/tensor.py) the loss is computed whole on every rank of a data
 row; the gradients and metrics are averaged over the data axis only, and
 the gradient norm counts each shard's squares once over the model axis
-and each whole parameter once.
+and each whole parameter once. Under expert parallelism
+(parallel/expert.py) the whole parameters' gradients are averaged over
+the group and the owned experts' scaled by 1/n. Under pipeline
+parallelism (parallel/pipeline.py) the loss's ``value_and_grad`` runs
+the GPipe schedule, forward and backward, and the gradients are reduced
+over the pipe and data axes after it (``pipeline_lm_loss_fn``).
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from torch import nn
 
 from tempo_tpu_torch.ops.losses import lm_cross_entropy
 from tempo_tpu_torch.parallel.fsdp import is_sharded, replicated_params
-from tempo_tpu_torch.parallel import tensor
+from tempo_tpu_torch.parallel import expert, pipeline, tensor
 from tempo_tpu_torch.parallel.mesh import all_reduce_mean, process_count
 from tempo_tpu_torch.train.state import Optimizer, TrainState
 
@@ -162,6 +167,24 @@ def lm_loss_fn(model: nn.Module, aux_weight: float = 0.01) -> LossFn:
     return loss_fn
 
 
+def pipeline_lm_loss_fn(pp_loss) -> LossFn:
+    """(model, batch [B, T+1], generator) -> (loss, {'loss'}): the
+    next-token cross-entropy through a pipeline (parallel/pipeline.py
+    ``PipelineLoss``), JAX's pipelined LM loss; its ``value_and_grad``
+    runs the backward schedule too (the train step's route)."""
+
+    def loss_fn(model, batch, generator):
+        loss = pp_loss(model, batch[:, :-1], batch[:, 1:])
+        return loss, {"loss": loss}
+
+    def value_and_grad(model, batch, generator):
+        loss = pp_loss.value_and_grad(model, batch[:, :-1], batch[:, 1:])
+        return loss, {"loss": loss}
+
+    loss_fn.value_and_grad = value_and_grad
+    return loss_fn
+
+
 def _local(t: torch.Tensor) -> torch.Tensor:
     """A DTensor's shard on this rank (in-place ops on it change the
     DTensor), a plain tensor as it is."""
@@ -236,7 +259,7 @@ def make_train_step(loss_fn: LossFn, tx: Optimizer, ema_alpha: float = 0.99,
 
     def train_step(state: TrainState, batch: Batch):
         model, opt, wrapper = state.model, state.optimizer, state.wrapper
-        tp = tensor.of(model)
+        tp, ep, pp = tensor.of(model), expert.of(model), pipeline.of(model)
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
@@ -250,32 +273,44 @@ def make_train_step(loss_fn: LossFn, tx: Optimizer, ema_alpha: float = 0.99,
             last = i == grad_accum - 1
             if sharded and grad_accum > 1:
                 model.set_requires_gradient_sync(last)
-            with (wrapper.no_sync() if wrapper is not None and not last
-                  else contextlib.nullcontext()):
-                loss, m = (loss_fn(model, mb, state.generator)
-                           if wrapper is None
-                           else wrapper(loss_fn, mb, state.generator))
-                loss.backward()
+            if pp is not None:  # the schedule runs the backward itself
+                loss, m = loss_fn.value_and_grad(model, mb, state.generator)
+            else:
+                with (wrapper.no_sync() if wrapper is not None and not last
+                      else contextlib.nullcontext()):
+                    loss, m = (loss_fn(model, mb, state.generator)
+                               if wrapper is None
+                               else wrapper(loss_fn, mb, state.generator))
+                    loss.backward()
             m = _detached(m)
             metrics = m if metrics is None else {
                 k: metrics[k] + m[k] for k in metrics}
         if sharded:
             _average_replicated(params)
-        if tp is not None:
+        if pp is not None:
+            pipeline.reduce_grads(model, pp)
+        elif tp is not None:
             tensor.average_over_data(params, tp)
+        elif ep is not None:
+            expert.average_grads(params, ep)
         grads = [p.grad for p in params if p.grad is not None]
         if grad_accum > 1:
             inv = 1.0 / grad_accum
             torch._foreach_mul_([_local(g) for g in grads], inv)
             metrics = {k: v * inv for k, v in metrics.items()}
-        if tp is not None:
+        if pp is not None or tp is not None:
             keys = list(metrics)
-            metrics = dict(zip(keys, tensor.mean_over_data(
-                torch.stack([metrics[k] for k in keys]), tp).unbind()))
-        elif wrapper is not None or sharded:
+            stacked = torch.stack([metrics[k] for k in keys])
+            metrics = dict(zip(keys, (
+                pipeline.mean_over_data(stacked, pp) if pp is not None
+                else tensor.mean_over_data(stacked, tp)).unbind()))
+        elif wrapper is not None or sharded or ep is not None:
             metrics = _mean_over_ranks(metrics)
-        metrics["grad_norm"] = (global_norm(grads) if tp is None
-                                else tensor.global_norm(params, tp))
+        metrics["grad_norm"] = (
+            pipeline.global_norm(model, pp) if pp is not None
+            else tensor.global_norm(params, tp) if tp is not None
+            else expert.global_norm(params, ep) if ep is not None
+            else global_norm(grads))
         if tx.max_grad_norm is not None:
             clip_by_global_norm(grads, metrics["grad_norm"], tx.max_grad_norm)
         lr = tx.lr(state.step)

@@ -410,13 +410,18 @@ def _cfg(**parallel):
     ("train_gpt", {"tensor": 2, "pipeline": 2}, ValueError, "pipeline"),
     ("train_gpt", {"tensor": 2, "expert": 2}, ValueError, "expert"),
     ("train_gpt", {"tensor": 2, "context": 2}, ValueError, "context"),
-    ("train_gpt", {"pipeline": 2}, NotImplementedError, "pipeline"),
+    ("train_gpt", {"pipeline": 2}, None, None),
 ], ids=["vae_fsdp", "gpt_fsdp", "gpt_pipeline", "gpt_expert", "gpt_context",
         "gpt_pipeline_alone"])
 def test_parallel_table_refuses_what_jax_refuses(trainer, parallel, error,
                                                  match):
-    with pytest.raises(error, match=match):
-        parallel_plan(_cfg(**parallel), trainer)
+    """JAX refuses tensor parallelism beside another axis; a pipeline
+    alone it runs, and so does the port."""
+    if error is None:
+        assert parallel_plan(_cfg(**parallel), trainer).n_pipe == 2
+    else:
+        with pytest.raises(error, match=match):
+            parallel_plan(_cfg(**parallel), trainer)
     assert parallel_plan(_cfg(tensor=2), trainer).n_model == 2
     # the L2 trainer reads no fsdp, as JAX's
     assert parallel_plan(_cfg(tensor=2, fsdp=True),
@@ -424,23 +429,23 @@ def test_parallel_table_refuses_what_jax_refuses(trainer, parallel, error,
 
 
 def test_refusals_of_the_tp_plan(tmp_path):
-    """MoE under TP names the expert slice, LoRA under TP is refused as
-    under FSDP, a module the plan does not cover raises, and a process
-    count the model axis does not divide raises ValueError."""
+    """MoE under TP is a CLI path (JAX refuses tensor only beside another
+    axis: its experts are channel-sharded), LoRA under TP is refused as
+    under FSDP, a model the plan does not cover (an int8 MoE) raises, and
+    a process count the model axis does not divide raises ValueError."""
     from tempo_tpu_torch.cli import train_gpt
 
     base = {"output_dir": str(tmp_path / "run"),
             "data": {"synthetic": {"vocab_size": 61, "length": 4096}},
             "model": dict(GPT), "training": {"n_steps": 1}}
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        train_gpt.validate_config(dict(base, parallel={"tensor": 2},
-                                       model=dict(GPT, n_experts=2)))
+    train_gpt.validate_config(dict(base, parallel={"tensor": 2},
+                                   model=dict(GPT, n_experts=2)))
     with pytest.raises(ValueError, match="lora_rank"):
         train_gpt.validate_config(dict(
             base, parallel={"tensor": 2},
             finetune={"lora_rank": 2, "base_checkpoint": "x.pt"}))
-    moe = pt.Transformer(pt.TransformerConfig(n_experts=2, **GPT),
-                         device="cpu")
+    moe = pt.Transformer(pt.TransformerConfig(n_experts=2, quantize="int8",
+                                              **GPT), device="cpu")
     with pytest.raises(NotImplementedError):
         tensor.shard_params_tp(moe, _tp(0, 2))
     with pytest.raises(ValueError, match="not divisible"):

@@ -376,6 +376,13 @@ def cli_run(rank, world, module: str, config: dict, env=None):
             "params": params}
 
 
+def cli_runs(rank, world, runs, env=None):
+    """``cli_run`` of each (module, config) of ``runs`` in turn (each
+    config's ``distributed:`` section joins a group of its own)."""
+    return [cli_run(rank, world, module, config, env)
+            for module, config in runs]
+
+
 def spatial_run(rank, world, cfg, state_dict, x, granule, latent, raw,
                 spectra, cli_configs=()):
     """The tiny VAE's encode and decode through parallel/spatial.py, and a
@@ -690,3 +697,342 @@ def _vae_seeded(cfg: dict, seed: int):
     from tempo_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 
     return AutoencoderKL(VAEConfig(**cfg), device="cpu", seed=seed)
+
+
+# --------------------------------------------- expert parallelism, MoE
+
+def _gpt(cfg: dict, state_dict):
+    from tempo_tpu_torch.nn import transformer as pt
+
+    model = pt.Transformer(pt.TransformerConfig(**cfg), device="cpu", seed=0)
+    model.load_state_dict(state_dict)
+    return model
+
+
+def _ep_whole(model, values: dict) -> dict:
+    """{name: tensor} with every expert shard's gathered."""
+    from tempo_tpu_torch.parallel import expert
+
+    params = dict(model.named_parameters())
+    return {n: (expert.full_of(v, params[n].ep_axis)
+                if expert.is_shard(params[n]) else v.detach().clone())
+            for n, v in values.items()}
+
+
+def ep_grads(rank, world, cfg, state_dict, tokens, targets):
+    """Expert parallelism over the world (JAX's tests/test_moe.py EP
+    case): each rank's NLL over its rows, routed over the global batch;
+    the gradients before (``raw``) and after ``average_grads``, gathered,
+    the global norm, the shards' shapes and the decay mask of the sharded
+    model."""
+    from tempo_tpu_torch.nn import transformer as pt
+    from tempo_tpu_torch.ops.losses import lm_cross_entropy
+    from tempo_tpu_torch.parallel import expert, mesh
+
+    model = _gpt(cfg, state_dict)
+    expert.shard_params_ep(model, expert.create_ep_mesh(world, "cpu"))
+    ep = expert.of(model)
+    sl = rows(rank, world, len(tokens))
+    loss = lm_cross_entropy(model(torch.from_numpy(tokens[sl])),
+                            torch.from_numpy(targets[sl]))
+    loss.backward()
+    params = list(model.parameters())
+    raw = _ep_whole(model, {n: p.grad for n, p in model.named_parameters()})
+    expert.average_grads(params, ep)
+    return {"loss": float(mesh.all_reduce_mean(loss.detach())),
+            "raw": raw,
+            "grads": _ep_whole(model, {n: p.grad for n, p in
+                                       model.named_parameters()}),
+            "norm": float(expert.global_norm(params, ep)),
+            "shapes": {n: tuple(p.shape) for n, p in
+                       model.named_parameters()},
+            "shards": sorted(n for n, p in model.named_parameters()
+                             if expert.is_shard(p)),
+            "mask": pt.gpt_decay_mask(model)}
+
+
+def _moe_state(cfg, state_dict, mode: str, lr: float):
+    """(model, GPT optimizer recipe, train state) of an MoE GPT under
+    ``mode``: 'ep' (experts over the world), 'ddp', 'fsdp' or 'tp' (a
+    model axis of the world)."""
+    from tempo_tpu_torch.nn import transformer as pt
+    from tempo_tpu_torch.parallel import expert, fsdp, tensor
+    from tempo_tpu_torch.parallel import mesh as pmesh
+    from tempo_tpu_torch.train import state as pstate
+
+    model = _gpt(cfg, state_dict)
+    tx = pt.make_gpt_optimizer(model, 0.1, lr, (0.9, 0.95))
+    state = pstate.create_train_state(model, tx, 3)
+    world = pmesh.process_count()
+    if mode == "ep":
+        state = expert.shard_state_ep(
+            state, expert.create_ep_mesh(world, "cpu"), tx)
+    elif mode == "ddp":
+        state = pmesh.shard_state(state, pmesh.create_mesh("cpu"))
+    elif mode == "fsdp":
+        state = fsdp.shard_state_fsdp(state, pmesh.create_mesh("cpu"), tx)
+    elif mode == "tp":
+        state = tensor.shard_state_tp(
+            state, tensor.create_tp_mesh(world, "cpu"), tx)
+    return model, tx, state
+
+
+def _full_params(model) -> dict:
+    from tempo_tpu_torch.parallel import expert, fsdp, tensor
+
+    if any(fsdp.is_sharded(p) for p in model.parameters()):
+        sd = fsdp.full_state_dict(model)
+    elif tensor.of(model) is not None:
+        sd = tensor.full_state_dict(model)
+    elif expert.of(model) is not None:
+        sd = expert.full_state_dict(model)
+    else:
+        sd = model.state_dict()
+    return {k: v.detach().clone() for k, v in sd.items()}
+
+
+def _whole_grads(model) -> dict:
+    """The parameters' gradients whole (a collective for shards)."""
+    from tempo_tpu_torch.parallel import expert, fsdp, tensor
+
+    out = {}
+    for n, p in model.named_parameters():
+        g = p.grad
+        if fsdp.is_sharded(g):
+            g = g.full_tensor()
+        elif tensor.is_shard(p):
+            g = tensor.full_of(g, p.tp_kind, p.tp_axis)
+        elif expert.is_shard(p):
+            g = expert.full_of(g, p.ep_axis)
+        out[n] = g.detach().clone()
+    return out
+
+
+def moe_steps(rank, world, mode, cfg, state_dict, batches, lr):
+    """GPT steps of an MoE model (the NLL plus 0.01 x the Switch loss,
+    routed over the global batch) under ``mode`` on this rank's rows of
+    each global batch (every row under 'tp'): each step's metrics, the
+    first step's gradients and the parameters after, whole."""
+    from tempo_tpu_torch.train import step as pstep
+
+    model, tx, state = _moe_state(cfg, state_dict, mode, lr)
+    sl = slice(None) if mode == "tp" else rows(rank, world, len(batches[0]))
+    step = pstep.make_train_step(pstep.lm_loss_fn(model), tx)
+    metrics, grads = [], None
+    for b in batches:
+        state, m = step(state, take(b, sl))
+        metrics.append({k: float(v) for k, v in m.items()})
+        grads = grads or _whole_grads(model)
+    return {"metrics": metrics, "grads": grads,
+            "params": _full_params(model)}
+
+
+def _opt_local(state) -> dict:
+    """{name: (param, exp_avg, exp_avg_sq)} of this rank, cloned."""
+    out = {}
+    for name, p in state.model.named_parameters():
+        st = state.optimizer.state.get(p, {})
+        out[name] = tuple(t.detach().clone() if t is not None else None
+                          for t in (p, st.get("exp_avg"),
+                                    st.get("exp_avg_sq")))
+    return out
+
+
+def _same(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(
+        all((x is None and y is None) or (x is not None and y is not None
+                                          and torch.equal(x, y))
+            for x, y in zip(a[k], b[k])) for k in a)
+
+
+def ep_checkpoints(rank, world, cfg, state_dict, batches, lr, workdir):
+    """An EP state after its steps written as a .pt (rank 0 gathers) and
+    as a .shards directory (each rank its experts), each resumed into a
+    fresh EP state: whether each rank's parameters and moments came back
+    bitwise, and the paths."""
+    from tempo_tpu_torch.train import checkpoint as ckpt
+    from tempo_tpu_torch.train import step as pstep
+    from tempo_tpu_torch.train.sharded_checkpoint import (
+        save_checkpoint_sharded)
+
+    model, tx, state = _moe_state(cfg, state_dict, "ep", lr)
+    step = pstep.make_train_step(pstep.lm_loss_fn(model), tx)
+    sl = rows(rank, world, len(batches[0]))
+    for b in batches:
+        state, _ = step(state, take(b, sl))
+    live = _opt_local(state)
+    pt_path = ckpt.save_checkpoint(Path(workdir) / "ep_pt", state)
+    dir_path = save_checkpoint_sharded(Path(workdir) / "ep_shards", state)
+    out = {"pt": str(pt_path), "shards": str(dir_path),
+           "whole": _full_params(model)}
+    for key, path in (("pt", pt_path), ("shards", dir_path)):
+        _, _, fresh = _moe_state(cfg, state_dict, "ep", lr)
+        ckpt.load_checkpoint(path, fresh)
+        out[f"{key}_bitwise"] = _same(live, _opt_local(fresh))
+        out[f"{key}_step"] = fresh.step
+    return out
+
+
+EXPERT_CASES = {"ep_grads": ep_grads, "moe_steps": moe_steps,
+                "ep_checkpoints": ep_checkpoints}
+
+
+def expert_cases(rank, world, cases):
+    """Every case of ``cases`` ({name: args}, names from EXPERT_CASES up to
+    a ':'), in order, on this rank; returns {name: result}."""
+    return {name: EXPERT_CASES[name.split(":")[0]](rank, world, *args)
+            for name, args in cases.items()}
+
+
+# ------------------------------------------------- pipeline parallelism
+
+def _pp_model(dims, cfg, state_dict, fsdp_experts=False):
+    """A GPT placed on this rank's stage of a (data, pipe, model) mesh of
+    ``dims``."""
+    from tempo_tpu_torch.parallel import pipeline
+
+    n_data, n_pipe, n_model = dims
+    mesh = pipeline.create_pp_mesh(n_pipe, "cpu", n_data=n_data,
+                                   n_model=n_model)
+    return pipeline.place_pipeline_params(mesh, _gpt(cfg, state_dict),
+                                          fsdp_experts)
+
+
+def pp_apply(rank, world, dims, cfg, state_dict, tokens, n_micro):
+    """The pipelined forward's logits of the whole batch on this rank."""
+    from tempo_tpu_torch.parallel import pipeline
+
+    model = _pp_model(dims, cfg, state_dict)
+    pp = pipeline.of(model)
+    apply = pipeline.make_pipelined_apply(model.config, dims[1], n_micro)
+    sl = rows(pp.data_rank, pp.data_world, len(tokens))
+    return {"logits": apply(model, torch.from_numpy(tokens[sl])),
+            "stage": pp.stage, "data_rank": pp.data_rank,
+            "blocks": [n for n, _ in model.named_parameters()
+                       if n.startswith("transformer.h.")]}
+
+
+def pp_grads(rank, world, dims, cfg, state_dict, tokens, targets, n_micro,
+             fsdp_experts=False):
+    """The loss and the reduced gradients of one value_and_grad through
+    the pipeline (each data row its rows), whole, on stage 0; the global
+    norm; the expert shards' shapes."""
+    from tempo_tpu_torch.parallel import pipeline
+
+    model = _pp_model(dims, cfg, state_dict, fsdp_experts)
+    pp = pipeline.of(model)
+    sl = rows(pp.data_rank, pp.data_world, len(tokens))
+    loss = pipeline.make_pp_loss_fn(model.config, dims[1], n_micro
+                                    ).value_and_grad(
+        model, torch.from_numpy(tokens[sl]), torch.from_numpy(targets[sl]))
+    pipeline.reduce_grads(model, pp)
+    return {"loss": float(pipeline.mean_over_data(loss, pp)),
+            "grads": pipeline.full_grads(model),
+            "norm": float(pipeline.global_norm(model, pp)),
+            "stage": pp.stage,
+            "expert_shapes": {n: tuple(p.shape) for n, p in
+                              model.named_parameters()
+                              if pipeline.is_fsdp_expert(p)}}
+
+
+def _pp_state(dims, cfg, state_dict, opt: str, lr: float):
+    from tempo_tpu_torch.nn import transformer as pt
+    from tempo_tpu_torch.parallel import pipeline
+    from tempo_tpu_torch.train import state as pstate
+
+    n_data, n_pipe, n_model = dims
+    model = _gpt(cfg, state_dict)
+    tx = (pt.make_gpt_optimizer(model, 0.1, lr, (0.9, 0.95)) if opt == "gpt"
+          else pstate.make_optimizer(lr=lr))
+    state = pipeline.shard_state_pp(
+        pstate.create_train_state(model, tx, 3),
+        pipeline.create_pp_mesh(n_pipe, "cpu", n_data=n_data,
+                                n_model=n_model), tx)
+    return model, tx, state
+
+
+def pp_steps(rank, world, dims, cfg, state_dict, batches, n_micro, opt, lr,
+             workdir=None):
+    """Train steps through the pipeline on ``batches`` ({tokens, targets})
+    (``opt``: 'gpt', the two-group AdamW, or 'clip', the VAE recipe's
+    clip + AdamW): each step's metrics,
+    the parameters after, whole on stage 0. With ``workdir``, the state
+    also goes through a .pt and a .shards checkpoint, each resumed
+    bitwise or not."""
+    from tempo_tpu_torch.parallel import pipeline
+    from tempo_tpu_torch.train import checkpoint as ckpt
+    from tempo_tpu_torch.train import step as pstep
+    from tempo_tpu_torch.train.sharded_checkpoint import (
+        save_checkpoint_sharded)
+
+    model, tx, state = _pp_state(dims, cfg, state_dict, opt, lr)
+    pp = pipeline.of(model)
+    pp_loss = pipeline.make_pp_loss_fn(model.config, dims[1], n_micro)
+
+    def loss_fn(model, batch, generator):  # {tokens, targets}, as JAX's
+        loss = pp_loss(model, batch["tokens"], batch["targets"])
+        return loss, {"loss": loss}
+
+    def value_and_grad(model, batch, generator):
+        loss = pp_loss.value_and_grad(model, batch["tokens"],
+                                      batch["targets"])
+        return loss, {"loss": loss}
+
+    loss_fn.value_and_grad = value_and_grad
+    step = pstep.make_train_step(loss_fn, tx)
+    sl = rows(pp.data_rank, pp.data_world, len(batches[0]["tokens"]))
+    metrics = []
+    for b in batches:
+        state, m = step(state, take(b, sl))
+        metrics.append({k: float(v) for k, v in m.items()})
+    out = {"metrics": metrics, "params": pipeline.full_state_dict(model),
+           "stage": pp.stage}
+    if workdir is None:
+        return out
+    live = _opt_local(state)
+    tag = "x".join(map(str, dims))
+    out["pt"] = str(ckpt.save_checkpoint(Path(workdir) / f"pp_pt_{tag}",
+                                         state))
+    out["shards"] = str(save_checkpoint_sharded(
+        Path(workdir) / f"pp_shards_{tag}", state))
+    for key in ("pt", "shards"):
+        _, _, fresh = _pp_state(dims, cfg, state_dict, opt, lr)
+        ckpt.load_checkpoint(out[key], fresh)
+        out[f"{key}_bitwise"] = _same(live, _opt_local(fresh))
+        placed = ckpt.load_params(out[key], _pp_model(dims, cfg,
+                                                      state_dict))
+        out[f"{key}_load_params"] = all(
+            torch.equal(p, live[n][0])
+            for n, p in placed.named_parameters())
+    return out
+
+
+def pp_resume(rank, world, dims, cfg, state_dict, paths, lr):
+    """Fresh pipelined states (the two-group AdamW) resumed from each of
+    ``paths`` (JAX's files of a pipeline run): the step, and on stage 0
+    the parameters and AdamW moments whole, by parameter name."""
+    from tempo_tpu_torch.parallel import pipeline
+    from tempo_tpu_torch.train import checkpoint as ckpt
+
+    out = {}
+    for path in paths:
+        model, _, state = _pp_state(dims, cfg, state_dict, "gpt", lr)
+        ckpt.load_checkpoint(path, state)
+        opt = pipeline.full_optimizer_state(state)
+        order = pipeline.one_device_order(model, state.tx)
+        out[path] = {"step": state.step,
+                     "params": pipeline.full_state_dict(model),
+                     "moments": {order[i]: st for i, st in
+                                 opt.get("state", {}).items()}}
+    return out
+
+
+PIPELINE_CASES = {"pp_apply": pp_apply, "pp_grads": pp_grads,
+                  "pp_steps": pp_steps, "pp_resume": pp_resume}
+
+
+def pipeline_cases(rank, world, cases):
+    """Every case of ``cases`` ({name: args}, names from PIPELINE_CASES up
+    to a ':'), in order, on this rank; returns {name: result}."""
+    return {name: PIPELINE_CASES[name.split(":")[0]](rank, world, *args)
+            for name, args in cases.items()}
