@@ -962,6 +962,34 @@ def torch_all_finite(t) -> bool:
     return bool(torch.isfinite(t).all())
 
 
+def gpt_on_card(cfg, dev, seed: int = SEED):
+    """A GPT of ``cfg`` with Transformer.init_weights's distributions
+    (normal 0.02, the residual projections' 0.02 / sqrt(2 L), zero biases,
+    LayerNorm ones) drawn on ``dev`` from ``seed``: the same weights in
+    every process, in milliseconds where the host generator takes 1.8 s
+    for GPT-2-small and 3.4 s for its MoE. For the paths whose checks are
+    within this run (the exported artifacts' paths build as the exports
+    do)."""
+    import torch
+
+    from tempo_tpu_torch.nn.transformer import LayerNorm, Transformer
+
+    model = Transformer(cfg, device="meta").to_empty(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    resid_std = 0.02 / math.sqrt(2 * cfg.n_layer)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            mod, leaf = name.rsplit(".", 1)
+            if isinstance(model.get_submodule(mod), LayerNorm):
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+            elif leaf in ("bias", "b1", "b2"):
+                p.zero_()
+            else:
+                resid = name.endswith("c_proj.weight") or leaf == "w2"
+                p.normal_(0.0, resid_std if resid else 0.02, generator=gen)
+    return model
+
+
 def rel_l2(got, want) -> float:
     g, w = got.float(), want.float()
     return float((g - w).norm() / w.norm())
@@ -3393,8 +3421,7 @@ def train_path(dev, gen, rows: dict) -> dict:
     import torch.nn.functional as F
 
     from tempo_tpu_torch.data.tokens import TokenLoader, make_token_stream
-    from tempo_tpu_torch.nn.transformer import (Transformer,
-                                                TransformerConfig,
+    from tempo_tpu_torch.nn.transformer import (TransformerConfig,
                                                 estimate_mfu,
                                                 make_gpt_optimizer,
                                                 num_params)
@@ -3409,7 +3436,7 @@ def train_path(dev, gen, rows: dict) -> dict:
     card = smi_line()
 
     def fresh(seed=SEED, config=cfg):
-        model = Transformer(config, device=dev, seed=seed)
+        model = gpt_on_card(config, dev, seed)
         tx = make_gpt_optimizer(model, weight_decay=0.1, learning_rate=3e-4,
                                 betas=(0.9, 0.95))
         return model, tx, create_train_state(model, tx, SEED)
@@ -3607,7 +3634,7 @@ def train_path(dev, gen, rows: dict) -> dict:
 
     # --------------------------- (c) one step against the plain attention
     def loss_and_grads(config, batch_tokens, seed=SEED):
-        model = Transformer(config, device=dev, seed=seed)
+        model = gpt_on_card(config, dev, seed)
         loss = lm_cross_entropy(model(batch_tokens[:, :-1]),
                                 batch_tokens[:, 1:])
         loss.backward()
@@ -6632,11 +6659,10 @@ def moe_step_vs_plain(dev, cfg, tokens) -> dict:
     expert (a discrete change, not a rounding error); fp32 flips none."""
     import dataclasses
 
-    from tempo_tpu_torch.nn.transformer import Transformer
     from tempo_tpu_torch.train.step import lm_loss_fn
 
     def loss_and_grads(config, batch):
-        model = Transformer(config, device=dev, seed=SEED)
+        model = gpt_on_card(config, dev)
         routes = []
         hooks = [blk.moe.register_forward_hook(
             lambda mod, inp, out: routes.append(mod.router(
@@ -6720,7 +6746,7 @@ def options_training_path(dev, rows: dict, root: Path) -> dict:
 
     # ---------------------------------------------------- 13a MoE training
     cfg = opt_config(attn_impl="auto", **MOE_MODEL)
-    model = Transformer(cfg, device=dev, seed=SEED)
+    model = gpt_on_card(cfg, dev)
     tx = make_gpt_optimizer(model, weight_decay=0.1, learning_rate=3e-4,
                             betas=(0.9, 0.95))
     state = create_train_state(model, tx, SEED)
@@ -6786,8 +6812,7 @@ def options_training_path(dev, rows: dict, root: Path) -> dict:
     torch.cuda.empty_cache()
 
     # ------------------------------------------- 13e LoRA through train_gpt
-    base = Transformer(opt_config(n_layer=OPT_TRAIN_LAYERS), device=dev,
-                       seed=SEED)
+    base = gpt_on_card(opt_config(n_layer=OPT_TRAIN_LAYERS), dev)
     base_path = root / "base.pt"
     torch.save({"model": {k: v.cpu() for k, v in base.state_dict().items()}},
                base_path)
@@ -6879,8 +6904,7 @@ def options_training_path(dev, rows: dict, root: Path) -> dict:
         fail(f"13e: the optimizer state is {state_bytes} bytes for {n} "
              f"parameters: {saved} fewer than fp32 moments, want {2 * n}")
     ckpt = root / "mu" / "checkpoints" / f"ckpt_step={OPT_STEPS:06d}.pt"
-    model2 = Transformer(trainer.state.model.config, device=dev,
-                         seed=SEED + 99)
+    model2 = gpt_on_card(trainer.state.model.config, dev, SEED + 99)
     tx2 = make_gpt_optimizer(model2, 0.1, 3e-4, (0.9, 0.95),
                              moments_dtype="bfloat16")
     trainer2 = Trainer(lm_loss_fn(model2), tx2,
@@ -6947,7 +6971,7 @@ def lm_taps_path(dev, rows: dict) -> dict:
 
     card = smi_line()
     cfg = pt.TransformerConfig(compute_dtype="bfloat16")
-    model = pt.Transformer(cfg, device=dev, seed=SEED)
+    model = gpt_on_card(cfg, dev)
     plain = pt.Transformer(dataclasses.replace(cfg, attn_impl="xla"),
                            device="meta")
     plain.load_state_dict(model.state_dict(), assign=True)
@@ -7156,7 +7180,7 @@ def gpt_import_path(dev, rows: dict) -> dict:
 
     card = smi_line()
     cfg = pt.TransformerConfig()
-    source = pt.Transformer(cfg, device=dev, seed=SEED)
+    source = gpt_on_card(cfg, dev)
     sd = {k: v.detach().cpu() for k, v in source.state_dict().items()}
     hf_sd = {k: (v.t().contiguous() if k.endswith((
         "attn.c_attn.weight", "attn.c_proj.weight", "mlp.c_fc.weight",
@@ -7410,7 +7434,7 @@ def resume_path(dev, rows: dict, root: Path) -> dict:
         opt_cfg = {"lr": 3e-4, "weight_decay": 0.1}
         if mdt:
             opt_cfg["moments_dtype"] = mdt
-        model = pt.Transformer(gpt_cfg, device=dev, seed=SEED)
+        model = gpt_on_card(gpt_cfg, dev)
         tx = pt.make_gpt_optimizer(model, 0.1, lr_schedule(opt_cfg, steps),
                                    (0.9, 0.95), moments_dtype=mdt)
         live = create_train_state(model, tx, SEED)
@@ -7911,8 +7935,7 @@ def parallel_path(dev, rows: dict, root: Path) -> dict:
     from tempo_tpu_torch.data.synthetic import make_tile_shards
     from tempo_tpu_torch.models.vae import VAEConfig, build_vae
     from tempo_tpu_torch.models.vae_l2 import build_vae_l2
-    from tempo_tpu_torch.nn.transformer import (Transformer,
-                                                TransformerConfig,
+    from tempo_tpu_torch.nn.transformer import (TransformerConfig,
                                                 make_gpt_optimizer)
     from tempo_tpu_torch.train.checkpoint import load_params
     from tempo_tpu_torch.train.state import (create_train_state,
@@ -8111,7 +8134,7 @@ def parallel_path(dev, rows: dict, root: Path) -> dict:
             for i in range(PAR["steps"])]
 
         def gpt():
-            model = Transformer(gcfg, device=dev, seed=SEED)
+            model = gpt_on_card(gcfg, dev)
             tx = make_gpt_optimizer(model, weight_decay=0.1,
                                     learning_rate=3e-4, betas=(0.9, 0.95))
             return model, tx, lm_loss_fn(model), tokens, None
@@ -8665,8 +8688,7 @@ def tp_child(spec_path: str, rank: int) -> None:
     import torch
     import torch.distributed as dist
 
-    from tempo_tpu_torch.nn.transformer import (Transformer,
-                                                TransformerConfig,
+    from tempo_tpu_torch.nn.transformer import (TransformerConfig,
                                                 make_gpt_optimizer)
     from tempo_tpu_torch.parallel import tensor
     from tempo_tpu_torch.train.checkpoint import load_checkpoint, \
@@ -8785,7 +8807,7 @@ def tp_child(spec_path: str, rank: int) -> None:
         torch.cuda.empty_cache()
 
     gcfg = TransformerConfig(compute_dtype="bfloat16", attn_impl="auto")
-    model = Transformer(gcfg, device=dev, seed=SEED)
+    model = gpt_on_card(gcfg, dev)
     tx = make_gpt_optimizer(model, weight_decay=0.1, learning_rate=3e-4,
                             betas=(0.9, 0.95))
     state = tensor.shard_state_tp(create_train_state(model, tx, SEED), mesh,
@@ -8835,8 +8857,7 @@ def tp_path(dev, rows: dict, root: Path, started=None, beside=None) -> dict:
     import torch
 
     from tempo_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-    from tempo_tpu_torch.nn.transformer import (Transformer,
-                                                TransformerConfig,
+    from tempo_tpu_torch.nn.transformer import (TransformerConfig,
                                                 make_gpt_optimizer)
     from tempo_tpu_torch.parallel import tensor
     from tempo_tpu_torch.train.checkpoint import load_params
@@ -8867,7 +8888,7 @@ def tp_path(dev, rows: dict, root: Path, started=None, beside=None) -> dict:
             del model, state, batches, noises
             torch.cuda.empty_cache()
         gcfg = TransformerConfig(compute_dtype="bfloat16", attn_impl="auto")
-        model = Transformer(gcfg, device=dev, seed=SEED)
+        model = gpt_on_card(gcfg, dev)
         tx = make_gpt_optimizer(model, weight_decay=0.1, learning_rate=3e-4,
                                 betas=(0.9, 0.95))
         state = create_train_state(model, tx, SEED)
@@ -9046,31 +9067,6 @@ def ppep_config(kind: str, dtype: str):
     return TransformerConfig(compute_dtype=dtype, attn_impl="auto", **kw)
 
 
-def ppep_model(cfg, dev):
-    """A GPT of ``cfg`` with Transformer.init_weights's distributions
-    (normal 0.02, the residual projections' 0.02 / sqrt(2 L), zero biases,
-    LayerNorm ones) drawn on ``dev`` from SEED: the same weights in every
-    process, in milliseconds rather than the host generator's seconds."""
-    import torch
-
-    from tempo_tpu_torch.nn.transformer import LayerNorm, Transformer
-
-    model = Transformer(cfg, device="meta").to_empty(device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    resid_std = 0.02 / math.sqrt(2 * cfg.n_layer)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            mod, leaf = name.rsplit(".", 1)
-            if isinstance(model.get_submodule(mod), LayerNorm):
-                p.fill_(1.0 if leaf == "weight" else 0.0)
-            elif leaf in ("bias", "b1", "b2"):
-                p.zero_()
-            else:
-                resid = name.endswith("c_proj.weight") or leaf == "w2"
-                p.normal_(0.0, resid_std if resid else 0.02, generator=gen)
-    return model
-
-
 def nll_loss_fn():
     """The next-token NLL alone (the pipeline's loss, MoE or not)."""
     from tempo_tpu_torch.ops.losses import lm_cross_entropy
@@ -9174,7 +9170,7 @@ def ppep_reference(dev, kind: str, dtype: str, parallel: str) -> dict:
     from tempo_tpu_torch.train.step import lm_loss_fn, make_train_step
 
     cfg = ppep_config(kind, dtype)
-    model = ppep_model(cfg, dev)
+    model = gpt_on_card(cfg, dev)
     tx = make_gpt_optimizer(model, weight_decay=0.1, learning_rate=3e-4,
                             betas=(0.9, 0.95))
     state = create_train_state(model, tx, SEED)
@@ -9243,7 +9239,7 @@ def ppep_child(spec_path: str, rank: int) -> None:
 
     def build(kind, dtype, parallel):
         cfg = ppep_config(kind, dtype)
-        model = ppep_model(cfg, dev)
+        model = gpt_on_card(cfg, dev)
         tx = make_gpt_optimizer(model, weight_decay=0.1, learning_rate=3e-4,
                                 betas=(0.9, 0.95))
         state = create_train_state(model, tx, SEED)
